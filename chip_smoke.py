@@ -1,0 +1,449 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (vibevoice_tpu_torch) once on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seed N] [--frames N] [--out DIR]
+
+Run from the root of a checkout; it needs one CUDA device and the CUDA
+toolkit (nvcc), and exits non-zero without a result otherwise.
+
+Phases, each of which fails the run:
+  1. device: CUDA present; prints the card's name and power limit;
+  2. build: compiles the four kernels from vibevoice_tpu_torch/csrc/;
+  3. kernels: each kernel against its plain PyTorch version on the card,
+     at the shapes the 1.5B serving path gives it, with the stated
+     tolerance, plus CUDA-event times of both;
+  4. end to end: the full-width 1.5B model (random weights from --seed,
+     bf16, int8 LM + lm_head, fuse_for_serving) runs generate() on a
+     two-speaker script with two 3 s voice prompts and a forced script of
+     speech frames, at max_length 4096 (bf16 KV) and 65536 (int8 KV); every
+     kernel must have launched in those runs, and the audio must be finite
+     and non-silent. A tiny-config generate() also runs twice, once on the
+     card through the kernels and once on the CPU through the plain
+     versions, and the two must agree.
+The next-to-last line is a JSON object of the kernels' results; the last
+line is the JSON device record.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+VOICE_SECONDS = 3.0  # length of each synthetic voice prompt
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def bench_ms(fn, operands, iters: int = 20) -> float:
+    """Device time of one fn(op) call: `iters` calls, cycling through
+    `operands`, are captured into one CUDA graph, and the median over five
+    replays (timed with CUDA events) is divided by `iters`. Host launch
+    overhead is thereby left out; it is reported end to end instead."""
+    import torch
+
+    for i in range(3):  # warm-up outside the capture
+        fn(operands[i % len(operands)])
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(operands[i % len(operands)])
+    times = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    del graph
+    return sorted(times)[len(times) // 2]
+
+
+def rel_err(out, ref) -> tuple[float, float]:
+    out, ref = out.float(), ref.float()
+    err = (out - ref).abs().max().item()
+    return err, err / max(ref.abs().max().item(), 1e-6)
+
+
+class Checks:
+    """Collects the per-case comparisons; each kernel's JSON entry keeps its
+    worst error and the times of its main-path case."""
+
+    def __init__(self):
+        self.kernels: dict = {}
+
+    def case(self, kernel: str, label: str, out, ref, tol_rel: float, ms=None, plain_ms=None,
+             main: bool = False) -> None:
+        import torch
+
+        if not torch.isfinite(out.float()).all():
+            fail(f"{kernel} {label}: non-finite output")
+        err, rel = rel_err(out, ref)
+        timing = "" if ms is None else f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
+        print(f"  {kernel:<24s} {label:<40s} max_abs_err {err:.3e}  rel {rel:.3e} "
+              f"(tol {tol_rel:.0e}){timing}", flush=True)
+        k = self.kernels[kernel]
+        k["max_abs_err"] = max(k["max_abs_err"], err)
+        if main:
+            k["ms"], k["plain_ms"] = ms, plain_ms
+        if not rel <= tol_rel:
+            fail(f"{kernel} {label}: relative error {rel:.3e} above {tol_rel:.0e}")
+
+
+def rotating(make, nbytes: int, budget: int = 160 << 20):
+    """Enough copies of an operand that cycling through them streams from
+    HBM (the 50 MB L2 holds none of them between uses), as on the serving
+    path where 28 layers' weights pass between two uses of one."""
+    return [make() for _ in range(max(1, min(16, math.ceil(budget / max(nbytes, 1)))))]
+
+
+def check_kernels(checks: Checks, seed: int) -> None:
+    import torch
+
+    from vibevoice_tpu_torch.ops import flash_attention as fa
+    from vibevoice_tpu_torch.ops import head_fused as hf
+    from vibevoice_tpu_torch.ops import quant
+    from vibevoice_tpu_torch.ops import vocoder_fused as vf
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    randn = lambda *s, dt=torch.bfloat16: torch.randn(s, generator=g, device=dev).to(dt)
+
+    # A: every int8 LM linear shape of the 1.5B decoder, decode and prefill rows
+    print("kernel A int8_matmul (bf16 x, int8 w, f32 scale; bf16 out: tol 1e-2 of the peak)")
+    for name, k, n in (("q/o", 1536, 1536), ("k/v", 1536, 256), ("gate/up", 1536, 8960),
+                       ("down", 8960, 1536)):
+        ws = rotating(lambda: quant.quantize_weight(randn(k, n, dt=torch.float32) * 0.02), k * n)
+        for rows in (2, 512):
+            x = randn(rows, k)
+            out = quant.int8_matmul(x, ws[0]["w8"], ws[0]["scale"])
+            ref = quant.int8_matmul_plain(x, ws[0]["w8"], ws[0]["scale"])
+            ms = bench_ms(lambda w: quant.int8_matmul(x, w["w8"], w["scale"]), ws)
+            pms = bench_ms(lambda w: quant.int8_matmul_plain(x, w["w8"], w["scale"]), ws)
+            checks.case("int8_matmul", f"{name} {k}x{n} rows={rows}", out, ref, 1e-2, ms, pms,
+                        main=(name == "gate/up" and rows == 2))
+
+    # B: the decoder's GQA layout (12 q heads, 2 KV heads, D=128), 2B=2 rows
+    print("kernel B flash_cached_attention (bf16 q; bf16 or int8 KV; bf16 out: tol 1e-2)")
+    nh, kh, d = 12, 2, 128
+    for w, s, int8, base in ((1, 4096, False, (4095, 1234)), (1, 65536, True, (65535, 300)),
+                             (512, 4096, False, (4095, 1000)), (512, 65536, True, (65535, 20000))):
+        q = randn(2, w, nh, d)
+        base_t = torch.tensor(base, dtype=torch.int32, device=dev)
+        if int8:
+            kc = torch.randint(-127, 128, (2, kh, s, d), generator=g, device=dev).to(torch.int8)
+            vc = torch.randint(-127, 128, (2, kh, s, d), generator=g, device=dev).to(torch.int8)
+            ks = torch.rand((2, kh, 1, s), generator=g, device=dev) / 127
+            vs = torch.rand((2, kh, 1, s), generator=g, device=dev) / 127
+            kw = dict(k_scale=ks, v_scale=vs)
+        else:
+            kc, vc, kw = randn(2, kh, s, d), randn(2, kh, s, d), {}
+        out = fa.flash_cached_attention(q, kc, vc, base_t, **kw)
+        ref = fa.flash_cached_attention_plain(q, kc, vc, base_t, **kw)
+        big = w == 512 and s == 65536  # the plain version's scores are 3 GB here
+        ms = bench_ms(lambda _: fa.flash_cached_attention(q, kc, vc, base_t, **kw), [None])
+        pms = bench_ms(lambda _: fa.flash_cached_attention_plain(q, kc, vc, base_t, **kw), [None],
+                       iters=3 if big else 20)
+        checks.case("flash_cached_attention",
+                    f"W={w} S={s} {'int8' if int8 else 'bf16'} base={list(base)}", out, ref, 1e-2,
+                    ms, pms, main=(w == 1 and s == 4096))
+        del ref
+
+    # C: 4 head layers, 1536 -> 4608 -> 1536; the solver runs the head in f32
+    print("kernel C fused_head_ffn_stack (f32 x and mods (2B=2 rows); int8 or bf16 weights: "
+          "tol 1e-4)")
+    dim, hid, nl = 1536, 4608, 4
+    for quantize in (True, False):
+        layers = [{"norm": {"w": 1 + 0.1 * randn(dim)},
+                   "ffn": {"gate": {"w": randn(dim, hid) * 0.03}, "up": {"w": randn(dim, hid) * 0.03},
+                           "down": {"w": randn(hid, dim) * 0.02}}} for _ in range(nl)]
+        packs = rotating(lambda: hf.pack_head_ffns(layers, 1e-5, quantize),
+                         3 * nl * dim * hid * (1 if quantize else 2), budget=120 << 20)
+        x = randn(2, dim, dt=torch.float32)
+        mods = randn(nl, 2, 3 * dim, dt=torch.float32) * 0.5
+        out = hf.fused_head_ffn_stack(packs[0], x, mods)
+        ref = hf.fused_head_ffn_stack_plain(packs[0], x, mods)
+        ms = bench_ms(lambda pk: hf.fused_head_ffn_stack(pk, x, mods), packs)
+        pms = bench_ms(lambda pk: hf.fused_head_ffn_stack_plain(pk, x, mods), packs)
+        checks.case("fused_head_ffn_stack", f"{nl} layers {'int8' if quantize else 'bf16'} weights",
+                    out, ref, 1e-4, ms, pms, main=quantize)
+
+    # D: 8 Block1D blocks at 2048 -> 8192 -> 2048, one bf16 frame (B=1)
+    print("kernel D fused_stage_step (bf16 x and state; int8 or bf16 weights: tol 2e-2)")
+    dim, nb = 2048, 8
+    for quantize in (True, False):
+        blocks = [{"norm": {"w": 1 + 0.1 * randn(dim)},
+                   "mixer": {"w": randn(dim, 1, 7) * 0.3, "b": randn(dim) * 0.1},
+                   "gamma": torch.full((dim,), 0.5, dtype=torch.bfloat16, device=dev),
+                   "ffn_norm": {"w": 1 + 0.1 * randn(dim)},
+                   "ffn": {"fc1": {"w": randn(dim, 4 * dim) * 0.02, "b": randn(4 * dim) * 0.1},
+                           "fc2": {"w": randn(4 * dim, dim) * 0.01, "b": randn(dim) * 0.1}},
+                   "ffn_gamma": torch.full((dim,), 0.5, dtype=torch.bfloat16, device=dev)}
+                  for _ in range(nb)]
+        packs = rotating(lambda: vf.pack_stage(blocks, 1e-5, quantize),
+                         nb * 8 * dim * dim * (1 if quantize else 2), budget=120 << 20)
+        x, st = randn(1, 1, dim), randn(nb, 1, 6, dim)
+        (out, ns), (ref, rs) = vf.fused_stage_step(packs[0], x, st), \
+            vf.fused_stage_step_plain(packs[0], x, st)
+        ms = bench_ms(lambda pk: vf.fused_stage_step(pk, x, st), packs)
+        pms = bench_ms(lambda pk: vf.fused_stage_step_plain(pk, x, st), packs)
+        w = "int8" if quantize else "bf16"
+        checks.case("fused_stage_step", f"{nb} blocks {w} weights: y", out, ref, 2e-2, ms, pms,
+                    main=quantize)
+        checks.case("fused_stage_step", f"{nb} blocks {w} weights: new state", ns, rs, 2e-2)
+
+
+def tiny_card_vs_cpu(seed: int) -> None:
+    """generate() on the tiny config: kernels on the card against the plain
+    versions on the CPU, f32, same weights and injected noise."""
+    import numpy as np
+    import torch
+
+    from vibevoice_tpu.configs import tiny_config
+    from vibevoice_tpu_torch.models import inference as inf
+    from vibevoice_tpu_torch.models import vibevoice as vv
+    from vibevoice_tpu_torch.utils.params import init
+
+    cfg = tiny_config()
+    hop = cfg.acoustic_tokenizer_config.hop_length
+    toks = inf.SpecialTokens(speech_start=5, speech_end=6, speech_diffusion=7, eos=2)
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(10, 100, (1, 12)).astype(np.int64)
+    ids[0, 2:6], ids[0, -1] = 7, 5
+    mask = np.zeros((1, 12), bool)
+    mask[0, 2:6] = True
+    kw = dict(input_ids=ids, speech_tensors=rng.randn(1, 4 * hop).astype(np.float32),
+              speech_frame_valid=np.ones((1, 4), bool), speech_input_mask=mask, tokens=toks,
+              noise_bank={"init": rng.randn(16, 1, cfg.acoustic_vae_dim).astype(np.float32),
+                          "vae_std": rng.randn(1).astype(np.float32),
+                          "vae_eps": rng.randn(1, 4, cfg.acoustic_vae_dim).astype(np.float32)},
+              forced_tokens=np.array([7, 7, 7, 6, 5, 7, 7, 7, 2])[:, None],
+              opts=inf.GenerateOptions(ddpm_steps=4, max_length=64, kv_int8=True))
+    outs = []
+    for dev in ("cuda", "cpu"):
+        p = init(cfg, seed=seed, device="cpu")
+        for part in (p["acoustic_tokenizer"]["decoder"], p["semantic_tokenizer"]["encoder"]):
+            for blk in (b for stage in part["stages"] for b in stage):  # make the blocks work
+                blk["gamma"].fill_(0.3)
+                blk["ffn_gamma"].fill_(0.3)
+        p = vv.fuse_for_serving(vv.quantize_for_inference(p), cfg, quantize=True)
+        outs.append(inf.generate(cfg, _to(p, dev), **kw))
+    a, b = outs[0].speech_outputs[0], outs[1].speech_outputs[0]
+    if not np.array_equal(outs[0].sequences, outs[1].sequences):
+        fail("tiny generate: card and CPU token sequences differ")
+    err = float(np.abs(a - b).max())
+    peak = float(np.abs(b).max())
+    print(f"  tiny generate card vs CPU: {len(a)} samples, max_abs_err {err:.3e} of peak "
+          f"{peak:.3e} (tol 1e-3 of the peak)", flush=True)
+    if not (peak > 0 and err <= 1e-3 * peak):
+        fail("tiny generate: the card's waveform disagrees with the CPU's")
+
+
+def _to(tree, dev):
+    import torch
+
+    from vibevoice_tpu_torch.ops.vocoder_fused import PackedStage
+
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    if isinstance(tree, PackedStage):
+        return PackedStage({k: v.to(dev) for k, v in tree.arrays.items()}, tree.eps, tree.dim,
+                           tree.hidden, tree.n_blocks, tree.quantized)
+    return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
+
+
+def end_to_end(seed: int, frames: int) -> dict:
+    import numpy as np
+    import torch
+
+    from vibevoice_tpu.configs import VibeVoiceConfig
+    from vibevoice_tpu.processor.processor import VibeVoiceProcessor
+    from vibevoice_tpu.processor.text_tokenizer import QWEN_SPECIAL_IDS, FallbackTextTokenizer
+    from vibevoice_tpu_torch.models import inference as inf
+    from vibevoice_tpu_torch.models import vibevoice as vv
+    from vibevoice_tpu_torch.ops import flash_attention, head_fused, quant, vocoder_fused
+    from vibevoice_tpu_torch.utils.params import init
+
+    cfg = VibeVoiceConfig.from_json_file(str(ROOT / "vibevoice_tpu/configs/qwen2.5_1.5b_64k.json"))
+    t0 = time.perf_counter()
+    params = init(cfg, seed=seed, dtype=torch.bfloat16, device="cuda")
+    params = vv.fuse_for_serving(vv.quantize_for_inference(params, ("lm", "lm_head")), cfg,
+                                 quantize=True)
+    torch.cuda.synchronize()
+    print(f"  1.5B params (bf16, int8 LM + lm_head, fused serving packs) built in "
+          f"{time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card", flush=True)
+
+    tk = FallbackTextTokenizer(
+        vocab_size=cfg.decoder_config.vocab_size,
+        speech_start_id=QWEN_SPECIAL_IDS["speech_start"],
+        speech_end_id=QWEN_SPECIAL_IDS["speech_end"],
+        speech_diffusion_id=QWEN_SPECIAL_IDS["speech_diffusion"],
+        eos_token_id=QWEN_SPECIAL_IDS["eos"], pad_id=QWEN_SPECIAL_IDS["pad"])
+    hop = cfg.acoustic_tokenizer_config.hop_length
+    processor = VibeVoiceProcessor(tokenizer=tk, speech_tok_compress_ratio=hop)
+    toks = inf.SpecialTokens(speech_start=tk.speech_start_id, speech_end=tk.speech_end_id,
+                             speech_diffusion=tk.speech_diffusion_id, eos=tk.eos_token_id)
+    sr = 24_000
+    t = np.arange(int(VOICE_SECONDS * sr)) / sr
+    rng = np.random.RandomState(seed)
+    voices = [(0.3 * np.sin(2 * np.pi * f * t) + 0.05 * rng.randn(t.size)).astype(np.float32)
+              for f in (180.0, 260.0)]
+    script = ("Speaker 1: Welcome back to the show, today we talk about speech synthesis.\n"
+              "Speaker 2: Thanks for having me, it is a pleasure to be here.")
+    proc = processor(text=script, voice_samples=[voices])
+    half = (frames - 3) // 2
+    forced = ([toks.speech_diffusion] * half + [toks.speech_end, toks.speech_start]
+              + [toks.speech_diffusion] * (frames - 3 - half) + [toks.eos])
+    n_diff = frames - 3
+    short = [toks.speech_diffusion] * 2 + [toks.eos]
+    print(f"  prompt {proc.input_ids.shape[1]} tokens, voice prompts "
+          f"{proc.speech_tensors.shape} ({proc.speech_masks.sum()} latent frames); forced script "
+          f"{len(forced)} frames ({n_diff} speech frames, one speech_end -> speech_start)",
+          flush=True)
+
+    wrappers = (quant.int8_matmul, flash_attention.flash_cached_attention,
+                head_fused.fused_head_ffn_stack, vocoder_fused.fused_stage_step)
+
+    def run(max_length, script_tokens):
+        kw = dict(input_ids=proc.input_ids, valid_mask=proc.attention_mask,
+                  speech_tensors=proc.speech_tensors, speech_frame_valid=proc.speech_masks,
+                  speech_input_mask=proc.speech_input_mask, tokens=toks, seed=seed,
+                  forced_tokens=np.asarray(script_tokens, np.int64)[:, None])
+        opts = inf.GenerateOptions(ddpm_steps=10, cfg_scale=1.3, max_length=max_length)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inf.generate(cfg, params, opts=opts, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    runs = {}
+    total_launches = {w.__name__: 0 for w in wrappers}
+    for max_length in (4096, None):
+        label = f"max_length={max_length or cfg.decoder_config.max_position_embeddings}"
+        kv_int8 = inf.resolve_kv_int8(inf.GenerateOptions(max_length=max_length),
+                                      max_length or cfg.decoder_config.max_position_embeddings).kv_int8
+        run(max_length, short)  # warm-up: cuDNN algorithm picks, allocator
+        for w in wrappers:
+            w.launches = 0
+        out, wall = run(max_length, forced)
+        counts = {w.__name__: w.launches for w in wrappers}
+        short_out, short_wall = run(max_length, short)
+        for k, v in counts.items():
+            total_launches[k] += v
+        audio = out.speech_outputs[0]
+        if audio is None or audio.size == 0:
+            fail(f"{label}: no audio")
+        if not np.isfinite(audio).all():
+            fail(f"{label}: non-finite audio")
+        if not np.abs(audio).max() > 0:
+            fail(f"{label}: all-zero audio")
+        if audio.size != n_diff * hop:
+            fail(f"{label}: {audio.size} samples for {n_diff} speech frames")
+        if not np.array_equal(out.sequences[0, proc.input_ids.shape[1]:], np.asarray(forced)):
+            fail(f"{label}: the token sequence does not follow the forced script")
+        missing = [k for k, v in counts.items() if v == 0]
+        if missing:
+            fail(f"{label}: kernels never launched on the main path: {missing}")
+        per_frame = (wall - short_wall) / (len(forced) - len(short))
+        rec = dict(kv_int8=kv_int8, frames=len(forced), speech_frames=n_diff,
+                   audio_seconds=audio.size / sr, wall_s=wall, per_frame_ms=per_frame * 1e3,
+                   rtf=(audio.size / sr) / wall, launches=counts,
+                   peak_abs=float(np.abs(audio).max()))
+        runs[label] = rec
+        print(f"  generate {label} (kv_int8={kv_int8}): {len(forced)} frames, "
+              f"{audio.size / sr:.2f} s audio, wall {wall:.2f} s (prefill included), "
+              f"{per_frame * 1e3:.1f} ms per frame (from {len(short)}- and {len(forced)}-frame "
+              f"runs), launches {counts}", flush=True)
+    return dict(runs=runs, launches=total_launches)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--frames", type=int, default=32, help="forced frames per generate() run")
+    ap.add_argument("--out", default=None, help="also write the results as JSON here")
+    args = ap.parse_args()
+
+    if not (ROOT / "vibevoice_tpu_torch" / "csrc").is_dir():
+        fail(f"no vibevoice_tpu_torch/csrc beside {Path(__file__).name}: run from a checkout")
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    # phase 1: device
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this check needs a CUDA device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    print(f"device: {torch.cuda.get_device_name(0)}; torch {torch.__version__} CUDA "
+          f"{torch.version.cuda}; count {torch.cuda.device_count()}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # phase 2: build
+    from vibevoice_tpu_torch.ops import _cuda
+
+    t0 = time.perf_counter()
+    lib = _cuda.library()
+    print(f"build: {lib.path.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s "
+          f"(nvcc {lib.build_seconds:.1f} s)", flush=True)
+    spills = [ln.strip() for ln in lib.build_log.splitlines()
+              if re.search(r"[1-9][0-9]* bytes spill", ln)]
+    print(f"  ptxas: {len(spills)} kernel(s) spill registers" + "".join(f"\n    {ln}" for ln in spills))
+
+    # phase 3: kernels against their plain versions
+    checks = Checks()
+    sources = {
+        "int8_matmul": ("vibevoice_tpu_torch/csrc/int8_matmul.cu", "vibevoice_tpu/ops/quant.py:129"),
+        "flash_cached_attention": ("vibevoice_tpu_torch/csrc/flash_attention.cu",
+                                   "vibevoice_tpu/ops/flash_attention.py:71"),
+        "fused_head_ffn_stack": ("vibevoice_tpu_torch/csrc/head_ffn.cu",
+                                 "vibevoice_tpu/ops/head_fused.py:144"),
+        "fused_stage_step": ("vibevoice_tpu_torch/csrc/vocoder_stage.cu",
+                             "vibevoice_tpu/ops/vocoder_fused.py:202"),
+    }
+    for name, (src, rep) in sources.items():
+        checks.kernels[name] = dict(name=name, route="cuda", source=src, replaces=rep,
+                                    launches=0, max_abs_err=0.0, ms=None, plain_ms=None)
+    check_kernels(checks, args.seed)
+    torch.cuda.synchronize()
+
+    # phase 4: end to end
+    print("end to end", flush=True)
+    tiny_card_vs_cpu(args.seed)
+    e2e = end_to_end(args.seed, args.frames)
+    for name, n in e2e["launches"].items():
+        checks.kernels[name]["launches"] = n
+
+    result = {"kernels": list(checks.kernels.values())}
+    if args.out:
+        Path(args.out).mkdir(parents=True, exist_ok=True)
+        (Path(args.out) / "chip_smoke.json").write_text(
+            json.dumps({**result, "card": card, "end_to_end": e2e["runs"]}, indent=1))
+        (Path(args.out) / "kernel_build.log").write_text(lib.build_log)
+    print(card)
+    print(json.dumps(result))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

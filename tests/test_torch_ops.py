@@ -1,0 +1,298 @@
+"""Parity of the PyTorch port's ops against the JAX package on the CPU.
+
+Each kernel's plain PyTorch version (what the port's wrappers run on CPU
+tensors) is held against the JAX Pallas kernel in interpret mode; norms,
+convs, quantization and the solver against their JAX functions. Inputs come
+from numpy seeds. Tolerances: float32 paths agree to summation order
+(~1e-6 relative); kernels with bf16 rounding points differ where a sum
+lands on a bf16 rounding boundary (one bf16 ulp of the rounded value).
+"""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from vibevoice_tpu.ops import conv as jconv
+from vibevoice_tpu.ops import flash_attention as jfa
+from vibevoice_tpu.ops import head_fused as jhf
+from vibevoice_tpu.ops import norms as jnorms
+from vibevoice_tpu.ops import quant as jquant
+from vibevoice_tpu.ops import vocoder_fused as jvf
+from vibevoice_tpu.schedule import dpm_solver as jdpm
+
+from vibevoice_tpu_torch.ops import conv as tconv
+from vibevoice_tpu_torch.ops import flash_attention as tfa
+from vibevoice_tpu_torch.ops import head_fused as thf
+from vibevoice_tpu_torch.ops import norms as tnorms
+from vibevoice_tpu_torch.ops import quant as tquant
+from vibevoice_tpu_torch.ops import vocoder_fused as tvf
+from vibevoice_tpu_torch.schedule import dpm_solver as tdpm
+
+
+def T(a):
+    return torch.from_numpy(np.array(a))
+
+
+def close(a, b, rtol, atol):
+    np.testing.assert_allclose(np.asarray(a, np.float32), np.asarray(b, np.float32),
+                               rtol=rtol, atol=atol)
+
+
+# ---------------------------------------------------------------------------
+# norms and convs (f32: summation order only)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kind", ["rms", "rms_noweight", "layer"])
+def test_norms_match_jax(kind):
+    rng = np.random.RandomState(0)
+    x = rng.randn(3, 5, 32).astype(np.float32) * 3
+    w = rng.randn(32).astype(np.float32)
+    b = rng.randn(32).astype(np.float32)
+    if kind == "layer":
+        ref = jnorms.layer_norm(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), 1e-5)
+        out = tnorms.layer_norm(T(x), T(w), T(b), 1e-5)
+    else:
+        wj, wt = (None, None) if kind == "rms_noweight" else (jnp.asarray(w), T(w))
+        ref = jnorms.rms_norm(jnp.asarray(x), wj, 1e-6)
+        out = tnorms.rms_norm(T(x), wt, 1e-6)
+    close(out, ref, 1e-5, 1e-5)
+
+
+@pytest.mark.parametrize("t,k,stride,groups", [(17, 7, 1, 1), (23, 8, 4, 1), (11, 7, 1, 6)])
+def test_causal_conv1d_batch_and_streaming(t, k, stride, groups):
+    """Batch conv and chunked streaming (state carried) both match JAX."""
+    rng = np.random.RandomState(1)
+    cin, cout = 6, 6 if groups > 1 else 5
+    x = rng.randn(2, t, cin).astype(np.float32)
+    w = rng.randn(k, cin // groups, cout).astype(np.float32)  # JAX TIO
+    b = rng.randn(cout).astype(np.float32)
+    wt = T(w).permute(2, 1, 0).contiguous()
+    ref = jconv.causal_conv1d(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), stride=stride,
+                              groups=groups)
+    close(tconv.causal_conv1d(T(x), wt, T(b), stride=stride, groups=groups), ref, 1e-5, 1e-5)
+
+    ctx = jconv.conv_context_size(k, stride)
+    js, ts = jnp.zeros((2, ctx, cin)), torch.zeros(2, ctx, cin)
+    n = (t // stride) * stride
+    for c0 in range(0, n, 2 * stride):
+        chunk = x[:, c0: c0 + 2 * stride]
+        yj, js = jconv.causal_conv1d_streaming(jnp.asarray(chunk), js, jnp.asarray(w),
+                                               jnp.asarray(b), stride=stride, groups=groups)
+        yt, ts = tconv.causal_conv1d_streaming(T(chunk), ts, wt, T(b), stride=stride,
+                                               groups=groups)
+        close(yt, yj, 1e-5, 1e-5)
+        close(ts, js, 0, 0)
+
+
+def test_conv_transpose1d_batch_and_streaming():
+    rng = np.random.RandomState(2)
+    k, stride, cin, cout = 8, 4, 5, 3
+    x = rng.randn(2, 6, cin).astype(np.float32)
+    torch_w = rng.randn(cin, cout, k).astype(np.float32)  # PyTorch (in, out, k)
+    jw = torch_w.transpose(2, 0, 1)[::-1].copy()  # the JAX pre-flipped TIO layout
+    b = rng.randn(cout).astype(np.float32)
+    ref = jconv.conv_transpose1d(jnp.asarray(x), jnp.asarray(jw), jnp.asarray(b), stride=stride)
+    close(tconv.conv_transpose1d(T(x), T(torch_w), T(b), stride=stride), ref, 1e-5, 1e-5)
+    js, ts = jnp.zeros((2, k - 1, cin)), torch.zeros(2, k - 1, cin)
+    for f in range(6):
+        yj, js = jconv.conv_transpose1d_streaming(jnp.asarray(x[:, f:f + 1]), js, jnp.asarray(jw),
+                                                  jnp.asarray(b), stride=stride)
+        yt, ts = tconv.conv_transpose1d_streaming(T(x[:, f:f + 1]), ts, T(torch_w), T(b),
+                                                  stride=stride)
+        close(yt, yj, 1e-5, 1e-5)
+        close(ts, js, 0, 0)
+
+
+# ---------------------------------------------------------------------------
+# quantization and kernel A
+# ---------------------------------------------------------------------------
+
+
+def test_quantize_weight_bit_equal():
+    rng = np.random.RandomState(3)
+    w = rng.randn(96, 40).astype(np.float32) * rng.rand(1, 40).astype(np.float32)
+    w[:, 3] = 0.0  # all-zero column -> the 1e-8 scale floor
+    ref = jquant.quantize_weight(jnp.asarray(w))
+    out = tquant.quantize_weight(T(w))
+    np.testing.assert_array_equal(out["w8"].numpy(), np.asarray(ref["w8"]))
+    np.testing.assert_array_equal(out["scale"].numpy(), np.asarray(ref["scale"]))
+
+
+@pytest.mark.parametrize("rows", [2, 16])
+def test_int8_matmul_plain_matches_pallas(rows):
+    """Kernel A's plain version against the Pallas kernel (interpret) at a
+    512-divisible shape, where JAX takes the kernel and not its XLA
+    fallback. f32 output: both round x to bf16 and sum exactly-representable
+    products in f32, so only the summation order differs."""
+    rng = np.random.RandomState(4)
+    x = rng.randn(rows, 512).astype(np.float32)
+    q = jquant.quantize_weight(jnp.asarray(rng.randn(512, 1024).astype(np.float32)))
+    ref = jquant.int8_matmul(jnp.asarray(x), q["w8"], q["scale"], interpret=True)
+    out = tquant.int8_matmul(T(x), T(q["w8"]), T(q["scale"]))
+    close(out, ref, 1e-5, 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# kernel B
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("w,base,quant", [
+    (1, [37, 255], False),  # decode; a row at base = S-1
+    (1, [255, 100], True),
+    (5, [0, 130], False),  # prefill chunks
+    (5, [200, 251], True),  # the last row's horizon runs past S
+])
+def test_flash_plain_matches_pallas(w, base, quant):
+    """Kernel B's plain version against the Pallas kernel (interpret), f32
+    q, bf16-valued or int8 K/V: the same softmax over the same keys, summed
+    in another order."""
+    b, nh, kh, s, d = 2, 4, 2, 256, 128
+    rng = np.random.RandomState(5)
+    q = rng.randn(b, w, nh, d).astype(np.float32)
+    k = rng.randn(b, kh, s, d).astype(np.float32)
+    v = rng.randn(b, kh, s, d).astype(np.float32)
+    base = np.asarray(base, np.int32)
+    kw_j, kw_t = {}, {}
+    if quant:
+        k = np.clip(np.round(k * 40), -127, 127).astype(np.int8)
+        v = np.clip(np.round(v * 40), -127, 127).astype(np.int8)
+        ks = (rng.rand(b, kh, 1, s) / 40).astype(np.float32)
+        vs = (rng.rand(b, kh, 1, s) / 40).astype(np.float32)
+        kw_j = dict(k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
+        kw_t = dict(k_scale=T(ks), v_scale=T(vs))
+    ref = jfa.flash_cached_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                     jnp.asarray(base), block_k=128, interpret=True, **kw_j)
+    out = tfa.flash_cached_attention(T(q), T(k), T(v), T(base), **kw_t)
+    close(out, ref, 2e-4, 2e-4)
+
+
+# ---------------------------------------------------------------------------
+# kernels C and D
+# ---------------------------------------------------------------------------
+
+
+def _head_layers(rng, n, dim, hid):
+    return [{"norm": {"w": rng.randn(dim).astype(np.float32)},
+             "ffn": {"gate": {"w": (rng.randn(dim, hid) / np.sqrt(dim)).astype(np.float32)},
+                     "up": {"w": (rng.randn(dim, hid) / np.sqrt(dim)).astype(np.float32)},
+                     "down": {"w": (rng.randn(hid, dim) / np.sqrt(hid)).astype(np.float32)}}}
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("quantize,act", [(False, "f32"), (True, "f32"), (True, "bf16")])
+def test_head_stack_plain_matches_pallas(quantize, act):
+    """Kernel C's plain version against the Pallas kernel (interpret). The
+    serving path feeds f32 activations (the solver runs in f32); bf16 adds
+    the kernel's bf16 rounding of hmod and the SwiGLU output, where a sum
+    near a rounding boundary can land one bf16 ulp apart (atol 2e-2 on O(1)
+    outputs)."""
+    rng = np.random.RandomState(6)
+    nb, dim, hid, rows = 2, 128, 384, 4
+    layers = _head_layers(rng, nb, dim, hid)
+    x = rng.randn(rows, dim).astype(np.float32)
+    mods = (rng.randn(nb, rows, 3 * dim) * 0.5).astype(np.float32)
+    jdt, tdt = (jnp.float32, torch.float32) if act == "f32" else (jnp.bfloat16, torch.bfloat16)
+    jl = jax.tree.map(jnp.asarray, layers)
+    ref = jhf.fused_head_ffn_stack(jhf.pack_head_ffns(jl, 1e-5, quantize),
+                                   jnp.asarray(x, jdt), jnp.asarray(mods, jdt), interpret=True)
+    tl = jax.tree.map(T, layers)
+    out = thf.fused_head_ffn_stack(thf.pack_head_ffns(tl, 1e-5, quantize),
+                                   T(x).to(tdt), T(mods).to(tdt))
+    tol = 1e-5 if act == "f32" else 2e-2
+    close(out.float(), np.asarray(ref, np.float32), tol, tol)
+
+
+def _stage_blocks(rng, nb, dim):
+    hid = 4 * dim
+    return [{
+        "norm": {"w": rng.randn(dim).astype(np.float32)},
+        "mixer": {"w": rng.randn(7, 1, dim).astype(np.float32) * 0.3,
+                  "b": rng.randn(dim).astype(np.float32) * 0.1},
+        "gamma": np.full(dim, 0.5, np.float32),
+        "ffn_norm": {"w": rng.randn(dim).astype(np.float32)},
+        "ffn": {"fc1": {"w": (rng.randn(dim, hid) / np.sqrt(dim)).astype(np.float32),
+                        "b": rng.randn(hid).astype(np.float32) * 0.1},
+                "fc2": {"w": (rng.randn(hid, dim) / np.sqrt(hid)).astype(np.float32),
+                        "b": rng.randn(dim).astype(np.float32) * 0.1}},
+        "ffn_gamma": np.full(dim, 0.5, np.float32),
+    } for _ in range(nb)]
+
+
+@pytest.mark.parametrize("quantize,act", [(False, "f32"), (True, "f32"), (True, "bf16")])
+def test_stage_step_plain_matches_pallas(quantize, act):
+    """Kernel D's plain version against the Pallas kernel (interpret), two
+    frames so the carried conv state is exercised. f32: the TPU kernel's
+    polynomial erf (abs error 1.5e-7) against torch's erf. bf16: the FFN
+    input, GELU output, state and residual round to bf16 (one bf16 ulp)."""
+    rng = np.random.RandomState(7)
+    nb, dim, b = 3, 128, 2
+    blocks = _stage_blocks(rng, nb, dim)
+    jdt, tdt = (jnp.float32, torch.float32) if act == "f32" else (jnp.bfloat16, torch.bfloat16)
+    jpk = jvf.pack_stage(jax.tree.map(jnp.asarray, blocks), 1e-5, quantize)
+    tblocks = jax.tree.map(T, blocks)
+    for blk in tblocks:  # depthwise mixer: JAX TIO (7, 1, C) -> PyTorch (C, 1, 7)
+        blk["mixer"]["w"] = blk["mixer"]["w"].permute(2, 1, 0).contiguous()
+    tpk = tvf.pack_stage(tblocks, 1e-5, quantize)
+    js = jnp.zeros((nb, b, 6, dim), jdt)
+    ts = torch.zeros(nb, b, 6, dim, dtype=tdt)
+    tol = 2e-5 if act == "f32" else 3e-2
+    for f in range(2):
+        x = rng.randn(b, 1, dim).astype(np.float32)
+        yj, js = jvf.fused_stage_step(jpk, jnp.asarray(x, jdt), js, interpret=True)
+        yt, ts = tvf.fused_stage_step(tpk, T(x).to(tdt), ts)
+        close(yt.float(), np.asarray(yj, np.float32), tol, tol)
+        close(ts.float(), np.asarray(js, np.float32), tol, tol)
+
+
+# ---------------------------------------------------------------------------
+# DPM-Solver
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kw", [
+    dict(),
+    dict(algorithm_type="sde-dpmsolver++"),
+    dict(solver_order=3, solver_type="heun", timestep_spacing="trailing"),
+    dict(algorithm_type="dpmsolver", final_sigmas_type="sigma_min", use_karras_sigmas=True),
+])
+def test_make_solver_tables_equal(kw):
+    for steps in (3, 10, 20):
+        ref = jdpm.make_solver(steps, **kw)
+        out = tdpm.make_solver(steps, **kw)
+        for name in ref._fields:
+            np.testing.assert_array_equal(getattr(out, name), np.asarray(getattr(ref, name)),
+                                          err_msg=name)
+
+
+@pytest.mark.parametrize("sde", [False, True])
+def test_cfg_sample_with_injected_noise(sde):
+    """The CFG solve over a toy head, with per-step extras and injected SDE
+    noise, matches the JAX lax.scan (f32, summation order only)."""
+    rng = np.random.RandomState(8)
+    coeffs_kw = dict(algorithm_type="sde-dpmsolver++" if sde else "dpmsolver++")
+    jc, tc = jdpm.make_solver(10, **coeffs_kw), tdpm.make_solver(10, **coeffs_kw)
+    b, d, h = 2, 16, 8
+    w = rng.randn(d + h, d).astype(np.float32) * 0.3
+    cond, uncond = rng.randn(b, h).astype(np.float32), rng.randn(b, h).astype(np.float32)
+    x0 = rng.randn(b, d).astype(np.float32)
+    extras = rng.randn(10, 2 * b, d).astype(np.float32) * 0.1
+    noise = rng.randn(10, b, d).astype(np.float32) if sde else None
+
+    def jhead(x, t, e):
+        c = jnp.concatenate([jnp.asarray(cond), jnp.asarray(uncond)])
+        return jnp.tanh(jnp.concatenate([x, c], -1) @ jnp.asarray(w)) * (t[:, None] / 1000) + e
+
+    def thead(x, t, e):
+        c = torch.cat([T(cond), T(uncond)])
+        return torch.tanh(torch.cat([x, c], -1) @ T(w)) * (t[:, None] / 1000) + e
+
+    ref = jdpm.cfg_sample(jc, jhead, jnp.asarray(cond), jnp.asarray(uncond), 1.3,
+                          jnp.asarray(x0), noise=None if noise is None else jnp.asarray(noise),
+                          extras=jnp.asarray(extras))
+    out = tdpm.cfg_sample(tc, thead, T(cond), T(uncond), 1.3, T(x0),
+                          noise=None if noise is None else T(noise), extras=list(T(extras)))
+    close(out, ref, 1e-5, 1e-5)

@@ -1,0 +1,168 @@
+"""Build and load the port's hand-written CUDA kernels (``csrc/*.cu``).
+
+All kernels compile with one ``nvcc`` call into one shared library with a
+plain C interface, loaded with ``ctypes``:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o build/kernels/<hash>/libvibevoice_kernels.so csrc/*.cu
+
+The build happens at first use, into ``build/kernels/<hash>/`` under the
+checkout, keyed on a hash of the sources and flags, so a fresh checkout
+builds everything on the first call. Nothing here runs at import time: this
+module is imported on hosts with no CUDA toolkit, where only the plain
+PyTorch versions of the kernels run.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
+LIB_NAME = "libvibevoice_kernels.so"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# dtype codes of the C interface (csrc/common.cuh)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    "vv_int8_matmul": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "vv_flash_cached_attention": [
+        _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+    ],
+    "vv_fused_head_ffn_stack": [
+        _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _F, _I, _I, _I, _I, _P,
+    ],
+    "vv_fused_stage_step": [
+        _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+        _I, _I, _I, _I, _F, _I, _I, _I, _I, _P,
+    ],
+}
+
+
+class KernelLibrary:
+    """The loaded shared library plus what its build reported."""
+
+    def __init__(self, cdll: ctypes.CDLL, path: Path, build_seconds: float, build_log: str):
+        self.cdll = cdll
+        self.path = path
+        self.build_seconds = build_seconds  # 0.0 when an earlier build was reused
+        self.build_log = build_log
+
+    def call(self, name: str, *args) -> None:
+        """Run one C entry point; raise if it reports a CUDA error."""
+        err = getattr(self.cdll, name)(*args)
+        if err != 0:
+            msg = self.cdll.vv_error_string(err).decode()
+            raise RuntimeError(f"{name} failed: CUDA error {err} ({msg})")
+
+
+_lock = threading.Lock()
+_lib: KernelLibrary | None = None
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit (CUDA_HOME)")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def _build() -> KernelLibrary:
+    cu, cuh = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in cu + cuh:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    out_dir = BUILD_ROOT / h.hexdigest()[:16]
+    so = out_dir / LIB_NAME
+    seconds, log = 0.0, ""
+    if not so.exists():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = res.stdout + res.stderr
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{log}")
+        os.replace(tmp, so)
+        (out_dir / "build.log").write_text(log)
+    cdll = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(cdll, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    cdll.vv_error_string.argtypes = [ctypes.c_int]
+    cdll.vv_error_string.restype = ctypes.c_char_p
+    return KernelLibrary(cdll, so, seconds, log)
+
+
+def library() -> KernelLibrary:
+    """The kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            _lib = _build()
+        return _lib
+
+
+def dtype_code(t: torch.Tensor) -> int:
+    try:
+        return _DTYPE_CODES[t.dtype]
+    except KeyError:
+        raise TypeError(f"no CUDA kernel takes dtype {t.dtype}") from None
+
+
+def ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def require_cuda(*tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor on one device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"expected CUDA tensors on {dev}, got one on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"expected a contiguous tensor, got shape {tuple(t.shape)} "
+                             f"with strides {t.stride()}")
+
+
+def split_k(rows: int, k: int, n: int) -> tuple[int, int]:
+    """(splits, k per split) for the split-K GEMV core (csrc/gemv.cuh).
+
+    Blocks cover 128 columns x 8 rows; the K axis is split until the grid
+    holds about two waves of the H100's 132 SMs, down to 32 k rows a split."""
+    blocks = -(-n // 128) * -(-rows // 8)
+    splits = max(1, min(-(-264 // blocks), -(-k // 32)))
+    kps = -(-(-(-k // splits)) // 32) * 32
+    return -(-k // kps), kps
