@@ -8,18 +8,27 @@ toolkit (nvcc), and exits non-zero without a result otherwise.
 
 Phases, each of which fails the run:
   1. device: CUDA present; prints the card's name and power limit;
-  2. build: compiles the four kernels from vibevoice_tpu_torch/csrc/;
+  2. build: compiles the seven kernels from vibevoice_tpu_torch/csrc/ (one
+     nvcc per source, all at once);
   3. kernels: each kernel against its plain PyTorch version on the card,
-     at the shapes the 1.5B serving path gives it, with the stated
-     tolerance, plus CUDA-event times of both;
-  4. end to end: the full-width 1.5B model (random weights from --seed,
-     bf16, int8 LM + lm_head, fuse_for_serving) runs generate() on a
+     at the shapes the 1.5B serving and fine-tuning paths give it, with the
+     stated tolerance, plus CUDA times of both;
+  4. end to end, serving: the full-width 1.5B model (random weights from
+     --seed, bf16, int8 LM + lm_head, fuse_for_serving) runs generate() on a
      two-speaker script with two 3 s voice prompts and a forced script of
      speech frames, at max_length 4096 (bf16 KV) and 65536 (int8 KV); every
-     kernel must have launched in those runs, and the audio must be finite
-     and non-silent. A tiny-config generate() also runs twice, once on the
-     card through the kernels and once on the CPU through the plain
-     versions, and the two must agree.
+     serving kernel must have launched in those runs, and the audio must be
+     finite and non-silent. A tiny-config generate() also runs twice, once
+     on the card through the kernels and once on the CPU through the plain
+     versions, and the two must agree;
+  5. end to end, fine-tuning: a tiny-config QLoRA gradient and two
+     optimizer steps on the card through the kernels against the same on
+     the CPU through the plain versions; then the port's trainer (finetune/train.py) fine-tunes the
+     full-width 1.5B with QLoRA (int8 LM base, LoRA r 16 on all seven LM
+     targets and the diffusion head, f32 activations, random weights from
+     --seed, synthetic clips): 3 steps at B 2, T 2048, then 2 steps at B 1,
+     T 8192 with remat and CE chunks of 1024. Losses finite, adapters moved
+     after step 2, kernels A, E and the training attention launched.
 The next-to-last line is a JSON object of the kernels' results; the last
 line is the JSON device record.
 """
@@ -205,6 +214,100 @@ def check_kernels(checks: Checks, seed: int) -> None:
         checks.case("fused_stage_step", f"{nb} blocks {w} weights: new state", ns, rs, 2e-2)
 
 
+def event_ms(fn, iters: int = 3) -> float:
+    """Median CUDA-event time of one fn() call over `iters` calls after one
+    warm-up, for calls long enough (milliseconds) that launch overhead is
+    noise; autograd calls cannot be captured into a CUDA graph."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
+def check_training_kernels(checks: Checks, seed: int) -> None:
+    """Kernel E and the training attention at the 1.5B fine-tuning shapes."""
+    import torch
+
+    from vibevoice_tpu_torch.ops import flash_attention as fa
+    from vibevoice_tpu_torch.ops import quant
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 1)
+    randn = lambda *s: torch.randn(s, generator=g, device=dev)
+
+    # E: dx of every int8 LM linear of the 1.5B decoder at R = B*T = 4096, f32 g
+    print("kernel E int8_matmul_t (f32 g, int8 w, f32 scale; f32 out: tol 1e-4 of the peak)")
+    rows = 4096
+    for name, k, n in (("q/o", 1536, 1536), ("k/v", 1536, 256), ("gate/up", 1536, 8960),
+                       ("down", 8960, 1536)):
+        ws = rotating(lambda: quant.quantize_weight(randn(k, n) * 0.02), k * n)
+        gr = randn(rows, n) * 1e-3
+        out = quant.int8_matmul_t(gr, ws[0]["w8"], ws[0]["scale"])
+        ref = quant.int8_matmul_t_plain(gr, ws[0]["w8"], ws[0]["scale"])
+        ms = bench_ms(lambda w: quant.int8_matmul_t(gr, w["w8"], w["scale"]), ws)
+        pms = bench_ms(lambda w: quant.int8_matmul_t_plain(gr, w["w8"], w["scale"]), ws)
+        checks.case("int8_matmul_t", f"{name} dx {rows}x{n} -> {k}", out, ref, 1e-4, ms, pms,
+                    main=(name == "gate/up"))
+        # kernel A at the same training rows, for the record (its 8-row GEMV tiles)
+        x = randn(rows, k)
+        ms = bench_ms(lambda w: quant.int8_matmul(x, w["w8"], w["scale"]), ws, iters=5)
+        pms = bench_ms(lambda w: quant.int8_matmul_plain(x, w["w8"], w["scale"]), ws, iters=5)
+        checks.case("int8_matmul", f"{name} {k}x{n} rows={rows} f32 (training)",
+                    quant.int8_matmul(x, ws[0]["w8"], ws[0]["scale"]),
+                    quant.int8_matmul_plain(x, ws[0]["w8"], ws[0]["scale"]), 1e-4, ms, pms)
+        del ws
+
+    # training attention: 12 query heads over 2 KV heads, D 128, f32, right padded
+    print("training attention (f32; right-padded batch compared on valid rows and with dO zero "
+          "on pad rows: O tol 1e-4, dQ/dK/dV tol 1e-3 of the peak)")
+    nh, kh, d = 12, 2, 128
+    for b, t, lens in ((2, 2048, (2048, 1500)), (1, 8192, (7000,))):
+        q, k, v = randn(b, t, nh, d), randn(b, t, kh, d), randn(b, t, kh, d)
+        valid = torch.zeros(b, t, dtype=torch.bool, device=dev)
+        for i, n in enumerate(lens):
+            valid[i, :n] = True
+        do = randn(b, t, nh, d) * valid[:, :, None, None]
+        label = f"B={b} T={t} valid={list(lens)}"
+
+        def grads(fn):
+            leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            out = fn(*leaves, valid)
+            return (out.detach(), *torch.autograd.grad(out, leaves, do))
+
+        kern = grads(fa.flash_train_attention)
+        plain = grads(fa.train_attention_plain)
+        rows_ok = valid[:, :, None, None]
+        kr, vr = k.repeat_interleave(nh // kh, dim=2), v.repeat_interleave(nh // kh, dim=2)
+        seg = valid.to(torch.int32)
+        o, lse = fa.flash_train_attention_fwd(q, kr, vr, seg, d ** -0.5)
+        fwd_ms = event_ms(lambda: fa.flash_train_attention_fwd(q, kr, vr, seg, d ** -0.5))
+        fwd_pms = event_ms(lambda: fa.train_attention_plain(q, k, v, valid))
+        bwd_ms = event_ms(lambda: fa.flash_train_attention_bwd(q, kr, vr, seg, o, lse, do,
+                                                               d ** -0.5))
+        ql, kl, vl = (x.clone().requires_grad_(True) for x in (q, k, v))
+        out_p = fa.train_attention_plain(ql, kl, vl, valid)
+        bwd_pms = event_ms(lambda: torch.autograd.grad(out_p, (ql, kl, vl), do, retain_graph=True))
+        del out_p, ql, kl, vl
+        main = t == 2048
+        checks.case("flash_train_attention_fwd", f"{label}: O (valid rows)", kern[0] * rows_ok,
+                    plain[0] * rows_ok, 1e-4, fwd_ms, fwd_pms, main=main)
+        for i, nm in ((1, "dQ"), (2, "dK"), (3, "dV")):
+            timing = dict(ms=bwd_ms, plain_ms=bwd_pms, main=main) if i == 1 else {}
+            checks.case("flash_train_attention_bwd", f"{label}: {nm}", kern[i], plain[i], 1e-3,
+                        **timing)
+        del kern, plain, o, lse
+        torch.cuda.empty_cache()
+
+
 def tiny_card_vs_cpu(seed: int) -> None:
     """generate() on the tiny config: kernels on the card against the plain
     versions on the CPU, f32, same weights and injected noise."""
@@ -372,6 +475,165 @@ def end_to_end(seed: int, frames: int) -> dict:
     return dict(runs=runs, launches=total_launches)
 
 
+def tiny_qlora_card_vs_cpu(seed: int) -> None:
+    """One QLoRA loss and its adapter gradients on the tiny config: kernels
+    on the card against the plain versions on the CPU, f32, same weights,
+    batch (right-padded) and random draws."""
+    import numpy as np
+    import torch
+
+    from vibevoice_tpu.configs import tiny_config
+    from vibevoice_tpu_torch.finetune import loss as L
+    from vibevoice_tpu_torch.finetune import lora as LR
+    from vibevoice_tpu_torch.finetune import train_step as TS
+    from vibevoice_tpu_torch.ops import flash_attention, quant
+    from vibevoice_tpu_torch.utils.params import init
+
+    cfg = tiny_config()
+    hop = cfg.acoustic_tokenizer_config.hop_length
+    b, t, f = 2, 96, 6
+    rng = np.random.RandomState(seed)
+    am = np.zeros((b, t), bool)
+    am[:, 10:10 + f] = True
+    valid = np.ones((b, t), bool)
+    valid[1, 70:] = False
+    batch = L.Batch(rng.randint(10, 100, (b, t)).astype(np.int32), valid,
+                    rng.randn(b, hop * f).astype(np.float32), np.ones((b, f), bool),
+                    rng.randn(b, f, cfg.semantic_vae_dim).astype(np.float32),
+                    np.ones((b,), bool), am, am)
+    mul = 4
+    draws = L.Draws(*(torch.from_numpy(a) for a in (
+        rng.randn(b).astype(np.float32), rng.randn(b, f, cfg.acoustic_vae_dim).astype(np.float32),
+        rng.randn(b * t * mul, cfg.diffusion_head_config.latent_size).astype(np.float32),
+        rng.randint(0, cfg.diffusion_head_config.ddpm_num_steps, b * t * mul).astype(np.int64))))
+    p = init(cfg, seed=seed)
+    p["speech_scaling_factor"] = torch.tensor(float("nan"))
+    p["speech_bias_factor"] = torch.tensor(float("nan"))
+    p = {**p, "lm": quant.quantize_lm(p["lm"])}
+    lcfg = LR.LoraConfig(r=4)
+    lora = LR.init_lora(seed, p, lcfg)
+    for entry in lora["lm_layers"] + lora["diffusion_head_layers"]:
+        for pair in entry.values():  # non-zero B: every adapter leaf gets a gradient
+            pair["b"] = torch.from_numpy(rng.randn(*pair["b"].shape).astype(np.float32) * 0.05)
+    opts = L.TrainOptions(remat=True, ce_chunk_size=32)
+    grad_fn = TS.make_lora_grad_fn(cfg, lcfg, opts)
+    lr = 1e-3
+    init = {k: x.float() for k, x in TS.tree_leaves_with_path(lora)}
+
+    def two_steps(dev, lr):
+        """Each adapter leaf's update after two optimizer steps: lr 0 on
+        the first, lr on the second (warmup 1)."""
+        opt = TS.make_optimizer(learning_rate=lr, warmup_steps=1, total_steps=10)
+        step = TS.make_lora_train_step(cfg, opt, lcfg, opts)
+        state = TS.init_train_state(_to(lora, dev), opt)
+        for _ in range(2):
+            state, _ = step(state, _to(p, dev), batch, draws)
+        return {k: v.float().cpu() - init[k] for k, v in TS.tree_leaves_with_path(state.params)}
+
+    res = {}
+    for dev in ("cuda", "cpu"):
+        for w in (quant.int8_matmul, quant.int8_matmul_t, flash_attention.flash_train_attention_fwd,
+                  flash_attention.flash_train_attention_bwd):
+            w.launches = 0
+        loss, out, grads = grad_fn(_to(lora, dev), _to(p, dev), batch, draws)
+        counts = [w.launches for w in (quant.int8_matmul, quant.int8_matmul_t,
+                                       flash_attention.flash_train_attention_fwd,
+                                       flash_attention.flash_train_attention_bwd)]
+        res[dev] = (float(loss), {k: v.float().cpu() for k, v in grads.items()}, counts,
+                    two_steps(dev, lr))
+    (lc, gc, counts, dc), (lp, gp, _, dp) = res["cuda"], res["cpu"]
+    if min(counts) == 0:
+        fail(f"tiny QLoRA on the card did not launch every training kernel: {counts}")
+    worst = max(float((gc[k] - gp[k]).abs().max() / gp[k].abs().max().clamp_min(1e-12))
+                for k in gp)
+    # Adam maps each gradient element to about +-lr, and an element whose
+    # gradient is near 0 can flip on a tiny difference; so the two updates
+    # are compared as whole vectors (L2), the largest element difference
+    # shown. The limit must catch two planted faults of the CPU's own step:
+    # the steps at 1.01 lr, and the smallest leaf's update dropped.
+    flat = lambda d: torch.cat([d[k].flatten() for k in init])
+    norm = float(flat(dp).norm())
+    step_rel = float((flat(dc) - flat(dp)).norm()) / norm
+    lr_fault = float((flat(two_steps("cpu", 1.01 * lr)) - flat(dp)).norm()) / norm
+    leaf_fault = min(float(dp[k].norm()) for k in init) / norm
+    tol = 5e-3
+    print(f"  tiny QLoRA card vs CPU: loss {lc:.6f} / {lp:.6f}, {len(gp)} adapter gradients, "
+          f"worst rel err {worst:.3e} (tol loss 1e-4, gradients 1e-3 of the peak); two optimizer "
+          f"steps (lr {lr:g}): update norm {norm:.3e}, card-CPU difference {step_rel:.3e} of it "
+          f"(tol {tol:g}; largest element {float((flat(dc) - flat(dp)).abs().max()):.3e}); "
+          f"planted faults on the CPU: 1.01 lr {lr_fault:.3e}, smallest leaf dropped "
+          f"{leaf_fault:.3e}; launches A/E/attn fwd/attn bwd {counts}", flush=True)
+    if not (math.isfinite(lc) and abs(lc - lp) <= 1e-4 * abs(lp)):
+        fail("tiny QLoRA: the card's loss disagrees with the CPU's")
+    if not worst <= 1e-3:
+        fail("tiny QLoRA: the card's adapter gradients disagree with the CPU's")
+    if not (lr_fault > tol and leaf_fault > tol):
+        fail("tiny QLoRA: the optimizer-step limit would not catch a planted fault")
+    if not (float(flat(dp).abs().max()) > 0.1 * lr and step_rel <= tol):
+        fail("tiny QLoRA: the card's optimizer steps disagree with the CPU's")
+
+
+def finetune_end_to_end(seed: int) -> dict:
+    """The port's trainer on the full-width 1.5B config, QLoRA, synthetic
+    clips sized to fill the sequence: 3 steps at B 2, T 2048 (trainer
+    defaults), 2 steps at B 1, T 8192 with remat and chunked CE."""
+    import torch
+
+    from vibevoice_tpu_torch.finetune import train
+    from vibevoice_tpu_torch.finetune.train_step import tree_leaves_with_path
+    from vibevoice_tpu_torch.ops import flash_attention, quant
+
+    wrappers = {"int8_matmul": quant.int8_matmul, "int8_matmul_t": quant.int8_matmul_t,
+                "flash_train_attention_fwd": flash_attention.flash_train_attention_fwd,
+                "flash_train_attention_bwd": flash_attention.flash_train_attention_bwd}
+    common = ["--config", str(ROOT / "vibevoice_tpu/configs/qwen2.5_1.5b_64k.json"),
+              "--synthetic_data", "--synthetic_items", "4", "--use_lora", "--int8_base",
+              "--seed", str(seed), "--device", "cuda", "--no_save", "--log_steps", "1"]
+    runs = {}
+    for label, extra in (
+            ("B2 T2048", ["--per_device_batch_size", "2", "--max_length", "2048",
+                          "--pad_to_multiple", "2048", "--synthetic_seconds", "220", "250",
+                          "--max_steps", "3"]),
+            ("B1 T8192 remat ce1024", ["--per_device_batch_size", "1", "--max_length", "8192",
+                                       "--pad_to_multiple", "8192", "--synthetic_seconds", "1000",
+                                       "1060", "--max_steps", "2", "--remat",
+                                       "--ce_chunk_size", "1024"])):
+        torch.cuda.empty_cache()
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        summary = train.main(common + extra)
+        wall = time.perf_counter() - t0
+        counts = {k: w.launches for k, w in wrappers.items()}
+        steps = summary["steps"]
+        if not all(math.isfinite(s["loss"]) for s in steps):
+            fail(f"fine-tune {label}: non-finite loss {[s['loss'] for s in steps]}")
+        init = dict(tree_leaves_with_path(summary["lora_init"]))
+        moved = max(float((x - init[p]).abs().max())
+                    for p, x in tree_leaves_with_path(summary["lora"]) if p[-1] == "b")
+        if not moved > 0:
+            fail(f"fine-tune {label}: the adapters did not move after step 2")
+        missing = [k for k, v in counts.items() if v == 0]
+        if missing:
+            fail(f"fine-tune {label}: kernels never launched on the training path: {missing}")
+        timed = steps[1:]  # step 1 pays one-time allocator and library set-up
+        sec = sum(s["seconds"] for s in timed) / len(timed)
+        rec = dict(steps=steps, seconds_per_step=sec, tokens_per_second=steps[-1]["tokens"] / sec,
+                   valid_tokens_per_second=sum(s["valid_tokens"] for s in timed) / sum(
+                       s["seconds"] for s in timed),
+                   peak_gib=summary["peak_bytes"] / 2**30, wall_s=wall, launches=counts,
+                   b_factor_moved=moved,
+                   data_seconds_per_step=sum(s["data_seconds"] for s in timed) / len(timed))
+        runs[label] = rec
+        print(f"  fine-tune {label}: losses {[round(s['loss'], 4) for s in steps]}, "
+              f"{sec:.3f} s/step (steps 2..{len(steps)}; step 1 {steps[0]['seconds']:.3f} s), "
+              f"{rec['tokens_per_second']:.0f} tokens/s ({rec['valid_tokens_per_second']:.0f} "
+              f"valid), collation {rec['data_seconds_per_step']:.2f} s/step between steps, "
+              f"peak {rec['peak_gib']:.2f} GiB, B factors moved {moved:.3e}, "
+              f"launches {counts}", flush=True)
+    return runs
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -403,7 +665,7 @@ def main() -> None:
     t0 = time.perf_counter()
     lib = _cuda.library()
     print(f"build: {lib.path.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {lib.build_seconds:.1f} s)", flush=True)
+          f"(parallel nvcc {lib.build_seconds:.1f} s)", flush=True)
     spills = [ln.strip() for ln in lib.build_log.splitlines()
               if re.search(r"[1-9][0-9]* bytes spill", ln)]
     print(f"  ptxas: {len(spills)} kernel(s) spill registers" + "".join(f"\n    {ln}" for ln in spills))
@@ -418,25 +680,45 @@ def main() -> None:
                                  "vibevoice_tpu/ops/head_fused.py:144"),
         "fused_stage_step": ("vibevoice_tpu_torch/csrc/vocoder_stage.cu",
                              "vibevoice_tpu/ops/vocoder_fused.py:202"),
+        "int8_matmul_t": ("vibevoice_tpu_torch/csrc/int8_matmul_t.cu",
+                          "vibevoice_tpu/ops/quant.py:220"),
+        # JAX's bundled Pallas TPU flash attention (forward; dK/dV and dQ
+        # backward kernels), called at this line
+        "flash_train_attention_fwd": ("vibevoice_tpu_torch/csrc/flash_train.cu",
+                                      "vibevoice_tpu/models/qwen2.py:284"),
+        "flash_train_attention_bwd": ("vibevoice_tpu_torch/csrc/flash_train.cu",
+                                      "vibevoice_tpu/models/qwen2.py:284"),
     }
     for name, (src, rep) in sources.items():
         checks.kernels[name] = dict(name=name, route="cuda", source=src, replaces=rep,
                                     launches=0, max_abs_err=0.0, ms=None, plain_ms=None)
     check_kernels(checks, args.seed)
+    check_training_kernels(checks, args.seed)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
-    # phase 4: end to end
-    print("end to end", flush=True)
+    # phase 4: end to end, serving
+    print("end to end: serving", flush=True)
     tiny_card_vs_cpu(args.seed)
     e2e = end_to_end(args.seed, args.frames)
     for name, n in e2e["launches"].items():
-        checks.kernels[name]["launches"] = n
+        checks.kernels[name]["launches"] += n
+    runs = {"serving": e2e["runs"]}
+    torch.cuda.empty_cache()
+
+    # phase 5: end to end, fine-tuning
+    print("end to end: fine-tuning", flush=True)
+    tiny_qlora_card_vs_cpu(args.seed)
+    runs["finetune"] = finetune_end_to_end(args.seed)
+    for rec in runs["finetune"].values():
+        for name, n in rec["launches"].items():
+            checks.kernels[name]["launches"] += n
 
     result = {"kernels": list(checks.kernels.values())}
     if args.out:
         Path(args.out).mkdir(parents=True, exist_ok=True)
         (Path(args.out) / "chip_smoke.json").write_text(
-            json.dumps({**result, "card": card, "end_to_end": e2e["runs"]}, indent=1))
+            json.dumps({**result, "card": card, "end_to_end": runs}, indent=1))
         (Path(args.out) / "kernel_build.log").write_text(lib.build_log)
     print(card)
     print(json.dumps(result))

@@ -108,3 +108,66 @@ def test_wrappers_raise_on_unsupported_input(dev):
     cache = torch.randn(1, 2, 32, 64, device=dev, dtype=torch.bfloat16)  # dtype differs from q
     with pytest.raises(ValueError):
         fa.flash_cached_attention(qq, cache, cache, torch.zeros(1, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("rows,k,n,dtype", [(37, 320, 200, torch.float32), (300, 1536, 256, torch.float32),
+                                            (130, 96, 1000, torch.bfloat16)])
+def test_int8_matmul_t(dev, rows, k, n, dtype):
+    """Kernel E (ragged tiles at every edge): the same bf16(g*scale) x int8
+    products as the plain version, summed in another order."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    q = quant.quantize_weight(torch.randn(k, n, generator=g, device=dev))
+    gr = torch.randn(rows, n, generator=g, device=dev).to(dtype)
+    out = quant.int8_matmul_t(gr, q["w8"], q["scale"])
+    assert out.dtype == dtype and out.shape == (rows, k)
+    assert _rel(out, quant.int8_matmul_t_plain(gr, q["w8"], q["scale"])) < (
+        1e-2 if dtype == torch.bfloat16 else 1e-5)
+
+
+def test_int8_lora_linear_gradients(dev):
+    """mm over an int8 entry with a LoRA branch: kernel A forward and
+    kernel E backward against the plain versions' autograd on the CPU."""
+    g = torch.Generator().manual_seed(5)
+    q = quant.quantize_weight(torch.randn(192, 320, generator=g))
+    x, a, b = (torch.randn(*s, generator=g) for s in ((2, 33, 192), (192, 8), (8, 320)))
+    res = []
+    for d in (dev, torch.device("cpu")):
+        leaves = [t.to(d).requires_grad_(True) for t in (x, a, b)]
+        p = {"w8": q["w8"].to(d), "scale": q["scale"].to(d), "lora": (leaves[1], leaves[2], 2.0)}
+        res.append(torch.autograd.grad(torch.sin(quant.mm(leaves[0], p)).sum(), leaves))
+    for got, want in zip(*res):
+        assert _rel(got.cpu(), want) < 1e-4
+
+
+@pytest.mark.parametrize("t,d,dtype", [(200, 64, torch.float32), (130, 128, torch.float32),
+                                       (64, 128, torch.bfloat16), (77, 16, torch.float32),
+                                       (96, 32, torch.bfloat16)])
+def test_flash_train_attention(dev, t, d, dtype):
+    """The training attention kernels (forward, dQ/dK/dV) against the plain
+    version's autograd on a right-padded GQA batch: outputs on valid rows,
+    gradients with dO zero on pad rows (what the loss gives)."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    b, nh, kh = 2, 6, 2
+    q, k, v = (torch.randn(b, t, h, d, generator=g, device=dev).to(dtype) for h in (nh, kh, kh))
+    valid = torch.zeros(b, t, dtype=torch.bool, device=dev)
+    valid[0, :], valid[1, : t - 37] = True, True
+    do = (torch.randn(b, t, nh, d, generator=g, device=dev) * valid[:, :, None, None]).to(dtype)
+    res = []
+    for fn in (fa.flash_train_attention, fa.train_attention_plain):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = fn(*leaves, valid)
+        res.append((out * valid[:, :, None, None], *torch.autograd.grad(out, leaves, do)))
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for got, want in zip(*res):
+        assert got.dtype == dtype and _rel(got, want) < tol
+
+
+def test_training_wrappers_raise_on_unsupported_input(dev):
+    q = torch.randn(1, 8, 2, 96, device=dev)  # D 96: the kernels take 64 or 128
+    seg = torch.ones(1, 8, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        fa.flash_train_attention_fwd(q, q, q, seg, 0.1)
+    with pytest.raises(ValueError):
+        quant.int8_matmul_t(torch.randn(2, 8, device=dev), torch.zeros(4, 8, dtype=torch.int8,
+                                                                      device=dev),
+                            torch.ones(8, dtype=torch.float64, device=dev))

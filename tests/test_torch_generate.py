@@ -157,6 +157,10 @@ def test_tts_synthesize_and_stream():
 def test_port_never_imports_jax():
     code = ("import sys; import vibevoice_tpu_torch.models.inference, vibevoice_tpu_torch.tts; "
             "import vibevoice_tpu_torch.utils.params; "
+            "import vibevoice_tpu_torch.finetune.train, vibevoice_tpu_torch.finetune.train_step; "
+            "import vibevoice_tpu_torch.finetune.loss, vibevoice_tpu_torch.finetune.data; "
+            "import vibevoice_tpu_torch.finetune.lora, vibevoice_tpu_torch.finetune.ema; "
+            "vibevoice_tpu_torch.finetune.train.parse_args(['--synthetic_data']); "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     res = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,

@@ -1,0 +1,465 @@
+"""Fine-tuning CLI of the port: ``python -m vibevoice_tpu_torch.finetune.train``
+(port of vibevoice_tpu/finetune/train.py, single device).
+
+LoRA (``--use_lora``), QLoRA (``--use_lora --int8_base``: the LM base is
+stored int8 and every LM linear runs kernel A forward and kernel E backward)
+or full fine-tuning, with CE + diffusion losses, the selective
+freeze/unfreeze flags, remat, chunked CE, a diffusion-head position budget,
+gradient accumulation, eval, EMA of the diffusion head, pickle checkpoints
+and the startup CE smoke check.
+
+Model: without ``--config`` a tiny random-weight model (smoke mode); with
+``--config <config.json>`` that configuration at full width with random
+weights from ``--seed``. Data: ``--dataset_jsonl`` ({text, audio} lines) or
+``--synthetic_data`` (sine-wave clips). Batches are collated on the host
+between steps. The multi-device flags, orbax checkpoints, ``--model_path``
+and wandb belong to later slices of the port and exit with a message.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import pickle
+import time
+from typing import Dict
+
+import numpy as np
+
+LATER = {
+    "model_path": "--model_path needs checkpoint loading (hf_interop), a later slice of the "
+                  "port; use --config <config.json> for random weights",
+    "mesh": "the mesh flags (--mesh_dcn/--mesh_dp/--mesh_tp/--mesh_pp) belong to the parallel "
+            "slice of the port (with kernel F)",
+    "fsdp": "--fsdp belongs to the parallel slice of the port",
+    "multihost": "--multihost belongs to the parallel slice of the port",
+    "orbax": "--checkpoint_format orbax belongs to the parallel slice of the port; use pickle",
+    "wandb": "--report_to wandb waits for a later slice of the port; metrics go to stdout",
+    "dots": "--remat_policy dots (keep the matmul outputs) waits for a later slice of the "
+            "port; --remat recomputes whole layers",
+}
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    # model
+    ap.add_argument("--model_path", type=str, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--config", type=str, default=None,
+                    help="model config json (e.g. vibevoice_tpu/configs/qwen2.5_1.5b_64k.json): "
+                    "that model at full width with random weights from --seed")
+    ap.add_argument("--device", type=str, default=None, help="cuda or cpu (default: cuda if present)")
+    ap.add_argument("--output_dir", type=str, default="./finetune_out")
+    ap.add_argument("--use_lora", action="store_true")
+    ap.add_argument("--lora_r", type=int, default=16)
+    ap.add_argument("--lora_alpha", type=int, default=32)
+    ap.add_argument("--lora_target_modules", nargs="*",
+                    default=["q", "k", "v", "o", "gate", "up", "down"])
+    ap.add_argument("--train_diffusion_head", action="store_true", default=True)
+    ap.add_argument("--lora_full_diffusion_head", action="store_true")
+    ap.add_argument("--train_connectors", action="store_true")
+    ap.add_argument("--train_acoustic_tokenizer", action="store_true")
+    ap.add_argument("--train_semantic_tokenizer", action="store_true")
+    ap.add_argument("--train_embed", action="store_true")
+    ap.add_argument("--layers_to_freeze", type=str, default=None,
+                    help="comma-separated diffusion-head layer indices to freeze")
+    ap.add_argument("--lm_layers_to_freeze", type=str, default=None,
+                    help="comma-separated LM layer indices to freeze")
+    # data
+    ap.add_argument("--dataset_jsonl", type=str, default=None, help="jsonl of {text, audio}")
+    ap.add_argument("--synthetic_data", action="store_true")
+    ap.add_argument("--synthetic_items", type=int, default=64)
+    ap.add_argument("--synthetic_seconds", type=float, nargs=2, default=None, metavar=("MIN", "MAX"),
+                    help="clip durations of --synthetic_data (default 1-3 s, tiny clips in smoke mode)")
+    ap.add_argument("--voice_prompt_drop_rate", type=float, default=0.0)
+    ap.add_argument("--max_length", type=int, default=2048)
+    ap.add_argument("--pad_to_multiple", type=int, default=None,
+                    help="pad the batch's sequence length to a multiple of this")
+    # optimization
+    ap.add_argument("--learning_rate", type=float, default=1e-4)
+    ap.add_argument("--weight_decay", type=float, default=0.01)
+    ap.add_argument("--gradient_clipping", type=float, default=1.0)
+    ap.add_argument("--warmup_steps", type=int, default=10)
+    ap.add_argument("--max_steps", type=int, default=100)
+    ap.add_argument("--per_device_batch_size", type=int, default=2)
+    ap.add_argument("--ce_loss_weight", type=float, default=1.0)
+    ap.add_argument("--diffusion_loss_weight", type=float, default=1.0)
+    ap.add_argument("--ddpm_batch_mul", type=int, default=4)
+    ap.add_argument("--ema_decay", type=float, default=0.999)
+    ap.add_argument("--gradient_accumulation_steps", type=int, default=1)
+    ap.add_argument("--save_steps", type=int, default=50)
+    ap.add_argument("--log_steps", type=int, default=10)
+    ap.add_argument("--eval_steps", type=int, default=0)
+    ap.add_argument("--eval_split_size", type=float, default=0.0)
+    ap.add_argument("--debug_ce_every_n_steps", type=int, default=0)
+    ap.add_argument("--resume_from_checkpoint", type=str, default=None)
+    ap.add_argument("--int8_base", action="store_true",
+                    help="QLoRA: store the frozen LM base int8 (requires --use_lora)")
+    ap.add_argument("--remat", action="store_true",
+                    help="recompute each LM layer and the diffusion head in the backward")
+    ap.add_argument("--ce_chunk_size", type=int, default=0,
+                    help="CE in sequence chunks of this many tokens (0 = dense)")
+    ap.add_argument("--remat_policy", type=str, default=None, choices=[None, "dots"])
+    ap.add_argument("--head_budget", type=int, default=0,
+                    help="diffusion-head position budget K (0 = every position)")
+    ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--no_save", action="store_true", help="write no checkpoint")
+    ap.add_argument("--profile_dir", type=str, default=None,
+                    help="run the last step under torch.profiler and write its table of "
+                    "kernels by device time here")
+    # later slices of the port
+    for name in ("mesh_dcn", "mesh_dp", "mesh_tp", "mesh_pp", "pp_microbatches"):
+        ap.add_argument(f"--{name}", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--fsdp", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--multihost", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--checkpoint_format", type=str, default="pickle", choices=["pickle", "orbax"])
+    ap.add_argument("--report_to", type=str, default=None, choices=[None, "wandb"])
+    ap.add_argument("--run_name", type=str, default="vibevoice-torch-finetune")
+    args = ap.parse_args(argv)
+    if args.model_path:
+        raise SystemExit(LATER["model_path"])
+    if any((getattr(args, n) or 1) > 1 for n in ("mesh_dcn", "mesh_dp", "mesh_tp", "mesh_pp")):
+        raise SystemExit(LATER["mesh"])
+    for flag, key in ((args.fsdp, "fsdp"), (args.multihost, "multihost"),
+                      (args.checkpoint_format == "orbax", "orbax"),
+                      (args.report_to == "wandb", "wandb"),
+                      (args.remat_policy == "dots", "dots")):
+        if flag:
+            raise SystemExit(LATER[key])
+    return args
+
+
+def synthetic_dataset(n: int = 64, seed: int = 0, min_dur: float = 1.0, max_dur: float = 3.0):
+    rng = np.random.RandomState(seed)
+    items = []
+    for i in range(n):
+        dur = rng.uniform(min_dur, max_dur)
+        t = np.arange(max(int(dur * 24_000), 64)) / 24_000
+        f = rng.uniform(80, 300)
+        wav = (0.1 * np.sin(2 * np.pi * f * t)).astype(np.float32)
+        items.append({"text": f"Speaker 1: synthetic sample number {i}", "audio": wav})
+    return items
+
+
+def _build_model(args, device):
+    import torch
+
+    from vibevoice_tpu.configs import VibeVoiceConfig, tiny_config
+    from vibevoice_tpu.processor.processor import VibeVoiceProcessor
+    from vibevoice_tpu.processor.text_tokenizer import QWEN_SPECIAL_IDS, FallbackTextTokenizer
+
+    from ..utils.params import init
+
+    if args.config:
+        cfg = VibeVoiceConfig.from_json_file(args.config)
+        tk = FallbackTextTokenizer(
+            vocab_size=cfg.decoder_config.vocab_size,
+            speech_start_id=QWEN_SPECIAL_IDS["speech_start"],
+            speech_end_id=QWEN_SPECIAL_IDS["speech_end"],
+            speech_diffusion_id=QWEN_SPECIAL_IDS["speech_diffusion"],
+            eos_token_id=QWEN_SPECIAL_IDS["eos"], pad_id=QWEN_SPECIAL_IDS["pad"])
+        print(f"{args.config}: random weights from seed {args.seed}")
+    else:
+        print("No --config: tiny random-weight model (smoke mode)")
+        cfg = tiny_config()
+        tk = FallbackTextTokenizer()
+    params = init(cfg, seed=args.seed, dtype=torch.float32, device=device)
+    params["speech_scaling_factor"] = torch.tensor(float("nan"), device=device)
+    params["speech_bias_factor"] = torch.tensor(float("nan"), device=device)
+    processor = VibeVoiceProcessor(tokenizer=tk,
+                                   speech_tok_compress_ratio=cfg.acoustic_tokenizer_config.hop_length)
+    return cfg, params, processor
+
+
+def _profiler(cuda: bool):
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    return profile(activities=acts)
+
+
+def _write_profile(prof, out_dir: str, wall_s: float) -> None:
+    """The profiled step's operators and kernels by device self time and the
+    device's busy share of the step's wall time (the kernels' summed time
+    over the wall; overlapping kernels would count twice)."""
+    from torch.autograd import DeviceType
+
+    os.makedirs(out_dir, exist_ok=True)
+    events = prof.key_averages()
+    # device-side rows: the kernels, and the "vv.*" phase ranges (their span on the device)
+    gpu = [e for e in events if e.device_type == DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in gpu if not e.key.startswith("vv."))
+    table = events.table(sort_by="self_device_time_total", row_limit=40, max_name_column_width=70)
+    head = (f"step wall {wall_s * 1e3:.1f} ms; kernels {dev_us / 1e3:.1f} ms on the device "
+            f"({100 * dev_us / 1e6 / wall_s:.1f}% of the wall)\nphases (span on the device; "
+            f"the backward runs on autograd's device thread, outside these ranges):\n")
+    for e in sorted((e for e in gpu if e.key.startswith("vv.")),
+                    key=lambda e: -e.self_device_time_total):
+        head += f"  {e.key:<20s} {e.self_device_time_total / 1e3:10.1f} ms  x{e.count}\n"
+    with open(os.path.join(out_dir, "profile.txt"), "w") as f:
+        f.write(head + table)
+    print(head + table, flush=True)
+
+
+def main(argv=None) -> Dict:
+    """Train; returns a summary (per-step losses and seconds, tokens, peak
+    device memory)."""
+    args = parse_args(argv)
+    import torch
+
+    from ..ops.quant import quantize_lm
+    from .data import VibeVoiceCollator, VibeVoiceDataset, make_semantic_encode_fn
+    from .ema import init_ema, swap_in_ema, update_ema
+    from .loss import TrainOptions
+    from .lora import (LoraConfig, copy_tree, init_lora, merge_lora, save_lora_assets, to_numpy,
+                       to_torch)
+    from .train_step import (
+        TrainState,
+        build_trainable_filter,
+        init_train_state,
+        make_eval_step,
+        make_lora_train_step,
+        make_optimizer,
+        make_train_step,
+        tree_leaves_with_path,
+    )
+
+    device = torch.device(args.device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    cuda = device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(device)
+
+    np.random.seed(args.seed)
+    cfg, params, processor = _build_model(args, device)
+
+    if args.int8_base:
+        if not args.use_lora:
+            raise SystemExit("--int8_base requires --use_lora (the base is frozen)")
+        params = dict(params)
+        params["lm"] = quantize_lm(params["lm"])  # the lm_head stays dense
+        print("int8 base: LM linears quantized (QLoRA)")
+
+    smoke = args.config is None
+    if args.dataset_jsonl:
+        with open(args.dataset_jsonl) as f:
+            raw = [json.loads(line) for line in f if line.strip()]
+    else:
+        lo, hi = args.synthetic_seconds or ((0.005, 0.02) if smoke else (1.0, 3.0))
+        raw = synthetic_dataset(n=args.synthetic_items, seed=0, min_dur=lo, max_dur=hi)
+
+    eval_raw = []
+    if args.eval_split_size > 0:
+        n_eval = max(1, int(len(raw) * args.eval_split_size))
+        eval_raw, raw = raw[:n_eval], raw[n_eval:]
+    dataset = VibeVoiceDataset(raw, seed=args.seed)
+    eval_dataset = VibeVoiceDataset(eval_raw, seed=args.seed) if eval_raw else None
+
+    collator = VibeVoiceCollator(
+        processor=processor,
+        semantic_encode_fn=make_semantic_encode_fn(cfg.semantic_tokenizer_config,
+                                                   params["semantic_tokenizer"]),
+        max_length=args.max_length,
+        speech_compress_ratio=cfg.acoustic_tokenizer_config.hop_length,
+        semantic_vae_dim=cfg.semantic_vae_dim,
+        voice_prompt_drop_rate=args.voice_prompt_drop_rate,
+        pre_silence_sec=0.0005 if smoke else 0.25,
+        post_silence_sec=0.0015 if smoke else 0.75,
+        crossfade_sec=0.0005 if smoke else 0.25,
+        seed=args.seed,
+        pad_to_multiple=args.pad_to_multiple,
+    )
+
+    opts = TrainOptions(
+        ce_loss_weight=args.ce_loss_weight,
+        diffusion_loss_weight=args.diffusion_loss_weight,
+        ddpm_batch_mul=args.ddpm_batch_mul,
+        remat=args.remat,
+        ce_chunk_size=args.ce_chunk_size,
+        remat_policy=args.remat_policy,
+        head_position_budget=args.head_budget,
+    )
+
+    def parse_idx(s):
+        return tuple(int(x) for x in s.split(",") if x.strip()) if s else ()
+
+    trainable = None
+    if not args.use_lora:
+        trainable = build_trainable_filter(
+            freeze_acoustic_tokenizer=not args.train_acoustic_tokenizer,
+            freeze_semantic_tokenizer=not args.train_semantic_tokenizer,
+            train_connectors=args.train_connectors,
+            train_diffusion_head=args.train_diffusion_head,
+            head_layers_to_freeze=parse_idx(args.layers_to_freeze),
+            freeze_embed=not args.train_embed,
+            lm_layers_to_freeze=parse_idx(args.lm_layers_to_freeze),
+        )
+    optimizer = make_optimizer(
+        learning_rate=args.learning_rate, weight_decay=args.weight_decay,
+        grad_clip=args.gradient_clipping, warmup_steps=args.warmup_steps,
+        total_steps=args.max_steps, accumulation_steps=args.gradient_accumulation_steps,
+        trainable_filter=trainable,
+    )
+
+    lora_cfg = None
+    if args.use_lora:
+        lora_cfg = LoraConfig(r=args.lora_r, alpha=args.lora_alpha,
+                              target_modules=tuple(args.lora_target_modules),
+                              train_diffusion_head=args.train_diffusion_head,
+                              train_connectors=args.train_connectors,
+                              full_diffusion_head=args.lora_full_diffusion_head)
+        state = init_train_state(init_lora(args.seed + 1, params, lora_cfg), optimizer)
+        lora_step = make_lora_train_step(cfg, optimizer, lora_cfg, opts)
+        step_fn = lambda st, batch, rng: lora_step(st, params, batch, rng)
+    else:
+        state = init_train_state(params, optimizer)
+        step_fn = make_train_step(cfg, optimizer, opts, trainable_filter=trainable)
+    eval_fn = make_eval_step(cfg, opts)
+
+    def current_params(st):
+        return merge_lora(params, st.params, lora_cfg) if args.use_lora else st.params
+
+    ema = init_ema(params["diffusion_head"])
+    start_step = 0
+    if args.resume_from_checkpoint:
+        with open(os.path.join(args.resume_from_checkpoint, "train_state.pkl"), "rb") as f:
+            blob = pickle.load(f)
+        st = blob["state"]
+        state = TrainState(to_torch(st["params"], device),
+                           type(state.opt_state)(**to_torch(st["opt_state"], device)),
+                           int(st["step"]))
+        ema, start_step = to_torch(blob["ema"], device), int(blob["step"])
+        print(f"Resumed from step {start_step}")
+
+    rng = torch.Generator(device=device).manual_seed(args.seed + 2)
+    bs = args.per_device_batch_size
+
+    # startup CE smoke check: one collated batch must give a finite CE
+    probe = collator([dataset[i] for i in range(min(bs, len(dataset)))])
+    probe_out = eval_fn(current_params(state), probe,
+                        torch.Generator(device=device).manual_seed(0))
+    ce0 = float(probe_out.ce_loss)
+    if not math.isfinite(ce0):
+        raise SystemExit("startup CE smoke test failed (non-finite)")
+    print(f"startup smoke: ce={ce0:.4f} over {int(probe_out.ce_token_count)} tokens, "
+          f"{int(probe_out.speech_frame_count)} diffusion frames")
+
+    lora_init = copy_tree(state.params) if args.use_lora else None
+
+    def save(step):
+        out = os.path.join(args.output_dir, f"checkpoint-{step}")
+        os.makedirs(out, exist_ok=True)
+        with open(os.path.join(out, "train_state.pkl"), "wb") as f:
+            pickle.dump({"state": {"params": to_numpy(state.params),
+                                   "opt_state": to_numpy(state.opt_state._asdict()),
+                                   "step": state.step},
+                         "ema": to_numpy(ema), "step": step}, f)
+        if args.use_lora:
+            save_lora_assets(os.path.join(out, "lora"), state.params, lora_cfg)
+        else:  # the EMA head swapped in at export
+            with open(os.path.join(out, "params.pkl"), "wb") as f:
+                pickle.dump(to_numpy(swap_in_ema(state.params, ema)), f)
+        print(f"saved {out}")
+
+    steps_per_epoch = max(1, len(dataset) // bs)
+    order_cache: Dict[int, np.ndarray] = {}
+
+    def build_batch(step):
+        """The batch of `step`: a per-epoch seeded permutation, so resuming
+        gives the same batches."""
+        epoch = step // steps_per_epoch
+        if epoch not in order_cache:
+            order_cache.clear()
+            order_cache[epoch] = np.random.RandomState(args.seed + epoch).permutation(len(dataset))
+        order = order_cache[epoch]
+        idx = order[(step * bs) % len(order): (step * bs) % len(order) + bs]
+        if len(idx) < bs:
+            idx = order[:bs]
+        batch = collator([dataset[int(i)] for i in idx])
+        if args.head_budget:
+            per_sample = int(np.asarray(batch.acoustic_loss_mask).sum(axis=1).max())
+            if per_sample > args.head_budget:
+                raise SystemExit(f"--head_budget {args.head_budget} < {per_sample} target frames "
+                                 "in a sample; raise the budget or crop targets")
+        return batch
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    records = []
+    for step in range(start_step, args.max_steps):
+        t0 = time.perf_counter()
+        batch = build_batch(step)
+        t1 = time.perf_counter()
+        sync()
+        prof = _profiler(cuda) if args.profile_dir and step == args.max_steps - 1 else None
+        t2 = time.perf_counter()
+        if prof is not None:
+            with prof:
+                state, out = step_fn(state, batch, rng)
+                sync()
+        else:
+            state, out = step_fn(state, batch, rng)
+            sync()
+        sec = time.perf_counter() - t2
+        if prof is not None:
+            _write_profile(prof, args.profile_dir, sec)
+        if args.use_lora:
+            head = merge_lora(params, state.params, lora_cfg)["diffusion_head"]
+        else:
+            head = state.params["diffusion_head"]
+        if (step + 1) % args.gradient_accumulation_steps == 0:
+            ema = update_ema(ema, head, args.ema_decay)
+        b, t = batch.input_ids.shape
+        rec = dict(step=step + 1, loss=float(out.loss), ce_loss=float(out.ce_loss),
+                   diffusion_loss=float(out.diffusion_loss), seconds=sec, data_seconds=t1 - t0,
+                   batch=b, seq_len=t, tokens=b * t,
+                   valid_tokens=int(np.asarray(batch.attention_mask).sum()))
+        records.append(rec)
+
+        if args.use_lora and step == start_step and args.gradient_accumulation_steps == 1:
+            flat_a = [x for _, x in tree_leaves_with_path(lora_init)]
+            flat_b = [x for _, x in tree_leaves_with_path(state.params)]
+            changed = sum(int(not torch.allclose(a, b)) for a, b in zip(flat_a, flat_b))
+            print(f"lora debug: {changed}/{len(flat_b)} adapter tensors changed after step 1")
+            if changed == 0:
+                print("WARNING: no LoRA adapter changed after the first step")
+
+        if args.debug_ce_every_n_steps and (step + 1) % args.debug_ce_every_n_steps == 0:
+            print(f"  ce-debug step {step + 1}: {int(out.ce_token_count)} CE tokens, "
+                  f"max token CE {float(out.ce_max):.3f}, argmax acc {float(out.ce_accuracy):.3f}, "
+                  f"{int(out.speech_frame_count)} diffusion frames")
+
+        if eval_dataset is not None and args.eval_steps and (step + 1) % args.eval_steps == 0:
+            eval_params = current_params(state)
+            losses = []
+            for e0 in range(0, len(eval_dataset), bs):
+                items = [eval_dataset[j] for j in range(e0, min(e0 + bs, len(eval_dataset)))]
+                items += [eval_dataset[0]] * (bs - len(items))
+                eo = eval_fn(eval_params, collator(items),
+                             torch.Generator(device=device).manual_seed(1234))
+                losses.append((float(eo.ce_loss), float(eo.diffusion_loss)))
+            print(f"  eval step {step + 1}: ce={sum(x for x, _ in losses) / len(losses):.4f} "
+                  f"diffusion={sum(x for _, x in losses) / len(losses):.4f}")
+
+        if (step + 1) % args.log_steps == 0 or step == start_step:
+            print(f"step {step + 1}/{args.max_steps} loss={rec['loss']:.4f} "
+                  f"ce={rec['ce_loss']:.4f} diff={rec['diffusion_loss']:.4f} "
+                  f"({sec:.3f} s/step, {b}x{t} tokens, {b * t / sec:.0f} tokens/s)", flush=True)
+        if not args.no_save and (step + 1) % args.save_steps == 0:
+            save(step + 1)
+
+    if not args.no_save and (args.max_steps % args.save_steps != 0 or start_step >= args.max_steps):
+        save(args.max_steps)
+    if cuda:
+        print(f"peak device memory {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB "
+              f"({torch.cuda.get_device_name(device)})")
+    print("done")
+    return dict(device=str(device), steps=records, lora=state.params if args.use_lora else None,
+                lora_init=lora_init,
+                peak_bytes=torch.cuda.max_memory_allocated(device) if cuda else None)
+
+
+if __name__ == "__main__":
+    main()

@@ -7,14 +7,20 @@ A chunk of W tokens is written at ``length[b]`` and attends keys
 speculative token (the negative CFG stream's trick). Pad query rows take
 position ``length[b]``.
 
-Every linear goes through ``ops.quant.mm`` (int8 entries take kernel A) and
-the cached attention through ``ops.flash_attention.flash_cached_attention``
-(kernel B on CUDA, its plain version on the CPU).
+Every linear goes through ``ops.quant.mm`` (int8 entries take kernel A, and
+kernel E in the backward) and the cached attention through
+``ops.flash_attention.flash_cached_attention`` (kernel B on CUDA, its plain
+version on the CPU).
 
 Unlike the JAX package, the cache tensors are updated in place: the port
 returns a KVCache that shares the buffers with the one it was given and
 carries the new lengths, which saves a copy of the whole cache per step.
-The no-cache training forward is not ported yet.
+
+Without a cache, ``forward`` is the training path: causal self-attention
+over a right-padded chunk through ``ops.flash_attention.flash_train_attention``
+(the hand-written training kernels on CUDA at every T, the masked plain
+version on the CPU), optionally rematerialising each layer in the backward
+(``torch.utils.checkpoint``).
 """
 
 from __future__ import annotations
@@ -23,10 +29,11 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from vibevoice_tpu.configs import Qwen2Config
 
-from ..ops.flash_attention import flash_cached_attention
+from ..ops.flash_attention import flash_cached_attention, flash_train_attention
 from ..ops.norms import rms_norm
 from ..ops.quant import mm
 
@@ -105,15 +112,27 @@ def _write_rows(buf: torch.Tensor, new: torch.Tensor, idx: torch.Tensor) -> None
     buf[bi, :, idx] = new
 
 
+def project_qkv(ap: Params, hdn: torch.Tensor, cfg: Qwen2Config):
+    """q/k/v projections (B, T, heads, D)."""
+    b, t, _ = hdn.shape
+    nh, kh, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    q, k, v = mm(hdn, ap["q"]), mm(hdn, ap["k"]), mm(hdn, ap["v"])
+    return q.reshape(b, t, nh, d), k.reshape(b, t, kh, d), v.reshape(b, t, kh, d)
+
+
+def mlp_forward(m: Params, hdn: torch.Tensor) -> torch.Tensor:
+    """SwiGLU MLP."""
+    return mm(F.silu(mm(hdn, m["gate"])) * mm(hdn, m["up"]), m["down"])
+
+
 def _layer(cfg: Qwen2Config, lp, x, cos, sin, cache_kv, idx, base):
     b, t, h = x.shape
-    nh, kh, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    d = cfg.head_dim
     res = x
     hdn = rms_norm(x, lp["input_norm"]["w"], cfg.rms_norm_eps)
     a = lp["attn"]
-    q = apply_rope(mm(hdn, a["q"]).reshape(b, t, nh, d), cos, sin)
-    k = apply_rope(mm(hdn, a["k"]).reshape(b, t, kh, d), cos, sin)
-    v = mm(hdn, a["v"]).reshape(b, t, kh, d)
+    q, k, v = project_qkv(a, hdn, cfg)
+    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
 
     ck, cv, cks, cvs = cache_kv
     if cks is not None:
@@ -130,11 +149,24 @@ def _layer(cfg: Qwen2Config, lp, x, cos, sin, cache_kv, idx, base):
         attn = flash_cached_attention(q, ck.to(q.dtype), cv.to(q.dtype), base, scale=d ** -0.5)
     x = res + mm(attn.reshape(b, t, h), a["o"])
 
-    res = x
-    hdn = rms_norm(x, lp["post_norm"]["w"], cfg.rms_norm_eps)
-    m = lp["mlp"]
-    hdn = mm(F.silu(mm(hdn, m["gate"])) * mm(hdn, m["up"]), m["down"])
-    return res + hdn
+    return x + mlp_forward(lp["mlp"], rms_norm(x, lp["post_norm"]["w"], cfg.rms_norm_eps))
+
+
+def _train_layer(cfg: Qwen2Config, lp, x, cos, sin, valid):
+    """One block of the no-cache training forward."""
+    b, t, h = x.shape
+    hdn = rms_norm(x, lp["input_norm"]["w"], cfg.rms_norm_eps)
+    q, k, v = project_qkv(lp["attn"], hdn, cfg)
+    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    attn = flash_train_attention(q, k, v, valid, scale=cfg.head_dim ** -0.5)
+    x = x + mm(attn.reshape(b, t, h), lp["attn"]["o"])
+    return x + mlp_forward(lp["mlp"], rms_norm(x, lp["post_norm"]["w"], cfg.rms_norm_eps))
+
+
+def train_attention_inputs(valid_mask: torch.Tensor) -> torch.Tensor:
+    """Positions of the no-cache forward of a right-padded batch: the count
+    of valid tokens before each token, clamped at 0 (pads repeat the last)."""
+    return (torch.cumsum(valid_mask.to(torch.int32), dim=1) - 1).clamp_min(0)
 
 
 def forward(
@@ -142,18 +174,41 @@ def forward(
     params: Params,
     embeds: torch.Tensor,
     *,
-    cache: KVCache,
+    cache: Optional[KVCache] = None,
     valid_mask: Optional[torch.Tensor] = None,
     advance: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, KVCache]:
-    """Run the LM over a chunk (B, T, H) appended at ``cache.length``.
+    remat: bool = False,
+    remat_policy: Optional[str] = None,
+) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    """Run the LM over a chunk (B, T, H).
 
-    ``advance`` (B,) int32 is how far each length moves (default: the
-    count of valid tokens); zeros evaluate speculatively. Returns
-    (hidden (B, T, H) after the final norm, cache with the new lengths)."""
+    With a cache the chunk is appended at ``cache.length``; ``advance`` (B,)
+    int32 is how far each length moves (default: the count of valid
+    tokens); zeros evaluate speculatively. Without a cache it is the
+    training path: causal self-attention within the chunk, and ``remat``
+    recomputes each layer in the backward so that only the residual stream
+    is kept between layers. Returns (hidden (B, T, H) after the final norm,
+    the cache with the new lengths or None)."""
     b, t, _ = embeds.shape
     if valid_mask is None:
         valid_mask = torch.ones(b, t, dtype=torch.bool, device=embeds.device)
+    if remat_policy is not None:
+        raise NotImplementedError(
+            f"remat_policy={remat_policy!r} (save the matmul outputs) is not ported yet; "
+            "remat=True recomputes whole layers")
+    if cache is None:
+        positions = train_attention_inputs(valid_mask)
+        cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta, embeds.dtype)
+        x = embeds
+        for lp in params["layers"]:
+            if remat:
+                x = checkpoint(_train_layer, cfg, lp, x, cos, sin, valid_mask,
+                               use_reentrant=False)
+            else:
+                x = _train_layer(cfg, lp, x, cos, sin, valid_mask)
+        return rms_norm(x, params["final_norm"]["w"], cfg.rms_norm_eps), None
+    if remat:
+        raise ValueError("remat is a training-path option (cache must be None)")
     base = cache.length
     q_abs = base[:, None] + torch.cumsum(valid_mask.to(torch.int32), dim=1) - 1
     positions = torch.where(valid_mask, q_abs, base[:, None])

@@ -39,10 +39,12 @@ def _head_q(params: Params):
 
 
 def lm_logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:
-    """Full-vocab logits (needed by top-p sampling only); int8 through kernel A."""
+    """Full-vocab logits (top-p sampling and the training CE); an int8 head
+    runs through kernel A, and kernel E carries the CE gradient into the
+    hidden states."""
     head_q = _head_q(params)
     if head_q is not None:
-        return quant.int8_matmul(hidden, head_q["w8"], head_q["scale"])
+        return quant.mm(hidden, head_q)
     w = params.get("lm_head")
     if w is None:
         w = params["lm"]["embed"]

@@ -1,10 +1,12 @@
 """Build and load the port's hand-written CUDA kernels (``csrc/*.cu``).
 
-All kernels compile with one ``nvcc`` call into one shared library with a
-plain C interface, loaded with ``ctypes``:
+Each source compiles with its own ``nvcc`` process, all started together,
+and one more ``nvcc`` links the objects into one shared library with a plain
+C interface, loaded with ``ctypes``:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/kernels/<hash>/libvibevoice_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c \\
+         -Xcompiler -fPIC -o build/kernels/<hash>/<name>.o csrc/<name>.cu   # each
+    nvcc -shared -o build/kernels/<hash>/libvibevoice_kernels.so *.o
 
 The build happens at first use, into ``build/kernels/<hash>/`` under the
 checkout, keyed on a hash of the sources and flags, so a fresh checkout
@@ -30,7 +32,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 LIB_NAME = "libvibevoice_kernels.so"
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
@@ -53,6 +55,9 @@ _SIGNATURES = {
         _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
         _I, _I, _I, _I, _F, _I, _I, _I, _I, _P,
     ],
+    "vv_int8_matmul_t": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
+    "vv_flash_train_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "vv_flash_train_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
 }
 
 
@@ -62,7 +67,7 @@ class KernelLibrary:
     def __init__(self, cdll: ctypes.CDLL, path: Path, build_seconds: float, build_log: str):
         self.cdll = cdll
         self.path = path
-        self.build_seconds = build_seconds  # 0.0 when an earlier build was reused
+        self.build_seconds = build_seconds  # wall time of the parallel build; 0.0 if reused
         self.build_log = build_log
 
     def call(self, name: str, *args) -> None:
@@ -102,14 +107,33 @@ def _build() -> KernelLibrary:
     seconds, log = 0.0, ""
     if not so.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+        nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        jobs = []
+        for src in cu:
+            obj = out_dir / f"{src.stem}.{tag}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                    stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], []
+        for cmd, _, proc in jobs:
+            out, _ = proc.communicate()
+            logs.append(f"$ {' '.join(cmd)}\n{out}")
+            if proc.returncode != 0:
+                failed.append(cmd)
+        tmp = out_dir / f"{LIB_NAME}.{tag}"
+        if not failed:
+            cmd = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            logs.append(f"$ {' '.join(cmd)}\n{res.stdout}{res.stderr}")
+            if res.returncode != 0:
+                failed.append(cmd)
+        for _, obj, _ in jobs:
+            obj.unlink(missing_ok=True)
         seconds = time.perf_counter() - t0
-        log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{log}")
+        log = "\n".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed ({' '.join(failed[0])}):\n{log}")
         os.replace(tmp, so)
         (out_dir / "build.log").write_text(log)
     cdll = ctypes.CDLL(str(so))

@@ -12,6 +12,18 @@ On a CUDA tensor ``flash_cached_attention`` launches the hand-written
 flash-decoding kernel (csrc/flash_attention.cu); on a CPU tensor it runs
 ``flash_cached_attention_plain``. The ring-attention hop kernel of the JAX
 file is not ported yet.
+
+``flash_train_attention`` is the no-cache causal attention of fine-tuning
+(vibevoice_tpu/models/qwen2.py:284 ``_attention_train_flash``, which calls
+the Pallas TPU flash attention bundled with JAX). On CUDA tensors it always
+takes the hand-written kernels of csrc/flash_train.cu through the autograd
+Function ``FlashTrainAttention``: ``flash_train_attention_fwd`` (O and the
+row log-sum-exp) and ``flash_train_attention_bwd`` (dQ, dK, dV). Their mask
+is the library kernel's: causal within segment ids (valid 1, pad 0). On CPU
+tensors it runs ``train_attention_plain``, the JAX masked path
+(``_attention_masked`` with the valid & causal mask) under autograd. The two
+agree on valid rows; pad rows differ (the kernel's attend pads, the plain
+version's attend the valid prefix) and are never read by the training loss.
 """
 
 from __future__ import annotations
@@ -104,3 +116,118 @@ def flash_cached_attention(
 
 
 flash_cached_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Training (no-cache) attention
+# ---------------------------------------------------------------------------
+
+
+def train_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          valid: torch.Tensor, scale: Optional[float] = None) -> torch.Tensor:
+    """q (B, T, NH, D), k/v (B, T, KH, D), valid (B, T) bool -> (B, T, NH, D).
+
+    The masked path of the JAX package: key j is live for query i iff
+    valid[j] and j <= i; GQA by grouping the query heads; f32 scores and
+    softmax, masked scores at the f32 minimum."""
+    b, t, nh, d = q.shape
+    kh = k.shape[2]
+    scale = d ** -0.5 if scale is None else scale
+    qg = q.reshape(b, t, kh, nh // kh, d)
+    scores = torch.einsum("btkgd,bskd->bkgts", qg.float(), k.float()) * scale
+    causal = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
+    mask = valid[:, None, :] & causal[None]  # (B, T, S)
+    scores = scores.masked_fill(~mask[:, None, None], torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgts,bskd->btkgd", probs.to(v.dtype), v)
+    return out.reshape(b, t, nh, d)
+
+
+def _check_train(q, k, v, seg):
+    _cuda.require_cuda(q, k, v, seg)
+    b, t, h, d = q.shape
+    if k.shape != q.shape or v.shape != q.shape or d not in (16, 32, 64, 128):
+        raise ValueError(f"expected q, k, v of one shape (B, T, H, D) with D 16, 32, 64 or 128, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q, k, v must share a dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if seg.dtype != torch.int32 or seg.shape != (b, t):
+        raise ValueError(f"segment ids must be (B, T) int32, got {seg.dtype} {tuple(seg.shape)}")
+
+
+def flash_train_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              seg: torch.Tensor, scale: float):
+    """Forward kernel: q, k, v (B, T, H, D) contiguous CUDA tensors of one
+    dtype (f32 or bf16), seg (B, T) int32 -> (O (B, T, H, D), LSE (B, H, T) f32)."""
+    _check_train(q, k, v, seg)
+    b, t, h, d = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty(b, h, t, dtype=torch.float32, device=q.device)
+    _cuda.library().call(
+        "vv_flash_train_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
+        o.data_ptr(), lse.data_ptr(), _cuda.dtype_code(q), b, t, h, d, float(scale),
+        _cuda.stream_ptr(q.device),
+    )
+    flash_train_attention_fwd.launches += 1
+    return o, lse
+
+
+flash_train_attention_fwd.launches = 0
+
+
+def flash_train_attention_bwd(q, k, v, seg, o, lse, do, scale: float):
+    """Backward kernels (delta = rowsum(dO * O), then dK/dV per key tile and
+    dQ per query tile) -> (dq, dk, dv) in q's dtype."""
+    _check_train(q, k, v, seg)
+    do = do.contiguous()
+    _cuda.require_cuda(o, lse, do)
+    b, t, h, d = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty(b, h, t, dtype=torch.float32, device=q.device)
+    _cuda.library().call(
+        "vv_flash_train_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
+        o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), _cuda.dtype_code(q), b, t, h, d, float(scale),
+        _cuda.stream_ptr(q.device),
+    )
+    flash_train_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_train_attention_bwd.launches = 0
+
+
+class FlashTrainAttention(torch.autograd.Function):
+    """Training attention on the card: forward and backward are the
+    hand-written kernels; q, k, v have the same heads (GQA repeated)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seg, scale):
+        o, lse = flash_train_attention_fwd(q, k, v, seg, scale)
+        ctx.save_for_backward(q, k, v, seg, o, lse)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, seg, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_train_attention_bwd(q, k, v, seg, o, lse, do, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_train_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          valid: torch.Tensor, scale: Optional[float] = None) -> torch.Tensor:
+    """Causal attention of a right-padded batch without a cache.
+    q (B, T, NH, D), k/v (B, T, KH, D), valid (B, T) bool -> (B, T, NH, D).
+    Differentiable on both routes."""
+    if q.device.type == "cpu":
+        return train_attention_plain(q, k, v, valid, scale)
+    nh, kh, d = q.shape[2], k.shape[2], q.shape[3]
+    if nh % kh:
+        raise ValueError(f"{nh} query heads do not group over {kh} KV heads")
+    if nh != kh:  # GQA: K/V repeated to the query heads; autograd sums the group
+        k = k.repeat_interleave(nh // kh, dim=2)
+        v = v.repeat_interleave(nh // kh, dim=2)
+    seg = valid.to(torch.int32).contiguous()
+    return FlashTrainAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), seg,
+                                     float(d ** -0.5 if scale is None else scale))

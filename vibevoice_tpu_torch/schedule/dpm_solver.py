@@ -8,13 +8,14 @@ rule
     m0 = a_conv * x + b_conv * raw_model_output
     x' = c_x * x + c_m0 * m0 + c_m1 * m1 + c_m2 * m2 + c_noise * z
 
-in float32. Dynamic thresholding and the train-time NoiseSchedule are not
-ported yet.
+in float32. ``NoiseSchedule`` is the train-time VP schedule (add_noise,
+get_velocity). Dynamic thresholding is not ported yet.
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -73,6 +74,54 @@ def rescale_zero_terminal_snr(betas: np.ndarray) -> np.ndarray:
     alphas_bar = alphas_bar_sqrt**2
     alphas = np.concatenate([alphas_bar[:1], alphas_bar[1:] / alphas_bar[:-1]])
     return 1 - alphas
+
+
+@dataclass(frozen=True)
+class NoiseSchedule:
+    """Host-precomputed VP schedule tables, indexed by train timestep:
+    alpha_t = sqrt(alphas_cumprod), sigma_t = sqrt(1 - alphas_cumprod), f32."""
+
+    num_train_timesteps: int
+    alpha_t: torch.Tensor  # (T,)
+    sigma_t: torch.Tensor  # (T,)
+
+    @classmethod
+    def create(
+        cls,
+        num_train_timesteps: int = 1000,
+        beta_schedule: str = "cosine",
+        rescale_betas_zero_snr: bool = False,
+        beta_start: float = 0.0001,
+        beta_end: float = 0.02,
+    ) -> "NoiseSchedule":
+        betas = make_betas(num_train_timesteps, beta_schedule, beta_start, beta_end)
+        if rescale_betas_zero_snr:
+            betas = rescale_zero_terminal_snr(betas)
+        ac = np.cumprod(1.0 - betas)
+        if rescale_betas_zero_snr:
+            ac[-1] = 2**-24
+        return cls(
+            num_train_timesteps=num_train_timesteps,
+            alpha_t=torch.from_numpy(np.sqrt(ac).astype(np.float32)),
+            sigma_t=torch.from_numpy(np.sqrt(1 - ac).astype(np.float32)),
+        )
+
+    def _coeffs(self, x0: torch.Tensor, t: torch.Tensor):
+        shape = (-1,) + (1,) * (x0.ndim - 1)
+        idx = t.to(device=x0.device, dtype=torch.long)
+        a = self.alpha_t.to(x0.device)[idx].reshape(shape).to(x0.dtype)
+        s = self.sigma_t.to(x0.device)[idx].reshape(shape).to(x0.dtype)
+        return a, s
+
+    def add_noise(self, x0: torch.Tensor, noise: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """x_t = alpha_t x0 + sigma_t eps."""
+        a, s = self._coeffs(x0, t)
+        return a * x0 + s * noise
+
+    def get_velocity(self, x0: torch.Tensor, noise: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """v = alpha_t eps - sigma_t x0."""
+        a, s = self._coeffs(x0, t)
+        return a * noise - s * x0
 
 
 class SolverCoeffs(NamedTuple):

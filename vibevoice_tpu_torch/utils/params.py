@@ -191,3 +191,11 @@ def init(cfg: VibeVoiceConfig, *, seed: int = 0, dtype=torch.float32, device=Non
     if not lm_cfg.tie_word_embeddings:
         params["lm_head"] = normal(lm_cfg.vocab_size, h, std=0.02)
     return params
+
+
+def lora_from_jax(lora_np: Dict, *, device=None) -> Dict:
+    """Convert the JAX package's LoRA tree (after ``jax.tree.map(np.asarray,
+    ...)``) to the port's: the same keys and the same layouts, A (IN, r) and
+    B (r, OUT); dense extras (connectors, a full diffusion head) are linears
+    in (in, out) layout on both sides."""
+    return _map(lora_np, lambda a: _tensor(a, device=device))
