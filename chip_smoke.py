@@ -8,11 +8,17 @@ toolkit (nvcc), and exits non-zero without a result otherwise.
 
 Phases, each of which fails the run:
   1. device: CUDA present; prints the card's name and power limit;
-  2. build: compiles the seven kernels from vibevoice_tpu_torch/csrc/ (one
-     nvcc per source, all at once);
+  2. build: compiles the kernels from the seven sources in
+     vibevoice_tpu_torch/csrc/ (one nvcc per source, all at once): A
+     int8_matmul, B flash_cached_attention, C fused_head_ffn_stack, D
+     fused_stage_step, E int8_matmul_t, F flash_ring_block, and the training
+     attention's forward and backward, eight entries of the kernels line;
   3. kernels: each kernel against its plain PyTorch version on the card,
-     at the shapes the 1.5B serving and fine-tuning paths give it, with the
-     stated tolerance, plus CUDA times of both;
+     at the shapes the 1.5B serving, sequence-parallel prefill and
+     fine-tuning paths give it, with the stated tolerance, plus CUDA times
+     of both. Kernel F runs the four hops of rank 2 of a 4-way ring over a
+     16,384-token prompt (the last block wholly in the future, which must
+     leave the state bit-identical) and the one hop of a world of one;
   4. end to end, serving: the full-width 1.5B model (random weights from
      --seed, bf16, int8 LM + lm_head, fuse_for_serving) runs generate() on a
      two-speaker script with two 3 s voice prompts and a forced script of
@@ -21,7 +27,17 @@ Phases, each of which fails the run:
      finite and non-silent. A tiny-config generate() also runs twice, once
      on the card through the kernels and once on the CPU through the plain
      versions, and the two must agree;
-  5. end to end, fine-tuning: a tiny-config QLoRA gradient and two
+  5. end to end, sequence-parallel prefill: in a one-rank NCCL group (file
+     store under build/), the same model prefills a batch of two
+     right-padded prompts of 16,384 and 12,000 tokens (the script repeated,
+     the two voice prompts spliced in) with parallel.ring_prefill_carry, at
+     max_length 32768 (bf16 KV) and 65536 (int8 KV); each carry is held
+     against inference.chunked_prefill (kernel B, chunks of 2048) on the
+     same prompt (cache lengths, h_pos, the valid cache of layers 0 and 27,
+     limits in SP_TOL) and decodes 8 forced frames through inference.step,
+     which must be finite and non-silent; kernels F, A, B, C and D must all
+     have launched;
+  6. end to end, fine-tuning: a tiny-config QLoRA gradient and two
      optimizer steps on the card through the kernels against the same on
      the CPU through the plain versions; then the port's trainer (finetune/train.py) fine-tunes the
      full-width 1.5B with QLoRA (int8 LM base, LoRA r 16 on all seven LM
@@ -46,6 +62,14 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 VOICE_SECONDS = 3.0  # length of each synthetic voice prompt
+# Limits of the ring prefill against chunked_prefill (h_pos and the cache of
+# layers 0 and 27, as max |diff| over the peak), by KV type. The two paths
+# round bf16 at other places, so 28 layers drift apart: sound readings of
+# 1.9e-2 to 3.0e-2 (bf16 KV) and 3.6e-2 to 5.7e-2 (int8 KV, where
+# chunked_prefill attends through the quantized cache) across four
+# processes on an H100. Planted faults read 0.67 and above: RoPE one slot
+# late (cache), h_pos one slot early, scores not scaled by head_dim ** -0.5.
+SP_TOL = {"bf16": 1e-1, "int8": 1.5e-1}
 
 
 def fail(msg: str) -> None:
@@ -308,6 +332,69 @@ def check_training_kernels(checks: Checks, seed: int) -> None:
         torch.cuda.empty_cache()
 
 
+def check_ring_kernel(checks: Checks, seed: int) -> None:
+    """Kernel F at the 1.5B widths (12 query heads over 2 KV heads, D 128,
+    bf16 q/K/V, f32 state), two samples, the second ending mid-shard."""
+    import torch
+
+    from vibevoice_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 2)
+    randn = lambda *s: torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
+    b, nh, kh, d = 2, 12, 2, 128
+    tol = 1e-4
+    print(f"kernel F flash_ring_block (bf16 q/K/V, f32 state; state after each hop and the "
+          f"normalised output: tol {tol:g} of the peak; a wholly-future block must leave the "
+          f"state bit-identical)")
+
+    def hop(label, state_k, state_p, q, kb, vb, main=False, **kw):
+        before = [x.clone() for x in state_k]
+        fa.flash_ring_block(state_k, q, kb, vb, **kw)
+        fa.flash_ring_block_plain(state_p, q, kb, vb, **kw)
+        scratch_k, scratch_p = [x.clone() for x in before], [x.clone() for x in before]
+        ms = event_ms(lambda: fa.flash_ring_block(scratch_k, q, kb, vb, **kw))
+        pms = event_ms(lambda: fa.flash_ring_block_plain(scratch_p, q, kb, vb, **kw))
+        del scratch_k, scratch_p
+        for name, got, want in zip(("m", "l"), state_k, state_p):
+            checks.case("flash_ring_block", f"{label}: {name}", got, want, tol)
+        checks.case("flash_ring_block", f"{label}: acc", state_k[2], state_p[2], tol, ms, pms,
+                    main=main)
+        return before
+
+    # rank 2 of a 4-way ring over a 16,384-token prompt: its own block, then
+    # ranks 1, 0 and 3's; the last lies wholly in the future
+    n, rank, tl = 4, 2, 4096
+    k_len = torch.tensor([n * tl, 10000], dtype=torch.int32, device=dev)
+    q = randn(b, tl, nh, d)
+    blocks = [(randn(b, kh, tl, d), randn(b, kh, tl, d)) for _ in range(n)]
+    state_k = fa.ring_state_init(b, kh, tl * nh // kh, d, device=dev)
+    state_p = fa.ring_state_init(b, kh, tl * nh // kh, d, device=dev)
+    for h in range(n):
+        src = (rank - h) % n
+        before = hop(f"4-ring rank {rank} Tl={tl} hop {h} k_start={src * tl}", state_k, state_p,
+                     q, *blocks[src], q_start=rank * tl, k_start=src * tl, k_len=k_len)
+    if not all(torch.equal(x, y) for x, y in zip(state_k, before)):
+        fail("flash_ring_block: the wholly-future block changed the state")
+    checks.case("flash_ring_block", f"4-ring rank {rank} Tl={tl}: output",
+                fa.ring_state_out(state_k, tl, torch.float32),
+                fa.ring_state_out(state_p, tl, torch.float32), tol)
+    del blocks, state_k, state_p
+
+    # a world of one: one hop over the whole 16,384-token prompt (the main path)
+    tl = 16384
+    k_len = torch.tensor([tl, 12000], dtype=torch.int32, device=dev)
+    q, kb, vb = randn(b, tl, nh, d), randn(b, kh, tl, d), randn(b, kh, tl, d)
+    state_k = fa.ring_state_init(b, kh, tl * nh // kh, d, device=dev)
+    state_p = fa.ring_state_init(b, kh, tl * nh // kh, d, device=dev)
+    hop(f"world of one Tl={tl} k_len={k_len.tolist()}", state_k, state_p, q, kb, vb, main=True,
+        q_start=0, k_start=0, k_len=k_len)
+    checks.case("flash_ring_block", f"world of one Tl={tl}: output",
+                fa.ring_state_out(state_k, tl, torch.float32),
+                fa.ring_state_out(state_p, tl, torch.float32), tol)
+
+
 def tiny_card_vs_cpu(seed: int) -> None:
     """generate() on the tiny config: kernels on the card against the plain
     versions on the CPU, f32, same weights and injected noise."""
@@ -369,7 +456,10 @@ def _to(tree, dev):
     return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
 
 
-def end_to_end(seed: int, frames: int) -> dict:
+def serving_model(seed: int) -> dict:
+    """The full-width 1.5B serving set-up shared by the serving and the
+    sequence-parallel prefill phases: weights, processor, special tokens,
+    the two voices and the two-speaker script."""
     import numpy as np
     import torch
 
@@ -378,7 +468,6 @@ def end_to_end(seed: int, frames: int) -> dict:
     from vibevoice_tpu.processor.text_tokenizer import QWEN_SPECIAL_IDS, FallbackTextTokenizer
     from vibevoice_tpu_torch.models import inference as inf
     from vibevoice_tpu_torch.models import vibevoice as vv
-    from vibevoice_tpu_torch.ops import flash_attention, head_fused, quant, vocoder_fused
     from vibevoice_tpu_torch.utils.params import init
 
     cfg = VibeVoiceConfig.from_json_file(str(ROOT / "vibevoice_tpu/configs/qwen2.5_1.5b_64k.json"))
@@ -408,7 +497,19 @@ def end_to_end(seed: int, frames: int) -> dict:
               for f in (180.0, 260.0)]
     script = ("Speaker 1: Welcome back to the show, today we talk about speech synthesis.\n"
               "Speaker 2: Thanks for having me, it is a pleasure to be here.")
-    proc = processor(text=script, voice_samples=[voices])
+    return dict(cfg=cfg, params=params, processor=processor, toks=toks, voices=voices,
+                script=script, hop=hop, sr=sr)
+
+
+def end_to_end(model: dict, seed: int, frames: int) -> dict:
+    import numpy as np
+    import torch
+
+    from vibevoice_tpu_torch.models import inference as inf
+    from vibevoice_tpu_torch.ops import flash_attention, head_fused, quant, vocoder_fused
+
+    cfg, params, toks, hop, sr = (model[k] for k in ("cfg", "params", "toks", "hop", "sr"))
+    proc = model["processor"](text=model["script"], voice_samples=[model["voices"]])
     half = (frames - 3) // 2
     forced = ([toks.speech_diffusion] * half + [toks.speech_end, toks.speech_start]
               + [toks.speech_diffusion] * (frames - 3 - half) + [toks.eos])
@@ -473,6 +574,148 @@ def end_to_end(seed: int, frames: int) -> dict:
               f"{per_frame * 1e3:.1f} ms per frame (from {len(short)}- and {len(forced)}-frame "
               f"runs), launches {counts}", flush=True)
     return dict(runs=runs, launches=total_launches)
+
+
+def long_prompts(model: dict, lengths=(16384, 12000)):
+    """A right-padded batch of the serving script repeated, with its two
+    voice prompts spliced in, one sample of exactly each length in tokens
+    (filler words, one token each, top up the last line)."""
+    processor, script, voices = model["processor"], model["script"], model["voices"]
+    size = lambda text: processor(text=text, voice_samples=[voices]).input_ids.shape[1]
+    one, two = size(script), size(script + "\n" + script)
+    texts = []
+    for n in lengths:
+        reps = max(1, (n - one) // (two - one) + 1)
+        text = "\n".join([script] * reps)
+        text += " more" * (n - size(text))
+        if size(text) != n:
+            fail(f"could not build a {n}-token prompt")
+        texts.append(text)
+    return processor(text=texts, voice_samples=[voices] * len(texts))
+
+
+def sp_prefill_end_to_end(model: dict, seed: int, frames: int = 8) -> dict:
+    """The sequence-parallel prefill (parallel/sp_prefill.ring_prefill_carry)
+    in a one-rank NCCL group on the full-width 1.5B, bf16 KV at max_length
+    32768 and int8 KV at 65536, each held against inference.chunked_prefill
+    (kernel B, chunks of 2048) on the same prompt and followed by `frames`
+    forced frames of inference.step."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from vibevoice_tpu_torch.models import inference as inf
+    from vibevoice_tpu_torch.ops import flash_attention, head_fused, quant, vocoder_fused
+    from vibevoice_tpu_torch.parallel import make_mesh, ring_prefill_carry
+
+    cfg, params, toks = model["cfg"], model["params"], model["toks"]
+    dev = torch.device("cuda")
+    proc = long_prompts(model)
+    ids = torch.as_tensor(proc.input_ids, device=dev)
+    valid = torch.as_tensor(proc.attention_mask, device=dev)
+    b = ids.shape[0]
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    n_voice, n_frames = proc.speech_masks.shape
+    vae_noise = (torch.randn(n_voice, generator=g, device=dev),
+                 torch.randn(n_voice, n_frames, cfg.acoustic_vae_dim, generator=g, device=dev))
+    speech_args = (torch.as_tensor(proc.speech_tensors, device=dev),
+                   torch.as_tensor(proc.speech_masks, device=dev),
+                   torch.as_tensor(proc.speech_input_mask, device=dev), None, vae_noise)
+    lengths = valid.sum(1).tolist()
+    print(f"  prompts {lengths} tokens (right-padded to {ids.shape[1]}), voice prompts "
+          f"{tuple(proc.speech_tensors.shape)} ({int(proc.speech_masks.sum())} latent frames)",
+          flush=True)
+    wrappers = (flash_attention.flash_ring_block, quant.int8_matmul,
+                flash_attention.flash_cached_attention, head_fused.fused_head_ffn_stack,
+                vocoder_fused.fused_stage_step)
+    nl = cfg.decoder_config.num_hidden_layers
+
+    def cache_prefix(carry, li, kv_int8):
+        """Layer li's positive-stream K and V over each sample's valid
+        prefix, dequantized for int8, concatenated."""
+        cache, out = carry.cache, []
+        for bi, n in enumerate(lengths):
+            for buf, scale in ((cache.k, cache.k_scale), (cache.v, cache.v_scale)):
+                x = buf[li][bi, :, :n].float()
+                if kv_int8:
+                    x = x * scale[li][bi, :, 0, :n, None]
+                out.append(x.flatten())
+        return torch.cat(out)
+
+    store = ROOT / "build" / "sp_prefill_pg"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1)
+    runs, total = {}, {w.__name__: 0 for w in wrappers}
+    try:
+        mesh = make_mesh(dp=1, tp=1)
+        for max_len, kv_int8, tol in ((32768, False, SP_TOL["bf16"]), (65536, True, SP_TOL["int8"])):
+            label = f"max_length={max_len} ({'int8' if kv_int8 else 'bf16'} KV)"
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = inf.chunked_prefill(cfg, params, ids, valid, max_len, toks, speech_args,
+                                      chunk=2048, kv_int8=kv_int8)
+            torch.cuda.synchronize()
+            ref_wall = time.perf_counter() - t0
+            opts = inf.GenerateOptions(ddpm_steps=10, cfg_scale=1.3, max_length=max_len,
+                                       kv_int8=kv_int8)
+            coeffs = inf.make_solver(cfg, opts)
+            hooks = {"forced": torch.full((b,), toks.speech_diffusion, device=dev),
+                     "init": torch.randn(1, b, cfg.acoustic_vae_dim, generator=g, device=dev)}
+            no_stop = torch.zeros(b, dtype=torch.bool, device=dev)
+
+            for w in wrappers:
+                w.launches = 0
+            t0 = time.perf_counter()
+            sp = ring_prefill_carry(cfg, params, ids, valid, max_len, toks, mesh,
+                                    speech_args=speech_args, kv_int8=kv_int8)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            carry, audio = sp, []
+            for _ in range(frames):
+                carry, out = inf.step(cfg, params, carry, no_stop, tokens=toks, opts=opts,
+                                      coeffs=coeffs, generator=g, hooks=hooks)
+                audio.append(out.audio)
+            torch.cuda.synchronize()
+            counts = {w.__name__: w.launches for w in wrappers}
+
+            audio = torch.stack(audio).float()  # (frames, B, hop, 1)
+            if not torch.isfinite(audio).all():
+                fail(f"sp prefill {label}: non-finite audio")
+            peaks = audio.abs().amax(dim=(0, 2, 3)).tolist()
+            if not min(peaks) > 0:
+                fail(f"sp prefill {label}: a silent sample, peaks {peaks}")
+            missing = [k for k, v in counts.items() if v == 0]
+            if missing:
+                fail(f"sp prefill {label}: kernels never launched on the main path: {missing}")
+            if not torch.equal(sp.cache.length, ref.cache.length):
+                fail(f"sp prefill {label}: cache lengths {sp.cache.length.tolist()} against "
+                     f"{ref.cache.length.tolist()}")
+            errs = {"h_pos": rel_err(sp.h_pos, ref.h_pos)[1]}
+            for li in (0, nl - 1):
+                errs[f"cache layer {li}"] = rel_err(cache_prefix(sp, li, kv_int8),
+                                                    cache_prefix(ref, li, kv_int8))[1]
+            print(f"  ring prefill {label}: wall {wall:.2f} s (chunked_prefill {ref_wall:.2f} s); "
+                  f"against chunked_prefill, max |diff| over the peak: "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                  + f" (tol {tol:g}); {frames} frames, "
+                  f"audio peaks {[f'{p:.3e}' for p in peaks]}; launches {counts}", flush=True)
+            bad = {k: v for k, v in errs.items() if not v <= tol}
+            if bad:
+                fail(f"sp prefill {label}: disagrees with chunked_prefill: {bad}")
+            for k, v in counts.items():
+                total[k] += v
+            runs[label] = dict(prefill_wall_s=wall, chunked_prefill_wall_s=ref_wall,
+                               prompt_tokens=lengths, rel_err=errs, audio_peaks=peaks,
+                               launches=counts)
+            del ref, sp, carry, out, audio
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    return dict(runs=runs, launches=total)
 
 
 def tiny_qlora_card_vs_cpu(seed: int) -> None:
@@ -688,11 +931,14 @@ def main() -> None:
                                       "vibevoice_tpu/models/qwen2.py:284"),
         "flash_train_attention_bwd": ("vibevoice_tpu_torch/csrc/flash_train.cu",
                                       "vibevoice_tpu/models/qwen2.py:284"),
+        "flash_ring_block": ("vibevoice_tpu_torch/csrc/flash_ring.cu",
+                             "vibevoice_tpu/ops/flash_attention.py:311"),
     }
     for name, (src, rep) in sources.items():
         checks.kernels[name] = dict(name=name, route="cuda", source=src, replaces=rep,
                                     launches=0, max_abs_err=0.0, ms=None, plain_ms=None)
     check_kernels(checks, args.seed)
+    check_ring_kernel(checks, args.seed)
     check_training_kernels(checks, args.seed)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -700,13 +946,23 @@ def main() -> None:
     # phase 4: end to end, serving
     print("end to end: serving", flush=True)
     tiny_card_vs_cpu(args.seed)
-    e2e = end_to_end(args.seed, args.frames)
+    model = serving_model(args.seed)
+    e2e = end_to_end(model, args.seed, args.frames)
     for name, n in e2e["launches"].items():
         checks.kernels[name]["launches"] += n
     runs = {"serving": e2e["runs"]}
     torch.cuda.empty_cache()
 
-    # phase 5: end to end, fine-tuning
+    # phase 5: end to end, sequence-parallel prefill
+    print("end to end: sequence-parallel (ring-attention) prefill", flush=True)
+    sp = sp_prefill_end_to_end(model, args.seed)
+    for name, n in sp["launches"].items():
+        checks.kernels[name]["launches"] += n
+    runs["sp_prefill"] = sp["runs"]
+    del model
+    torch.cuda.empty_cache()
+
+    # phase 6: end to end, fine-tuning
     print("end to end: fine-tuning", flush=True)
     tiny_qlora_card_vs_cpu(args.seed)
     runs["finetune"] = finetune_end_to_end(args.seed)

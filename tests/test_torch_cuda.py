@@ -162,6 +162,48 @@ def test_flash_train_attention(dev, t, d, dtype):
         assert got.dtype == dtype and _rel(got, want) < tol
 
 
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128), (torch.float32, 64),
+                                     (torch.bfloat16, 16)])
+def test_flash_ring_block(dev, dtype, d):
+    """Kernel F over the three hops of rank 1 of a 3-ring (its own block,
+    rank 0's, then rank 2's, wholly in the future) against the plain fold,
+    state after every hop: GQA G 3, ragged query and key tiles, one sample
+    ending inside rank 1's block and one inside rank 0's (no live key on the
+    first hop). The future hop leaves the kernel's state bit-identical."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    b, tl, nh, kh, n, rank = 3, 100, 6, 2, 3, 1
+    rn = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)
+    q = rn(b, tl, nh, d)
+    blocks = [(rn(b, kh, tl, d), rn(b, kh, tl, d)) for _ in range(n)]
+    k_len = torch.tensor([n * tl, 150, 60], dtype=torch.int32, device=dev)
+    kern = fa.ring_state_init(b, kh, tl * nh // kh, d, device=dev)
+    plain = fa.ring_state_init(b, kh, tl * nh // kh, d, device=dev)
+    for hop in range(n):
+        src = (rank - hop) % n
+        kw = dict(q_start=rank * tl, k_start=src * tl, k_len=k_len)
+        before = [x.clone() for x in kern]
+        fa.flash_ring_block(kern, q, *blocks[src], **kw)
+        fa.flash_ring_block_plain(plain, q, *blocks[src], q_chunk=7, **kw)
+        for got, want in zip(kern, plain):
+            assert _rel(got, want) < 1e-5
+        if src == 2:
+            assert all(torch.equal(x, y) for x, y in zip(kern, before))
+    assert _rel(fa.ring_state_out(kern, tl, torch.float32),
+                fa.ring_state_out(plain, tl, torch.float32)) < 1e-5
+
+
+def test_flash_ring_block_raises_on_unsupported_input(dev):
+    k_len = torch.full((1,), 8, dtype=torch.int32, device=dev)
+    q, kv = torch.randn(1, 8, 2, 96, device=dev), torch.randn(1, 1, 8, 96, device=dev)
+    with pytest.raises(ValueError):  # D 96: the kernel takes 16, 32, 64 or 128
+        fa.flash_ring_block(fa.ring_state_init(1, 1, 16, 96, device=dev), q, kv, kv, q_start=0,
+                            k_start=0, k_len=k_len)
+    q, kv = torch.randn(1, 8, 2, 64, device=dev), torch.randn(1, 1, 8, 64, device=dev)
+    m, l, acc = fa.ring_state_init(1, 1, 16, 64, device=dev)
+    with pytest.raises(ValueError):  # the state must be f32
+        fa.flash_ring_block((m, l, acc.double()), q, kv, kv, q_start=0, k_start=0, k_len=k_len)
+
+
 def test_training_wrappers_raise_on_unsupported_input(dev):
     q = torch.randn(1, 8, 2, 96, device=dev)  # D 96: the kernels take 64 or 128
     seg = torch.ones(1, 8, dtype=torch.int32, device=dev)
@@ -171,3 +213,112 @@ def test_training_wrappers_raise_on_unsupported_input(dev):
         quant.int8_matmul_t(torch.randn(2, 8, device=dev), torch.zeros(4, 8, dtype=torch.int8,
                                                                       device=dev),
                             torch.ones(8, dtype=torch.float64, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# The ring over NCCL, one rank per card (two cards or more)
+# ---------------------------------------------------------------------------
+
+TOK = dict(speech_start=5, speech_end=6, speech_diffusion=7, eos=2)
+
+
+def _ring_attention_inputs():
+    """1.5B attention widths (12 query heads over 2 KV heads, D 128), bf16,
+    T 2048 right-padded: sample 1 holds 1500 tokens."""
+    rng = np.random.RandomState(8)
+    b, t, nh, kh, d = 2, 2048, 12, 2, 128
+    q, k, v = (torch.from_numpy(rng.randn(b, t, h, d).astype(np.float32)).to(torch.bfloat16)
+               for h in (nh, kh, kh))
+    valid = torch.ones(b, t, dtype=torch.bool)
+    valid[1, 1500:] = False
+    return q, k, v, valid
+
+
+def _tiny_prefill_inputs():
+    """Tiny config, f32 weights with the int8 LM (kernel A), and two
+    right-padded prompts of 50 and 37 tokens (50 is not a multiple of 4)."""
+    from vibevoice_tpu.configs import tiny_config
+    from vibevoice_tpu_torch.models import vibevoice as vv
+    from vibevoice_tpu_torch.utils.params import init
+
+    cfg = tiny_config()
+    params = vv.quantize_for_inference(init(cfg, seed=0, device="cpu"), ("lm", "lm_head"))
+    rng = np.random.RandomState(9)
+    ids = torch.from_numpy(rng.randint(10, 100, (2, 50)).astype(np.int64))
+    valid = torch.ones(2, 50, dtype=torch.bool)
+    valid[1, 37:] = False
+    ids[0, -1] = ids[1, 36] = TOK["speech_start"]
+    return cfg, params, ids, valid, 64
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):  # a NamedTuple
+        return type(tree)(*(_to(v, dev) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, dev) for v in tree)
+    return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
+
+
+def _nccl_rank(rank, world, store, out):
+    import torch.distributed as dist
+
+    from vibevoice_tpu_torch.models import inference as inf
+    from vibevoice_tpu_torch.parallel import make_mesh, ring_attention, ring_prefill_carry
+
+    torch.cuda.set_device(rank)
+    dev = torch.device("cuda", rank)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=rank, world_size=world)
+    try:
+        mesh = make_mesh(dp=1, tp=world)
+        attn = ring_attention(*(x.to(dev) for x in _ring_attention_inputs()), mesh)
+        cfg, params, ids, valid, max_len = _tiny_prefill_inputs()
+        carry = ring_prefill_carry(cfg, _to(params, dev), ids.to(dev), valid.to(dev), max_len,
+                                   inf.SpecialTokens(**TOK), mesh)
+        torch.cuda.synchronize()
+        if rank == 0:
+            torch.save({"attn": attn.cpu(), "carry": _to(carry, "cpu")}, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_ring_over_nccl(dev, tmp_path):
+    """Ring attention (kernel F on every hop, K/V passed between cards) and
+    the sequence-parallel prefill in an NCCL world of one rank per card (up
+    to 4): the gathered attention against dense attention of the same bf16
+    inputs in f32 (one bf16 rounding of the output, 1e-2 of the peak); the
+    tiny-config ring carry against inference.prefill_fn on one card through
+    kernel B (f32, summation order only: 1e-4 of the peak)."""
+    import torch.multiprocessing as mp
+
+    from vibevoice_tpu_torch.models import inference as inf
+    from vibevoice_tpu_torch.ops import _cuda
+
+    world = min(4, torch.cuda.device_count())
+    if world < 2:
+        pytest.skip("needs two or more CUDA devices")
+    _cuda.library()  # built once here, not by every rank
+    out = tmp_path / "rank0.pt"
+    mp.spawn(_nccl_rank, args=(world, str(tmp_path / "pg"), str(out)), nprocs=world)
+    got = torch.load(out, weights_only=False)
+
+    q, k, v, valid = (x.to(dev) for x in _ring_attention_inputs())
+    g = q.shape[2] // k.shape[2]
+    kr, vr = (x.float().repeat_interleave(g, dim=2) for x in (k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr) * q.shape[-1] ** -0.5
+    t = q.shape[1]
+    ok = torch.ones(t, t, dtype=torch.bool, device=dev).tril()[None] & valid[:, None, :]
+    want = torch.einsum("bhqk,bkhd->bqhd", s.masked_fill(~ok[:, None], float("-inf")).softmax(-1), vr)
+    assert _rel(got["attn"].to(dev)[valid], want[valid]) < 1e-2
+
+    cfg, params, ids, valid, max_len = _tiny_prefill_inputs()
+    ref = inf.prefill_fn(cfg, _to(params, dev), ids.to(dev), max_len, valid.to(dev), None,
+                         inf.SpecialTokens(**TOK))
+    ring = _to(got["carry"], dev)
+    assert torch.equal(ring.cache.length, ref.cache.length)
+    assert _rel(ring.h_pos, ref.h_pos) < 1e-4 and _rel(ring.h_neg, ref.h_neg) < 1e-4
+    for li in range(cfg.decoder_config.num_hidden_layers):
+        for bi, n in enumerate(valid.sum(1).tolist()):
+            for gc, wc in ((ring.cache.k[li], ref.cache.k[li]), (ring.cache.v[li], ref.cache.v[li])):
+                assert _rel(gc[bi, :, :n], wc[bi, :, :n]) < 1e-4

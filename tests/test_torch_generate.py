@@ -160,6 +160,7 @@ def test_port_never_imports_jax():
             "import vibevoice_tpu_torch.finetune.train, vibevoice_tpu_torch.finetune.train_step; "
             "import vibevoice_tpu_torch.finetune.loss, vibevoice_tpu_torch.finetune.data; "
             "import vibevoice_tpu_torch.finetune.lora, vibevoice_tpu_torch.finetune.ema; "
+            "import vibevoice_tpu_torch.parallel; "
             "vibevoice_tpu_torch.finetune.train.parse_args(['--synthetic_data']); "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -18,7 +18,8 @@
 // (B, T, H, D), so no transposes surround the call. GQA is handled by the
 // caller (K/V repeated to the query heads).
 //
-// Kernels, each with 256 threads as a 16 x 16 grid, tiles of 64 rows:
+// Kernels, each with 256 threads as a 16 x 16 grid, tiles of 64 rows
+// (attn_tile.cuh):
 //   flash_train_fwd   one block per (64-query tile, head, batch), loops over
 //                     the key tiles up to the diagonal;
 //   flash_train_delta one warp per row: delta = rowsum(dO * O);
@@ -33,35 +34,13 @@
 #include <climits>
 #include <math.h>
 
+#include "attn_tile.cuh"
 #include "common.cuh"
 
 namespace vv {
 namespace {
 
-constexpr int FT_TILE = 64, FT_THREADS = 256;
-
-// dst[r * (D + 1) + d] = src[(t0 + r) * rs + d] for the 64 rows of a tile;
-// rows at or past T are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int t0, int n_t,
-                                          int rs) {
-  for (int idx = threadIdx.x; idx < FT_TILE * D; idx += FT_THREADS) {
-    const int r = idx / D, d = idx % D, t = t0 + r;
-    dst[r * (D + 1) + d] = t < n_t ? to_f(src[(size_t)t * rs + d]) : 0.f;
-  }
-}
-
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+constexpr int FT_TILE = ATT_TILE, FT_THREADS = ATT_THREADS;
 
 template <int D>
 constexpr int fwd_smem() {
@@ -75,10 +54,6 @@ template <int D>
 constexpr int dq_smem() {
   return (4 * FT_TILE * (D + 1) + FT_TILE * (FT_TILE + 1) + FT_TILE) * 4;
 }
-
-// Thread (ty, tx) = (tid / 16, tid % 16) owns rows ty*4 + i (i < 4) of a
-// 64 x 64 score tile and columns tx + 16*j (j < 4); of a 64 x D output tile
-// it owns the same rows and columns tx + 16*c (c < D / 16).
 
 template <typename T, int D>
 __global__ void __launch_bounds__(FT_THREADS)

@@ -10,8 +10,14 @@ scores and the V scale the probabilities.
 
 On a CUDA tensor ``flash_cached_attention`` launches the hand-written
 flash-decoding kernel (csrc/flash_attention.cu); on a CPU tensor it runs
-``flash_cached_attention_plain``. The ring-attention hop kernel of the JAX
-file is not ported yet.
+``flash_cached_attention_plain``.
+
+Kernel F, ``flash_ring_block``, is one hop of ring attention (the JAX
+file's ``flash_ring_block``, with ``ring_state_init`` and
+``ring_state_out``): it folds a visiting K/V block into an online-softmax
+state ``(m, l, acc)`` in f32 that the caller carries across hops, updated in
+place. On a CUDA tensor it launches csrc/flash_ring.cu; on a CPU tensor it
+runs ``flash_ring_block_plain``.
 
 ``flash_train_attention`` is the no-cache causal attention of fine-tuning
 (vibevoice_tpu/models/qwen2.py:284 ``_attention_train_flash``, which calls
@@ -116,6 +122,120 @@ def flash_cached_attention(
 
 
 flash_cached_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Ring-attention hop (kernel F)
+# ---------------------------------------------------------------------------
+
+RING_M_INIT = -1e30  # m of a row that has seen no live key (the JAX kernel's NEG_INF)
+
+
+def ring_state_init(b: int, kh: int, r: int, d: int, device=None):
+    """Fresh (m, l, acc) for ``flash_ring_block``: m and l (B, KH, R), acc
+    (B, KH, R, D), all f32. R = W * G folded query rows, row w * G + g being
+    query head kh * G + g of position w."""
+    return (torch.full((b, kh, r), RING_M_INIT, dtype=torch.float32, device=device),
+            torch.zeros((b, kh, r), dtype=torch.float32, device=device),
+            torch.zeros((b, kh, r, d), dtype=torch.float32, device=device))
+
+
+def _fold_heads(x: torch.Tensor, kh: int) -> torch.Tensor:
+    """(B, W, NH, D) -> (B, KH, W * G, D) with row w * G + g."""
+    b, w, nh, d = x.shape
+    return x.reshape(b, w, kh, nh // kh, d).transpose(1, 2).reshape(b, kh, -1, d)
+
+
+def flash_ring_block_plain(state, q: torch.Tensor, k_blk: torch.Tensor, v_blk: torch.Tensor, *,
+                           q_start: int, k_start: int, k_len: torch.Tensor,
+                           scale: Optional[float] = None, q_chunk: int = 512):
+    """Plain PyTorch version of kernel F, in f32, over ``q_chunk`` query
+    positions at a time (the score tile is (B, KH, q_chunk * G, S)).
+
+    A row with no live key in the block keeps its state exactly. So does a
+    row that has seen no live key yet, whose l and acc stay 0 where the TPU
+    kernel accumulates a placeholder that its first live key wipes (the
+    outputs agree on every row that sees a key)."""
+    m, l, acc = state
+    b, w, nh, d = q.shape
+    kh, s = k_blk.shape[1], k_blk.shape[2]
+    g = nh // kh
+    scale = d ** -0.5 if scale is None else scale
+    qg = _fold_heads(q.float(), kh) * scale
+    kf, vf = k_blk.float(), v_blk.float()
+    k_pos = k_start + torch.arange(s, device=q.device)
+    k_lim = int(k_len.max()) - k_start
+    for w0 in range(0, w, q_chunk):
+        w1 = min(w, w0 + q_chunk)
+        kend = min(s, q_start + w1 - k_start, k_lim)  # keys past the chunk's horizon are dead
+        if kend <= 0:
+            continue
+        rows = slice(w0 * g, w1 * g)
+        sc = torch.einsum("bkrd,bksd->bkrs", qg[:, :, rows], kf[:, :, :kend])
+        row_pos = q_start + torch.arange(w0 * g, w1 * g, device=q.device) // g
+        live = ((k_pos[None, None, :kend] <= row_pos[None, :, None])
+                & (k_pos[None, None, :kend] < k_len.to(torch.int64)[:, None, None]))
+        sc = sc.masked_fill(~live[:, None], float("-inf"))
+        m_prev = m[:, :, rows]
+        m_new = torch.maximum(m_prev, sc.amax(dim=-1))  # finite: m starts at RING_M_INIT
+        p = torch.exp(sc - m_new[..., None])
+        corr = torch.exp(m_prev - m_new)
+        l[:, :, rows] = l[:, :, rows] * corr + p.sum(dim=-1)
+        acc[:, :, rows] = acc[:, :, rows] * corr[..., None] + p @ vf[:, :, :kend]
+        m[:, :, rows] = m_new
+    return state
+
+
+def flash_ring_block(state, q: torch.Tensor, k_blk: torch.Tensor, v_blk: torch.Tensor, *,
+                     q_start: int, k_start: int, k_len: torch.Tensor,
+                     scale: Optional[float] = None):
+    """One ring hop, updating ``state`` = (m, l, acc) in place and returning it.
+
+    q (B, W, NH, D) is the local query shard, its row w at absolute slot
+    ``q_start + w``; k_blk/v_blk (B, KH, S, D) the visiting block, its key j
+    at slot ``k_start + j``; k_len (B,) int32. Query row i attends key j iff
+    ``k_start + j <= q_start + i`` and ``k_start + j < k_len[b]``. q, K and V
+    are f32 or bf16 (one dtype); the state is f32 (``ring_state_init``)."""
+    if q.device.type == "cpu":
+        return flash_ring_block_plain(state, q, k_blk, v_blk, q_start=q_start, k_start=k_start,
+                                      k_len=k_len, scale=scale)
+    m, l, acc = state
+    _cuda.require_cuda(q, k_blk, v_blk, k_len, m, l, acc)
+    b, w, nh, d = q.shape
+    kh, s = k_blk.shape[1], k_blk.shape[2]
+    if d not in (16, 32, 64, 128) or nh % kh or k_blk.shape != (b, kh, s, d) \
+            or v_blk.shape != k_blk.shape:
+        raise ValueError(f"unsupported shapes q {tuple(q.shape)}, K/V block {tuple(k_blk.shape)}, "
+                         f"{tuple(v_blk.shape)} (D 16, 32, 64 or 128)")
+    if q.dtype not in (torch.float32, torch.bfloat16) or k_blk.dtype != q.dtype \
+            or v_blk.dtype != q.dtype:
+        raise ValueError(f"q, K, V must share a dtype, f32 or bf16; got {q.dtype}, {k_blk.dtype}, "
+                         f"{v_blk.dtype}")
+    r = w * (nh // kh)
+    for t, shape in ((m, (b, kh, r)), (l, (b, kh, r)), (acc, (b, kh, r, d))):
+        if t.dtype != torch.float32 or t.shape != shape:
+            raise ValueError(f"state tensor must be {shape} f32, got {t.dtype} {tuple(t.shape)}")
+    if k_len.dtype != torch.int32 or k_len.shape != (b,):
+        raise ValueError("k_len must be (B,) int32")
+    _cuda.library().call(
+        "vv_flash_ring_block", q.data_ptr(), k_blk.data_ptr(), v_blk.data_ptr(), k_len.data_ptr(),
+        m.data_ptr(), l.data_ptr(), acc.data_ptr(), _cuda.dtype_code(q), b, w, nh, kh, s, d,
+        int(q_start), int(k_start), float(d ** -0.5 if scale is None else scale),
+        _cuda.stream_ptr(q.device),
+    )
+    flash_ring_block.launches += 1
+    return state
+
+
+flash_ring_block.launches = 0
+
+
+def ring_state_out(state, w: int, dtype) -> torch.Tensor:
+    """Normalise the carried state into the (B, W, NH, D) attention output."""
+    _, l, acc = state
+    b, kh, r, d = acc.shape
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.reshape(b, kh, w, r // w, d).transpose(1, 2).reshape(b, w, -1, d).to(dtype)
 
 
 # ---------------------------------------------------------------------------
