@@ -19,6 +19,8 @@ Phases, each of which fails the run:
      of both. Kernel F runs the four hops of rank 2 of a 4-way ring over a
      16,384-token prompt (the last block wholly in the future, which must
      leave the state bit-identical) and the one hop of a world of one;
+     kernel A runs at the ring prefill's 32,768 rows and kernel B at the
+     decode over its 32,768-slot bf16 cache;
   4. end to end, serving: the full-width 1.5B model (random weights from
      --seed, bf16, int8 LM + lm_head, fuse_for_serving) runs generate() on a
      two-speaker script with two 3 s voice prompts and a forced script of
@@ -46,7 +48,9 @@ Phases, each of which fails the run:
      T 8192 with remat and CE chunks of 1024. Losses finite, adapters moved
      after step 2, kernels A, E and the training attention launched.
 The next-to-last line is a JSON object of the kernels' results; the last
-line is the JSON device record.
+line is the JSON device record. The script runs itself again with
+PYTHONHASHSEED=0: the prompts go through the hash-bucket fallback
+tokenizer, so every run of one --seed then feeds the model the same ids.
 """
 
 from __future__ import annotations
@@ -54,6 +58,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -64,11 +69,16 @@ ROOT = Path(__file__).resolve().parent
 VOICE_SECONDS = 3.0  # length of each synthetic voice prompt
 # Limits of the ring prefill against chunked_prefill (h_pos and the cache of
 # layers 0 and 27, as max |diff| over the peak), by KV type. The two paths
-# round bf16 at other places, so 28 layers drift apart: sound readings of
-# 1.9e-2 to 3.0e-2 (bf16 KV) and 3.6e-2 to 5.7e-2 (int8 KV, where
-# chunked_prefill attends through the quantized cache) across four
-# processes on an H100. Planted faults read 0.67 and above: RoPE one slot
-# late (cache), h_pos one slot early, scores not scaled by head_dim ** -0.5.
+# round bf16 at other places, so 28 layers drift apart. On an H100 with
+# --seed 0 (the same reading in every process): h_pos 2.59e-2, layer 27
+# 2.98e-2 (bf16 KV); h_pos 4.12e-2, layer 27 6.10e-2 (int8 KV, where
+# chunked_prefill attends through the quantized cache). Planted faults read
+# 0.67 and above: RoPE one slot late (caches), h_pos one slot early, scores
+# not scaled by head_dim ** -0.5. One does not show here: the last valid
+# key dropped (k_len - 1) reads 3.1e-2 / 3.6e-2, inside the sound spread,
+# since random-weight attention over 16K keys is nearly uniform. The length
+# and causal masks are held by the kernel phase (kernel F against its plain
+# version at 1e-4) and by the CPU tests against JAX, not by this limit.
 SP_TOL = {"bf16": 1e-1, "int8": 1.5e-1}
 
 
@@ -168,21 +178,26 @@ def check_kernels(checks: Checks, seed: int) -> None:
             checks.case("int8_matmul", f"{name} {k}x{n} rows={rows}", out, ref, 1e-2, ms, pms,
                         main=(name == "gate/up" and rows == 2))
 
-    # B: the decoder's GQA layout (12 q heads, 2 KV heads, D=128), 2B=2 rows
+    # B: the decoder's GQA layout (12 q heads, 2 KV heads, D=128), one row
+    # per sample and CFG stream (2B); the S=32768 case is the decode after the
+    # ring prefill of a 16,384- and a 12,000-token prompt (positive streams,
+    # then the negative ones)
     print("kernel B flash_cached_attention (bf16 q; bf16 or int8 KV; bf16 out: tol 1e-2)")
     nh, kh, d = 12, 2, 128
     for w, s, int8, base in ((1, 4096, False, (4095, 1234)), (1, 65536, True, (65535, 300)),
+                             (1, 32768, False, (16384, 12000, 1, 1)),
                              (512, 4096, False, (4095, 1000)), (512, 65536, True, (65535, 20000))):
-        q = randn(2, w, nh, d)
+        nb = len(base)
+        q = randn(nb, w, nh, d)
         base_t = torch.tensor(base, dtype=torch.int32, device=dev)
         if int8:
-            kc = torch.randint(-127, 128, (2, kh, s, d), generator=g, device=dev).to(torch.int8)
-            vc = torch.randint(-127, 128, (2, kh, s, d), generator=g, device=dev).to(torch.int8)
-            ks = torch.rand((2, kh, 1, s), generator=g, device=dev) / 127
-            vs = torch.rand((2, kh, 1, s), generator=g, device=dev) / 127
+            kc = torch.randint(-127, 128, (nb, kh, s, d), generator=g, device=dev).to(torch.int8)
+            vc = torch.randint(-127, 128, (nb, kh, s, d), generator=g, device=dev).to(torch.int8)
+            ks = torch.rand((nb, kh, 1, s), generator=g, device=dev) / 127
+            vs = torch.rand((nb, kh, 1, s), generator=g, device=dev) / 127
             kw = dict(k_scale=ks, v_scale=vs)
         else:
-            kc, vc, kw = randn(2, kh, s, d), randn(2, kh, s, d), {}
+            kc, vc, kw = randn(nb, kh, s, d), randn(nb, kh, s, d), {}
         out = fa.flash_cached_attention(q, kc, vc, base_t, **kw)
         ref = fa.flash_cached_attention_plain(q, kc, vc, base_t, **kw)
         big = w == 512 and s == 65536  # the plain version's scores are 3 GB here
@@ -334,10 +349,12 @@ def check_training_kernels(checks: Checks, seed: int) -> None:
 
 def check_ring_kernel(checks: Checks, seed: int) -> None:
     """Kernel F at the 1.5B widths (12 query heads over 2 KV heads, D 128,
-    bf16 q/K/V, f32 state), two samples, the second ending mid-shard."""
+    bf16 q/K/V, f32 state), two samples, the second ending mid-shard; then
+    kernel A at the rows the world-of-one ring prefill gives it."""
     import torch
 
     from vibevoice_tpu_torch.ops import flash_attention as fa
+    from vibevoice_tpu_torch.ops import quant
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
@@ -393,6 +410,22 @@ def check_ring_kernel(checks: Checks, seed: int) -> None:
     checks.case("flash_ring_block", f"world of one Tl={tl}: output",
                 fa.ring_state_out(state_k, tl, torch.float32),
                 fa.ring_state_out(state_p, tl, torch.float32), tol)
+    del q, kb, vb, state_k, state_p
+
+    # A on every LM linear of the world-of-one ring prefill: B * Tl rows
+    rows = b * tl
+    print(f"kernel A int8_matmul at the ring prefill's {rows} rows (bf16 x, int8 w, f32 scale; "
+          f"bf16 out: tol 1e-2 of the peak)")
+    for name, k, n in (("q/o", 1536, 1536), ("k/v", 1536, 256), ("gate/up", 1536, 8960),
+                       ("down", 8960, 1536)):
+        w = quant.quantize_weight(torch.randn((k, n), generator=g, device=dev) * 0.02)
+        x = randn(rows, k)
+        ms = event_ms(lambda: quant.int8_matmul(x, w["w8"], w["scale"]))
+        pms = event_ms(lambda: quant.int8_matmul_plain(x, w["w8"], w["scale"]))
+        checks.case("int8_matmul", f"{name} {k}x{n} rows={rows} (ring prefill)",
+                    quant.int8_matmul(x, w["w8"], w["scale"]),
+                    quant.int8_matmul_plain(x, w["w8"], w["scale"]), 1e-2, ms, pms)
+        del w, x
 
 
 def tiny_card_vs_cpu(seed: int) -> None:
@@ -886,6 +919,9 @@ def main() -> None:
 
     if not (ROOT / "vibevoice_tpu_torch" / "csrc").is_dir():
         fail(f"no vibevoice_tpu_torch/csrc beside {Path(__file__).name}: run from a checkout")
+    if os.environ.get("PYTHONHASHSEED") != "0":  # Python salts str hashes per process
+        os.environ["PYTHONHASHSEED"] = "0"
+        os.execv(sys.executable, [sys.executable, *sys.orig_argv[1:]])
     sys.path.insert(0, str(ROOT))
     import torch
 

@@ -40,35 +40,33 @@
 namespace vv {
 namespace {
 
-constexpr int FT_TILE = ATT_TILE, FT_THREADS = ATT_THREADS;
-
 template <int D>
 constexpr int fwd_smem() {
-  return (3 * FT_TILE * (D + 1) + FT_TILE * (FT_TILE + 1) + FT_TILE) * 4;
+  return (3 * ATT_TILE * (D + 1) + ATT_TILE * (ATT_TILE + 1) + ATT_TILE) * 4;
 }
 template <int D>
 constexpr int dkdv_smem() {
-  return (4 * FT_TILE * (D + 1) + 2 * FT_TILE * (FT_TILE + 1) + 3 * FT_TILE) * 4;
+  return (4 * ATT_TILE * (D + 1) + 2 * ATT_TILE * (ATT_TILE + 1) + 3 * ATT_TILE) * 4;
 }
 template <int D>
 constexpr int dq_smem() {
-  return (4 * FT_TILE * (D + 1) + FT_TILE * (FT_TILE + 1) + FT_TILE) * 4;
+  return (4 * ATT_TILE * (D + 1) + ATT_TILE * (ATT_TILE + 1) + ATT_TILE) * 4;
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(FT_THREADS)
+__global__ void __launch_bounds__(ATT_THREADS)
     flash_train_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const int* __restrict__ seg, T* __restrict__ o, float* __restrict__ lse,
                     int n_t, int n_h, float scale) {
-  constexpr int LD = D + 1, LP = FT_TILE + 1, DC = D / 16;
+  constexpr int LD = D + 1, LP = ATT_TILE + 1, DC = D / 16;
   extern __shared__ float sm[];
   float* Qs = sm;
-  float* Ks = Qs + FT_TILE * LD;
-  float* Vs = Ks + FT_TILE * LD;
-  float* Ps = Vs + FT_TILE * LD;
-  int* segk = reinterpret_cast<int*>(Ps + FT_TILE * LP);
+  float* Ks = Qs + ATT_TILE * LD;
+  float* Vs = Ks + ATT_TILE * LD;
+  float* Ps = Vs + ATT_TILE * LD;
+  int* segk = reinterpret_cast<int*>(Ps + ATT_TILE * LP);
 
-  const int q0 = blockIdx.x * FT_TILE, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * ATT_TILE, h = blockIdx.y, b = blockIdx.z;
   const int rs = n_h * D;
   const size_t base = (size_t)b * n_t * rs + (size_t)h * D;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
@@ -86,12 +84,12 @@ __global__ void __launch_bounds__(FT_THREADS)
     for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
   }
 
-  const int kend = min(n_t, q0 + FT_TILE);
-  for (int k0 = 0; k0 < kend; k0 += FT_TILE) {
+  const int kend = min(n_t, q0 + ATT_TILE);
+  for (int k0 = 0; k0 < kend; k0 += ATT_TILE) {
     __syncthreads();  // the previous tile's readers are done
     load_tile<T, D>(Ks, k + base, k0, n_t, rs);
     load_tile<T, D>(Vs, v + base, k0, n_t, rs);
-    if (tid < FT_TILE) segk[tid] = k0 + tid < n_t ? seg[(size_t)b * n_t + k0 + tid] : INT_MIN;
+    if (tid < ATT_TILE) segk[tid] = k0 + tid < n_t ? seg[(size_t)b * n_t + k0 + tid] : INT_MIN;
     __syncthreads();
 
     float s[4][4];
@@ -142,7 +140,7 @@ __global__ void __launch_bounds__(FT_THREADS)
     __syncthreads();
 
 #pragma unroll 4
-    for (int c = 0; c < FT_TILE; ++c) {
+    for (int c = 0; c < ATT_TILE; ++c) {
       float pv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty * 4 + i) * LP + c];
@@ -168,10 +166,10 @@ __global__ void __launch_bounds__(FT_THREADS)
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(FT_THREADS)
+__global__ void __launch_bounds__(ATT_THREADS)
     flash_train_delta(const T* __restrict__ o, const T* __restrict__ dout,
                       float* __restrict__ delta, int n_b, int n_t, int n_h) {
-  const long row = (long)blockIdx.x * (FT_THREADS / 32) + (threadIdx.x >> 5);
+  const long row = (long)blockIdx.x * (ATT_THREADS / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= (long)n_b * n_t * n_h) return;
   const int h = row % n_h;
@@ -186,24 +184,24 @@ __global__ void __launch_bounds__(FT_THREADS)
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(FT_THREADS)
+__global__ void __launch_bounds__(ATT_THREADS)
     flash_train_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const int* __restrict__ seg, const T* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      T* __restrict__ dk, T* __restrict__ dv, int n_t, int n_h, float scale) {
-  constexpr int LD = D + 1, LP = FT_TILE + 1, DC = D / 16;
+  constexpr int LD = D + 1, LP = ATT_TILE + 1, DC = D / 16;
   extern __shared__ float sm[];
   float* Ks = sm;
-  float* Vs = Ks + FT_TILE * LD;
-  float* Qs = Vs + FT_TILE * LD;
-  float* dOs = Qs + FT_TILE * LD;
-  float* Ps = dOs + FT_TILE * LD;
-  float* dSs = Ps + FT_TILE * LP;
-  float* lse_s = dSs + FT_TILE * LP;
-  float* del_s = lse_s + FT_TILE;
-  int* segq = reinterpret_cast<int*>(del_s + FT_TILE);
+  float* Vs = Ks + ATT_TILE * LD;
+  float* Qs = Vs + ATT_TILE * LD;
+  float* dOs = Qs + ATT_TILE * LD;
+  float* Ps = dOs + ATT_TILE * LD;
+  float* dSs = Ps + ATT_TILE * LP;
+  float* lse_s = dSs + ATT_TILE * LP;
+  float* del_s = lse_s + ATT_TILE;
+  int* segq = reinterpret_cast<int*>(del_s + ATT_TILE);
 
-  const int k0 = blockIdx.x * FT_TILE, h = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * ATT_TILE, h = blockIdx.y, b = blockIdx.z;
   const int rs = n_h * D;
   const size_t base = (size_t)b * n_t * rs + (size_t)h * D;
   const size_t row_base = ((size_t)b * n_h + h) * n_t;
@@ -221,11 +219,11 @@ __global__ void __launch_bounds__(FT_THREADS)
     for (int c = 0; c < DC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
   }
 
-  for (int q0 = k0; q0 < n_t; q0 += FT_TILE) {  // query tiles from the diagonal on
+  for (int q0 = k0; q0 < n_t; q0 += ATT_TILE) {  // query tiles from the diagonal on
     __syncthreads();
     load_tile<T, D>(Qs, q + base, q0, n_t, rs);
     load_tile<T, D>(dOs, dout + base, q0, n_t, rs);
-    if (tid < FT_TILE) {
+    if (tid < ATT_TILE) {
       const int t = q0 + tid;
       const bool in = t < n_t;
       segq[tid] = in ? seg[(size_t)b * n_t + t] : INT_MIN + 1;
@@ -277,7 +275,7 @@ __global__ void __launch_bounds__(FT_THREADS)
 
     // dV += P^T dO, dK += dS^T Q (scaled at the end)
 #pragma unroll 2
-    for (int c = 0; c < FT_TILE; ++c) {
+    for (int c = 0; c < ATT_TILE; ++c) {
       float pv[4], dsv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -310,21 +308,21 @@ __global__ void __launch_bounds__(FT_THREADS)
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(FT_THREADS)
+__global__ void __launch_bounds__(ATT_THREADS)
     flash_train_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                    const int* __restrict__ seg, const T* __restrict__ dout,
                    const float* __restrict__ lse, const float* __restrict__ delta,
                    T* __restrict__ dq, int n_t, int n_h, float scale) {
-  constexpr int LD = D + 1, LP = FT_TILE + 1, DC = D / 16;
+  constexpr int LD = D + 1, LP = ATT_TILE + 1, DC = D / 16;
   extern __shared__ float sm[];
   float* Qs = sm;
-  float* dOs = Qs + FT_TILE * LD;
-  float* Ks = dOs + FT_TILE * LD;
-  float* Vs = Ks + FT_TILE * LD;
-  float* dSs = Vs + FT_TILE * LD;
-  int* segk = reinterpret_cast<int*>(dSs + FT_TILE * LP);
+  float* dOs = Qs + ATT_TILE * LD;
+  float* Ks = dOs + ATT_TILE * LD;
+  float* Vs = Ks + ATT_TILE * LD;
+  float* dSs = Vs + ATT_TILE * LD;
+  int* segk = reinterpret_cast<int*>(dSs + ATT_TILE * LP);
 
-  const int q0 = blockIdx.x * FT_TILE, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * ATT_TILE, h = blockIdx.y, b = blockIdx.z;
   const int rs = n_h * D;
   const size_t base = (size_t)b * n_t * rs + (size_t)h * D;
   const size_t row_base = ((size_t)b * n_h + h) * n_t;
@@ -345,12 +343,12 @@ __global__ void __launch_bounds__(FT_THREADS)
     for (int c = 0; c < DC; ++c) dq_acc[i][c] = 0.f;
   }
 
-  const int kend = min(n_t, q0 + FT_TILE);
-  for (int k0 = 0; k0 < kend; k0 += FT_TILE) {
+  const int kend = min(n_t, q0 + ATT_TILE);
+  for (int k0 = 0; k0 < kend; k0 += ATT_TILE) {
     __syncthreads();
     load_tile<T, D>(Ks, k + base, k0, n_t, rs);
     load_tile<T, D>(Vs, v + base, k0, n_t, rs);
-    if (tid < FT_TILE) segk[tid] = k0 + tid < n_t ? seg[(size_t)b * n_t + k0 + tid] : INT_MIN + 1;
+    if (tid < ATT_TILE) segk[tid] = k0 + tid < n_t ? seg[(size_t)b * n_t + k0 + tid] : INT_MIN + 1;
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -393,7 +391,7 @@ __global__ void __launch_bounds__(FT_THREADS)
     __syncthreads();
 
 #pragma unroll 2
-    for (int c = 0; c < FT_TILE; ++c) {
+    for (int c = 0; c < ATT_TILE; ++c) {
       float dsv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) dsv[i] = dSs[(ty * 4 + i) * LP + c];
@@ -423,8 +421,8 @@ int run_fwd(const void* q, const void* k, const void* v, const void* seg, void* 
   cudaError_t err = cudaFuncSetAttribute(flash_train_fwd<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n_t + FT_TILE - 1) / FT_TILE, n_h, n_b);
-  flash_train_fwd<T, D><<<grid, FT_THREADS, smem, stream>>>(
+  const dim3 grid((n_t + ATT_TILE - 1) / ATT_TILE, n_h, n_b);
+  flash_train_fwd<T, D><<<grid, ATT_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int*>(seg), static_cast<T*>(o), static_cast<float*>(lse), n_t, n_h, scale);
   return (int)cudaGetLastError();
@@ -441,18 +439,18 @@ int run_bwd(const void* q, const void* k, const void* v, const void* seg, const 
   float* dp = static_cast<float*>(delta);
 
   const long rows = (long)n_b * n_t * n_h;
-  const int rows_per_block = FT_THREADS / 32;
-  flash_train_delta<T, D><<<(unsigned)((rows + rows_per_block - 1) / rows_per_block), FT_THREADS,
+  const int rows_per_block = ATT_THREADS / 32;
+  flash_train_delta<T, D><<<(unsigned)((rows + rows_per_block - 1) / rows_per_block), ATT_THREADS,
                             0, stream>>>(static_cast<const T*>(o), dop, dp, n_b, n_t, n_h);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const dim3 grid((n_t + FT_TILE - 1) / FT_TILE, n_h, n_b);
+  const dim3 grid((n_t + ATT_TILE - 1) / ATT_TILE, n_h, n_b);
   constexpr int smem_kv = dkdv_smem<D>(), smem_q = dq_smem<D>();
   err = cudaFuncSetAttribute(flash_train_dkdv<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_kv);
   if (err != cudaSuccess) return (int)err;
-  flash_train_dkdv<T, D><<<grid, FT_THREADS, smem_kv, stream>>>(
+  flash_train_dkdv<T, D><<<grid, ATT_THREADS, smem_kv, stream>>>(
       qp, kp, vp, sp, dop, lp, dp, static_cast<T*>(dk), static_cast<T*>(dv), n_t, n_h, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -460,7 +458,7 @@ int run_bwd(const void* q, const void* k, const void* v, const void* seg, const 
   err = cudaFuncSetAttribute(flash_train_dq<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_q);
   if (err != cudaSuccess) return (int)err;
-  flash_train_dq<T, D><<<grid, FT_THREADS, smem_q, stream>>>(qp, kp, vp, sp, dop, lp, dp,
+  flash_train_dq<T, D><<<grid, ATT_THREADS, smem_q, stream>>>(qp, kp, vp, sp, dop, lp, dp,
                                                              static_cast<T*>(dq), n_t, n_h, scale);
   return (int)cudaGetLastError();
 }

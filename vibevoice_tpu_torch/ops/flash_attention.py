@@ -195,7 +195,9 @@ def flash_ring_block(state, q: torch.Tensor, k_blk: torch.Tensor, v_blk: torch.T
     ``q_start + w``; k_blk/v_blk (B, KH, S, D) the visiting block, its key j
     at slot ``k_start + j``; k_len (B,) int32. Query row i attends key j iff
     ``k_start + j <= q_start + i`` and ``k_start + j < k_len[b]``. q, K and V
-    are f32 or bf16 (one dtype); the state is f32 (``ring_state_init``)."""
+    share one dtype; the state is f32 (``ring_state_init``). The kernel is
+    built for bf16 at D 128 (the 1.5B model) and f32 at D 16 (the tiny
+    config)."""
     if q.device.type == "cpu":
         return flash_ring_block_plain(state, q, k_blk, v_blk, q_start=q_start, k_start=k_start,
                                       k_len=k_len, scale=scale)
@@ -203,14 +205,13 @@ def flash_ring_block(state, q: torch.Tensor, k_blk: torch.Tensor, v_blk: torch.T
     _cuda.require_cuda(q, k_blk, v_blk, k_len, m, l, acc)
     b, w, nh, d = q.shape
     kh, s = k_blk.shape[1], k_blk.shape[2]
-    if d not in (16, 32, 64, 128) or nh % kh or k_blk.shape != (b, kh, s, d) \
-            or v_blk.shape != k_blk.shape:
+    if nh % kh or k_blk.shape != (b, kh, s, d) or v_blk.shape != k_blk.shape:
         raise ValueError(f"unsupported shapes q {tuple(q.shape)}, K/V block {tuple(k_blk.shape)}, "
-                         f"{tuple(v_blk.shape)} (D 16, 32, 64 or 128)")
-    if q.dtype not in (torch.float32, torch.bfloat16) or k_blk.dtype != q.dtype \
-            or v_blk.dtype != q.dtype:
-        raise ValueError(f"q, K, V must share a dtype, f32 or bf16; got {q.dtype}, {k_blk.dtype}, "
-                         f"{v_blk.dtype}")
+                         f"{tuple(v_blk.shape)}")
+    if (q.dtype, d) not in ((torch.bfloat16, 128), (torch.float32, 16)) \
+            or k_blk.dtype != q.dtype or v_blk.dtype != q.dtype:
+        raise ValueError(f"q, K, V must share one dtype, bf16 at D 128 or f32 at D 16; got "
+                         f"{q.dtype}, {k_blk.dtype}, {v_blk.dtype} at D {d}")
     r = w * (nh // kh)
     for t, shape in ((m, (b, kh, r)), (l, (b, kh, r)), (acc, (b, kh, r, d))):
         if t.dtype != torch.float32 or t.shape != shape:
