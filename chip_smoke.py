@@ -8,19 +8,29 @@ toolkit (nvcc), and exits non-zero without a result otherwise.
 
 Phases, each of which fails the run:
   1. device: CUDA present; prints the card's name and power limit;
-  2. build: compiles the kernels from the seven sources in
-     vibevoice_tpu_torch/csrc/ (one nvcc per source, all at once): A
-     int8_matmul, B flash_cached_attention, C fused_head_ffn_stack, D
-     fused_stage_step, E int8_matmul_t, F flash_ring_block, and the training
-     attention's forward and backward, eight entries of the kernels line;
+  2. build: compiles the kernels from the nine sources in
+     vibevoice_tpu_torch/csrc/ (one nvcc per source, all at once), ten
+     entries of the kernels line: A int8_matmul by its two routes (the
+     split-K GEMV below 12 rows, the tensor-core GEMM int8_matmul_gemm from
+     12 up), B flash_cached_attention by its two routes (flash-decoding at
+     W = 1 and for f32 q, the tensor-core flash_cached_attention_prefill for
+     bf16 chunks), C fused_head_ffn_stack, D fused_stage_step, E
+     int8_matmul_t, F flash_ring_block, and the training attention's forward
+     and backward;
   3. kernels: each kernel against its plain PyTorch version on the card,
      at the shapes the 1.5B serving, sequence-parallel prefill and
      fine-tuning paths give it, with the stated tolerance, plus CUDA times
-     of both. Kernel F runs the four hops of rank 2 of a 4-way ring over a
+     of both, the bound (the larger of the bytes over 3.35 TB/s and the
+     operations over the peak rate for their type: 989 TFLOP/s bf16 on the
+     tensor cores, 67 TFLOP/s f32) and, where one PyTorch call computes the
+     same function, that call's time (library_ms; the port never calls it).
+     Kernel F runs the four hops of rank 2 of a 4-way ring over a
      16,384-token prompt (the last block wholly in the future, which must
      leave the state bit-identical) and the one hop of a world of one;
-     kernel A runs at the ring prefill's 32,768 rows and kernel B at the
-     decode over its 32,768-slot bf16 cache;
+     kernel A runs at 2, 512, 4,096 (f32) and 32,768 rows at the four LM
+     shapes, and both of its routes from 4 to 256 rows (the crossover);
+     kernel B at the decode over 4,096-, 65,536- and 32,768-slot caches and
+     over chunks of 512 and 2,048 rows;
   4. end to end, serving: the full-width 1.5B model (random weights from
      --seed, bf16, int8 LM + lm_head, fuse_for_serving) runs generate() on a
      two-speaker script with two 3 s voice prompts and a forced script of
@@ -34,11 +44,12 @@ Phases, each of which fails the run:
      right-padded prompts of 16,384 and 12,000 tokens (the script repeated,
      the two voice prompts spliced in) with parallel.ring_prefill_carry, at
      max_length 32768 (bf16 KV) and 65536 (int8 KV); each carry is held
-     against inference.chunked_prefill (kernel B, chunks of 2048) on the
-     same prompt (cache lengths, h_pos, the valid cache of layers 0 and 27,
-     limits in SP_TOL) and decodes 8 forced frames through inference.step,
-     which must be finite and non-silent; kernels F, A, B, C and D must all
-     have launched;
+     against inference.chunked_prefill (kernel B's prefill route on chunks
+     of 2048, kernel A's GEMM) on the same prompt (cache lengths, h_pos, the
+     valid cache of layers 0 and 27, limits in SP_TOL) and decodes 8 forced
+     frames through inference.step, which must be finite and non-silent;
+     kernels F, A (both routes), B (decode), C and D must all have launched
+     in the ring run, and A's GEMM and B's prefill route in chunked_prefill;
   6. end to end, fine-tuning: a tiny-config QLoRA gradient and two
      optimizer steps on the card through the kernels against the same on
      the CPU through the plain versions; then the port's trainer (finetune/train.py) fine-tunes the
@@ -46,7 +57,8 @@ Phases, each of which fails the run:
      targets and the diffusion head, f32 activations, random weights from
      --seed, synthetic clips): 3 steps at B 2, T 2048, then 2 steps at B 1,
      T 8192 with remat and CE chunks of 1024. Losses finite, adapters moved
-     after step 2, kernels A, E and the training attention launched.
+     after step 2, kernels A (its GEMM), E and the training attention
+     launched.
 The next-to-last line is a JSON object of the kernels' results; the last
 line is the JSON device record. The script runs itself again with
 PYTHONHASHSEED=0: the prompts go through the hash-bucket fallback
@@ -66,6 +78,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+CONFIG_1P5B = ROOT / "vibevoice_tpu_torch" / "configs" / "qwen2.5_1.5b_64k.json"
 VOICE_SECONDS = 3.0  # length of each synthetic voice prompt
 # Limits of the ring prefill against chunked_prefill (h_pos and the cache of
 # layers 0 and 27, as max |diff| over the peak), by KV type. The two paths
@@ -80,6 +93,52 @@ VOICE_SECONDS = 3.0  # length of each synthetic voice prompt
 # and causal masks are held by the kernel phase (kernel F against its plain
 # version at 1e-4) and by the CPU tests against JAX, not by this limit.
 SP_TOL = {"bf16": 1e-1, "int8": 1.5e-1}
+
+
+# Published dense peaks of one H100 SXM (NVIDIA's data sheet): the bound of
+# a kernel is the larger of its operations over the peak for their type and
+# its bytes (each input read once, each output written once) over HBM's rate.
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+HBM_BYTES_PER_S = 3.35e12
+
+
+def bound(flops: float, nbytes: float, peak: str = "bf16") -> tuple[float, str]:
+    """(least ms the card could take, "operations" or "bytes")."""
+    ops_ms, bytes_ms = flops / PEAK_FLOPS[peak] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def counters() -> dict:
+    """Each kernel entry's launch count as (wrapper, attribute): kernels A
+    and B count their two routes in two attributes of one wrapper."""
+    from vibevoice_tpu_torch.ops import flash_attention as fa
+    from vibevoice_tpu_torch.ops import head_fused as hf
+    from vibevoice_tpu_torch.ops import quant
+    from vibevoice_tpu_torch.ops import vocoder_fused as vf
+
+    return {"int8_matmul": (quant.int8_matmul, "launches"),
+            "int8_matmul_gemm": (quant.int8_matmul, "launches_tc"),
+            "flash_cached_attention": (fa.flash_cached_attention, "launches"),
+            "flash_cached_attention_prefill": (fa.flash_cached_attention, "launches_prefill"),
+            "fused_head_ffn_stack": (hf.fused_head_ffn_stack, "launches"),
+            "fused_stage_step": (vf.fused_stage_step, "launches"),
+            "int8_matmul_t": (quant.int8_matmul_t, "launches"),
+            "flash_train_attention_fwd": (fa.flash_train_attention_fwd, "launches"),
+            "flash_train_attention_bwd": (fa.flash_train_attention_bwd, "launches"),
+            "flash_ring_block": (fa.flash_ring_block, "launches")}
+
+
+def reset_counts(names) -> None:
+    for name in names:
+        setattr(*counters()[name], 0)
+
+
+def read_counts(names) -> dict:
+    return {name: getattr(*counters()[name]) for name in names}
 
 
 def fail(msg: str) -> None:
@@ -121,25 +180,41 @@ def rel_err(out, ref) -> tuple[float, float]:
 
 class Checks:
     """Collects the per-case comparisons; each kernel's JSON entry keeps its
-    worst error and the times of its main-path case."""
+    worst error and the times of its main-path case, and every timed case
+    is kept for the --out record."""
 
     def __init__(self):
         self.kernels: dict = {}
+        self.cases: list = []
+        self.extra: dict = {}
 
     def case(self, kernel: str, label: str, out, ref, tol_rel: float, ms=None, plain_ms=None,
-             main: bool = False) -> None:
+             main: bool = False, bound=None, library_ms=None) -> None:
+        """`bound` is (ms, "bytes" or "operations") from bound(); library_ms
+        the time of one PyTorch call computing the same function, if any."""
         import torch
 
         if not torch.isfinite(out.float()).all():
             fail(f"{kernel} {label}: non-finite output")
         err, rel = rel_err(out, ref)
         timing = "" if ms is None else f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
+        if ms is not None and bound is not None:
+            timing += f"  bound {bound[0]:.4f} ms ({bound[1]}, {bound[0] / ms:.1%} of it)"
+        if ms is not None and library_ms is not None:
+            timing += f"  library {library_ms:.4f} ms"
         print(f"  {kernel:<24s} {label:<40s} max_abs_err {err:.3e}  rel {rel:.3e} "
               f"(tol {tol_rel:.0e}){timing}", flush=True)
         k = self.kernels[kernel]
         k["max_abs_err"] = max(k["max_abs_err"], err)
+        if ms is not None:
+            self.cases.append(dict(kernel=kernel, case=label, ms=ms, plain_ms=plain_ms,
+                                   bound_ms=bound and bound[0], bound_by=bound and bound[1],
+                                   library_ms=library_ms, max_abs_err=err, rel_err=rel,
+                                   main=main))
         if main:
             k["ms"], k["plain_ms"] = ms, plain_ms
+            k["bound_ms"], k["bound_by"] = bound
+            k["library_ms"] = library_ms
         if not rel <= tol_rel:
             fail(f"{kernel} {label}: relative error {rel:.3e} above {tol_rel:.0e}")
 
@@ -151,8 +226,39 @@ def rotating(make, nbytes: int, budget: int = 160 << 20):
     return [make() for _ in range(max(1, min(16, math.ceil(budget / max(nbytes, 1)))))]
 
 
+LM_SHAPES = (("q/o", 1536, 1536), ("k/v", 1536, 256), ("gate/up", 1536, 8960),
+             ("down", 8960, 1536))  # (name, IN, OUT) of the 1.5B decoder's int8 linears
+
+
+def check_int8_matmul(checks: Checks, label: str, x, ws: list, tol: float, main: bool = False,
+                      iters: int = 20, timer=None) -> None:
+    """Kernel A on x against its plain version, both timed with the weights
+    in `ws` rotating, beside torch.mm on bf16 copies of the same weights."""
+    import torch
+
+    from vibevoice_tpu_torch.ops import quant
+
+    rows, (k, n) = x.shape[0], ws[0]["w8"].shape
+    w = ws[0]
+    if timer is None:
+        timer = lambda fn, ops: bench_ms(fn, ops, iters=iters)
+    out = quant.int8_matmul(x, w["w8"], w["scale"])
+    ref = quant.int8_matmul_plain(x, w["w8"], w["scale"])
+    ms = timer(lambda w: quant.int8_matmul(x, w["w8"], w["scale"]), ws)
+    pms = timer(lambda w: quant.int8_matmul_plain(x, w["w8"], w["scale"]), ws)
+    wbs = [(w["w8"].float() * w["scale"]).to(torch.bfloat16) for w in ws]
+    xb = x.to(torch.bfloat16)
+    lms = timer(lambda wb: torch.mm(xb, wb), wbs)
+    del wbs
+    route = quant._plan(rows, k, n).route
+    byt = nbytes(x, w["w8"], w["scale"]) + rows * n * x.element_size()
+    checks.case("int8_matmul_gemm" if route == "gemm" else "int8_matmul", label, out, ref, tol, ms,
+                pms, main=main, bound=bound(2 * rows * k * n, byt), library_ms=lms)
+
+
 def check_kernels(checks: Checks, seed: int) -> None:
     import torch
+    import torch.nn.functional as F
 
     from vibevoice_tpu_torch.ops import flash_attention as fa
     from vibevoice_tpu_torch.ops import head_fused as hf
@@ -165,28 +271,56 @@ def check_kernels(checks: Checks, seed: int) -> None:
     randn = lambda *s, dt=torch.bfloat16: torch.randn(s, generator=g, device=dev).to(dt)
 
     # A: every int8 LM linear shape of the 1.5B decoder, decode and prefill rows
-    print("kernel A int8_matmul (bf16 x, int8 w, f32 scale; bf16 out: tol 1e-2 of the peak)")
-    for name, k, n in (("q/o", 1536, 1536), ("k/v", 1536, 256), ("gate/up", 1536, 8960),
-                       ("down", 8960, 1536)):
+    print("kernel A int8_matmul (bf16 x, int8 w, f32 scale; bf16 out: tol 1e-2 of the peak; "
+          "library: torch.mm on a bf16 copy of the weight)")
+    for name, k, n in LM_SHAPES:
         ws = rotating(lambda: quant.quantize_weight(randn(k, n, dt=torch.float32) * 0.02), k * n)
         for rows in (2, 512):
             x = randn(rows, k)
-            out = quant.int8_matmul(x, ws[0]["w8"], ws[0]["scale"])
-            ref = quant.int8_matmul_plain(x, ws[0]["w8"], ws[0]["scale"])
-            ms = bench_ms(lambda w: quant.int8_matmul(x, w["w8"], w["scale"]), ws)
-            pms = bench_ms(lambda w: quant.int8_matmul_plain(x, w["w8"], w["scale"]), ws)
-            checks.case("int8_matmul", f"{name} {k}x{n} rows={rows}", out, ref, 1e-2, ms, pms,
-                        main=(name == "gate/up" and rows == 2))
+            check_int8_matmul(checks, f"{name} {k}x{n} rows={rows}", x, ws, 1e-2,
+                              main=(name == "gate/up" and rows == 2))
+
+    # A's two routes side by side, to place the row threshold of quant._plan
+    print(f"kernel A routes by rows (bf16 x; ms of the GEMV / the GEMM; quant.GEMM_MIN_ROWS = "
+          f"{quant.GEMM_MIN_ROWS})")
+    sweep = (4, 8, 12, 16, 24, 32, 64, 128, 256)
+    crossover, layer = {}, {r: [0.0, 0.0] for r in sweep}
+    for name, k, n in LM_SHAPES:
+        ws = rotating(lambda: quant.quantize_weight(randn(k, n, dt=torch.float32) * 0.02), k * n)
+        times = []
+        for rows in sweep:
+            x = randn(rows, k)
+            times.append((rows, bench_ms(lambda w: quant._gemv(x, w["w8"], w["scale"]), ws),
+                          bench_ms(lambda w: quant._gemm(x, w["w8"], w["scale"]), ws)))
+            per_layer = 1 if name == "down" else 2  # q, k, v, o, gate, up, down
+            layer[rows][0] += per_layer * times[-1][1]
+            layer[rows][1] += per_layer * times[-1][2]
+        wins = [r for r, tv, tg in times if all(g <= v for rr, v, g in times if rr >= r)]
+        crossover[f"{name} {k}x{n}"] = dict(rows_gemm_wins_from=wins[0] if wins else None,
+                                             times=times)
+        print(f"  {name:<8s} " + "  ".join(f"{r}: {tv:.4f}/{tg:.4f}" for r, tv, tg in times)
+              + f"  -> GEMM from {wins[0] if wins else 'never'}", flush=True)
+        del ws
+    wins = [r for r in sweep if all(layer[rr][1] <= layer[rr][0] for rr in sweep if rr >= r)]
+    crossover["layer (2 q/o + 2 k/v + 2 gate/up + down)"] = dict(
+        rows_gemm_wins_from=wins[0] if wins else None,
+        times=[(r, *layer[r]) for r in sweep])
+    print("  layer    " + "  ".join(f"{r}: {v:.4f}/{g:.4f}" for r, (v, g) in layer.items())
+          + f"  -> GEMM from {wins[0] if wins else 'never'}", flush=True)
+    checks.extra["int8_matmul_route_crossover"] = crossover
 
     # B: the decoder's GQA layout (12 q heads, 2 KV heads, D=128), one row
     # per sample and CFG stream (2B); the S=32768 case is the decode after the
     # ring prefill of a 16,384- and a 12,000-token prompt (positive streams,
-    # then the negative ones)
-    print("kernel B flash_cached_attention (bf16 q; bf16 or int8 KV; bf16 out: tol 1e-2)")
+    # then the negative ones); W=2048 is the last chunk of chunked_prefill on
+    # the same two prompts
+    print("kernel B flash_cached_attention (bf16 q; bf16 or int8 KV; bf16 out: tol 1e-2; library: "
+          "scaled_dot_product_attention with the prefix mask and enable_gqa, bf16 KV only)")
     nh, kh, d = 12, 2, 128
     for w, s, int8, base in ((1, 4096, False, (4095, 1234)), (1, 65536, True, (65535, 300)),
                              (1, 32768, False, (16384, 12000, 1, 1)),
-                             (512, 4096, False, (4095, 1000)), (512, 65536, True, (65535, 20000))):
+                             (512, 4096, False, (4095, 1000)), (512, 65536, True, (65535, 20000)),
+                             (2048, 32768, False, (14336, 12000))):
         nb = len(base)
         q = randn(nb, w, nh, d)
         base_t = torch.tensor(base, dtype=torch.int32, device=dev)
@@ -200,13 +334,28 @@ def check_kernels(checks: Checks, seed: int) -> None:
             kc, vc, kw = randn(nb, kh, s, d), randn(nb, kh, s, d), {}
         out = fa.flash_cached_attention(q, kc, vc, base_t, **kw)
         ref = fa.flash_cached_attention_plain(q, kc, vc, base_t, **kw)
-        big = w == 512 and s == 65536  # the plain version's scores are 3 GB here
+        big = w * s >= 512 * 65536  # the plain version's scores are 3-6 GB here
         ms = bench_ms(lambda _: fa.flash_cached_attention(q, kc, vc, base_t, **kw), [None])
         pms = bench_ms(lambda _: fa.flash_cached_attention_plain(q, kc, vc, base_t, **kw), [None],
                        iters=3 if big else 20)
-        checks.case("flash_cached_attention",
-                    f"W={w} S={s} {'int8' if int8 else 'bf16'} base={list(base)}", out, ref, 1e-2,
-                    ms, pms, main=(w == 1 and s == 4096))
+        lms = None
+        if not int8:
+            mask = (base_t[:, None, None, None] + torch.arange(w, device=dev)[:, None]
+                    >= torch.arange(s, device=dev))  # (B, 1, W, S): key j live for row i
+            qt = q.transpose(1, 2)
+            lms = bench_ms(lambda _: F.scaled_dot_product_attention(qt, kc, vc, attn_mask=mask,
+                                                                    enable_gqa=True), [None])
+            del mask
+        # causal work of these bases: row i of sample b sees min(base + i + 1, S) keys
+        keys = [min(b_ + i + 1, s) for b_ in base for i in range(w)]
+        kv_rows = sum(min(b_ + w, s) for b_ in base) * kh  # live cache rows, read once
+        flops = 4 * d * nh * sum(keys)
+        byt = nbytes(q) * 2 + nbytes(base_t) + kv_rows * d * 2 * kc.element_size() + (
+            kv_rows * 2 * 4 if int8 else 0)
+        kernel = "flash_cached_attention_prefill" if w > 1 else "flash_cached_attention"
+        checks.case(kernel, f"W={w} S={s} {'int8' if int8 else 'bf16'} base={list(base)}", out,
+                    ref, 1e-2, ms, pms, main=(w, s) in ((1, 4096), (2048, 32768)),
+                    bound=bound(flops, byt), library_ms=lms)
         del ref
 
     # C: 4 head layers, 1536 -> 4608 -> 1536; the solver runs the head in f32
@@ -225,8 +374,11 @@ def check_kernels(checks: Checks, seed: int) -> None:
         ref = hf.fused_head_ffn_stack_plain(packs[0], x, mods)
         ms = bench_ms(lambda pk: hf.fused_head_ffn_stack(pk, x, mods), packs)
         pms = bench_ms(lambda pk: hf.fused_head_ffn_stack_plain(pk, x, mods), packs)
+        # no single PyTorch call computes a stack of norm + modulation + SwiGLU layers
         checks.case("fused_head_ffn_stack", f"{nl} layers {'int8' if quantize else 'bf16'} weights",
-                    out, ref, 1e-4, ms, pms, main=quantize)
+                    out, ref, 1e-4, ms, pms, main=quantize,
+                    bound=bound(2 * 2 * 3 * dim * hid * nl,
+                                nbytes(*packs[0].arrays.values(), x, mods, out), "f32"))
 
     # D: 8 Block1D blocks at 2048 -> 8192 -> 2048, one bf16 frame (B=1)
     print("kernel D fused_stage_step (bf16 x and state; int8 or bf16 weights: tol 2e-2)")
@@ -248,8 +400,11 @@ def check_kernels(checks: Checks, seed: int) -> None:
         ms = bench_ms(lambda pk: vf.fused_stage_step(pk, x, st), packs)
         pms = bench_ms(lambda pk: vf.fused_stage_step_plain(pk, x, st), packs)
         w = "int8" if quantize else "bf16"
+        # no single PyTorch call computes a stack of Block1D steps
         checks.case("fused_stage_step", f"{nb} blocks {w} weights: y", out, ref, 2e-2, ms, pms,
-                    main=quantize)
+                    main=quantize,
+                    bound=bound(2 * nb * (8 * dim * dim + 7 * dim),
+                                nbytes(*packs[0].arrays.values(), x, st, out, ns)))
         checks.case("fused_stage_step", f"{nb} blocks {w} weights: new state", ns, rs, 2e-2)
 
 
@@ -274,6 +429,7 @@ def event_ms(fn, iters: int = 3) -> float:
 def check_training_kernels(checks: Checks, seed: int) -> None:
     """Kernel E and the training attention at the 1.5B fine-tuning shapes."""
     import torch
+    import torch.nn.functional as F
 
     from vibevoice_tpu_torch.ops import flash_attention as fa
     from vibevoice_tpu_torch.ops import quant
@@ -284,25 +440,26 @@ def check_training_kernels(checks: Checks, seed: int) -> None:
     randn = lambda *s: torch.randn(s, generator=g, device=dev)
 
     # E: dx of every int8 LM linear of the 1.5B decoder at R = B*T = 4096, f32 g
-    print("kernel E int8_matmul_t (f32 g, int8 w, f32 scale; f32 out: tol 1e-4 of the peak)")
+    print("kernel E int8_matmul_t (f32 g, int8 w, f32 scale; f32 out: tol 1e-4 of the peak; "
+          "library: torch.mm of bf16 g and a bf16 copy of the weight, transposed)")
     rows = 4096
-    for name, k, n in (("q/o", 1536, 1536), ("k/v", 1536, 256), ("gate/up", 1536, 8960),
-                       ("down", 8960, 1536)):
+    for name, k, n in LM_SHAPES:
         ws = rotating(lambda: quant.quantize_weight(randn(k, n) * 0.02), k * n)
         gr = randn(rows, n) * 1e-3
         out = quant.int8_matmul_t(gr, ws[0]["w8"], ws[0]["scale"])
         ref = quant.int8_matmul_t_plain(gr, ws[0]["w8"], ws[0]["scale"])
         ms = bench_ms(lambda w: quant.int8_matmul_t(gr, w["w8"], w["scale"]), ws)
         pms = bench_ms(lambda w: quant.int8_matmul_t_plain(gr, w["w8"], w["scale"]), ws)
+        wbs = [(w["w8"].float() * w["scale"]).to(torch.bfloat16) for w in ws]
+        gb = gr.to(torch.bfloat16)
+        lms = bench_ms(lambda wb: torch.mm(gb, wb.t()), wbs)
+        del wbs
+        byt = nbytes(gr, ws[0]["w8"], ws[0]["scale"], out)
         checks.case("int8_matmul_t", f"{name} dx {rows}x{n} -> {k}", out, ref, 1e-4, ms, pms,
-                    main=(name == "gate/up"))
-        # kernel A at the same training rows, for the record (its 8-row GEMV tiles)
-        x = randn(rows, k)
-        ms = bench_ms(lambda w: quant.int8_matmul(x, w["w8"], w["scale"]), ws, iters=5)
-        pms = bench_ms(lambda w: quant.int8_matmul_plain(x, w["w8"], w["scale"]), ws, iters=5)
-        checks.case("int8_matmul", f"{name} {k}x{n} rows={rows} f32 (training)",
-                    quant.int8_matmul(x, ws[0]["w8"], ws[0]["scale"]),
-                    quant.int8_matmul_plain(x, ws[0]["w8"], ws[0]["scale"]), 1e-4, ms, pms)
+                    main=(name == "gate/up"), bound=bound(2 * rows * k * n, byt), library_ms=lms)
+        # kernel A at the same training rows (f32 x): its GEMM route
+        check_int8_matmul(checks, f"{name} {k}x{n} rows={rows} f32 (training)", randn(rows, k),
+                          ws, 1e-5, iters=5)
         del ws
 
     # training attention: 12 query heads over 2 KV heads, D 128, f32, right padded
@@ -336,11 +493,27 @@ def check_training_kernels(checks: Checks, seed: int) -> None:
         out_p = fa.train_attention_plain(ql, kl, vl, valid)
         bwd_pms = event_ms(lambda: torch.autograd.grad(out_p, (ql, kl, vl), do, retain_graph=True))
         del out_p, ql, kl, vl
+        # the library's forward: SDPA, f32, causal within each segment (valid, pad)
+        pos = torch.arange(t, device=dev)
+        mask = ((pos[:, None] >= pos[None, :])[None]
+                & (valid[:, :, None] == valid[:, None, :]))[:, None]  # (B, 1, T, T)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib_ms = event_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                                 enable_gqa=True))
+        del mask, qt, kt, vt
+        # f32 work on the CUDA cores: QK^T and PV over each segment's causal
+        # pairs; the backward recomputes P and forms dV, dP, dQ and dK
+        pairs = sum(m * (m + 1) // 2 for n in lens for m in (n, t - n))
+        fwd_flops = 4 * d * nh * pairs
         main = t == 2048
         checks.case("flash_train_attention_fwd", f"{label}: O (valid rows)", kern[0] * rows_ok,
-                    plain[0] * rows_ok, 1e-4, fwd_ms, fwd_pms, main=main)
+                    plain[0] * rows_ok, 1e-4, fwd_ms, fwd_pms, main=main, library_ms=lib_ms,
+                    bound=bound(fwd_flops, nbytes(q, kr, vr, seg, o, lse), "f32"))
+        # no single PyTorch call computes the backward alone
+        bwd_bound = bound(2.5 * fwd_flops, nbytes(q, kr, vr, seg, o, lse, do) + 3 * nbytes(q),
+                          "f32")
         for i, nm in ((1, "dQ"), (2, "dK"), (3, "dV")):
-            timing = dict(ms=bwd_ms, plain_ms=bwd_pms, main=main) if i == 1 else {}
+            timing = dict(ms=bwd_ms, plain_ms=bwd_pms, main=main, bound=bwd_bound) if i == 1 else {}
             checks.case("flash_train_attention_bwd", f"{label}: {nm}", kern[i], plain[i], 1e-3,
                         **timing)
         del kern, plain, o, lse
@@ -367,6 +540,17 @@ def check_ring_kernel(checks: Checks, seed: int) -> None:
           f"state bit-identical)")
 
     def hop(label, state_k, state_p, q, kb, vb, main=False, **kw):
+        """One hop through the kernel and the plain fold. The bound counts
+        the causal pairs of this block's live keys and the state read and
+        written; no single PyTorch call updates an online-softmax state."""
+        q_pos = kw["q_start"] + torch.arange(q.shape[1], device=dev)
+        k_pos = kw["k_start"] + torch.arange(kb.shape[2], device=dev)
+        live = (k_pos[None, None] <= q_pos[None, :, None]) & (
+            k_pos[None, None] < kw["k_len"][:, None, None])
+        flops = 4 * d * nh * int(live.sum())
+        del live
+        # a block wholly in the future needs only k_len read: the state stays
+        byt = nbytes(kw["k_len"]) + (nbytes(q, kb, vb) + 2 * nbytes(*state_k) if flops else 0)
         before = [x.clone() for x in state_k]
         fa.flash_ring_block(state_k, q, kb, vb, **kw)
         fa.flash_ring_block_plain(state_p, q, kb, vb, **kw)
@@ -377,7 +561,7 @@ def check_ring_kernel(checks: Checks, seed: int) -> None:
         for name, got, want in zip(("m", "l"), state_k, state_p):
             checks.case("flash_ring_block", f"{label}: {name}", got, want, tol)
         checks.case("flash_ring_block", f"{label}: acc", state_k[2], state_p[2], tol, ms, pms,
-                    main=main)
+                    main=main, bound=bound(flops, byt))
         return before
 
     # rank 2 of a 4-way ring over a 16,384-token prompt: its own block, then
@@ -415,17 +599,13 @@ def check_ring_kernel(checks: Checks, seed: int) -> None:
     # A on every LM linear of the world-of-one ring prefill: B * Tl rows
     rows = b * tl
     print(f"kernel A int8_matmul at the ring prefill's {rows} rows (bf16 x, int8 w, f32 scale; "
-          f"bf16 out: tol 1e-2 of the peak)")
-    for name, k, n in (("q/o", 1536, 1536), ("k/v", 1536, 256), ("gate/up", 1536, 8960),
-                       ("down", 8960, 1536)):
+          f"bf16 out: tol 1e-2 of the peak; library: torch.mm on a bf16 copy of the weight)")
+    for name, k, n in LM_SHAPES:
         w = quant.quantize_weight(torch.randn((k, n), generator=g, device=dev) * 0.02)
-        x = randn(rows, k)
-        ms = event_ms(lambda: quant.int8_matmul(x, w["w8"], w["scale"]))
-        pms = event_ms(lambda: quant.int8_matmul_plain(x, w["w8"], w["scale"]))
-        checks.case("int8_matmul", f"{name} {k}x{n} rows={rows} (ring prefill)",
-                    quant.int8_matmul(x, w["w8"], w["scale"]),
-                    quant.int8_matmul_plain(x, w["w8"], w["scale"]), 1e-2, ms, pms)
-        del w, x
+        check_int8_matmul(checks, f"{name} {k}x{n} rows={rows} (ring prefill)", randn(rows, k),
+                          [w], 1e-2, main=name == "gate/up",
+                          timer=lambda fn, ops: event_ms(lambda: fn(ops[0])))
+        del w
 
 
 def tiny_card_vs_cpu(seed: int) -> None:
@@ -434,7 +614,7 @@ def tiny_card_vs_cpu(seed: int) -> None:
     import numpy as np
     import torch
 
-    from vibevoice_tpu.configs import tiny_config
+    from vibevoice_tpu_torch.configs import tiny_config
     from vibevoice_tpu_torch.models import inference as inf
     from vibevoice_tpu_torch.models import vibevoice as vv
     from vibevoice_tpu_torch.utils.params import init
@@ -496,14 +676,14 @@ def serving_model(seed: int) -> dict:
     import numpy as np
     import torch
 
-    from vibevoice_tpu.configs import VibeVoiceConfig
-    from vibevoice_tpu.processor.processor import VibeVoiceProcessor
-    from vibevoice_tpu.processor.text_tokenizer import QWEN_SPECIAL_IDS, FallbackTextTokenizer
+    from vibevoice_tpu_torch.configs import VibeVoiceConfig
+    from vibevoice_tpu_torch.processor.processor import VibeVoiceProcessor
+    from vibevoice_tpu_torch.processor.text_tokenizer import QWEN_SPECIAL_IDS, FallbackTextTokenizer
     from vibevoice_tpu_torch.models import inference as inf
     from vibevoice_tpu_torch.models import vibevoice as vv
     from vibevoice_tpu_torch.utils.params import init
 
-    cfg = VibeVoiceConfig.from_json_file(str(ROOT / "vibevoice_tpu/configs/qwen2.5_1.5b_64k.json"))
+    cfg = VibeVoiceConfig.from_json_file(str(CONFIG_1P5B))
     t0 = time.perf_counter()
     params = init(cfg, seed=seed, dtype=torch.bfloat16, device="cuda")
     params = vv.fuse_for_serving(vv.quantize_for_inference(params, ("lm", "lm_head")), cfg,
@@ -539,7 +719,6 @@ def end_to_end(model: dict, seed: int, frames: int) -> dict:
     import torch
 
     from vibevoice_tpu_torch.models import inference as inf
-    from vibevoice_tpu_torch.ops import flash_attention, head_fused, quant, vocoder_fused
 
     cfg, params, toks, hop, sr = (model[k] for k in ("cfg", "params", "toks", "hop", "sr"))
     proc = model["processor"](text=model["script"], voice_samples=[model["voices"]])
@@ -553,8 +732,9 @@ def end_to_end(model: dict, seed: int, frames: int) -> dict:
           f"{len(forced)} frames ({n_diff} speech frames, one speech_end -> speech_start)",
           flush=True)
 
-    wrappers = (quant.int8_matmul, flash_attention.flash_cached_attention,
-                head_fused.fused_head_ffn_stack, vocoder_fused.fused_stage_step)
+    # the prompt's prefill (105 tokens) takes A's GEMM and B's prefill route
+    names = ("int8_matmul", "int8_matmul_gemm", "flash_cached_attention",
+             "flash_cached_attention_prefill", "fused_head_ffn_stack", "fused_stage_step")
 
     def run(max_length, script_tokens):
         kw = dict(input_ids=proc.input_ids, valid_mask=proc.attention_mask,
@@ -569,16 +749,15 @@ def end_to_end(model: dict, seed: int, frames: int) -> dict:
         return out, time.perf_counter() - t0
 
     runs = {}
-    total_launches = {w.__name__: 0 for w in wrappers}
+    total_launches = dict.fromkeys(names, 0)
     for max_length in (4096, None):
         label = f"max_length={max_length or cfg.decoder_config.max_position_embeddings}"
         kv_int8 = inf.resolve_kv_int8(inf.GenerateOptions(max_length=max_length),
                                       max_length or cfg.decoder_config.max_position_embeddings).kv_int8
         run(max_length, short)  # warm-up: cuDNN algorithm picks, allocator
-        for w in wrappers:
-            w.launches = 0
+        reset_counts(names)
         out, wall = run(max_length, forced)
-        counts = {w.__name__: w.launches for w in wrappers}
+        counts = read_counts(names)
         short_out, short_wall = run(max_length, short)
         for k, v in counts.items():
             total_launches[k] += v
@@ -638,7 +817,6 @@ def sp_prefill_end_to_end(model: dict, seed: int, frames: int = 8) -> dict:
     import torch.distributed as dist
 
     from vibevoice_tpu_torch.models import inference as inf
-    from vibevoice_tpu_torch.ops import flash_attention, head_fused, quant, vocoder_fused
     from vibevoice_tpu_torch.parallel import make_mesh, ring_prefill_carry
 
     cfg, params, toks = model["cfg"], model["params"], model["toks"]
@@ -659,9 +837,12 @@ def sp_prefill_end_to_end(model: dict, seed: int, frames: int = 8) -> dict:
     print(f"  prompts {lengths} tokens (right-padded to {ids.shape[1]}), voice prompts "
           f"{tuple(proc.speech_tensors.shape)} ({int(proc.speech_masks.sum())} latent frames)",
           flush=True)
-    wrappers = (flash_attention.flash_ring_block, quant.int8_matmul,
-                flash_attention.flash_cached_attention, head_fused.fused_head_ffn_stack,
-                vocoder_fused.fused_stage_step)
+    # the ring (kernel F, A's GEMM on 32,768 rows) and the decode frames after
+    # it (A's GEMV, B's decode route, C, D); the chunked_prefill reference
+    # (A's GEMM on 4,096 rows, B's prefill route on 2,048-row chunks)
+    ring_names = ("flash_ring_block", "int8_matmul_gemm", "int8_matmul", "flash_cached_attention",
+                  "fused_head_ffn_stack", "fused_stage_step")
+    chunked_names = ("int8_matmul_gemm", "flash_cached_attention_prefill")
     nl = cfg.decoder_config.num_hidden_layers
 
     def cache_prefix(carry, li, kv_int8):
@@ -681,17 +862,19 @@ def sp_prefill_end_to_end(model: dict, seed: int, frames: int = 8) -> dict:
     store.unlink(missing_ok=True)
     torch.cuda.set_device(0)
     dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1)
-    runs, total = {}, {w.__name__: 0 for w in wrappers}
+    runs, total = {}, dict.fromkeys(ring_names + chunked_names, 0)
     try:
         mesh = make_mesh(dp=1, tp=1)
         for max_len, kv_int8, tol in ((32768, False, SP_TOL["bf16"]), (65536, True, SP_TOL["int8"])):
             label = f"max_length={max_len} ({'int8' if kv_int8 else 'bf16'} KV)"
             torch.cuda.synchronize()
+            reset_counts(chunked_names)
             t0 = time.perf_counter()
             ref = inf.chunked_prefill(cfg, params, ids, valid, max_len, toks, speech_args,
                                       chunk=2048, kv_int8=kv_int8)
             torch.cuda.synchronize()
             ref_wall = time.perf_counter() - t0
+            ref_counts = read_counts(chunked_names)
             opts = inf.GenerateOptions(ddpm_steps=10, cfg_scale=1.3, max_length=max_len,
                                        kv_int8=kv_int8)
             coeffs = inf.make_solver(cfg, opts)
@@ -699,8 +882,7 @@ def sp_prefill_end_to_end(model: dict, seed: int, frames: int = 8) -> dict:
                      "init": torch.randn(1, b, cfg.acoustic_vae_dim, generator=g, device=dev)}
             no_stop = torch.zeros(b, dtype=torch.bool, device=dev)
 
-            for w in wrappers:
-                w.launches = 0
+            reset_counts(ring_names)
             t0 = time.perf_counter()
             sp = ring_prefill_carry(cfg, params, ids, valid, max_len, toks, mesh,
                                     speech_args=speech_args, kv_int8=kv_int8)
@@ -712,7 +894,7 @@ def sp_prefill_end_to_end(model: dict, seed: int, frames: int = 8) -> dict:
                                       coeffs=coeffs, generator=g, hooks=hooks)
                 audio.append(out.audio)
             torch.cuda.synchronize()
-            counts = {w.__name__: w.launches for w in wrappers}
+            counts = read_counts(ring_names)
 
             audio = torch.stack(audio).float()  # (frames, B, hop, 1)
             if not torch.isfinite(audio).all():
@@ -723,6 +905,9 @@ def sp_prefill_end_to_end(model: dict, seed: int, frames: int = 8) -> dict:
             missing = [k for k, v in counts.items() if v == 0]
             if missing:
                 fail(f"sp prefill {label}: kernels never launched on the main path: {missing}")
+            missing = [k for k, v in ref_counts.items() if v == 0]
+            if missing:
+                fail(f"chunked_prefill {label}: kernels never launched: {missing}")
             if not torch.equal(sp.cache.length, ref.cache.length):
                 fail(f"sp prefill {label}: cache lengths {sp.cache.length.tolist()} against "
                      f"{ref.cache.length.tolist()}")
@@ -734,15 +919,17 @@ def sp_prefill_end_to_end(model: dict, seed: int, frames: int = 8) -> dict:
                   f"against chunked_prefill, max |diff| over the peak: "
                   + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
                   + f" (tol {tol:g}); {frames} frames, "
-                  f"audio peaks {[f'{p:.3e}' for p in peaks]}; launches {counts}", flush=True)
+                  f"audio peaks {[f'{p:.3e}' for p in peaks]}; launches {counts}, "
+                  f"chunked_prefill's {ref_counts}", flush=True)
             bad = {k: v for k, v in errs.items() if not v <= tol}
             if bad:
                 fail(f"sp prefill {label}: disagrees with chunked_prefill: {bad}")
-            for k, v in counts.items():
-                total[k] += v
+            for c in (counts, ref_counts):
+                for k, v in c.items():
+                    total[k] += v
             runs[label] = dict(prefill_wall_s=wall, chunked_prefill_wall_s=ref_wall,
                                prompt_tokens=lengths, rel_err=errs, audio_peaks=peaks,
-                               launches=counts)
+                               launches=counts, chunked_prefill_launches=ref_counts)
             del ref, sp, carry, out, audio
             torch.cuda.empty_cache()
     finally:
@@ -758,11 +945,11 @@ def tiny_qlora_card_vs_cpu(seed: int) -> None:
     import numpy as np
     import torch
 
-    from vibevoice_tpu.configs import tiny_config
+    from vibevoice_tpu_torch.configs import tiny_config
     from vibevoice_tpu_torch.finetune import loss as L
     from vibevoice_tpu_torch.finetune import lora as LR
     from vibevoice_tpu_torch.finetune import train_step as TS
-    from vibevoice_tpu_torch.ops import flash_attention, quant
+    from vibevoice_tpu_torch.ops import quant
     from vibevoice_tpu_torch.utils.params import init
 
     cfg = tiny_config()
@@ -807,14 +994,12 @@ def tiny_qlora_card_vs_cpu(seed: int) -> None:
         return {k: v.float().cpu() - init[k] for k, v in TS.tree_leaves_with_path(state.params)}
 
     res = {}
+    names = ("int8_matmul_gemm", "int8_matmul_t", "flash_train_attention_fwd",
+             "flash_train_attention_bwd")  # A on B*T = 192 rows: its GEMM
     for dev in ("cuda", "cpu"):
-        for w in (quant.int8_matmul, quant.int8_matmul_t, flash_attention.flash_train_attention_fwd,
-                  flash_attention.flash_train_attention_bwd):
-            w.launches = 0
+        reset_counts(names)
         loss, out, grads = grad_fn(_to(lora, dev), _to(p, dev), batch, draws)
-        counts = [w.launches for w in (quant.int8_matmul, quant.int8_matmul_t,
-                                       flash_attention.flash_train_attention_fwd,
-                                       flash_attention.flash_train_attention_bwd)]
+        counts = list(read_counts(names).values())
         res[dev] = (float(loss), {k: v.float().cpu() for k, v in grads.items()}, counts,
                     two_steps(dev, lr))
     (lc, gc, counts, dc), (lp, gp, _, dp) = res["cuda"], res["cpu"]
@@ -857,12 +1042,10 @@ def finetune_end_to_end(seed: int) -> dict:
 
     from vibevoice_tpu_torch.finetune import train
     from vibevoice_tpu_torch.finetune.train_step import tree_leaves_with_path
-    from vibevoice_tpu_torch.ops import flash_attention, quant
 
-    wrappers = {"int8_matmul": quant.int8_matmul, "int8_matmul_t": quant.int8_matmul_t,
-                "flash_train_attention_fwd": flash_attention.flash_train_attention_fwd,
-                "flash_train_attention_bwd": flash_attention.flash_train_attention_bwd}
-    common = ["--config", str(ROOT / "vibevoice_tpu/configs/qwen2.5_1.5b_64k.json"),
+    names = ("int8_matmul_gemm", "int8_matmul_t", "flash_train_attention_fwd",
+             "flash_train_attention_bwd")  # A on B*T = 4,096 or 8,192 f32 rows: its GEMM
+    common = ["--config", str(CONFIG_1P5B),
               "--synthetic_data", "--synthetic_items", "4", "--use_lora", "--int8_base",
               "--seed", str(seed), "--device", "cuda", "--no_save", "--log_steps", "1"]
     runs = {}
@@ -875,12 +1058,11 @@ def finetune_end_to_end(seed: int) -> dict:
                                        "1060", "--max_steps", "2", "--remat",
                                        "--ce_chunk_size", "1024"])):
         torch.cuda.empty_cache()
-        for w in wrappers.values():
-            w.launches = 0
+        reset_counts(names)
         t0 = time.perf_counter()
         summary = train.main(common + extra)
         wall = time.perf_counter() - t0
-        counts = {k: w.launches for k, w in wrappers.items()}
+        counts = read_counts(names)
         steps = summary["steps"]
         if not all(math.isfinite(s["loss"]) for s in steps):
             fail(f"fine-tune {label}: non-finite loss {[s['loss'] for s in steps]}")
@@ -953,8 +1135,12 @@ def main() -> None:
     checks = Checks()
     sources = {
         "int8_matmul": ("vibevoice_tpu_torch/csrc/int8_matmul.cu", "vibevoice_tpu/ops/quant.py:129"),
+        "int8_matmul_gemm": ("vibevoice_tpu_torch/csrc/int8_gemm.cu",
+                             "vibevoice_tpu/ops/quant.py:129"),
         "flash_cached_attention": ("vibevoice_tpu_torch/csrc/flash_attention.cu",
                                    "vibevoice_tpu/ops/flash_attention.py:71"),
+        "flash_cached_attention_prefill": ("vibevoice_tpu_torch/csrc/flash_prefill.cu",
+                                           "vibevoice_tpu/ops/flash_attention.py:71"),
         "fused_head_ffn_stack": ("vibevoice_tpu_torch/csrc/head_ffn.cu",
                                  "vibevoice_tpu/ops/head_fused.py:144"),
         "fused_stage_step": ("vibevoice_tpu_torch/csrc/vocoder_stage.cu",
@@ -972,7 +1158,8 @@ def main() -> None:
     }
     for name, (src, rep) in sources.items():
         checks.kernels[name] = dict(name=name, route="cuda", source=src, replaces=rep,
-                                    launches=0, max_abs_err=0.0, ms=None, plain_ms=None)
+                                    launches=0, max_abs_err=0.0, ms=None, plain_ms=None,
+                                    bound_ms=None, bound_by=None, library_ms=None)
     check_kernels(checks, args.seed)
     check_ring_kernel(checks, args.seed)
     check_training_kernels(checks, args.seed)
@@ -1006,11 +1193,15 @@ def main() -> None:
         for name, n in rec["launches"].items():
             checks.kernels[name]["launches"] += n
 
+    unmeasured = [k["name"] for k in checks.kernels.values() if k["ms"] is None or k["launches"] == 0]
+    if unmeasured:
+        fail(f"kernels without a timed main-path case or a main-path launch: {unmeasured}")
     result = {"kernels": list(checks.kernels.values())}
     if args.out:
         Path(args.out).mkdir(parents=True, exist_ok=True)
         (Path(args.out) / "chip_smoke.json").write_text(
-            json.dumps({**result, "card": card, "end_to_end": runs}, indent=1))
+            json.dumps({**result, "card": card, "end_to_end": runs, "cases": checks.cases,
+                        **checks.extra}, indent=1))
         (Path(args.out) / "kernel_build.log").write_text(lib.build_log)
     print(card)
     print(json.dumps(result))

@@ -99,6 +99,84 @@ def test_fused_stage_step(dev, quantize, dtype):
     assert _rel(y, yr) < tol and _rel(ns, nsr) < tol
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [256, 1536, 8960])
+@pytest.mark.parametrize("rows", [65, 129, 1000])
+def test_int8_matmul_gemm_route(dev, rows, n, dtype):
+    """Kernel A's tensor-core route at ragged rows (not a multiple of its
+    256-row tile) and the 1.5B's column counts, against the plain version:
+    one bf16 rounding of the output (1e-2 of the peak), or for f32 x the same
+    bf16 products summed in another order (1e-5)."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    k = 8960 if n == 1536 else 1536
+    q = quant.quantize_weight(torch.randn(k, n, generator=g, device=dev) * 0.02)
+    x = torch.randn(rows, k, generator=g, device=dev).to(dtype)
+    before = quant.int8_matmul.launches_tc
+    out = quant.int8_matmul(x, q["w8"], q["scale"])
+    assert quant.int8_matmul.launches_tc == before + 1
+    assert out.dtype == dtype and out.shape == (rows, n)
+    assert _rel(out, quant.int8_matmul_plain(x, q["w8"], q["scale"])) < (
+        1e-2 if dtype == torch.bfloat16 else 1e-5)
+    # a row's result does not depend on how many rows the call has
+    assert torch.equal(quant.int8_matmul(x[:64], q["w8"], q["scale"]), out[:64])
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("w", [7, 100, 300])
+def test_flash_prefill_route(dev, w, int8, d):
+    """Kernel B's tensor-core route over bf16 chunks: bases 0, mid-cache and
+    S - 1 (that chunk runs past the cache's end), GQA G 6, bf16 or int8 K/V,
+    against the plain version (one bf16 rounding of the output)."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    b, nh, kh, s = 3, 12, 2, 1000
+    q = torch.randn(b, w, nh, d, generator=g, device=dev).to(torch.bfloat16)
+    base = torch.tensor([0, 500, s - 1], dtype=torch.int32, device=dev)
+    if int8:
+        kc = torch.randint(-127, 128, (b, kh, s, d), generator=g, device=dev).to(torch.int8)
+        vc = torch.randint(-127, 128, (b, kh, s, d), generator=g, device=dev).to(torch.int8)
+        kw = dict(k_scale=torch.rand(b, kh, 1, s, generator=g, device=dev) / 127,
+                  v_scale=torch.rand(b, kh, 1, s, generator=g, device=dev) / 127)
+    else:
+        kc, vc = (torch.randn(b, kh, s, d, generator=g, device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        kw = {}
+    before = fa.flash_cached_attention.launches_prefill
+    out = fa.flash_cached_attention(q, kc, vc, base, **kw)
+    assert fa.flash_cached_attention.launches_prefill == before + 1
+    assert _rel(out, fa.flash_cached_attention_plain(q, kc, vc, base, **kw)) < 1e-2
+
+
+def test_new_routes_raise_on_unsupported_input(dev):
+    """Every CUDA input launches a kernel or raises: the GEMM wants OUT a
+    multiple of 16 and bf16 or f32 x; the prefill route head_dim 64 or 128
+    and a cache of q's dtype."""
+    q = quant.quantize_weight(torch.randn(64, 40, device=dev))  # OUT 40: not a multiple of 16
+    with pytest.raises(ValueError):
+        quant.int8_matmul(torch.randn(100, 64, device=dev), q["w8"], q["scale"])
+    q = quant.quantize_weight(torch.randn(64, 64, device=dev))
+    with pytest.raises(ValueError):  # f16 x
+        quant.int8_matmul(torch.randn(100, 64, device=dev).half(), q["w8"], q["scale"])
+    base = torch.zeros(1, dtype=torch.int32, device=dev)
+    qq = torch.randn(1, 4, 4, 96, device=dev).to(torch.bfloat16)  # head_dim 96
+    cache = torch.randn(1, 2, 32, 96, device=dev).to(torch.bfloat16)
+    with pytest.raises(ValueError):
+        fa.flash_cached_attention(qq, cache, cache, base)
+    qq = torch.randn(1, 4, 4, 64, device=dev).to(torch.bfloat16)
+    cache = torch.randn(1, 2, 32, 64, device=dev)  # f32 cache under bf16 q
+    with pytest.raises(ValueError):
+        fa.flash_cached_attention(qq, cache, cache, base)
+    flat = torch.randn(2 * 32 * 64 + 1, device=dev).to(torch.bfloat16)
+    cache = flat[1:].view(1, 2, 32, 64)  # contiguous, 2 bytes off a 16-byte boundary
+    with pytest.raises(ValueError):
+        fa.flash_cached_attention(qq, cache, cache, base)
+    # an offset q is copied, not refused
+    qflat = torch.randn(4 * 4 * 64 + 1, device=dev).to(torch.bfloat16)
+    qv, cache = qflat[1:].view(1, 4, 4, 64), torch.randn(1, 2, 32, 64, device=dev).to(torch.bfloat16)
+    assert _rel(fa.flash_cached_attention(qv, cache, cache, base),
+                fa.flash_cached_attention_plain(qv, cache, cache, base)) < 1e-2
+
+
 def test_wrappers_raise_on_unsupported_input(dev):
     x = torch.randn(2, 64, device=dev)
     q = quant.quantize_weight(torch.randn(64, 30, device=dev))  # 30 columns: not a multiple of 4
@@ -236,7 +314,7 @@ def _ring_attention_inputs():
 def _tiny_prefill_inputs():
     """Tiny config, f32 weights with the int8 LM (kernel A), and two
     right-padded prompts of 50 and 37 tokens (50 is not a multiple of 4)."""
-    from vibevoice_tpu.configs import tiny_config
+    from vibevoice_tpu_torch.configs import tiny_config
     from vibevoice_tpu_torch.models import vibevoice as vv
     from vibevoice_tpu_torch.utils.params import init
 

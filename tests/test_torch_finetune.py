@@ -22,12 +22,13 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from vibevoice_tpu.configs import tiny_config
+from vibevoice_tpu.configs import tiny_config as jax_tiny_config
 from vibevoice_tpu.models import qwen2 as jq
 from vibevoice_tpu.models import vibevoice as jvv
 from vibevoice_tpu.ops import quant as jquant
 from vibevoice_tpu.schedule.dpm_solver import NoiseSchedule as JNoiseSchedule
 
+from vibevoice_tpu_torch.configs import tiny_config
 from vibevoice_tpu_torch.finetune import lora as tlora
 from vibevoice_tpu_torch.models import qwen2 as tq
 from vibevoice_tpu_torch.ops import flash_attention as tfa
@@ -35,7 +36,7 @@ from vibevoice_tpu_torch.ops import quant as tquant
 from vibevoice_tpu_torch.schedule.dpm_solver import NoiseSchedule as TNoiseSchedule
 from vibevoice_tpu_torch.utils.params import from_jax, lora_from_jax
 
-CFG = tiny_config()
+CFG, JCFG = tiny_config(), jax_tiny_config()  # the port's side, the JAX package's
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -117,7 +118,7 @@ def test_train_attention_and_grads_match_jax():
     q, k, v = (rng.randn(b, t, h, d).astype(np.float32) for h in (nh, kh, kh))
     valid = _padded_valid(b, t, (20, 13))
     w = rng.randn(b, t, nh, d).astype(np.float32)
-    _, mask, _ = jq.train_attention_inputs(CFG.decoder_config, jnp.asarray(valid))
+    _, mask, _ = jq.train_attention_inputs(JCFG.decoder_config, jnp.asarray(valid))
 
     def jf(q, k, v):
         return jnp.sum(jq._attention_masked(q, k, v, mask) * w)
@@ -135,7 +136,7 @@ def test_train_attention_and_grads_match_jax():
 @pytest.fixture(scope="module")
 def lm():
     rng = np.random.RandomState(3)
-    jp = jq.init(jax.random.PRNGKey(0), CFG.decoder_config)
+    jp = jq.init(jax.random.PRNGKey(0), JCFG.decoder_config)
     jp = jax.tree.map(lambda x: jnp.asarray(rng.randn(*x.shape) * 0.1 + (1.0 if x.ndim == 1 else 0.0),
                                             jnp.float32), jp)
     return jp, from_jax(jax.tree.map(np.asarray, jp), CFG)
@@ -153,7 +154,7 @@ def test_no_cache_forward_matches_jax(lm, remat):
     wout = rng.randn(b, t, h).astype(np.float32)
 
     def jf(x):
-        hid, _ = jq.forward(CFG.decoder_config, jp, x, valid_mask=jnp.asarray(valid), remat=remat)
+        hid, _ = jq.forward(JCFG.decoder_config, jp, x, valid_mask=jnp.asarray(valid), remat=remat)
         return jnp.sum(hid * wout), hid
 
     (_, jh), jgx = jax.value_and_grad(jf, has_aux=True)(jnp.asarray(x))
@@ -188,20 +189,24 @@ def test_collator_matches_jax():
     weights) to 1e-5 of the peak."""
     from vibevoice_tpu.finetune import data as jdata
     from vibevoice_tpu.finetune.train import synthetic_dataset
-    from vibevoice_tpu.processor.processor import VibeVoiceProcessor
-    from vibevoice_tpu.processor.text_tokenizer import FallbackTextTokenizer
+    from vibevoice_tpu.processor import processor as jproc
+    from vibevoice_tpu.processor import text_tokenizer as jtok
     from vibevoice_tpu_torch.finetune import data as tdata
+    from vibevoice_tpu_torch.processor import processor as tproc
+    from vibevoice_tpu_torch.processor import text_tokenizer as ttok
 
-    jp = jvv.init(jax.random.PRNGKey(1), CFG)
+    jp = jvv.init(jax.random.PRNGKey(1), JCFG)
     tp = from_jax(jax.tree.map(np.asarray, {"semantic_tokenizer": jp["semantic_tokenizer"]}), CFG)
     raw = synthetic_dataset(n=4, seed=0, min_dur=0.005, max_dur=0.02)
-    proc = VibeVoiceProcessor(tokenizer=FallbackTextTokenizer(),
-                              speech_tok_compress_ratio=CFG.acoustic_tokenizer_config.hop_length)
     batches = []
-    for mod, sem in ((jdata, jdata.make_semantic_encode_fn(CFG.semantic_tokenizer_config,
-                                                            jp["semantic_tokenizer"])),
-                     (tdata, tdata.make_semantic_encode_fn(CFG.semantic_tokenizer_config,
-                                                            tp["semantic_tokenizer"]))):
+    for mod, pmod, tmod, sem in (
+            (jdata, jproc, jtok, jdata.make_semantic_encode_fn(JCFG.semantic_tokenizer_config,
+                                                               jp["semantic_tokenizer"])),
+            (tdata, tproc, ttok, tdata.make_semantic_encode_fn(CFG.semantic_tokenizer_config,
+                                                               tp["semantic_tokenizer"]))):
+        proc = pmod.VibeVoiceProcessor(
+            tokenizer=tmod.FallbackTextTokenizer(),
+            speech_tok_compress_ratio=CFG.acoustic_tokenizer_config.hop_length)
         ds = mod.VibeVoiceDataset(raw, seed=7)
         col = mod.VibeVoiceCollator(processor=proc, semantic_encode_fn=sem, max_length=256,
                                     speech_compress_ratio=CFG.acoustic_tokenizer_config.hop_length,
@@ -224,7 +229,7 @@ def test_lora_saved_by_port_loads_in_jax(tmp_path):
     load_lora_assets and merges to the port's own merged weights."""
     from vibevoice_tpu.finetune import lora as jlora
 
-    jp = jvv.init(jax.random.PRNGKey(2), CFG)
+    jp = jvv.init(jax.random.PRNGKey(2), JCFG)
     tp = from_jax(jax.tree.map(np.asarray, jp), CFG)
     cfg = tlora.LoraConfig(r=4, alpha=8)
     lora = tlora.init_lora(3, tp, cfg)
@@ -276,3 +281,18 @@ def test_trainer_cli_qlora_smoke(tmp_path):
                  ["--model_path", "x"], ["--report_to", "wandb"], ["--remat_policy", "dots"]):
         with pytest.raises(SystemExit, match="slice"):
             parse_args(flag)
+
+
+def test_trainer_needs_a_card_unless_told_cpu():
+    """Without --device the trainer asks for the card; on a host with none
+    it exits non-zero and names --device cpu, never falling back itself."""
+    from vibevoice_tpu_torch.finetune.train import parse_args
+
+    assert parse_args(["--synthetic_data"]).device == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    res = subprocess.run([sys.executable, "-m", "vibevoice_tpu_torch.finetune.train",
+                          "--synthetic_data", "--max_steps", "1"], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode != 0
+    assert "--device cpu" in res.stderr and "no CUDA device" in res.stderr

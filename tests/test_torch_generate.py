@@ -16,18 +16,19 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from vibevoice_tpu.configs import tiny_config
+from vibevoice_tpu.configs import tiny_config as jax_tiny_config
 from vibevoice_tpu.models import inference as jinf
 from vibevoice_tpu.models import vibevoice as jvv
-from vibevoice_tpu.processor.processor import VibeVoiceProcessor
-from vibevoice_tpu.processor.text_tokenizer import FallbackTextTokenizer
 
+from vibevoice_tpu_torch.configs import tiny_config
 from vibevoice_tpu_torch.models import inference as tinf
 from vibevoice_tpu_torch.models import vibevoice as tvv
+from vibevoice_tpu_torch.processor.processor import VibeVoiceProcessor
+from vibevoice_tpu_torch.processor.text_tokenizer import FallbackTextTokenizer
 from vibevoice_tpu_torch.tts import VibeVoiceTTS
 from vibevoice_tpu_torch.utils.params import from_jax, init
 
-CFG = tiny_config()
+CFG, JCFG = tiny_config(), jax_tiny_config()  # the port's side, the JAX package's
 HOP = CFG.acoustic_tokenizer_config.hop_length
 TOK = dict(speech_start=5, speech_end=6, speech_diffusion=7, eos=2)
 # -1: the model's own argmax picks that frame's token
@@ -49,7 +50,7 @@ def _randomize(tree, seed):
 
 @pytest.fixture(scope="module")
 def models():
-    jp = _randomize(jvv.init(jax.random.PRNGKey(0), CFG), 1)
+    jp = _randomize(jvv.init(jax.random.PRNGKey(0), JCFG), 1)
     tp = from_jax(jax.tree.map(np.asarray, jp), CFG)
     return jp, tp
 
@@ -80,10 +81,10 @@ def test_generate_matches_jax(models, serving):
     that bf16 rounding bounds the waveform at 2% of the peak."""
     jp, tp = models
     if serving:
-        jp = jvv.fuse_for_serving(jvv.quantize_for_inference(jp), CFG, quantize=True)
+        jp = jvv.fuse_for_serving(jvv.quantize_for_inference(jp), JCFG, quantize=True)
         tp = tvv.fuse_for_serving(tvv.quantize_for_inference(tp), CFG, quantize=True)
     kw = _inputs()
-    jo = jinf.generate(CFG, jp, tokens=jinf.SpecialTokens(**TOK),
+    jo = jinf.generate(JCFG, jp, tokens=jinf.SpecialTokens(**TOK),
                        opts=jinf.GenerateOptions(ddpm_steps=3, max_length=64), **kw)
     to = tinf.generate(CFG, tp, tokens=tinf.SpecialTokens(**TOK),
                        opts=tinf.GenerateOptions(ddpm_steps=3, max_length=64), **kw)

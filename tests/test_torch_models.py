@@ -10,19 +10,21 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from vibevoice_tpu.configs import Qwen2Config, tiny_config
+from vibevoice_tpu.configs import Qwen2Config as JQwen2Config
+from vibevoice_tpu.configs import tiny_config as jax_tiny_config
 from vibevoice_tpu.models import diffusion_head as jdh
 from vibevoice_tpu.models import qwen2 as jq
 from vibevoice_tpu.models import tokenizer as jtok
 from vibevoice_tpu.models import vibevoice as jvv
 
+from vibevoice_tpu_torch.configs import Qwen2Config, tiny_config
 from vibevoice_tpu_torch.models import diffusion_head as tdh
 from vibevoice_tpu_torch.models import qwen2 as tq
 from vibevoice_tpu_torch.models import tokenizer as ttok
 from vibevoice_tpu_torch.models import vibevoice as tvv
 from vibevoice_tpu_torch.utils.params import from_jax
 
-CFG = tiny_config()
+CFG, JCFG = tiny_config(), jax_tiny_config()  # the port's side, the JAX package's
 
 
 def T(a):
@@ -52,7 +54,7 @@ def randomize(tree, seed):
 
 @pytest.fixture(scope="module")
 def params():
-    jp = randomize(jvv.init(jax.random.PRNGKey(0), CFG), 1)
+    jp = randomize(jvv.init(jax.random.PRNGKey(0), JCFG), 1)
     return jp, from_jax(jax.tree.map(np.asarray, jp), CFG)
 
 
@@ -60,9 +62,10 @@ def params():
 # Qwen2 with the cache
 # ---------------------------------------------------------------------------
 
-LM = Qwen2Config(vocab_size=64, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
-                 num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=1024,
-                 rope_theta=10_000.0)
+LM_KW = dict(vocab_size=64, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+             num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=1024,
+             rope_theta=10_000.0)
+LM, JLM = Qwen2Config(**LM_KW), JQwen2Config(**LM_KW)
 
 
 @pytest.mark.parametrize("kv_int8", [False, True])
@@ -72,7 +75,7 @@ def test_qwen2_prefill_decode_matches_jax_flash(kv_int8):
     to S-1, as dynamic_update_slice does). Held against the JAX flash path
     (Pallas in interpret mode): hidden states in f32 to summation order;
     int8 rows bit-equal except where a row max lands on a rounding tie."""
-    jp = randomize(jq.init(jax.random.PRNGKey(2), LM), 3)
+    jp = randomize(jq.init(jax.random.PRNGKey(2), JLM), 3)
     tp = from_jax(jax.tree.map(np.asarray, jp), None)
     rng = np.random.RandomState(4)
     s = 512
@@ -88,9 +91,9 @@ def test_qwen2_prefill_decode_matches_jax_flash(kv_int8):
     try:
         jq.set_attention_impl("flash")
         # head_dim 64: the JAX flash path lane-pads its cache to 128
-        jc = jq.make_cache(LM, 2, s, jnp.float32, quantized=kv_int8)
+        jc = jq.make_cache(JLM, 2, s, jnp.float32, quantized=kv_int8)
         for emb, vm, adv in steps:
-            hj, jc = jq.forward(LM, jp, jnp.asarray(emb),
+            hj, jc = jq.forward(JLM, jp, jnp.asarray(emb),
                                 valid_mask=None if vm is None else jnp.asarray(vm), cache=jc,
                                 advance=None if adv is None else jnp.asarray(adv))
             ht, tc = tq.forward(LM, tp, T(emb), valid_mask=None if vm is None else T(vm),
@@ -102,7 +105,7 @@ def test_qwen2_prefill_decode_matches_jax_flash(kv_int8):
         jc = jc._replace(length=jnp.asarray([s, 3], jnp.int32))
         tc = tc._replace(length=torch.tensor([s, 3], dtype=torch.int32))
         last = rng.randn(2, 1, 256).astype(np.float32)
-        hj, jc = jq.forward(LM, jp, jnp.asarray(last), cache=jc)
+        hj, jc = jq.forward(JLM, jp, jnp.asarray(last), cache=jc)
         ht, tc = tq.forward(LM, tp, T(last), cache=tc)
         close(ht, hj, 1e-4, 1e-4)
     finally:
@@ -141,7 +144,7 @@ def test_diffusion_head_matches_jax(params, fused):
     (kernel C's plain version against the Pallas kernel in interpret mode):
     f32, summation order only."""
     jp, tp = params
-    hcfg = CFG.diffusion_head_config
+    hcfg, jhcfg = CFG.diffusion_head_config, JCFG.diffusion_head_config
     jh, th = jp["diffusion_head"], tp["diffusion_head"]
     rng = np.random.RandomState(6)
     noisy = rng.randn(4, CFG.acoustic_vae_dim).astype(np.float32)
@@ -150,15 +153,15 @@ def test_diffusion_head_matches_jax(params, fused):
     if fused is None:
         t4 = np.array([1.0, 300.0, 600.0, 999.0], np.float32)
         close(tdh.apply(th, hcfg, T(noisy), T(t4), T(cond)),
-              jdh.apply(jh, hcfg, jnp.asarray(noisy), jnp.asarray(t4), jnp.asarray(cond)),
+              jdh.apply(jh, jhcfg, jnp.asarray(noisy), jnp.asarray(t4), jnp.asarray(cond)),
               1e-5, 1e-5)
     else:
-        jh = jdh.fuse_head(jh, hcfg, quantize=fused == "int8")
+        jh = jdh.fuse_head(jh, jhcfg, quantize=fused == "int8")
         th = tdh.fuse_head(th, hcfg, quantize=fused == "int8")
-    jm = jdh.precompute_mods(jh, hcfg, jnp.asarray(ts), jnp.asarray(cond))
+    jm = jdh.precompute_mods(jh, jhcfg, jnp.asarray(ts), jnp.asarray(cond))
     tm = tdh.precompute_mods(th, hcfg, T(ts), T(cond))
     for i in range(len(ts)):
-        ref = jdh.apply_with_mods(jh, hcfg, jnp.asarray(noisy),
+        ref = jdh.apply_with_mods(jh, jhcfg, jnp.asarray(noisy),
                                   {"layers": [m[i] for m in jm["layers"]], "final": jm["final"][i]})
         out = tdh.apply_with_mods(th, hcfg, T(noisy), tdh.step_mods(tm, i))
         close(out, ref, 1e-5, 1e-5)
@@ -178,16 +181,17 @@ def test_streaming_tokenizers_match_jax(params, fused):
     from exact erf by 1.5e-7."""
     jp, tp = params
     acfg, scfg = CFG.acoustic_tokenizer_config, CFG.semantic_tokenizer_config
+    jacfg, jscfg = JCFG.acoustic_tokenizer_config, JCFG.semantic_tokenizer_config
     ja, jsem = jp["acoustic_tokenizer"], jp["semantic_tokenizer"]
     ta, tsem = tp["acoustic_tokenizer"], tp["semantic_tokenizer"]
     if fused is not None:
         q = fused == "int8"
-        ja = {**ja, **jtok.fuse_hot_stages({"decoder": ja["decoder"]}, acfg, q)}
-        jsem = {**jsem, **jtok.fuse_hot_stages({"encoder": jsem["encoder"]}, scfg, q)}
+        ja = {**ja, **jtok.fuse_hot_stages({"decoder": ja["decoder"]}, jacfg, q)}
+        jsem = {**jsem, **jtok.fuse_hot_stages({"encoder": jsem["encoder"]}, jscfg, q)}
         ta = {**ta, **ttok.fuse_hot_stages({"decoder": ta["decoder"]}, acfg, q)}
         tsem = {**tsem, **ttok.fuse_hot_stages({"encoder": tsem["encoder"]}, scfg, q)}
     rng = np.random.RandomState(7)
-    jds, jes = jtok.init_decoder_state(acfg, 2), jtok.init_encoder_state(scfg, 2)
+    jds, jes = jtok.init_decoder_state(jacfg, 2), jtok.init_encoder_state(jscfg, 2)
     tds, tes = ttok.init_decoder_state(acfg, 2), ttok.init_encoder_state(scfg, 2)
     for f in range(4):
         if f == 2:
@@ -195,10 +199,10 @@ def test_streaming_tokenizers_match_jax(params, fused):
             jds, jes = jtok.reset_state(jds, jnp.asarray(m)), jtok.reset_state(jes, jnp.asarray(m))
             tds, tes = ttok.reset_state(tds, T(m)), ttok.reset_state(tes, T(m))
         lat = rng.randn(2, 1, acfg.vae_dim).astype(np.float32)
-        aj, jds = jtok.decode(acfg, ja, jnp.asarray(lat), jds)
+        aj, jds = jtok.decode(jacfg, ja, jnp.asarray(lat), jds)
         at, tds = ttok.decode(acfg, ta, T(lat), tds)
         close(at, aj, 1e-4, 1e-5, f"audio frame {f}")
-        sj, jes = jtok.encode(scfg, jsem, aj, jes)
+        sj, jes = jtok.encode(jscfg, jsem, aj, jes)
         st, tes = ttok.encode(scfg, tsem, T(np.asarray(aj)), tes)
         close(st, sj, 1e-4, 1e-5, f"semantic frame {f}")
     for k in jds:
@@ -216,7 +220,7 @@ def test_voice_features_match_jax(params):
     wav[1, 3 * hop:] = 0.0
     std_eps = rng.randn(2).astype(np.float32)
     eps = rng.randn(2, 5, acfg.vae_dim).astype(np.float32)
-    fj = jvv.encode_voice_features(CFG, jp, jnp.asarray(wav),
+    fj = jvv.encode_voice_features(JCFG, jp, jnp.asarray(wav),
                                    vae_noise=(jnp.asarray(std_eps), jnp.asarray(eps)))
     ft = tvv.encode_voice_features(CFG, tp, T(wav), vae_noise=(T(std_eps), T(eps)))
     close(ft, fj, 1e-4, 1e-5)
@@ -235,7 +239,7 @@ def test_serving_quantization_bit_equal(params):
     of the port equals the JAX package's (same f32 max/127, division and
     round-half-even)."""
     jp, tp = params
-    jq_ = jvv.fuse_for_serving(jvv.quantize_for_inference(jp), CFG, quantize=True)
+    jq_ = jvv.fuse_for_serving(jvv.quantize_for_inference(jp), JCFG, quantize=True)
     tq_ = tvv.fuse_for_serving(tvv.quantize_for_inference(tp), CFG, quantize=True)
     pairs = [(jq_["lm_head_q"], tq_["lm_head_q"])]
     for jl, tl in zip(jq_["lm"]["layers"], tq_["lm"]["layers"]):

@@ -16,7 +16,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-from vibevoice_tpu.configs import tiny_config
+from vibevoice_tpu.configs import tiny_config as jax_tiny_config
 from vibevoice_tpu.models import inference as jinf
 from vibevoice_tpu.models import qwen2 as jq
 from vibevoice_tpu.models import vibevoice as jvv
@@ -25,13 +25,14 @@ from vibevoice_tpu.parallel import sp_prefill as jsp
 from vibevoice_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from vibevoice_tpu.parallel.ring_attention import ring_attention as jax_ring_attention
 
+from vibevoice_tpu_torch.configs import tiny_config
 from vibevoice_tpu_torch.models import inference as tinf
 from vibevoice_tpu_torch.ops import flash_attention as tfa
 from vibevoice_tpu_torch.parallel import make_mesh, ring_attention, ring_prefill_carry
 from vibevoice_tpu_torch.parallel.sp_prefill import _sp_forward
 from vibevoice_tpu_torch.utils.params import from_jax
 
-CFG = tiny_config()
+CFG, JCFG = tiny_config(), jax_tiny_config()  # the port's side, the JAX package's
 TOK = dict(speech_start=5, speech_end=6, speech_diffusion=7, eos=2)
 # the cases of tests/test_ring_attention.py:52-88: (seed, head_dim, amplitude, sample 1's length)
 RING_CASES = {"d32": (0, 32, 1.0, 50), "d128": (3, 128, 0.3, 41)}
@@ -180,7 +181,7 @@ def _voice_prompt(ids):
 
 @pytest.fixture(scope="module")
 def models():
-    jp = jvv.init(jax.random.PRNGKey(0), CFG)
+    jp = jvv.init(jax.random.PRNGKey(0), JCFG)
     return jp, from_jax(jax.tree.map(np.asarray, jp), CFG)
 
 
@@ -244,12 +245,12 @@ def test_sp_forward_matches_jax(models, world4):
     single-device qwen2.forward and JAX's _sp_forward, K/V of the first and
     last layer == JAX's _sp_forward, on valid slots."""
     jp, _ = models
-    lm_cfg = CFG.decoder_config
+    lm_cfg, jlm_cfg = CFG.decoder_config, JCFG.decoder_config
     embeds, valid = _sp_inputs()
     hidden, ks, vs = world4["sp_forward"]
     assert len(ks) == len(vs) == lm_cfg.num_hidden_layers
-    ref, _ = jq.forward(lm_cfg, jp["lm"], jnp.asarray(embeds), valid_mask=jnp.asarray(valid))
-    jh, jks, jvs = jsp._sp_forward(lm_cfg, jp["lm"], jnp.asarray(embeds), jnp.asarray(valid),
+    ref, _ = jq.forward(jlm_cfg, jp["lm"], jnp.asarray(embeds), valid_mask=jnp.asarray(valid))
+    jh, jks, jvs = jsp._sp_forward(jlm_cfg, jp["lm"], jnp.asarray(embeds), jnp.asarray(valid),
                                    jax_make_mesh(dp=1, tp=4), "tp", 8)
     tol = dict(rtol=5e-5, atol=5e-5)
     for want in (ref, jh):
@@ -303,10 +304,10 @@ def test_ring_prefill_carry_matches_jax(models, world4, kv_int8):
     b = ids.shape[0]
     got = world4[f"prefill_{kv_int8}"]
     toks = jinf.SpecialTokens(**TOK)
-    jring = jsp.ring_prefill_carry(CFG, jp, jnp.asarray(ids, jnp.int32), jnp.asarray(valid),
+    jring = jsp.ring_prefill_carry(JCFG, jp, jnp.asarray(ids, jnp.int32), jnp.asarray(valid),
                                    max_len, toks, jax_make_mesh(dp=1, tp=4), q_chunk=4,
                                    kv_int8=kv_int8)
-    jref = jinf.prefill_fn(CFG, jp, jnp.asarray(ids, jnp.int32), max_len, jnp.asarray(valid),
+    jref = jinf.prefill_fn(JCFG, jp, jnp.asarray(ids, jnp.int32), max_len, jnp.asarray(valid),
                            None, False, toks, "audio", kv_int8)
     tol = dict(rtol=2e-2, atol=2e-2) if kv_int8 else dict(rtol=5e-5, atol=5e-5)
     for want in (jring, jref):

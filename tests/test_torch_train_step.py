@@ -19,20 +19,21 @@ import optax
 import pytest
 import torch
 
-from vibevoice_tpu.configs import tiny_config
+from vibevoice_tpu.configs import tiny_config as jax_tiny_config
 from vibevoice_tpu.finetune import loss as jloss
 from vibevoice_tpu.finetune import lora as jlora
 from vibevoice_tpu.finetune import train_step as jts
 from vibevoice_tpu.models import vibevoice as jvv
 from vibevoice_tpu.ops import quant as jquant
 
+from vibevoice_tpu_torch.configs import tiny_config
 from vibevoice_tpu_torch.finetune import loss as tloss
 from vibevoice_tpu_torch.finetune import lora as tlora
 from vibevoice_tpu_torch.finetune import train_step as tts
 from vibevoice_tpu_torch.ops import quant as tquant
 from vibevoice_tpu_torch.utils.params import from_jax, lora_from_jax
 
-CFG = tiny_config()
+CFG, JCFG = tiny_config(), jax_tiny_config()  # the port's side, the JAX package's
 HOP = CFG.acoustic_tokenizer_config.hop_length
 LCFG = jlora.LoraConfig(r=4)
 
@@ -82,7 +83,7 @@ def _draws(key, batch, mul=4):
 
 @pytest.fixture(scope="module")
 def setup():
-    jp = dict(_randomize(jvv.init(jax.random.PRNGKey(0), CFG), 1))
+    jp = dict(_randomize(jvv.init(jax.random.PRNGKey(0), JCFG), 1))
     jp["speech_scaling_factor"] = jnp.asarray(float("nan"))
     jp["speech_bias_factor"] = jnp.asarray(float("nan"))
     tp = from_jax(jax.tree.map(np.asarray, jp), CFG)
@@ -111,7 +112,7 @@ def test_train_forward_and_lora_grads_match_jax(setup, int8):
     batch, key = _batch(), jax.random.PRNGKey(5)
 
     def jloss_fn(lora):
-        out = jloss.train_forward(CFG, jlora.apply_lora(jp, lora, LCFG),
+        out = jloss.train_forward(JCFG, jlora.apply_lora(jp, lora, LCFG),
                                   jax.tree.map(jnp.asarray, batch), key,
                                   jloss.TrainOptions(**opts))
         return out.loss, out
@@ -150,7 +151,7 @@ def test_lora_train_steps_match_jax(setup):
     batch = _batch()
     jopt = jts.make_optimizer(learning_rate=1e-3, warmup_steps=1, total_steps=20)
     topt = tts.make_optimizer(learning_rate=1e-3, warmup_steps=1, total_steps=20)
-    jstep = jax.jit(jts.make_lora_train_step(CFG, jopt, LCFG))
+    jstep = jax.jit(jts.make_lora_train_step(JCFG, jopt, LCFG))
     tstep = tts.make_lora_train_step(CFG, topt, tlora.LoraConfig(r=4))
     jstate = jts.init_train_state(jl, jopt)
     tl0 = lora_from_jax(jax.tree.map(np.asarray, jl))

@@ -16,7 +16,7 @@
 // (m, l, acc) state, and writes it to an f32 workspace; a combine kernel
 // merges the splits. Blocks whose key range starts past the tile's causal
 // horizon do no reads. Prefill tiles the W*G rows over grid.x instead.
-#include "common.cuh"
+#include "flash_combine.cuh"
 
 namespace vv {
 
@@ -24,7 +24,6 @@ constexpr int FA_QT = 16;       // folded query rows (w * G + g) per block
 constexpr int FA_KB = 32;       // keys per shared-memory chunk
 constexpr int FA_THREADS = 128;
 constexpr int FA_DMAX = 128;    // head_dim <= 128
-constexpr float FA_M_INIT = -1e30f;
 
 template <typename QT, typename KVT, bool QUANT>
 __global__ void __launch_bounds__(FA_THREADS)
@@ -154,31 +153,6 @@ flash_split_kernel(const QT* __restrict__ q, const KVT* __restrict__ kc,
     part_m[pbase + row0 + tid] = m_s[tid];
     part_l[pbase + row0 + tid] = l_s[tid];
   }
-}
-
-// grid (R, B*KH), block D threads: merge the splits of one folded row.
-template <typename QT>
-__global__ void flash_combine_kernel(const float* __restrict__ part_acc,
-                                     const float* __restrict__ part_m,
-                                     const float* __restrict__ part_l, QT* __restrict__ out,
-                                     int W, int NH, int KH, int D, int n_splits) {
-  const int gr = blockIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / KH, kh = bh % KH;
-  const int G = NH / KH;
-  const int R = W * G;
-  const int d = threadIdx.x;
-  float M = FA_M_INIT;
-  for (int sp = 0; sp < n_splits; ++sp) M = fmaxf(M, part_m[((size_t)bh * n_splits + sp) * R + gr]);
-  float L = 0.f, O = 0.f;
-  for (int sp = 0; sp < n_splits; ++sp) {
-    const size_t p = ((size_t)bh * n_splits + sp) * R + gr;
-    const float w = expf(part_m[p] - M);
-    L += part_l[p] * w;
-    O += part_acc[p * D + d] * w;
-  }
-  const int w = gr / G, g = gr % G;
-  out[((size_t)(b * W + w) * NH + kh * G + g) * D + d] = from_f<QT>(O / fmaxf(L, 1e-30f));
 }
 
 template <typename QT, typename KVT, bool QUANT>

@@ -22,7 +22,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from vibevoice_tpu.configs import SemanticTokenizerConfig
+from ..configs import SemanticTokenizerConfig
 
 from .loss import Batch
 
@@ -30,7 +30,7 @@ SAMPLE_RATE = 24_000
 
 
 def load_audio_to_24k(audio, target_sr: int = SAMPLE_RATE) -> np.ndarray:
-    from vibevoice_tpu.processor.audio import load_audio, resample, to_mono
+    from ..processor.audio import load_audio, resample, to_mono
 
     if isinstance(audio, str):
         return load_audio(audio, target_sr)

@@ -33,7 +33,7 @@ import torch
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
-from vibevoice_tpu.configs import VibeVoiceConfig
+from ..configs import VibeVoiceConfig
 
 from ..models import diffusion_head as dh
 from ..models import qwen2

@@ -12,7 +12,9 @@ Model: without ``--config`` a tiny random-weight model (smoke mode); with
 ``--config <config.json>`` that configuration at full width with random
 weights from ``--seed``. Data: ``--dataset_jsonl`` ({text, audio} lines) or
 ``--synthetic_data`` (sine-wave clips). Batches are collated on the host
-between steps. The multi-device flags, orbax checkpoints, ``--model_path``
+between steps. It runs on the card (``--device cuda``, the default) and exits
+naming ``--device cpu`` where there is none; it never picks the CPU itself.
+The multi-device flags, orbax checkpoints, ``--model_path``
 and wandb belong to later slices of the port and exit with a message.
 """
 
@@ -47,9 +49,11 @@ def parse_args(argv=None):
     # model
     ap.add_argument("--model_path", type=str, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--config", type=str, default=None,
-                    help="model config json (e.g. vibevoice_tpu/configs/qwen2.5_1.5b_64k.json): "
+                    help="model config json (e.g. vibevoice_tpu_torch/configs/qwen2.5_1.5b_64k.json): "
                     "that model at full width with random weights from --seed")
-    ap.add_argument("--device", type=str, default=None, help="cuda or cpu (default: cuda if present)")
+    ap.add_argument("--device", type=str, default="cuda",
+                    help="cuda (the default; there must be a card) or cpu (the kernels' plain "
+                         "versions, for small configs)")
     ap.add_argument("--output_dir", type=str, default="./finetune_out")
     ap.add_argument("--use_lora", action="store_true")
     ap.add_argument("--lora_r", type=int, default=16)
@@ -145,9 +149,9 @@ def synthetic_dataset(n: int = 64, seed: int = 0, min_dur: float = 1.0, max_dur:
 def _build_model(args, device):
     import torch
 
-    from vibevoice_tpu.configs import VibeVoiceConfig, tiny_config
-    from vibevoice_tpu.processor.processor import VibeVoiceProcessor
-    from vibevoice_tpu.processor.text_tokenizer import QWEN_SPECIAL_IDS, FallbackTextTokenizer
+    from ..configs import VibeVoiceConfig, tiny_config
+    from ..processor.processor import VibeVoiceProcessor
+    from ..processor.text_tokenizer import QWEN_SPECIAL_IDS, FallbackTextTokenizer
 
     from ..utils.params import init
 
@@ -225,8 +229,11 @@ def main(argv=None) -> Dict:
         tree_leaves_with_path,
     )
 
-    device = torch.device(args.device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    device = torch.device(args.device)
     cuda = device.type == "cuda"
+    if cuda and not torch.cuda.is_available():
+        raise SystemExit(f"--device {args.device}: no CUDA device is available; pass --device cpu "
+                         "to train on the CPU through the kernels' plain versions")
 
     def sync():
         if cuda:

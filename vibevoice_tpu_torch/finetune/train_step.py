@@ -23,7 +23,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 import torch
 from torch.profiler import record_function
 
-from vibevoice_tpu.configs import VibeVoiceConfig
+from ..configs import VibeVoiceConfig
 
 from ..schedule.dpm_solver import NoiseSchedule
 from .loss import Batch, Draws, TrainOptions, TrainOut, train_forward

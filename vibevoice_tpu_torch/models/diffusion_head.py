@@ -19,7 +19,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from vibevoice_tpu.configs import DiffusionHeadConfig
+from ..configs import DiffusionHeadConfig
 
 from ..ops.head_fused import fused_head_ffn_stack, pack_head_ffns
 from ..ops.norms import rms_norm

@@ -29,7 +29,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from vibevoice_tpu.configs import VibeVoiceConfig
+from ..configs import VibeVoiceConfig
 
 from ..schedule import dpm_solver as dpm
 from . import diffusion_head as dh

@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from vibevoice_tpu.configs import Qwen2Config
+from ..configs import Qwen2Config
 
 from ..ops.flash_attention import flash_cached_attention, flash_train_attention
 from ..ops.norms import rms_norm

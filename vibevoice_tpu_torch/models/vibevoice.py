@@ -15,7 +15,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from vibevoice_tpu.configs import VibeVoiceConfig
+from ..configs import VibeVoiceConfig
 
 from ..ops import quant
 from ..ops.norms import rms_norm

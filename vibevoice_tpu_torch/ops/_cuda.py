@@ -44,6 +44,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "vv_int8_matmul": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "vv_int8_gemm": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P],
+    "vv_flash_prefill": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "vv_flash_cached_attention": [
         _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ],

@@ -8,8 +8,11 @@ rows of a chunk attend like valid rows at their slot, as on the TPU.
 int8 caches carry per-row scales (B, KH, 1, S): the K scale multiplies the
 scores and the V scale the probabilities.
 
-On a CUDA tensor ``flash_cached_attention`` launches the hand-written
-flash-decoding kernel (csrc/flash_attention.cu); on a CPU tensor it runs
+On a CUDA tensor ``flash_cached_attention`` launches one of two
+hand-written kernels: bf16 q with W > 1 (prefill chunks) the tensor-core
+flash attention of csrc/flash_prefill.cu (``_prefill_plan`` sizes its grid),
+decode (W = 1) and f32 q the flash-decoding kernel of
+csrc/flash_attention.cu. On a CPU tensor it runs
 ``flash_cached_attention_plain``.
 
 Kernel F, ``flash_ring_block``, is one hop of ring attention (the JAX
@@ -41,6 +44,35 @@ import torch
 from . import _cuda
 
 SPLIT_KEYS = 128  # keys per split at decode (csrc/flash_attention.cu)
+PREFILL_ROWS = 64  # folded query rows w * G + g per block of csrc/flash_prefill.cu
+PREFILL_KEYS = 64  # keys per K/V tile there
+SMS = 132  # streaming multiprocessors of an H100 SXM
+
+
+def _prefill_plan(b: int, w: int, g: int, kh: int, s: int) -> tuple[int, int]:
+    """(row tiles, key splits) of the prefill kernel for B samples, W query
+    positions, G query heads per KV head, KH KV heads and an S-slot cache.
+
+    Where the (sample, KV head, row tile) blocks fill less than two waves of
+    the card's SMs, the key axis is split until they do, keeping at least
+    four key tiles of the cache per split."""
+    tiles = -(-(w * g) // PREFILL_ROWS)
+    blocks = b * kh * tiles
+    if blocks >= 2 * SMS:
+        return tiles, 1
+    return tiles, max(1, min(-(-2 * SMS // blocks), -(-s // PREFILL_KEYS) // 4))
+
+
+def _prefill_split(total: int, n_splits: int, sp: int) -> tuple[int, int]:
+    """Key tiles [first, end) of split ``sp`` of a row tile whose rows attend
+    keys [0, total) (csrc/flash_prefill.cu computes the same from base on
+    the card): the tile's own horizon is divided evenly, so no split starts
+    past it; splits beyond its key-tile count are empty."""
+    nblk = -(-total // PREFILL_KEYS)
+    ns = min(n_splits, nblk)
+    if sp >= ns:
+        return nblk, nblk
+    return sp * nblk // ns, (sp + 1) * nblk // ns
 
 
 def flash_cached_attention_plain(
@@ -82,7 +114,11 @@ def flash_cached_attention(
     v_scale: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Returns (B, W, NH, D) in q's dtype."""
+    """Returns (B, W, NH, D) in q's dtype.
+
+    Launch counts per route: ``flash_cached_attention.launches`` (the
+    flash-decoding kernel) and ``flash_cached_attention.launches_prefill``
+    (the tensor-core prefill kernel)."""
     if q.device.type == "cpu":
         return flash_cached_attention_plain(
             q, k_cache, v_cache, base_lens, k_scale=k_scale, v_scale=v_scale, scale=scale
@@ -104,7 +140,28 @@ def flash_cached_attention(
                 raise ValueError(f"scales must be (B, KH, 1, S) f32, got {tuple(t.shape)}")
     elif k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
         raise ValueError(f"a {k_cache.dtype} cache needs q of the same dtype, got {q.dtype}")
+    scale = float(d ** -0.5 if scale is None else scale)
     r = w * (nh // kh)
+    if q.dtype == torch.bfloat16 and w > 1:
+        if d not in (64, 128):
+            raise ValueError(f"the prefill kernel is built for head_dim 64 and 128, got {d}")
+        if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+            raise ValueError("the prefill kernel copies 16-byte chunks: the caches must be "
+                             "16-byte aligned")
+        if q.data_ptr() % 16:  # an offset view
+            q = q.clone()
+        _, n_splits = _prefill_plan(b, w, nh // kh, kh, s)
+        out = torch.empty_like(q)
+        ws = torch.empty(b * kh * n_splits * r * (d + 2) if n_splits > 1 else 0,
+                         dtype=torch.float32, device=q.device)
+        _cuda.library().call(
+            "vv_flash_prefill", q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            _cuda.dtype_code(k_cache), _cuda.ptr(k_scale), _cuda.ptr(v_scale),
+            base_lens.data_ptr(), out.data_ptr(), ws.data_ptr(), b, w, nh, kh, s, d, n_splits,
+            scale, _cuda.stream_ptr(q.device),
+        )
+        flash_cached_attention.launches_prefill += 1
+        return out
     q_tiles = -(-r // 16)
     n_splits = max(1, min(-(-s // SPLIT_KEYS), 256 // q_tiles))
     kspl = -(-(-(-s // n_splits)) // 32) * 32
@@ -115,13 +172,14 @@ def flash_cached_attention(
         "vv_flash_cached_attention", q.data_ptr(), _cuda.dtype_code(q), k_cache.data_ptr(),
         v_cache.data_ptr(), _cuda.dtype_code(k_cache), _cuda.ptr(k_scale), _cuda.ptr(v_scale),
         base_lens.data_ptr(), out.data_ptr(), ws.data_ptr(), b, w, nh, kh, s, d, n_splits, kspl,
-        float(d ** -0.5 if scale is None else scale), _cuda.stream_ptr(q.device),
+        scale, _cuda.stream_ptr(q.device),
     )
     flash_cached_attention.launches += 1
     return out
 
 
 flash_cached_attention.launches = 0
+flash_cached_attention.launches_prefill = 0
 
 
 # ---------------------------------------------------------------------------

@@ -6,11 +6,15 @@ scales (OUT,); w = w8 * scale. ``quantize_weight`` does the same f32
 ``max|w| / 127``, division and round-half-even as the JAX version, so the
 int8 tensors and scales are bit-equal.
 
-``int8_matmul`` on a CUDA tensor launches the hand-written kernel
-(csrc/int8_matmul.cu, which replaces the Pallas TPU kernel
-vibevoice_tpu/ops/quant.py:129). On a CPU tensor it runs
+``int8_matmul`` on a CUDA tensor launches a hand-written kernel that
+replaces the Pallas TPU kernel vibevoice_tpu/ops/quant.py:129, chosen by row
+count alone (``_plan``): below ``GEMM_MIN_ROWS`` rows (decode) the split-K
+GEMV of csrc/int8_matmul.cu, which streams the int8 weight over every SM;
+at and above it (prefill, training) the tensor-core GEMM of
+csrc/int8_gemm.cu (TMA and wgmma, 256 rows x 128 columns a block, no
+split-K, so a row's result does not depend on the call's row count). On a CPU tensor it runs
 ``int8_matmul_plain``, the same function in plain PyTorch. Unlike the TPU
-port, every shape takes the kernel (no 512-divisibility gate).
+port, every shape takes a kernel (no 512-divisibility gate).
 
 ``int8_matmul_t`` is the backward w.r.t. x, dx = bf16(g * scale) @ w8^T: on
 a CUDA tensor kernel E (csrc/int8_matmul_t.cu, replacing the Pallas TPU
@@ -23,7 +27,7 @@ int8 weights and scales are frozen and get no gradient.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import torch
 
@@ -44,32 +48,99 @@ def int8_matmul_plain(x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) ->
     return y.to(x.dtype)
 
 
+# Rows at and above take the tensor-core GEMM (csrc/int8_gemm.cu). Measured
+# on an H100 over a layer's seven 1.5B linears (chip_smoke.py's route sweep):
+# the GEMV is faster at 8 rows and below, the GEMM from 12 rows up.
+GEMM_MIN_ROWS = 12
+GEMM_TILE = (256, 128)  # its output tile (rows, columns) per block
+GEMV_TILE = (8, 128)  # the split-K GEMV's (csrc/gemv.cuh)
+
+
+class Int8Plan(NamedTuple):
+    """How kernel A covers a (rows, k) @ (k, n) call: its route, the output
+    tile of one block, and the K splits (the GEMM never splits K)."""
+    route: str  # "gemm" (csrc/int8_gemm.cu) or "gemv" (csrc/int8_matmul.cu)
+    row_tile: int
+    col_tile: int
+    splits: int
+    k_per_split: int
+
+
+def _plan(rows: int, k: int, n: int) -> Int8Plan:
+    """Kernel A's route by row count alone: the GEMV streams the weight once
+    for a few rows (decode); from GEMM_MIN_ROWS up the tensor cores win."""
+    if rows >= GEMM_MIN_ROWS:
+        return Int8Plan("gemm", *GEMM_TILE, 1, k)
+    return Int8Plan("gemv", *GEMV_TILE, *_cuda.split_k(rows, k, n))
+
+
 def int8_matmul(x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """y = x @ (w8 * scale) for x (..., IN); the output has x's dtype."""
+    """y = x @ (w8 * scale) for x (..., IN); the output has x's dtype.
+
+    Launch counts per route: ``int8_matmul.launches`` (GEMV) and
+    ``int8_matmul.launches_tc`` (tensor-core GEMM)."""
     if x.device.type == "cpu":
         return int8_matmul_plain(x, w8, scale)
     cin, cout = w8.shape
     x2 = x.reshape(-1, cin).contiguous()
+    launch = _gemm if _plan(x2.shape[0], cin, cout).route == "gemm" else _gemv
+    return launch(x2, w8, scale).reshape(*x.shape[:-1], cout)
+
+
+def _check(x2: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Validate a (rows, IN) x against w8 (IN, OUT) and scale; the output."""
+    cout = w8.shape[1]
     _cuda.require_cuda(x2, w8, scale)
     if w8.dtype != torch.int8 or scale.dtype != torch.float32 or scale.shape != (cout,):
         raise ValueError(f"expected int8 w8 and f32 scale ({cout},), got {w8.dtype} "
                          f"{tuple(w8.shape)} and {scale.dtype} {tuple(scale.shape)}")
+    if x2.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"x must be bf16 or f32, got {x2.dtype}")
+    return torch.empty(x2.shape[0], cout, dtype=x2.dtype, device=x2.device)
+
+
+def _gemm(x2: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Kernel A's tensor-core route (csrc/int8_gemm.cu) on (rows, IN) x."""
+    out = _check(x2, w8, scale)
+    (rows, cin), cout = x2.shape, w8.shape[1]
+    if rows == 0:
+        return out
+    if cin % 8 or cout % 16 or w8.data_ptr() % 16:
+        raise ValueError(f"the GEMM's TMA rows must be multiples of 16 bytes: IN={cin} must "
+                         f"be a multiple of 8, OUT={cout} of 16, and w8 16-byte aligned")
+    if x2.data_ptr() % 16:  # an offset view: TMA reads from 16-byte aligned rows
+        x2 = x2.clone()
+    xb = torch.empty(rows, cin, dtype=torch.bfloat16, device=x2.device) \
+        if x2.dtype == torch.float32 else None
+    _cuda.library().call(
+        "vv_int8_gemm", x2.data_ptr(), _cuda.dtype_code(x2), _cuda.ptr(xb), w8.data_ptr(),
+        scale.data_ptr(), out.data_ptr(), rows, cin, cout, _cuda.stream_ptr(x2.device),
+    )
+    int8_matmul.launches_tc += 1
+    return out
+
+
+def _gemv(x2: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Kernel A's split-K GEMV route (csrc/int8_matmul.cu) on (rows, IN) x."""
+    out = _check(x2, w8, scale)
+    (rows, cin), cout = x2.shape, w8.shape[1]
+    if rows == 0:
+        return out
     if cout % 4 or w8.data_ptr() % 4:
         raise ValueError(f"the kernel reads 4 int8 columns at once: OUT={cout} must be a "
                          "multiple of 4 and w8 4-byte aligned")
-    rows = x2.shape[0]
-    out = torch.empty(rows, cout, dtype=x.dtype, device=x.device)
     splits, kps = _cuda.split_k(rows, cin, cout)
-    ws = torch.empty(splits, rows, cout, dtype=torch.float32, device=x.device)
+    ws = torch.empty(splits, rows, cout, dtype=torch.float32, device=x2.device)
     _cuda.library().call(
         "vv_int8_matmul", x2.data_ptr(), _cuda.dtype_code(x2), w8.data_ptr(), scale.data_ptr(),
-        out.data_ptr(), ws.data_ptr(), rows, cin, cout, splits, kps, _cuda.stream_ptr(x.device),
+        out.data_ptr(), ws.data_ptr(), rows, cin, cout, splits, kps, _cuda.stream_ptr(x2.device),
     )
     int8_matmul.launches += 1
-    return out.reshape(*x.shape[:-1], cout)
+    return out
 
 
 int8_matmul.launches = 0
+int8_matmul.launches_tc = 0
 
 
 def int8_matmul_t_plain(g: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

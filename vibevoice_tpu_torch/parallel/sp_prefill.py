@@ -21,7 +21,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
 
-from vibevoice_tpu.configs import Qwen2Config, VibeVoiceConfig
+from ..configs import Qwen2Config, VibeVoiceConfig
 
 from ..models import inference as inf
 from ..models import qwen2

@@ -7,7 +7,7 @@
     for chunk in tts.stream("Speaker 1: Hello!", voices=[wav]):
         play(chunk)                                     # 24 kHz float32 frames
 
-The processor is the framework-free ``vibevoice_tpu.processor.VibeVoiceProcessor``.
+The processor is the port's ``vibevoice_tpu_torch.processor.VibeVoiceProcessor``.
 Loading a checkpoint (``from_pretrained``) waits for the checkpoint loader's port.
 """
 
@@ -19,7 +19,7 @@ from typing import Iterator, List, Optional, Sequence, Union
 
 import numpy as np
 
-from vibevoice_tpu.streamer import AudioStreamer
+from .streamer import AudioStreamer
 
 from .models import inference as inf
 from .models.inference import GenerateOptions, SpecialTokens

@@ -17,7 +17,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from vibevoice_tpu.configs import VibeVoiceConfig
+from ..configs import VibeVoiceConfig
 
 from ..models.tokenizer import decoder_spec, encoder_spec
 
