@@ -29,8 +29,12 @@ Phases, each of which fails the run:
      leave the state bit-identical) and the one hop of a world of one;
      kernel A runs at 2, 512, 4,096 (f32) and 32,768 rows at the four LM
      shapes, and both of its routes from 4 to 256 rows (the crossover);
-     kernel B at the decode over 4,096-, 65,536- and 32,768-slot caches and
-     over chunks of 512 and 2,048 rows;
+     kernel B at the decode over 4,096-, 65,536- and 32,768-slot caches,
+     full and at a low fill (the serving run's, and 300 of 65,536), as
+     replays of one CUDA-graph capture with three other bases written in
+     place, and over chunks of 512 and 2,048 rows; kernel E at 4,096 f32
+     rows at the four LM shapes and at 8,192 at gate/up and down, with its
+     cast pass and its GEMM also timed apart;
   4. end to end, serving: the full-width 1.5B model (random weights from
      --seed, bf16, int8 LM + lm_head, fuse_for_serving) runs generate() on a
      two-speaker script with two 3 s voice prompts and a forced script of
@@ -93,6 +97,10 @@ VOICE_SECONDS = 3.0  # length of each synthetic voice prompt
 # and causal masks are held by the kernel phase (kernel F against its plain
 # version at 1e-4) and by the CPU tests against JAX, not by this limit.
 SP_TOL = {"bf16": 1e-1, "int8": 1.5e-1}
+# Kernel B's decode bases at the serving run's last frame (end_to_end prints
+# them): the positive stream holds the 105-token prompt plus 32 frames, the
+# negative CFG stream restarts at speech_start and holds 16.
+SERVING_FILL = (137, 16)
 
 
 # Published dense peaks of one H100 SXM (NVIDIA's data sheet): the bound of
@@ -256,6 +264,31 @@ def check_int8_matmul(checks: Checks, label: str, x, ws: list, tol: float, main:
                 pms, main=main, bound=bound(2 * rows * k * n, byt), library_ms=lms)
 
 
+def decode_graph_check(checks: Checks, q, kc, vc, base) -> None:
+    """Kernel B's decode call captured once in a CUDA graph, then replayed
+    with three other bases written in place into the captured base tensor;
+    each replay against the plain version at those bases (tol 1e-2)."""
+    import torch
+
+    from vibevoice_tpu_torch.ops import flash_attention as fa
+
+    before = base.clone()
+    fa.flash_cached_attention(q, kc, vc, base)  # workspace and counters outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fa.flash_cached_attention(q, kc, vc, base)
+    for bases in ((0, 4095), SERVING_FILL, (3000, 17)):
+        base.copy_(torch.tensor(bases, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        checks.case("flash_cached_attention", f"W=1 S={kc.shape[2]} bf16 CUDA-graph replay "
+                    f"base={list(bases)}", out, fa.flash_cached_attention_plain(q, kc, vc, base),
+                    1e-2)
+    base.copy_(before)
+    del graph
+
+
 def check_kernels(checks: Checks, seed: int) -> None:
     import torch
     import torch.nn.functional as F
@@ -312,12 +345,15 @@ def check_kernels(checks: Checks, seed: int) -> None:
     # B: the decoder's GQA layout (12 q heads, 2 KV heads, D=128), one row
     # per sample and CFG stream (2B); the S=32768 case is the decode after the
     # ring prefill of a 16,384- and a 12,000-token prompt (positive streams,
-    # then the negative ones); W=2048 is the last chunk of chunked_prefill on
-    # the same two prompts
+    # then the negative ones); the low-fill cases hold the serving run's fill
+    # (SERVING_FILL) and a 65,536-slot cache filled to 300, whose time must
+    # not grow with S; W=2048 is the last chunk of chunked_prefill on the same
+    # two prompts
     print("kernel B flash_cached_attention (bf16 q; bf16 or int8 KV; bf16 out: tol 1e-2; library: "
           "scaled_dot_product_attention with the prefix mask and enable_gqa, bf16 KV only)")
     nh, kh, d = 12, 2, 128
-    for w, s, int8, base in ((1, 4096, False, (4095, 1234)), (1, 65536, True, (65535, 300)),
+    for w, s, int8, base in ((1, 4096, False, (4095, 1234)), (1, 4096, False, SERVING_FILL),
+                             (1, 65536, True, (65535, 300)), (1, 65536, True, (300, 300)),
                              (1, 32768, False, (16384, 12000, 1, 1)),
                              (512, 4096, False, (4095, 1000)), (512, 65536, True, (65535, 20000)),
                              (2048, 32768, False, (14336, 12000))):
@@ -332,6 +368,8 @@ def check_kernels(checks: Checks, seed: int) -> None:
             kw = dict(k_scale=ks, v_scale=vs)
         else:
             kc, vc, kw = randn(nb, kh, s, d), randn(nb, kh, s, d), {}
+        if (w, s, int8, base) == (1, 4096, False, (4095, 1234)):
+            decode_graph_check(checks, q, kc, vc, base_t)
         out = fa.flash_cached_attention(q, kc, vc, base_t, **kw)
         ref = fa.flash_cached_attention_plain(q, kc, vc, base_t, **kw)
         big = w * s >= 512 * 65536  # the plain version's scores are 3-6 GB here
@@ -354,7 +392,8 @@ def check_kernels(checks: Checks, seed: int) -> None:
             kv_rows * 2 * 4 if int8 else 0)
         kernel = "flash_cached_attention_prefill" if w > 1 else "flash_cached_attention"
         checks.case(kernel, f"W={w} S={s} {'int8' if int8 else 'bf16'} base={list(base)}", out,
-                    ref, 1e-2, ms, pms, main=(w, s) in ((1, 4096), (2048, 32768)),
+                    ref, 1e-2, ms, pms,
+                    main=(w, s, base) in ((1, 4096, (4095, 1234)), (2048, 32768, (14336, 12000))),
                     bound=bound(flops, byt), library_ms=lms)
         del ref
 
@@ -439,28 +478,51 @@ def check_training_kernels(checks: Checks, seed: int) -> None:
     g.manual_seed(seed + 1)
     randn = lambda *s: torch.randn(s, generator=g, device=dev)
 
-    # E: dx of every int8 LM linear of the 1.5B decoder at R = B*T = 4096, f32 g
+    # E: dx of every int8 LM linear of the 1.5B decoder at R = B*T = 4096, f32
+    # g (B2 T2048), and of gate/up and down at 8192 (B1 T8192); its two phases
+    # (the cast pass forming bf16(g * scale), the GEMM) also timed apart
     print("kernel E int8_matmul_t (f32 g, int8 w, f32 scale; f32 out: tol 1e-4 of the peak; "
-          "library: torch.mm of bf16 g and a bf16 copy of the weight, transposed)")
-    rows = 4096
-    for name, k, n in LM_SHAPES:
-        ws = rotating(lambda: quant.quantize_weight(randn(k, n) * 0.02), k * n)
-        gr = randn(rows, n) * 1e-3
-        out = quant.int8_matmul_t(gr, ws[0]["w8"], ws[0]["scale"])
-        ref = quant.int8_matmul_t_plain(gr, ws[0]["w8"], ws[0]["scale"])
-        ms = bench_ms(lambda w: quant.int8_matmul_t(gr, w["w8"], w["scale"]), ws)
-        pms = bench_ms(lambda w: quant.int8_matmul_t_plain(gr, w["w8"], w["scale"]), ws)
-        wbs = [(w["w8"].float() * w["scale"]).to(torch.bfloat16) for w in ws]
-        gb = gr.to(torch.bfloat16)
-        lms = bench_ms(lambda wb: torch.mm(gb, wb.t()), wbs)
-        del wbs
-        byt = nbytes(gr, ws[0]["w8"], ws[0]["scale"], out)
-        checks.case("int8_matmul_t", f"{name} dx {rows}x{n} -> {k}", out, ref, 1e-4, ms, pms,
-                    main=(name == "gate/up"), bound=bound(2 * rows * k * n, byt), library_ms=lms)
-        # kernel A at the same training rows (f32 x): its GEMM route
-        check_int8_matmul(checks, f"{name} {k}x{n} rows={rows} f32 (training)", randn(rows, k),
-                          ws, 1e-5, iters=5)
-        del ws
+          "library: torch.mm of bf16 g and a bf16 copy of the weight, transposed; then the cast "
+          "pass and the GEMM alone)")
+    phases = []
+    for rows, shapes in ((4096, LM_SHAPES), (8192, [s for s in LM_SHAPES
+                                                    if s[0] in ("gate/up", "down")])):
+        for name, k, n in shapes:
+            ws = rotating(lambda: quant.quantize_weight(randn(k, n) * 0.02), k * n)
+            gr = randn(rows, n) * 1e-3
+            out = quant.int8_matmul_t(gr, ws[0]["w8"], ws[0]["scale"])
+            ref = quant.int8_matmul_t_plain(gr, ws[0]["w8"], ws[0]["scale"])
+            ms = bench_ms(lambda w: quant.int8_matmul_t(gr, w["w8"], w["scale"]), ws)
+            pms = bench_ms(lambda w: quant.int8_matmul_t_plain(gr, w["w8"], w["scale"]), ws)
+            wbs = [(w["w8"].float() * w["scale"]).to(torch.bfloat16) for w in ws]
+            gb = gr.to(torch.bfloat16)
+            lms = bench_ms(lambda wb: torch.mm(gb, wb.t()), wbs)
+            del wbs, gb
+            byt = nbytes(gr, ws[0]["w8"], ws[0]["scale"], out)
+            flops = 2 * rows * k * n
+            checks.case("int8_matmul_t", f"{name} dx {rows}x{n} -> {k}", out, ref, 1e-4, ms, pms,
+                        main=(name == "gate/up" and rows == 4096), bound=bound(flops, byt),
+                        library_ms=lms)
+            gs = torch.empty(rows, n, dtype=torch.bfloat16, device=dev)
+            cast_ms = bench_ms(lambda w: quant._dx_launch(gr, w["w8"], w["scale"], gs, out,
+                                                          quant.DX_CAST), ws)
+            gemm_ms = bench_ms(lambda w: quant._dx_launch(gr, w["w8"], w["scale"], gs, out,
+                                                          quant.DX_GEMM), ws)
+            rec = dict(case=f"{name} dx {rows}x{n} -> {k}", ms=ms, cast_ms=cast_ms,
+                       cast_bound_ms=bound(0, nbytes(gr, ws[0]["scale"], gs))[0],
+                       gemm_ms=gemm_ms,
+                       gemm_bound_ms=bound(flops, nbytes(gs, ws[0]["w8"], out))[0],
+                       library_ms=lms)
+            phases.append(rec)
+            print(f"    phases: cast pass {cast_ms:.4f} ms (bound {rec['cast_bound_ms']:.4f}, "
+                  f"bytes), GEMM {gemm_ms:.4f} ms (bound {rec['gemm_bound_ms']:.4f}); together "
+                  f"{ms:.4f} ms = {ms / lms:.2f}x torch.mm", flush=True)
+            del gs
+            if rows == 4096:  # kernel A at the same training rows (f32 x): its GEMM route
+                check_int8_matmul(checks, f"{name} {k}x{n} rows={rows} f32 (training)",
+                                  randn(rows, k), ws, 1e-5, iters=5)
+            del ws
+    checks.extra["int8_matmul_t_phases"] = phases
 
     # training attention: 12 query heads over 2 KV heads, D 128, f32, right padded
     print("training attention (f32; right-padded batch compared on valid rows and with dO zero "
@@ -776,15 +838,20 @@ def end_to_end(model: dict, seed: int, frames: int) -> dict:
         if missing:
             fail(f"{label}: kernels never launched on the main path: {missing}")
         per_frame = (wall - short_wall) / (len(forced) - len(short))
+        # kernel B's decode bases at the last frame: the positive stream's
+        # tokens, and the negative stream's since its last speech_start
+        restart = len(forced) - forced[::-1].index(toks.speech_start)
+        fill = (out.sequences.shape[1], 1 + forced[restart:].count(toks.speech_diffusion))
         rec = dict(kv_int8=kv_int8, frames=len(forced), speech_frames=n_diff,
                    audio_seconds=audio.size / sr, wall_s=wall, per_frame_ms=per_frame * 1e3,
-                   rtf=(audio.size / sr) / wall, launches=counts,
+                   rtf=(audio.size / sr) / wall, launches=counts, decode_fill=fill,
                    peak_abs=float(np.abs(audio).max()))
         runs[label] = rec
         print(f"  generate {label} (kv_int8={kv_int8}): {len(forced)} frames, "
               f"{audio.size / sr:.2f} s audio, wall {wall:.2f} s (prefill included), "
               f"{per_frame * 1e3:.1f} ms per frame (from {len(short)}- and {len(forced)}-frame "
-              f"runs), launches {counts}", flush=True)
+              f"runs), decode fill at the last frame {fill} (SERVING_FILL {SERVING_FILL}), "
+              f"launches {counts}", flush=True)
     return dict(runs=runs, launches=total_launches)
 
 
@@ -1137,7 +1204,7 @@ def main() -> None:
         "int8_matmul": ("vibevoice_tpu_torch/csrc/int8_matmul.cu", "vibevoice_tpu/ops/quant.py:129"),
         "int8_matmul_gemm": ("vibevoice_tpu_torch/csrc/int8_gemm.cu",
                              "vibevoice_tpu/ops/quant.py:129"),
-        "flash_cached_attention": ("vibevoice_tpu_torch/csrc/flash_attention.cu",
+        "flash_cached_attention": ("vibevoice_tpu_torch/csrc/flash_decode.cu",
                                    "vibevoice_tpu/ops/flash_attention.py:71"),
         "flash_cached_attention_prefill": ("vibevoice_tpu_torch/csrc/flash_prefill.cu",
                                            "vibevoice_tpu/ops/flash_attention.py:71"),

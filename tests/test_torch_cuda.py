@@ -147,6 +147,63 @@ def test_flash_prefill_route(dev, w, int8, d):
     assert _rel(out, fa.flash_cached_attention_plain(q, kc, vc, base, **kw)) < 1e-2
 
 
+def _decode_inputs(g, dev, b, w, nh, kh, s, d, q_dtype, int8):
+    q = torch.randn(b, w, nh, d, generator=g, device=dev).to(q_dtype)
+    if int8:
+        kc = torch.randint(-127, 128, (b, kh, s, d), generator=g, device=dev).to(torch.int8)
+        vc = torch.randint(-127, 128, (b, kh, s, d), generator=g, device=dev).to(torch.int8)
+        kw = dict(k_scale=torch.rand(b, kh, 1, s, generator=g, device=dev) / 127,
+                  v_scale=torch.rand(b, kh, 1, s, generator=g, device=dev) / 127)
+    else:
+        kc, vc = (torch.randn(b, kh, s, d, generator=g, device=dev).to(q_dtype) for _ in range(2))
+        kw = {}
+    return q, kc, vc, kw
+
+
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("g_heads", [1, 6])
+@pytest.mark.parametrize("q_dtype,int8", [(torch.bfloat16, False), (torch.bfloat16, True),
+                                          (torch.float32, False), (torch.float32, True)])
+def test_flash_decode_route(dev, q_dtype, int8, g_heads, d, b):
+    """Kernel B's decode route at W = 1 for every (q, KV) dtype pair, GQA G
+    1 and 6, D 64 and 128, over a 1,000-slot cache (not a multiple of its
+    64-key tile) with bases 0, mid-cache, S - 1 and one more side by side:
+    within 1e-2 (bf16 out) / 1e-4 (f32) of the peak of the plain version."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    kh, s = 2, 1000
+    q, kc, vc, kw = _decode_inputs(g, dev, b, 1, kh * g_heads, kh, s, d, q_dtype, int8)
+    base = torch.tensor([s - 1, 0, 500, 63][:b], dtype=torch.int32, device=dev)
+    before = fa.flash_cached_attention.launches
+    out = fa.flash_cached_attention(q, kc, vc, base, **kw)
+    assert fa.flash_cached_attention.launches == before + 1
+    assert out.dtype == q_dtype and out.shape == q.shape
+    assert _rel(out, fa.flash_cached_attention_plain(q, kc, vc, base, **kw)) < (
+        1e-2 if q_dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_flash_decode_graph_replay(dev, int8):
+    """One capture of the decode call in a CUDA graph, replayed with three
+    other bases written in place: the split plan comes from the shapes and
+    the horizon from base on the card, so every replay matches the plain
+    version at its own bases (and the arrival counters reset themselves)."""
+    g = torch.Generator(device=dev).manual_seed(14)
+    b, nh, kh, s, d = 2, 12, 2, 4096, 128
+    q, kc, vc, kw = _decode_inputs(g, dev, b, 1, nh, kh, s, d, torch.bfloat16, int8)
+    base = torch.tensor([4095, 1234], dtype=torch.int32, device=dev)
+    fa.flash_cached_attention(q, kc, vc, base, **kw)  # allocate outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fa.flash_cached_attention(q, kc, vc, base, **kw)
+    for bases in ((0, 4095), (200, 300), (3000, 17)):
+        base.copy_(torch.tensor(bases, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _rel(out, fa.flash_cached_attention_plain(q, kc, vc, base, **kw)) < 1e-2
+
+
 def test_new_routes_raise_on_unsupported_input(dev):
     """Every CUDA input launches a kernel or raises: the GEMM wants OUT a
     multiple of 16 and bf16 or f32 x; the prefill route head_dim 64 or 128
@@ -186,13 +243,17 @@ def test_wrappers_raise_on_unsupported_input(dev):
     cache = torch.randn(1, 2, 32, 64, device=dev, dtype=torch.bfloat16)  # dtype differs from q
     with pytest.raises(ValueError):
         fa.flash_cached_attention(qq, cache, cache, torch.zeros(1, dtype=torch.int32, device=dev))
+    qq, cache = torch.randn(1, 1, 4, 96, device=dev), torch.randn(1, 2, 32, 96, device=dev)
+    with pytest.raises(ValueError):  # the decode kernel takes head_dim 16, 32, 64 or 128
+        fa.flash_cached_attention(qq, cache, cache, torch.zeros(1, dtype=torch.int32, device=dev))
 
 
-@pytest.mark.parametrize("rows,k,n,dtype", [(37, 320, 200, torch.float32), (300, 1536, 256, torch.float32),
-                                            (130, 96, 1000, torch.bfloat16)])
+@pytest.mark.parametrize("rows,k,n,dtype", [(37, 320, 208, torch.float32), (300, 1536, 256, torch.float32),
+                                            (130, 96, 1008, torch.bfloat16)])
 def test_int8_matmul_t(dev, rows, k, n, dtype):
-    """Kernel E (ragged tiles at every edge): the same bf16(g*scale) x int8
-    products as the plain version, summed in another order."""
+    """Kernel E (ragged tiles at every edge; OUT a multiple of 16, as its TMA
+    rows need): the same bf16(g*scale) x int8 products as the plain version,
+    summed in another order."""
     g = torch.Generator(device=dev).manual_seed(4)
     q = quant.quantize_weight(torch.randn(k, n, generator=g, device=dev))
     gr = torch.randn(rows, n, generator=g, device=dev).to(dtype)
@@ -200,6 +261,36 @@ def test_int8_matmul_t(dev, rows, k, n, dtype):
     assert out.dtype == dtype and out.shape == (rows, k)
     assert _rel(out, quant.int8_matmul_t_plain(gr, q["w8"], q["scale"])) < (
         1e-2 if dtype == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n", [(96, 208), (1536, 8960)])
+@pytest.mark.parametrize("rows", [1, 65, 1000])
+def test_int8_matmul_t_rows(dev, rows, k, n, dtype):
+    """Kernel E at 1, 65 and 1,000 rows (ragged against its 192-row tile), at
+    a small aligned shape and the 1.5B gate/up dx, f32 and bf16 g: within
+    1e-5 (f32) / 1e-2 (bf16) of the peak, and a row's result bit-identical
+    whatever the call's row count (no split-K)."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    q = quant.quantize_weight(torch.randn(k, n, generator=g, device=dev) * 0.02)
+    gr = (torch.randn(rows, n, generator=g, device=dev) * 1e-3).to(dtype)
+    before = quant.int8_matmul_t.launches
+    out = quant.int8_matmul_t(gr, q["w8"], q["scale"])
+    assert quant.int8_matmul_t.launches == before + 1
+    assert out.dtype == dtype and out.shape == (rows, k)
+    assert _rel(out, quant.int8_matmul_t_plain(gr, q["w8"], q["scale"])) < (
+        1e-2 if dtype == torch.bfloat16 else 1e-5)
+    if rows == 1000:
+        assert torch.equal(quant.int8_matmul_t(gr[:64], q["w8"], q["scale"]), out[:64])
+
+
+def test_int8_matmul_t_raises_on_misaligned_shapes(dev):
+    """OUT not a multiple of 16 (TMA row strides, the column permutation) or
+    IN not a multiple of 4 (vector stores): the wrapper raises."""
+    for k, n in ((64, 200), (30, 64)):
+        q = quant.quantize_weight(torch.randn(k, n, device=dev))
+        with pytest.raises(ValueError):
+            quant.int8_matmul_t(torch.randn(100, n, device=dev), q["w8"], q["scale"])
 
 
 def test_int8_lora_linear_gradients(dev):

@@ -1,5 +1,5 @@
 """The port stands alone: no module of vibevoice_tpu_torch and no line of
-chip_smoke.py imports jax or the JAX package vibevoice_tpu, nor reads a
+chip_smoke.py or chip_serving.py imports jax or the JAX package vibevoice_tpu, nor reads a
 file under vibevoice_tpu/, and importing every module of the port leaves
 neither in sys.modules."""
 
@@ -20,7 +20,7 @@ FORBIDDEN = ("jax", "jaxlib", "vibevoice_tpu")
 # (a path component) or a data file under vibevoice_tpu/ (prose that names
 # a module, like "port of vibevoice_tpu/ops/quant.py:129", is no read)
 DATA_FILE = re.compile(r"(^|[^\w])vibevoice_tpu/[^\s:]*\.(json|npz|npy|pkl|wav|safetensors)\b")
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_serving.py"]
 
 
 def _forbidden_imports(path: Path) -> list:

@@ -1,8 +1,11 @@
 """The launch plans of kernels A and B, which the wrappers compute in plain
 Python before they launch: kernel A's route and tiling by row count
-(ops/quant._plan) and kernel B's prefill tiles and key splits
-(ops/flash_attention._prefill_plan, _prefill_split)."""
+(ops/quant._plan), kernel B's decode tiles and key splits
+(ops/flash_attention._decode_plan, _decode_split, whose arithmetic
+csrc/flash_decode.cu repeats on the card) and its prefill tiles and key
+splits (_prefill_plan, _prefill_split)."""
 
+import inspect
 import math
 
 import numpy as np
@@ -56,6 +59,47 @@ def test_prefill_plan_fills_the_card(b, w, g, kh, s):
     else:  # two waves of the SMs, unless the cache is too short to split that far
         assert blocks * n_splits >= 2 * fa.SMS or n_splits == max(1, key_tiles // 4)
     assert n_splits == 1 or key_tiles >= 4 * n_splits
+
+
+@pytest.mark.parametrize("b,w,g,kh,s", [
+    (2, 1, 6, 2, 4096), (2, 1, 6, 2, 65536), (4, 1, 6, 2, 32768), (1, 1, 1, 1, 64),
+    (1, 1, 6, 2, 100), (16, 1, 6, 2, 4096), (64, 1, 7, 4, 8192), (3, 7, 3, 2, 1000),
+    (1, 12, 2, 2, 64)])
+@pytest.mark.parametrize("rows", sorted(set(fa.DECODE_ROWS.values())))
+def test_decode_plan_fills_the_card(b, w, g, kh, s, rows):
+    """The decode grid comes from the shapes alone (no base: a CUDA graph
+    may replay the launch with other bases) and fills two waves of the SMs
+    unless the cache holds fewer than two key tiles per split."""
+    assert list(inspect.signature(fa._decode_plan).parameters) == ["b", "w", "g", "kh", "s",
+                                                                    "rows"]
+    tiles, n_splits = fa._decode_plan(b, w, g, kh, s, rows)
+    assert tiles == math.ceil(w * g / rows)
+    cap = min(math.ceil(math.ceil(s / fa.DECODE_KEYS) / 2), fa.DECODE_MAX_SPLITS)
+    assert 1 <= n_splits <= cap
+    assert b * kh * tiles * n_splits >= 2 * fa.SMS or n_splits == cap
+    assert b * kh * tiles * (n_splits - 1) < 2 * fa.SMS  # no more splits than two waves need
+
+
+@pytest.mark.parametrize("s", [4096, 65536])
+@pytest.mark.parametrize("total", ["1", "2", "tile-1", "tile", "tile+1", "mid", "S"])
+@pytest.mark.parametrize("n_splits", [1, 2, 33, 132])
+def test_decode_splits_cover_the_horizon_once(total, n_splits, s):
+    """A row tile whose rows attend keys [0, total): the decode splits cover
+    its key tiles exactly once, no split starts past the horizon, and the
+    live splits are those the kernel merges (at least one tile each)."""
+    total = {"1": 1, "2": 2, "tile-1": fa.DECODE_KEYS - 1, "tile": fa.DECODE_KEYS,
+             "tile+1": fa.DECODE_KEYS + 1, "mid": s // 2 + 17, "S": s}[total]
+    nblk = math.ceil(total / fa.DECODE_KEYS)
+    seen, live = [], 0
+    for sp in range(n_splits):
+        first, end = fa._decode_split(total, n_splits, sp)
+        assert first <= end <= nblk
+        if first < end:
+            live += 1
+            assert first * fa.DECODE_KEYS < total
+        seen += range(first, end)
+    assert sorted(seen) == list(range(nblk))
+    assert live == min(n_splits, nblk)
 
 
 @pytest.mark.parametrize("total", [1, 63, 64, 65, 200, 4096, 65536])

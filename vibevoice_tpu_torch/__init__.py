@@ -8,11 +8,11 @@ ops/_cuda.py):
 
   A ops/quant.int8_matmul                      csrc/int8_matmul.cu (GEMV, few rows)
                                                csrc/int8_gemm.cu (wgmma GEMM, many rows)
-  B ops/flash_attention.flash_cached_attention csrc/flash_attention.cu (decode, f32 q)
+  B ops/flash_attention.flash_cached_attention csrc/flash_decode.cu (decode, f32 q)
                                                csrc/flash_prefill.cu (bf16 chunks, W > 1)
   C ops/head_fused.fused_head_ffn_stack        csrc/head_ffn.cu
   D ops/vocoder_fused.fused_stage_step         csrc/vocoder_stage.cu
-  E ops/quant.int8_matmul_t                    csrc/int8_matmul_t.cu
+  E ops/quant.int8_matmul_t                    csrc/int8_matmul_t.cu (cast + wgmma GEMM)
   F ops/flash_attention.flash_ring_block       csrc/flash_ring.cu
   training attention (fwd, bwd)                csrc/flash_train.cu
 

@@ -1,5 +1,5 @@
-// Merge of flash-decoding splits, shared by kernel B's two routes
-// (flash_attention.cu at decode, flash_prefill.cu over prefill chunks).
+// Merge of the key splits of kernel B's prefill route (flash_prefill.cu);
+// the decode route (flash_decode.cu) merges inside its own launch.
 #pragma once
 
 #include "common.cuh"

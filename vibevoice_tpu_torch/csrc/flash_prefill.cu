@@ -4,7 +4,7 @@
 //
 // Replaces the Pallas TPU kernel vibevoice_tpu/ops/flash_attention.py:71
 // flash_cached_attention (body `_kernel_zeroed`, :154) for chunks; decode
-// (W = 1) and f32 q keep flash_attention.cu. Semantics kept: query row i of
+// (W = 1) and f32 q take flash_decode.cu. Semantics kept: query row i of
 // sample b attends keys j <= base[b] + i, clamped to the cache (pad rows
 // attend like valid rows); the softmax is online in f32; for int8 rows the K
 // row scale multiplies the score columns after the product and the V row
@@ -40,13 +40,6 @@ constexpr int P_BR = 64;  // folded query rows per block (4 warps x 16)
 constexpr int P_BC = 64;  // keys per tile
 constexpr int P_THREADS = 128;
 constexpr float P_LOG2E = 1.4426950408889634f;
-
-// Byte offset of 16-byte chunk `ch` of row r in a [rows][D] bf16 tile whose
-// chunks are swizzled by r % 8 (ldmatrix reads of 8 rows: no bank conflict).
-template <int D>
-__device__ __forceinline__ uint32_t tile_off(int r, int ch) {
-  return r * (D * 2) + ((ch ^ (r & 7)) << 4);
-}
 
 template <int D, bool QUANT>
 struct PrefillSmem {

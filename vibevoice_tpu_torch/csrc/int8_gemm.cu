@@ -43,9 +43,8 @@
 // into a scratch buffer before the GEMM. TMA zero-fills the ragged edges of
 // M, N and K; its row strides must be multiples of 16 bytes, so K must be a
 // multiple of 8 and N of 16.
-#include <cuda.h>
-
 #include "mma.cuh"
+#include "tma.cuh"
 
 namespace vv {
 namespace {
@@ -58,13 +57,6 @@ constexpr int G_THREADS = 384;             // producer warpgroup + two consumers
 constexpr int G_X_BYTES = G_BM * G_BK * 2;  // one bf16 x tile, 128-byte swizzled rows
 constexpr int G_W_BYTES = G_BK * G_BN;      // one int8 w8 tile, 128-byte swizzled rows
 constexpr int G_SMEM = G_STAGES * (G_X_BYTES + G_W_BYTES) + 2 * G_STAGES * 8 + 1024;
-
-__device__ __forceinline__ void setmaxnreg_dec40() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-}
-__device__ __forceinline__ void setmaxnreg_inc232() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-}
 
 // The A fragments of one 64-k step for this warp's 16 output columns (the
 // 16-byte chunk `chunk` of each 128-byte int8 row): two ldmatrix.x4.trans
@@ -184,42 +176,6 @@ __global__ void cast_bf16_kernel(const float4* __restrict__ x, uint2* __restrict
     const float4 v = x[i];
     y[i] = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
   }
-}
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, found through the runtime (the
-// library does not link libcuda itself).
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
-            cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// A 2-D row-major tensor map (inner extent, rows, row stride in bytes) with
-// 128-byte swizzled boxes of (box_inner, box_rows); out-of-range elements
-// read as zero.
-bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, int inner, int rows,
-              size_t row_bytes, int box_inner, int box_rows) {
-  EncodeTiledFn fn = encode_tiled();
-  if (!fn) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
-  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_rows};
-  const cuuint32_t estr[2] = {1, 1};
-  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, estr,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <typename OT>

@@ -46,8 +46,8 @@ _SIGNATURES = {
     "vv_int8_matmul": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "vv_int8_gemm": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P],
     "vv_flash_prefill": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    "vv_flash_cached_attention": [
-        _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+    "vv_flash_decode": [
+        _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ],
     "vv_fused_head_ffn_stack": [
         _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
@@ -57,7 +57,7 @@ _SIGNATURES = {
         _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
         _I, _I, _I, _I, _F, _I, _I, _I, _I, _P,
     ],
-    "vv_int8_matmul_t": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
+    "vv_int8_matmul_t": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "vv_flash_train_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "vv_flash_train_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "vv_flash_ring_block": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],

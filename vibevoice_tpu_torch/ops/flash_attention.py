@@ -11,8 +11,11 @@ scores and the V scale the probabilities.
 On a CUDA tensor ``flash_cached_attention`` launches one of two
 hand-written kernels: bf16 q with W > 1 (prefill chunks) the tensor-core
 flash attention of csrc/flash_prefill.cu (``_prefill_plan`` sizes its grid),
-decode (W = 1) and f32 q the flash-decoding kernel of
-csrc/flash_attention.cu. On a CPU tensor it runs
+decode (W = 1) and f32 q the one-launch flash-decoding kernel of
+csrc/flash_decode.cu, whose key splits come from the shapes
+(``_decode_plan``) and divide each row tile's own horizon on the card
+(``_decode_split``), so the launch can be captured in a CUDA graph and
+replayed with other bases. On a CPU tensor it runs
 ``flash_cached_attention_plain``.
 
 Kernel F, ``flash_ring_block``, is one hop of ring attention (the JAX
@@ -43,10 +46,58 @@ import torch
 
 from . import _cuda
 
-SPLIT_KEYS = 128  # keys per split at decode (csrc/flash_attention.cu)
+# csrc/flash_decode.cu: folded query rows w * G + g per block, by q dtype
+# (16 for bf16 q on the tensor cores, 8 for f32 q), and the head dims built
+DECODE_ROWS = {torch.bfloat16: 16, torch.float32: 8}
+DECODE_HEAD_DIMS = {torch.bfloat16: (64, 128), torch.float32: (16, 32, 64, 128)}
+DECODE_KEYS = 64  # keys per K/V tile there
+DECODE_MAX_SPLITS = 132  # its merge holds at most this many splits
 PREFILL_ROWS = 64  # folded query rows w * G + g per block of csrc/flash_prefill.cu
 PREFILL_KEYS = 64  # keys per K/V tile there
 SMS = 132  # streaming multiprocessors of an H100 SXM
+
+
+def _decode_plan(b: int, w: int, g: int, kh: int, s: int, rows: int) -> tuple[int, int]:
+    """(row tiles, key splits) of the decode kernel for B samples, W query
+    positions, G query heads per KV head, KH KV heads, an S-slot cache and
+    ``rows`` folded rows per block.
+
+    From the shapes alone, never from the bases, so the launch needs no
+    sync with the card and a CUDA graph can replay it with other bases:
+    the key axis is split until the (sample, KV head, row tile) blocks fill
+    two waves of the SMs (two blocks fit on an SM), down to two key tiles of
+    the cache per split."""
+    tiles = -(-(w * g) // rows)
+    blocks = b * kh * tiles
+    key_tiles = -(-s // DECODE_KEYS)
+    return tiles, max(1, min(-(-2 * SMS // blocks), -(-key_tiles // 2), DECODE_MAX_SPLITS))
+
+
+def _decode_split(total: int, n_splits: int, sp: int) -> tuple[int, int]:
+    """Key tiles [first, end) of split ``sp`` of a row tile whose rows attend
+    keys [0, total), as csrc/flash_decode.cu computes them from base on the
+    card: the live tiles are shared evenly, at least one per split; splits
+    past them are empty and exit without writing."""
+    nblk = -(-total // DECODE_KEYS)
+    ns = min(n_splits, nblk)
+    if sp >= ns:
+        return nblk, nblk
+    return sp * nblk // ns, (sp + 1) * nblk // ns
+
+
+_decode_counters: dict = {}  # device -> int32 zeros, one per row tile (csrc/flash_decode.cu)
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    """The decode kernel's arrival counters: zeros that every launch leaves
+    zero again. Kept per device and grown on demand, so a launch captured in
+    a CUDA graph finds them allocated (make one call before capturing). Two
+    decode calls must not run concurrently on two streams of one device."""
+    c = _decode_counters.get(device)
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _decode_counters[device] = c
+    return c
 
 
 def _prefill_plan(b: int, w: int, g: int, kh: int, s: int) -> tuple[int, int]:
@@ -162,17 +213,29 @@ def flash_cached_attention(
         )
         flash_cached_attention.launches_prefill += 1
         return out
-    q_tiles = -(-r // 16)
-    n_splits = max(1, min(-(-s // SPLIT_KEYS), 256 // q_tiles))
-    kspl = -(-(-(-s // n_splits)) // 32) * 32
-    n_splits = -(-s // kspl)
+    if q.dtype not in DECODE_ROWS:
+        raise ValueError(f"the decode kernel takes bf16 or f32 q, got {q.dtype}")
+    if d not in DECODE_HEAD_DIMS[q.dtype]:
+        raise ValueError(f"the decode kernel is built for head_dim {DECODE_HEAD_DIMS[q.dtype]} "
+                         f"at {q.dtype} q, got {d}")
+    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+        raise ValueError("the decode kernel copies 16-byte chunks: the caches must be "
+                         "16-byte aligned")
+    if quant and (k_scale.data_ptr() % 4 or v_scale.data_ptr() % 4):
+        raise ValueError("the decode kernel copies the scales 4 bytes at a time")
+    if q.data_ptr() % 16:  # an offset view: bf16 q is copied in 16-byte chunks
+        q = q.clone()
+    rows = DECODE_ROWS[q.dtype]
+    tiles, n_splits = _decode_plan(b, w, nh // kh, kh, s, rows)
     out = torch.empty_like(q)
-    ws = torch.empty(b * kh * n_splits * r * (d + 2), dtype=torch.float32, device=q.device)
+    part = torch.empty(b * kh * tiles * n_splits * rows * (d + 2) if n_splits > 1 else 0,
+                       dtype=torch.float32, device=q.device)
     _cuda.library().call(
-        "vv_flash_cached_attention", q.data_ptr(), _cuda.dtype_code(q), k_cache.data_ptr(),
+        "vv_flash_decode", q.data_ptr(), _cuda.dtype_code(q), k_cache.data_ptr(),
         v_cache.data_ptr(), _cuda.dtype_code(k_cache), _cuda.ptr(k_scale), _cuda.ptr(v_scale),
-        base_lens.data_ptr(), out.data_ptr(), ws.data_ptr(), b, w, nh, kh, s, d, n_splits, kspl,
-        scale, _cuda.stream_ptr(q.device),
+        base_lens.data_ptr(), out.data_ptr(), part.data_ptr(),
+        _counters(q.device, b * kh * tiles).data_ptr(), b, w, nh, kh, s, d, n_splits, scale,
+        _cuda.stream_ptr(q.device),
     )
     flash_cached_attention.launches += 1
     return out

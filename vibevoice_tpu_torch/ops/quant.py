@@ -18,7 +18,9 @@ port, every shape takes a kernel (no 512-divisibility gate).
 
 ``int8_matmul_t`` is the backward w.r.t. x, dx = bf16(g * scale) @ w8^T: on
 a CUDA tensor kernel E (csrc/int8_matmul_t.cu, replacing the Pallas TPU
-kernel vibevoice_tpu/ops/quant.py:220), on a CPU tensor
+kernel vibevoice_tpu/ops/quant.py:220: a cast pass forming bf16(g * scale),
+then a TMA + wgmma GEMM with w8 as the register operand, no split-K; OUT a
+multiple of 16 and IN of 4), on a CPU tensor
 ``int8_matmul_t_plain``. ``mm`` routes every int8 linear whose input needs a
 gradient through ``Int8MatmulDx``, the autograd Function with kernel A
 forward and kernel E backward (the JAX custom VJP ``_int8_matmul_dx``); the
@@ -150,23 +152,51 @@ def int8_matmul_t_plain(g: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) 
     return torch.matmul(gs, w8.float().t()).to(g.dtype)
 
 
+DX_CAST, DX_GEMM = 1, 2  # the two phases of csrc/int8_matmul_t.cu
+
+
+def _dx_launch(g2: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor, gs: torch.Tensor,
+               out: torch.Tensor, phases: int) -> None:
+    """Run phases of kernel E on (rows, OUT) g2: DX_CAST forms gs = bf16(g2 *
+    scale) with its columns permuted as the GEMM reads them, DX_GEMM writes
+    out (rows, IN) from gs. Checks what the kernel takes and raises."""
+    cin, cout = w8.shape
+    _cuda.require_cuda(g2, w8, scale, gs, out)
+    if w8.dtype != torch.int8 or scale.dtype != torch.float32 or scale.shape != (cout,):
+        raise ValueError(f"expected int8 w8 and f32 scale ({cout},), got {w8.dtype} "
+                         f"{tuple(w8.shape)} and {scale.dtype} {tuple(scale.shape)}")
+    if g2.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"g must be bf16 or f32, got {g2.dtype}")
+    if cout % 16 or cin % 4:
+        raise ValueError(f"kernel E reads TMA rows of 16-byte multiples and permutes groups of "
+                         f"16 columns: OUT={cout} must be a multiple of 16, and it stores 4 "
+                         f"columns at once: IN={cin} a multiple of 4")
+    if any(t.data_ptr() % 16 for t in (g2, w8, scale, gs, out)):
+        raise ValueError("kernel E reads and writes 16-byte vectors: g, w8, scale and the "
+                         "outputs must be 16-byte aligned")
+    _cuda.library().call(
+        "vv_int8_matmul_t", g2.data_ptr(), _cuda.dtype_code(g2), gs.data_ptr(), w8.data_ptr(),
+        scale.data_ptr(), out.data_ptr(), g2.shape[0], cin, cout, phases,
+        _cuda.stream_ptr(g2.device),
+    )
+
+
 def int8_matmul_t(g: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """dx = g @ (w8 * scale)^T for g (..., OUT); the output has g's dtype."""
+    """dx = g @ (w8 * scale)^T for g (..., OUT); the output has g's dtype.
+
+    On a CUDA tensor: kernel E (csrc/int8_matmul_t.cu), its cast pass and
+    its GEMM in one call, counted in ``int8_matmul_t.launches``."""
     if g.device.type == "cpu":
         return int8_matmul_t_plain(g, w8, scale)
     cin, cout = w8.shape
     g2 = g.reshape(-1, cout).contiguous()
-    _cuda.require_cuda(g2, w8, scale)
-    if w8.dtype != torch.int8 or scale.dtype != torch.float32 or scale.shape != (cout,):
-        raise ValueError(f"expected int8 w8 and f32 scale ({cout},), got {w8.dtype} "
-                         f"{tuple(w8.shape)} and {scale.dtype} {tuple(scale.shape)}")
+    if g2.data_ptr() % 16:  # an offset view: the cast pass reads 16-byte vectors
+        g2 = g2.clone()
     rows = g2.shape[0]
     out = torch.empty(rows, cin, dtype=g.dtype, device=g.device)
     if rows:
-        _cuda.library().call(
-            "vv_int8_matmul_t", g2.data_ptr(), _cuda.dtype_code(g2), w8.data_ptr(),
-            scale.data_ptr(), out.data_ptr(), rows, cin, cout, _cuda.stream_ptr(g.device),
-        )
+        gs = torch.empty(rows, cout, dtype=torch.bfloat16, device=g.device)
+        _dx_launch(g2, w8, scale, gs, out, DX_CAST | DX_GEMM)
         int8_matmul_t.launches += 1
     return out.reshape(*g.shape[:-1], cin)
 
