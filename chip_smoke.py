@@ -11,8 +11,8 @@ Phases, each of which fails the run:
   2. build: compiles the kernels from the nine sources in
      vibevoice_tpu_torch/csrc/ (one nvcc per source, all at once), ten
      entries of the kernels line: A int8_matmul by its two routes (the
-     split-K GEMV below 12 rows, the tensor-core GEMM int8_matmul_gemm from
-     12 up), B flash_cached_attention by its two routes (flash-decoding at
+     one-launch streaming GEMV below quant.GEMM_MIN_ROWS rows, the
+     tensor-core GEMM int8_matmul_gemm from there up), B flash_cached_attention by its two routes (flash-decoding at
      W = 1 and for f32 q, the tensor-core flash_cached_attention_prefill for
      bf16 chunks), C fused_head_ffn_stack, D fused_stage_step, E
      int8_matmul_t, F flash_ring_block, and the training attention's forward
@@ -27,8 +27,10 @@ Phases, each of which fails the run:
      Kernel F runs the four hops of rank 2 of a 4-way ring over a
      16,384-token prompt (the last block wholly in the future, which must
      leave the state bit-identical) and the one hop of a world of one;
-     kernel A runs at 2, 512, 4,096 (f32) and 32,768 rows at the four LM
-     shapes, and both of its routes from 4 to 256 rows (the crossover);
+     kernel A runs at 1, 2, 4, 8, GEMM_MIN_ROWS - 1, 512, 4,096 (f32) and
+     32,768 rows at the four LM shapes (the GEMV rows twice, bit-identical,
+     and one CUDA-graph capture of the 2-row call replayed with new x), and
+     both of its routes from 4 to 256 rows (the crossover);
      kernel B at the decode over 4,096-, 65,536- and 32,768-slot caches,
      full and at a low fill (the serving run's, and 300 of 65,536), as
      replays of one CUDA-graph capture with three other bases written in
@@ -259,9 +261,35 @@ def check_int8_matmul(checks: Checks, label: str, x, ws: list, tol: float, main:
     lms = timer(lambda wb: torch.mm(xb, wb), wbs)
     del wbs
     route = quant._plan(rows, k, n).route
+    if route == "gemv" and not torch.equal(quant.int8_matmul(x, w["w8"], w["scale"]), out):
+        fail(f"int8_matmul {label}: two calls on the same inputs differ")
     byt = nbytes(x, w["w8"], w["scale"]) + rows * n * x.element_size()
     checks.case("int8_matmul_gemm" if route == "gemm" else "int8_matmul", label, out, ref, tol, ms,
                 pms, main=main, bound=bound(2 * rows * k * n, byt), library_ms=lms)
+
+
+def gemv_graph_check(checks: Checks, label: str, x, w: dict) -> None:
+    """Kernel A's GEMV call captured once in a CUDA graph, then replayed
+    with new x written in place into the captured tensor; each replay
+    against the plain version (tol 1e-2)."""
+    import torch
+
+    from vibevoice_tpu_torch.ops import quant
+
+    quant.int8_matmul(x, w["w8"], w["scale"])  # the workspace outside the capture
+    torch.cuda.synchronize()
+    before = x.clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = quant.int8_matmul(x, w["w8"], w["scale"])
+    for i in range(3):
+        x.copy_(torch.roll(before, i + 1, dims=1) * (i + 2))
+        graph.replay()
+        torch.cuda.synchronize()
+        checks.case("int8_matmul", f"{label} CUDA-graph replay {i + 1}", out,
+                    quant.int8_matmul_plain(x, w["w8"], w["scale"]), 1e-2)
+    x.copy_(before)
+    del graph
 
 
 def decode_graph_check(checks: Checks, q, kc, vc, base) -> None:
@@ -303,20 +331,23 @@ def check_kernels(checks: Checks, seed: int) -> None:
     g.manual_seed(seed)
     randn = lambda *s, dt=torch.bfloat16: torch.randn(s, generator=g, device=dev).to(dt)
 
-    # A: every int8 LM linear shape of the 1.5B decoder, decode and prefill rows
+    # A: every int8 LM linear shape of the 1.5B decoder, decode rows (2 at bs1
+    # with both CFG streams, 4 after the ring prefill, 8 at bs4) and prefill rows
     print("kernel A int8_matmul (bf16 x, int8 w, f32 scale; bf16 out: tol 1e-2 of the peak; "
           "library: torch.mm on a bf16 copy of the weight)")
     for name, k, n in LM_SHAPES:
         ws = rotating(lambda: quant.quantize_weight(randn(k, n, dt=torch.float32) * 0.02), k * n)
-        for rows in (2, 512):
+        for rows in (1, 2, 4, 8, quant.GEMM_MIN_ROWS - 1, 512):
             x = randn(rows, k)
             check_int8_matmul(checks, f"{name} {k}x{n} rows={rows}", x, ws, 1e-2,
                               main=(name == "gate/up" and rows == 2))
+            if rows == 2:
+                gemv_graph_check(checks, f"{name} {k}x{n} rows={rows}", x, ws[0])
 
     # A's two routes side by side, to place the row threshold of quant._plan
     print(f"kernel A routes by rows (bf16 x; ms of the GEMV / the GEMM; quant.GEMM_MIN_ROWS = "
           f"{quant.GEMM_MIN_ROWS})")
-    sweep = (4, 8, 12, 16, 24, 32, 64, 128, 256)
+    sweep = (4, 8, 12, 16, 24, 32, 36, 40, 48, 64, 128, 256)
     crossover, layer = {}, {r: [0.0, 0.0] for r in sweep}
     for name, k, n in LM_SHAPES:
         ws = rotating(lambda: quant.quantize_weight(randn(k, n, dt=torch.float32) * 0.02), k * n)

@@ -45,6 +45,107 @@ def test_int8_matmul(dev, rows, k, n, dtype):
     assert _rel(out, ref) < (1e-2 if dtype == torch.bfloat16 else 1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k,n", [(1536, 8960), (8960, 1536), (1536, 256), (200, 208), (1000, 1040)])
+@pytest.mark.parametrize("rows", [1, 2, 3, 4, 7, 8, 11, 39])
+def test_int8_matmul_gemv_route(dev, rows, k, n, dtype):
+    """Kernel A's streaming GEMV at every templated row count (1, 2, 4), at
+    rows between them and over several row tiles (7, 8, 11, 39), at 1.5B
+    decode shapes, at ragged N (a multiple of 16 that is not a multiple of
+    the 128-column tile) and K that is not a multiple of the split: within
+    1e-2 (bf16 out) / 1e-5 (f32: the same products in another order) of the
+    peak of the plain version, one launch a call, and a second call gives
+    the same bits."""
+    assert rows < quant.GEMM_MIN_ROWS
+    g = torch.Generator(device=dev).manual_seed(20)
+    q = quant.quantize_weight(torch.randn(k, n, generator=g, device=dev) * 0.02)
+    x = torch.randn(rows, k, generator=g, device=dev).to(dtype)
+    before = quant.int8_matmul.launches
+    out = quant.int8_matmul(x, q["w8"], q["scale"])
+    assert quant.int8_matmul.launches == before + 1
+    assert out.dtype == dtype and out.shape == (rows, n)
+    assert _rel(out, quant.int8_matmul_plain(x, q["w8"], q["scale"])) < (
+        1e-2 if dtype == torch.bfloat16 else 1e-5)
+    for _ in range(3):
+        assert torch.equal(quant.int8_matmul(x, q["w8"], q["scale"]), out)
+
+
+@pytest.mark.parametrize("k,n", [(1536, 8960), (8960, 1536)])
+def test_int8_matmul_gemv_graph_replay(dev, k, n):
+    """One capture of the GEMV call in a CUDA graph, replayed with new x
+    written in place: the plan comes from the shapes, the workspace and the
+    counters persist (and the counters reset themselves), so every replay
+    matches the plain version and nothing is allocated but the output."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    q = quant.quantize_weight(torch.randn(k, n, generator=g, device=dev) * 0.02)
+    x = torch.randn(2, k, generator=g, device=dev).to(torch.bfloat16)
+    quant.int8_matmul(x, q["w8"], q["scale"])  # the workspace, outside the capture
+    torch.cuda.synchronize()
+    ws = quant._gemv_scratch[x.device]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = quant.int8_matmul(x, q["w8"], q["scale"])
+    assert quant._gemv_scratch[x.device] is ws
+    for _ in range(3):
+        x.copy_(torch.randn(2, k, generator=g, device=dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _rel(out, quant.int8_matmul_plain(x, q["w8"], q["scale"])) < 1e-2
+    assert int(ws[1].abs().max()) == 0
+
+
+def test_int8_matmul_gemv_raises_on_unsupported_input(dev):
+    """OUT not a multiple of 16, a w8 that is not 16-byte aligned, f16 x: the
+    GEMV wrapper raises."""
+    x = torch.randn(2, 64, device=dev)
+    q = quant.quantize_weight(torch.randn(64, 40, device=dev))  # 40 columns
+    with pytest.raises(ValueError):
+        quant.int8_matmul(x, q["w8"], q["scale"])
+    q = quant.quantize_weight(torch.randn(64, 64, device=dev))
+    flat = torch.zeros(64 * 64 + 4, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError):  # contiguous, 4 bytes off a 16-byte boundary
+        quant.int8_matmul(x, flat[4:].view(64, 64), q["scale"])
+    with pytest.raises(ValueError):
+        quant.int8_matmul(x.half(), q["w8"], q["scale"])
+
+
+def test_nucleus_tie_order_card_matches_cpu(dev):
+    """Top-p sampling where the whole vocabulary ties (the layout of
+    tests/test_torch_generate.py's tie-order test: an lm_head of equal
+    columns, top_p 0.5, speech_start the one surviving candidate): the
+    port on the card picks the tokens the port picks on the CPU, which that
+    test holds against the JAX package. The card's unstable sort is another
+    algorithm than the CPU's; _choose_tokens sorts with stable=True."""
+    from vibevoice_tpu_torch.configs import tiny_config
+    from vibevoice_tpu_torch.models import inference as inf
+    from vibevoice_tpu_torch.utils.params import init
+
+    cfg = tiny_config()
+    hop = cfg.acoustic_tokenizer_config.hop_length
+    v, h = cfg.decoder_config.vocab_size, cfg.decoder_config.hidden_size
+    tok = dict(speech_start=3, speech_end=v - 3, speech_diffusion=v - 2, eos=v - 1)
+    rng = np.random.RandomState(0)
+    ids = rng.randint(10, 100, (1, 12)).astype(np.int64)
+    ids[0, 2:6], ids[0, -1] = tok["speech_diffusion"], tok["speech_start"]
+    mask = np.zeros((1, 12), bool)
+    mask[0, 2:6] = True
+    d, e = tok["speech_diffusion"], tok["eos"]
+    kw = dict(input_ids=ids, speech_tensors=rng.randn(1, 4 * hop).astype(np.float32),
+              speech_frame_valid=np.ones((1, 4), bool), speech_input_mask=mask,
+              noise_bank={"init": rng.randn(16, 1, cfg.acoustic_vae_dim).astype(np.float32),
+                          "vae_std": rng.randn(1).astype(np.float32),
+                          "vae_eps": rng.randn(1, 4, cfg.acoustic_vae_dim).astype(np.float32)},
+              forced_tokens=np.array([d, d, -1, d, -1, d, e], np.int64)[:, None],
+              tokens=inf.SpecialTokens(**tok), seed=0,
+              opts=inf.GenerateOptions(ddpm_steps=2, max_length=64, do_sample=True, top_p=0.5))
+    params = init(cfg, seed=0, device="cpu")
+    params["lm_head"] = torch.zeros(v, h)
+    params["lm_head"][:, 0] = 0.5
+    seqs = [inf.generate(cfg, _to(params, where), **kw).sequences for where in (dev, "cpu")]
+    np.testing.assert_array_equal(seqs[0][0, 12:][[2, 4]], [tok["speech_start"]] * 2)
+    np.testing.assert_array_equal(seqs[0], seqs[1])
+
+
 @pytest.mark.parametrize("w,int8,dtype", [(1, False, torch.bfloat16), (1, True, torch.float32),
                                           (7, True, torch.bfloat16), (7, False, torch.float32)])
 def test_flash_cached_attention(dev, w, int8, dtype):

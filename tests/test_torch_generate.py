@@ -155,6 +155,52 @@ def test_tts_synthesize_and_stream():
     assert np.isfinite(sampled).all()
 
 
+def _tie_inputs(tok):
+    """A prompt, voice and forced script under the token ids `tok`; the
+    frames marked -1 are left to the sampler."""
+    kw = _inputs()
+    ids = kw["input_ids"].copy()
+    ids[0, 2:6], ids[0, -1] = tok["speech_diffusion"], tok["speech_start"]
+    d, e = tok["speech_diffusion"], tok["eos"]
+    return {**kw, "input_ids": ids, "forced_tokens": np.array([d, d, -1, d, -1, d, e], np.int64)[:, None]}
+
+
+def tie_order_case(models):
+    """An lm_head whose columns are all the same (0.5 on hidden unit 0), so
+    every logit is the same number and the whole vocabulary ties. A stable
+    descending sort then orders the nucleus by token id, and top_p 0.5
+    keeps ids below half the vocabulary: of the candidates only
+    speech_start (id 3, also the first of the tied candidates, which is the
+    one always kept) survives; speech_end, speech_diffusion and eos hold the
+    three highest ids. Returns (JAX params, port params, token ids)."""
+    jp, tp = models
+    v, h = CFG.decoder_config.vocab_size, CFG.decoder_config.hidden_size
+    head = np.zeros((v, h), np.float32)
+    head[:, 0] = 0.5
+    tok = dict(speech_start=3, speech_end=v - 3, speech_diffusion=v - 2, eos=v - 1)
+    return {**jp, "lm_head": jnp.asarray(head)}, {**tp, "lm_head": torch.from_numpy(head)}, tok
+
+
+def test_nucleus_tie_order_matches_jax(models):
+    """Sampling with top_p where the probabilities tie across the nucleus
+    boundary: one candidate survives in the JAX package (jnp.argsort is
+    stable: among equal probabilities the lower id comes first), so both
+    draws are determined and the port must pick the same tokens. PyTorch's
+    unstable sort does not keep ties in id order on the CPU: without
+    stable=True in _choose_tokens this test fails. The same layout runs on
+    the card in tests/test_torch_cuda.py (the card against the CPU)."""
+    jp, tp, tok = tie_order_case(models)
+    kw = _tie_inputs(tok)
+    opts = dict(ddpm_steps=2, max_length=64, do_sample=True, top_p=0.5)
+    jo = jinf.generate(JCFG, jp, tokens=jinf.SpecialTokens(**tok), seed=0,
+                       opts=jinf.GenerateOptions(**opts), **kw)
+    to = tinf.generate(CFG, tp, tokens=tinf.SpecialTokens(**tok), seed=0,
+                       opts=tinf.GenerateOptions(**opts), **kw)
+    picked = np.asarray(jo.sequences)[0, kw["input_ids"].shape[1]:][[2, 4]]
+    np.testing.assert_array_equal(picked, [tok["speech_start"]] * 2)
+    np.testing.assert_array_equal(to.sequences, jo.sequences)
+
+
 def test_port_never_imports_jax():
     code = ("import sys; import vibevoice_tpu_torch.models.inference, vibevoice_tpu_torch.tts; "
             "import vibevoice_tpu_torch.utils.params; "

@@ -296,3 +296,57 @@ def test_cfg_sample_with_injected_noise(sde):
     out = tdpm.cfg_sample(tc, thead, T(cond), T(uncond), 1.3, T(x0),
                           noise=None if noise is None else T(noise), extras=list(T(extras)))
     close(out, ref, 1e-5, 1e-5)
+
+
+def _ring_hops(p_terms, seed=0):
+    """Three hops of rank 2 of a 3-ring (Tl 256, G 3, D 128, bf16 inputs)
+    through an emulation of the tensor-core kernel F: bf16 Q K^T summed in
+    f32, f32 online softmax, and P fed to P V as `p_terms` bf16 terms
+    (bf16(p), then bf16 of what is left) against bf16 V with f32 sums; l
+    sums the unrounded p. Returns that state and flash_ring_block_plain's."""
+    rng = np.random.RandomState(seed)
+    b, tl, nh, kh, d, n, rank = 2, 256, 6, 2, 128, 3, 2
+    g = nh // kh
+    rn = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32)).to(torch.bfloat16)
+    q = rn(b, tl, nh, d)
+    blocks = [(rn(b, kh, tl, d), rn(b, kh, tl, d)) for _ in range(n)]
+    k_len = torch.tensor([n * tl, 2 * tl + 100], dtype=torch.int32)
+    plain = tfa.ring_state_init(b, kh, tl * g, d)
+    m, l, acc = tfa.ring_state_init(b, kh, tl * g, d)
+    scale = d ** -0.5
+    qf = tfa._fold_heads(q.float(), kh)
+    for hop in range(n):
+        src = (rank - hop) % n
+        kb, vb = blocks[src]
+        kw = dict(q_start=rank * tl, k_start=src * tl, k_len=k_len)
+        tfa.flash_ring_block_plain(plain, q, kb, vb, **kw)
+        sc = torch.einsum("bkrd,bksd->bkrs", qf, kb.float())  # raw scores of bf16 inputs
+        pos = kw["q_start"] + torch.arange(tl * g) // g
+        key = kw["k_start"] + torch.arange(tl)
+        live = (key[None, None] <= pos[None, :, None]) & (key[None, None] < k_len[:, None, None])
+        sc = sc.masked_fill(~live[:, None], float("-inf"))
+        m_new = torch.maximum(m, sc.amax(-1) * scale)
+        p = torch.exp2((sc * scale - m_new[..., None]) * 1.4426950408889634)
+        corr = torch.exp2((m - m_new) * 1.4426950408889634)
+        pv, rest = torch.zeros_like(acc), p
+        for _ in range(p_terms):
+            term = rest.to(torch.bfloat16).float()
+            pv = pv + term @ vb.float()
+            rest = rest - term
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    return (m, l, acc), plain
+
+
+def test_ring_two_term_p_keeps_f32_accuracy():
+    """Kernel F on the tensor cores feeds P to the P V product as two bf16
+    terms: over three hops its emulation stays within 1e-5 of the peak of
+    the plain version's state (m, l and acc), where a single bf16 P misses
+    1e-4 on acc, the limit the card holds the kernel to."""
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+    (m2, l2, acc2), plain = _ring_hops(2)
+    assert rel(m2, plain[0]) < 1e-5 and rel(l2, plain[1]) < 1e-5 and rel(acc2, plain[2]) < 1e-5
+    (_, l1, acc1), plain = _ring_hops(1)
+    assert rel(l1, plain[1]) < 1e-5  # l sums the unrounded p either way
+    assert rel(acc1, plain[2]) > 1e-4

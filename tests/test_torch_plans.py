@@ -1,6 +1,9 @@
-"""The launch plans of kernels A and B, which the wrappers compute in plain
+"""The launch plans of kernels A, B and F, which the wrappers compute in plain
 Python before they launch: kernel A's route and tiling by row count
-(ops/quant._plan), kernel B's decode tiles and key splits
+(ops/quant._plan; the streaming GEMV's ops/quant._gemv_plan, whose thread
+mapping csrc/stream_gemv.cuh repeats on the card), kernel F's row tiles and
+key horizons (ops/flash_attention._ring_plan, _ring_tile, as
+csrc/flash_ring.cu computes them), kernel B's decode tiles and key splits
 (ops/flash_attention._decode_plan, _decode_split, whose arithmetic
 csrc/flash_decode.cu repeats on the card) and its prefill tiles and key
 splits (_prefill_plan, _prefill_split)."""
@@ -116,3 +119,102 @@ def test_prefill_splits_cover_the_horizon_once(total, n_splits):
             assert first * fa.PREFILL_KEYS < total
         seen += range(first, end)
     assert sorted(seen) == list(range(nblk))
+
+
+DECODE_SHAPES = [(1536, 1536), (1536, 256), (1536, 8960), (8960, 1536)]  # chip_smoke's LM_SHAPES
+
+
+@pytest.mark.parametrize("rows", range(1, quant.GEMM_MIN_ROWS))
+@pytest.mark.parametrize("k,n", DECODE_SHAPES + [(64, 64), (320, 1008), (1536, 151936)])
+def test_gemv_plan_reads_every_weight_once(rows, k, n):
+    """The streaming GEMV's grid and thread mapping (csrc/stream_gemv.cuh:
+    128 threads = 16 k lanes x 8 groups of 16 columns, 8 loads a round) under
+    the plan: every output column and row is owned by one block, every k by
+    one (split, k lane, round, slot), and the x slice fits the shared memory
+    a block may take without asking. The plan depends on the shapes alone."""
+    assert list(inspect.signature(quant._gemv_plan).parameters) == ["rows", "k", "n"]
+    rt, splits, kps = quant._gemv_plan(rows, k, n)
+    assert quant._plan(rows, k, n) == ("gemv", rt, quant.GEMV_COLS, splits, kps)
+    assert rt in quant.GEMV_ROW_TILES and (rt == 1) == (rows == 1)
+    assert (rt == 4) == (rows > 2 and rows * k * n >= quant.GEMV_WIDE_TILE_MACS)
+    assert kps % 16 == 0 and 16 <= kps <= quant.GEMV_MAX_KPS and splits == math.ceil(k / kps)
+    kl_n, unroll = 16, 8
+    kpad = math.ceil(kps / (kl_n * unroll)) * kl_n * unroll
+    assert rt * kpad * 4 + 4 * rt * quant.GEMV_COLS * 4 + 16 <= 48 * 1024
+    seen_k = np.zeros(k, int)
+    for split in range(splits):
+        kb, ke = split * kps, min(k, (split + 1) * kps)
+        assert kb < ke
+        nit = math.ceil((ke - kb) / (kl_n * unroll))
+        kk = (np.arange(kl_n)[:, None] + kl_n * np.arange(nit * unroll)[None]).ravel()
+        assert kk.max() < kpad
+        np.add.at(seen_k, kb + kk[kb + kk < ke], 1)
+    assert (seen_k == 1).all()
+    seen_n = np.zeros(n, int)
+    for blk in range(math.ceil(n / quant.GEMV_COLS)):
+        for cg in range(8):
+            n0 = blk * quant.GEMV_COLS + cg * 16
+            if n0 < n:
+                seen_n[n0:n0 + 16] += 1
+    assert (seen_n == 1).all() and n % 16 == 0
+    seen_r = np.zeros(rows, int)
+    for z in range(math.ceil(rows / rt)):
+        seen_r[z * rt:z * rt + rt] += 1
+    assert (seen_r == 1).all()
+
+
+@pytest.mark.parametrize("k,n", DECODE_SHAPES)
+def test_gemv_plan_fills_the_card(k, n):
+    """At the 1.5B decode shapes the K axis is split until the grid holds at
+    least a block per SM (k/v, 0.4 MB, is too small for that: one round of
+    loads a block), and never past one wave of the blocks it aims at unless
+    a block already takes the most k it can stage."""
+    for rows in (1, 2, 4, 8):
+        rt, splits, kps = quant._gemv_plan(rows, k, n)
+        blocks = math.ceil(n / quant.GEMV_COLS) * math.ceil(rows / rt) * splits
+        assert blocks >= quant.SMS or kps == quant.GEMV_MIN_KPS
+        if kps < quant.GEMV_MAX_KPS:  # one wave of the blocks the split aims at
+            assert blocks <= quant.SMS * quant.GEMV_ROW_TILES[rt] + math.ceil(n / quant.GEMV_COLS)
+
+
+def _ring_live(w, g, s, q_start, k_start, k_len):
+    """Brute force: live[r, j] for folded row r = w * g + gi and key j."""
+    pos = q_start + np.arange(w * g) // g
+    key = k_start + np.arange(s)
+    return (key[None, :] <= pos[:, None]) & (key[None, :] < k_len)
+
+
+@pytest.mark.parametrize("dtype_rows", [64, 32])
+@pytest.mark.parametrize("g", [3, 6])
+@pytest.mark.parametrize("w,s,q_start,k_start", [
+    (100, 100, 100, 100),  # the rank's own block
+    (100, 100, 100, 0),    # an earlier rank's
+    (100, 100, 100, 200),  # a later rank's: wholly in the future
+    (77, 130, 0, 0),       # a world of one, ragged rows and keys
+    (45, 200, 150, 0),     # keys beyond every row's slot
+])
+@pytest.mark.parametrize("k_len", ["inside", "before", "after", "at_start"])
+def test_ring_tiles_match_the_mask(w, s, q_start, k_start, g, dtype_rows, k_len):
+    """Kernel F's tile arithmetic against the brute-force mask, ragged W, G 3
+    and 6, k_len inside, before and after the block: a tile's horizon is one
+    past its last live key (0 and skipped iff it has none), and the key
+    tiles it leaves unmasked hold only live pairs."""
+    k_len = {"inside": k_start + s // 3, "before": max(k_start - 5, 0), "after": k_start + s + 50,
+             "at_start": k_start}[k_len]
+    live = _ring_live(w, g, s, q_start, k_start, k_len)
+    rows, tiles = dtype_rows, math.ceil(w * g / dtype_rows)
+    assert fa._ring_plan(w, g) == (fa.RING_ROWS, math.ceil(w * g / fa.RING_ROWS))
+    covered = np.zeros(w * g, int)
+    for t in range(tiles):
+        row0, horizon, unmasked = fa._ring_tile(t, rows, w, g, s, q_start, k_start, k_len)
+        assert row0 == t * rows
+        blk = live[row0:row0 + rows]
+        covered[row0:row0 + rows] += 1
+        cols = np.flatnonzero(blk.any(0))
+        assert horizon == (cols.max() + 1 if cols.size else 0)
+        assert 0 <= unmasked * fa.RING_KEYS <= horizon
+        assert blk[:, :unmasked * fa.RING_KEYS].all()
+        if unmasked * fa.RING_KEYS < horizon:  # the next key tile does cross a horizon
+            nxt = blk[:, unmasked * fa.RING_KEYS:(unmasked + 1) * fa.RING_KEYS]
+            assert not nxt.all() or nxt.shape[1] < fa.RING_KEYS
+    assert (covered == 1).all()

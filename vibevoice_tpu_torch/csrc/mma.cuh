@@ -1,10 +1,12 @@
 // Tensor-core building blocks of the Hopper kernels int8_gemm.cu (kernel A at
 // many rows), int8_matmul_t.cu (kernel E), flash_prefill.cu (kernel B over
-// prefill chunks) and flash_decode.cu (kernel B at decode): asynchronous
-// copies into shared memory (cp.async), ldmatrix, bf16 mma.sync m16n8k16,
-// warpgroup wgmma m64n256k16 and m64n192k16 (A from registers, B by
-// shared-memory descriptor), setmaxnreg, TMA tile loads with mbarriers, and
-// the exact int8 -> bf16 conversion. Host-side tensor maps: tma.cuh.
+// prefill chunks), flash_decode.cu (kernel B at decode) and flash_ring.cu
+// (kernel F): asynchronous copies into shared memory (cp.async), ldmatrix,
+// bf16 mma.sync m16n8k16, warpgroup wgmma with A from registers and B by
+// shared-memory descriptor (m64n256k16, m64n192k16 and m64n64k16 over a
+// K-major B, m64n128k16 over an MN-major B), setmaxnreg, TMA tile loads with
+// mbarriers, and the exact int8 -> bf16 / f32 conversion (which the
+// streaming GEMV of stream_gemv.cuh uses too). Host-side tensor maps: tma.cuh.
 #pragma once
 
 #include "common.cuh"
@@ -182,6 +184,70 @@ static __device__ __forceinline__ void wgmma_rs_m64n192k16(float d[96], const ui
       "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
       "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// The same with a 64-wide B (16 x 64, K-major): d holds 32 floats, thread t's
+// d[4i + {0,1}] at row 16 (t / 32) + (t % 32) / 4, columns 8i + 2 (t % 4) +
+// {0,1}, d[4i + {2,3}] eight rows below: mma.m16n8k16's C layout per warp.
+static __device__ __forceinline__ void wgmma_rs_m64n64k16(float d[32], const uint32_t a[4],
+                                                          uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 128) += A (64 x 16, registers) B (16 x 128) with B MN-major in
+// shared memory (its N axis contiguous: a [k][n] tile as it lies in a
+// row-major (keys, d) array), by a wgmma_desc_sw128_mn descriptor.
+static __device__ __forceinline__ void wgmma_rs_m64n128k16_tb(float d[64], const uint32_t a[4],
+                                                              uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// Shared-memory descriptor of an MN-major bf16 tile with the 128-byte
+// swizzle: a k row holds 64 n elements (128 bytes, 16-byte chunk c at chunk
+// c ^ (k % 8)), 8 k rows make a 1024-byte group, the next 8 k rows lie
+// `1024` bytes on (stride offset) and the next 64 n elements `n_stride`
+// bytes on (leading offset). The tile is 1024-byte aligned.
+static __device__ __forceinline__ uint64_t wgmma_desc_sw128_mn(uint32_t saddr, uint32_t n_stride) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)(n_stride >> 4) << 16) |
+         ((uint64_t)64 << 32) | ((uint64_t)1 << 62);
+}
+
+// Writes to shared memory by cp.async or plain stores, made visible to the
+// asynchronous proxy that wgmma reads shared memory through.
+static __device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // Register hand-over between the warpgroups of a warp-specialized kernel

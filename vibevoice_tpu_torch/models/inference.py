@@ -230,7 +230,7 @@ def _choose_tokens(params, carry: DecodeCarry, tokens: SpecialTokens, opts: Gene
         # intersected with the candidates; the best candidate always stays
         scaled_full = logits / max(opts.temperature, 1e-6)
         probs = torch.softmax(scaled_full, -1)
-        sorted_p, order = probs.sort(-1, descending=True)
+        sorted_p, order = probs.sort(dim=-1, descending=True, stable=True)  # ties: lower id first
         keep_sorted = (sorted_p.cumsum(-1) - sorted_p) < opts.top_p
         keep = torch.zeros_like(keep_sorted).scatter(1, order, keep_sorted)
         cand_keep = keep[:, cand]

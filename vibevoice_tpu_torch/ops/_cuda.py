@@ -43,7 +43,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "vv_int8_matmul": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "vv_int8_matmul": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "vv_int8_gemm": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P],
     "vv_flash_prefill": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "vv_flash_decode": [
@@ -60,7 +60,9 @@ _SIGNATURES = {
     "vv_int8_matmul_t": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "vv_flash_train_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "vv_flash_train_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    "vv_flash_ring_block": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "vv_flash_ring_block": [
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+    ],
 }
 
 

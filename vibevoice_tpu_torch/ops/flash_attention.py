@@ -22,8 +22,10 @@ Kernel F, ``flash_ring_block``, is one hop of ring attention (the JAX
 file's ``flash_ring_block``, with ``ring_state_init`` and
 ``ring_state_out``): it folds a visiting K/V block into an online-softmax
 state ``(m, l, acc)`` in f32 that the caller carries across hops, updated in
-place. On a CUDA tensor it launches csrc/flash_ring.cu; on a CPU tensor it
-runs ``flash_ring_block_plain``.
+place. On a CUDA tensor it launches csrc/flash_ring.cu (bf16 at D 128: both
+products as wgmma on the tensor cores, P as two bf16 terms so the f32 state
+keeps its accuracy; f32 at D 16: CUDA cores), whose tiles ``_ring_plan`` and
+``_ring_tile`` describe; on a CPU tensor it runs ``flash_ring_block_plain``.
 
 ``flash_train_attention`` is the no-cache causal attention of fine-tuning
 (vibevoice_tpu/models/qwen2.py:284 ``_attention_train_flash``, which calls
@@ -307,6 +309,35 @@ def flash_ring_block_plain(state, q: torch.Tensor, k_blk: torch.Tensor, v_blk: t
     return state
 
 
+# csrc/flash_ring.cu: folded query rows w * G + g per block (one warpgroup
+# on the tensor cores, a 16 x 16 thread grid on the CUDA cores) and keys per
+# K/V tile
+RING_ROWS = 64
+RING_KEYS = 64
+
+
+def _ring_plan(w: int, g: int) -> tuple[int, int]:
+    """(folded rows per block, row tiles) of kernel F for W query positions
+    and G query heads per KV head."""
+    return RING_ROWS, -(-(w * g) // RING_ROWS)
+
+
+def _ring_tile(tile: int, rows: int, w: int, g: int, s: int, q_start: int, k_start: int,
+               k_len: int) -> tuple[int, int, int]:
+    """(first folded row, key horizon, unmasked key tiles) of row tile
+    ``tile`` of one sample, as csrc/flash_ring.cu computes them on the card:
+    the tile reads keys [0, horizon) of the S-key block, up to its last
+    row's slot and below k_len (a horizon of 0: the tile lies wholly before
+    the block and exits without reading or writing); its first ``unmasked``
+    key tiles lie below every row's horizon and skip the mask."""
+    row0 = tile * rows
+    last_row = min(row0 + rows, w * g) - 1
+    klen = k_len - k_start
+    horizon = max(0, min(s, q_start + last_row // g + 1 - k_start, klen))
+    lim_min = min(q_start + row0 // g - k_start, min(klen, s) - 1)
+    return row0, horizon, max(0, (lim_min + 1) // RING_KEYS)
+
+
 def flash_ring_block(state, q: torch.Tensor, k_blk: torch.Tensor, v_blk: torch.Tensor, *,
                      q_start: int, k_start: int, k_len: torch.Tensor,
                      scale: Optional[float] = None):
@@ -339,9 +370,16 @@ def flash_ring_block(state, q: torch.Tensor, k_blk: torch.Tensor, v_blk: torch.T
             raise ValueError(f"state tensor must be {shape} f32, got {t.dtype} {tuple(t.shape)}")
     if k_len.dtype != torch.int32 or k_len.shape != (b,):
         raise ValueError("k_len must be (B,) int32")
+    if q.dtype == torch.bfloat16:
+        if k_blk.data_ptr() % 16 or v_blk.data_ptr() % 16 or acc.data_ptr() % 8:
+            raise ValueError("the tensor-core kernel copies K and V in 16-byte chunks and the "
+                             "state in 8-byte pairs: they must be aligned so")
+        if q.data_ptr() % 16:  # an offset view
+            q = q.clone()
+    rows, _ = _ring_plan(w, nh // kh)
     _cuda.library().call(
         "vv_flash_ring_block", q.data_ptr(), k_blk.data_ptr(), v_blk.data_ptr(), k_len.data_ptr(),
-        m.data_ptr(), l.data_ptr(), acc.data_ptr(), _cuda.dtype_code(q), b, w, nh, kh, s, d,
+        m.data_ptr(), l.data_ptr(), acc.data_ptr(), _cuda.dtype_code(q), b, w, nh, kh, s, d, rows,
         int(q_start), int(k_start), float(d ** -0.5 if scale is None else scale),
         _cuda.stream_ptr(q.device),
     )

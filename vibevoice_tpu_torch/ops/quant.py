@@ -8,10 +8,12 @@ int8 tensors and scales are bit-equal.
 
 ``int8_matmul`` on a CUDA tensor launches a hand-written kernel that
 replaces the Pallas TPU kernel vibevoice_tpu/ops/quant.py:129, chosen by row
-count alone (``_plan``): below ``GEMM_MIN_ROWS`` rows (decode) the split-K
-GEMV of csrc/int8_matmul.cu, which streams the int8 weight over every SM;
-at and above it (prefill, training) the tensor-core GEMM of
-csrc/int8_gemm.cu (TMA and wgmma, 256 rows x 128 columns a block, no
+count alone (``_plan``): below ``GEMM_MIN_ROWS`` rows (decode) the
+one-launch weight-streaming GEMV of csrc/int8_matmul.cu (core:
+csrc/stream_gemv.cuh; its plan, ``_gemv_plan``, comes from the shapes alone,
+its split-K workspace and counters persist per device, so the launch can be
+captured in a CUDA graph); at and above it (prefill, training) the
+tensor-core GEMM of csrc/int8_gemm.cu (TMA and wgmma, 256 rows x 128 columns a block, no
 split-K, so a row's result does not depend on the call's row count). On a CPU tensor it runs
 ``int8_matmul_plain``, the same function in plain PyTorch. Unlike the TPU
 port, every shape takes a kernel (no 512-divisibility gate).
@@ -51,11 +53,29 @@ def int8_matmul_plain(x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) ->
 
 
 # Rows at and above take the tensor-core GEMM (csrc/int8_gemm.cu). Measured
-# on an H100 over a layer's seven 1.5B linears (chip_smoke.py's route sweep):
-# the GEMV is faster at 8 rows and below, the GEMM from 12 rows up.
-GEMM_MIN_ROWS = 12
+# on an H100 over a layer's seven 1.5B linears (chip_smoke.py's route sweep,
+# 4 to 256 rows): the streaming GEMV is faster up to 32 rows (0.213 against
+# 0.229 ms), the two tie at 36 (0.230 against 0.231) and the GEMM wins from
+# 40 (0.232 against 0.250). The GEMM's time hardly moves below 256 rows (it
+# never splits K, so down is 12 blocks of work), which is why the GEMV holds
+# on so long; gate/up alone would switch at 12.
+GEMM_MIN_ROWS = 40
 GEMM_TILE = (256, 128)  # its output tile (rows, columns) per block
-GEMV_TILE = (8, 128)  # the split-K GEMV's (csrc/gemv.cuh)
+# The streaming GEMV (csrc/stream_gemv.cuh): rows per block (a template
+# parameter there) with the blocks per SM its K split aims at, columns per
+# block, and the least and most k one block takes (x is staged in shared
+# memory). The K axis is split until the grid fills one wave of the H100's
+# 132 SMs and no more: a second, partial wave costs as much as the first.
+# More rows than a tile run as several row tiles that share the weight
+# through L2; the 4-row tile, whose blocks take longer each, pays only where
+# the call has the work to fill the card (from GEMV_WIDE_TILE_MACS
+# multiply-adds: gate/up from 3 rows, q/o from 14, k/v never).
+GEMV_ROW_TILES = {1: 4, 2: 4, 4: 2}
+GEMV_WIDE_TILE_MACS = 32 << 20
+GEMV_COLS = 128
+GEMV_MIN_KPS = 128
+GEMV_MAX_KPS = 512
+SMS = 132
 
 
 class Int8Plan(NamedTuple):
@@ -68,12 +88,28 @@ class Int8Plan(NamedTuple):
     k_per_split: int
 
 
+def _gemv_plan(rows: int, k: int, n: int) -> tuple[int, int, int]:
+    """(rows per block, K splits, k per split) of the streaming GEMV, from
+    the shapes alone: 1 or 2 rows a block, or 4 where more than 2 rows bring
+    GEMV_WIDE_TILE_MACS multiply-adds (more rows than the tile run as several
+    row tiles), and the K axis split into as many slices as fill one wave of
+    blocks, each a multiple of 16 k (one k row per k lane) within
+    [GEMV_MIN_KPS, GEMV_MAX_KPS]."""
+    rt = 1 if rows == 1 else 4 if rows > 2 and rows * k * n >= GEMV_WIDE_TILE_MACS else 2
+    tiles = -(-n // GEMV_COLS) * -(-rows // rt)
+    splits = max(1, SMS * GEMV_ROW_TILES[rt] // tiles)
+    kps = -(-(-(-k // splits)) // 16) * 16
+    kps = min(max(kps, GEMV_MIN_KPS), GEMV_MAX_KPS, -(-k // 16) * 16)
+    return rt, -(-k // kps), kps
+
+
 def _plan(rows: int, k: int, n: int) -> Int8Plan:
     """Kernel A's route by row count alone: the GEMV streams the weight once
     for a few rows (decode); from GEMM_MIN_ROWS up the tensor cores win."""
     if rows >= GEMM_MIN_ROWS:
         return Int8Plan("gemm", *GEMM_TILE, 1, k)
-    return Int8Plan("gemv", *GEMV_TILE, *_cuda.split_k(rows, k, n))
+    rt, splits, kps = _gemv_plan(rows, k, n)
+    return Int8Plan("gemv", rt, GEMV_COLS, splits, kps)
 
 
 def int8_matmul(x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -122,20 +158,44 @@ def _gemm(x2: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) -> torch.Tens
     return out
 
 
+_gemv_scratch: dict = {}  # device -> (f32 partial sums, int32 zeros) of the streaming GEMV
+_gemv_retired: list = []  # outgrown scratch, kept alive for CUDA graphs that captured it
+
+
+def _gemv_workspace(device: torch.device, n_part: int, n_tiles: int):
+    """The GEMV's split-K partial sums and arrival counters (zeros that
+    every launch leaves zero again). Kept per device and grown on demand, so
+    a call allocates nothing but its output and a launch captured in a CUDA
+    graph finds them in place (make one call before capturing). Calls of one
+    stream share them in turn; two calls must not run concurrently on two
+    streams of one device."""
+    ws = _gemv_scratch.get(device)
+    if ws is None or ws[0].numel() < n_part or ws[1].numel() < n_tiles:
+        if ws is not None:
+            _gemv_retired.append(ws)
+        ws = (torch.empty(max(n_part, 1 << 20), dtype=torch.float32, device=device),
+              torch.zeros(max(n_tiles, 4096), dtype=torch.int32, device=device))
+        _gemv_scratch[device] = ws
+    return ws
+
+
 def _gemv(x2: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """Kernel A's split-K GEMV route (csrc/int8_matmul.cu) on (rows, IN) x."""
+    """Kernel A's streaming GEMV route (csrc/int8_matmul.cu) on (rows, IN) x:
+    one launch, no allocation but the output."""
     out = _check(x2, w8, scale)
     (rows, cin), cout = x2.shape, w8.shape[1]
     if rows == 0:
         return out
-    if cout % 4 or w8.data_ptr() % 4:
-        raise ValueError(f"the kernel reads 4 int8 columns at once: OUT={cout} must be a "
-                         "multiple of 4 and w8 4-byte aligned")
-    splits, kps = _cuda.split_k(rows, cin, cout)
-    ws = torch.empty(splits, rows, cout, dtype=torch.float32, device=x2.device)
+    if cout % 16 or w8.data_ptr() % 16:
+        raise ValueError(f"the kernel reads 16 int8 columns at once: OUT={cout} must be a "
+                         "multiple of 16 and w8 16-byte aligned")
+    rt, splits, kps = _gemv_plan(rows, cin, cout)
+    part, counters = (None, None) if splits == 1 else _gemv_workspace(
+        x2.device, splits * rows * cout, -(-rows // rt) * -(-cout // GEMV_COLS))
     _cuda.library().call(
         "vv_int8_matmul", x2.data_ptr(), _cuda.dtype_code(x2), w8.data_ptr(), scale.data_ptr(),
-        out.data_ptr(), ws.data_ptr(), rows, cin, cout, splits, kps, _cuda.stream_ptr(x2.device),
+        out.data_ptr(), _cuda.ptr(part), _cuda.ptr(counters), rows, cin, cout, rt, splits, kps,
+        _cuda.stream_ptr(x2.device),
     )
     int8_matmul.launches += 1
     return out
