@@ -16,7 +16,8 @@ Phases, each of which fails the run:
      W = 1 and for f32 q, the tensor-core flash_cached_attention_prefill for
      bf16 chunks), C fused_head_ffn_stack, D fused_stage_step, E
      int8_matmul_t, F flash_ring_block, and the training attention's forward
-     and backward;
+     and backward (their tensor-core route; ptxas' registers and spills of
+     its kernels are printed);
   3. kernels: each kernel against its plain PyTorch version on the card,
      at the shapes the 1.5B serving, sequence-parallel prefill and
      fine-tuning paths give it, with the stated tolerance, plus CUDA times
@@ -36,7 +37,11 @@ Phases, each of which fails the run:
      replays of one CUDA-graph capture with three other bases written in
      place, and over chunks of 512 and 2,048 rows; kernel E at 4,096 f32
      rows at the four LM shapes and at 8,192 at gate/up and down, with its
-     cast pass and its GEMM also timed apart;
+     cast pass and its GEMM also timed apart; the training attention (f32,
+     B 2 T 2048 and B 1 T 8192, right-padded) with its f32 bound beside the
+     bound of the products its design computes (three bf16 terms each, plus
+     the split pass's bytes), the split pass timed apart, and SDPA's
+     forward and its autograd backward as the library times;
   4. end to end, serving: the full-width 1.5B model (random weights from
      --seed, bf16, int8 LM + lm_head, fuse_for_serving) runs generate() on a
      two-speaker script with two 3 s voice prompts and a forced script of
@@ -63,8 +68,9 @@ Phases, each of which fails the run:
      targets and the diffusion head, f32 activations, random weights from
      --seed, synthetic clips): 3 steps at B 2, T 2048, then 2 steps at B 1,
      T 8192 with remat and CE chunks of 1024. Losses finite, adapters moved
-     after step 2, kernels A (its GEMM), E and the training attention
-     launched.
+     after step 2, kernels A (its GEMM), E and the training attention's
+     tensor-core route launched, its CUDA-core route never (the tiny
+     config's head_dim 16 takes that one).
 The next-to-last line is a JSON object of the kernels' results; the last
 line is the JSON device record. The script runs itself again with
 PYTHONHASHSEED=0: the prompts go through the hash-bucket fallback
@@ -139,7 +145,11 @@ def counters() -> dict:
             "int8_matmul_t": (quant.int8_matmul_t, "launches"),
             "flash_train_attention_fwd": (fa.flash_train_attention_fwd, "launches"),
             "flash_train_attention_bwd": (fa.flash_train_attention_bwd, "launches"),
-            "flash_ring_block": (fa.flash_ring_block, "launches")}
+            "flash_ring_block": (fa.flash_ring_block, "launches"),
+            # the training attention's CUDA-core route (D 16, 32), not an entry
+            # of the kernels line: the fine-tune at D 128 must never take it
+            "flash_train_attention_fwd_cores": (fa.flash_train_attention_fwd, "launches_cores"),
+            "flash_train_attention_bwd_cores": (fa.flash_train_attention_bwd, "launches_cores")}
 
 
 def reset_counts(names) -> None:
@@ -149,6 +159,26 @@ def reset_counts(names) -> None:
 
 def read_counts(names) -> dict:
     return {name: getattr(*counters()[name]) for name in names}
+
+
+def ptxas_report(log: str, prefix: str) -> list:
+    """One line per kernel whose (mangled) name holds `prefix` and "_tc":
+    its template arguments, registers and spill stores, from ptxas -v."""
+    out, name = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1) if prefix in m.group(1) and "_tc" in m.group(1) else None
+            args = re.search(r"(" + prefix + r"[a-z_]+_tc)ILi(\d+)ELb(\d)E", name or "")
+            if args:
+                name = f"{args.group(1)}<{args.group(2)}, {'f32' if args.group(3) == '1' else 'bf16'}>"
+        elif name and "bytes spill stores" in ln:
+            spill = re.search(r"(\d+) bytes spill stores", ln).group(1)
+        elif name and "Used" in ln:
+            out.append(f"{name}: {re.search(r'Used (\d+) registers', ln).group(1)} registers, "
+                       f"{spill} bytes spilled")
+            name = None
+    return out
 
 
 def fail(msg: str) -> None:
@@ -556,9 +586,12 @@ def check_training_kernels(checks: Checks, seed: int) -> None:
     checks.extra["int8_matmul_t_phases"] = phases
 
     # training attention: 12 query heads over 2 KV heads, D 128, f32, right padded
-    print("training attention (f32; right-padded batch compared on valid rows and with dO zero "
-          "on pad rows: O tol 1e-4, dQ/dK/dV tol 1e-3 of the peak)")
+    print("training attention (f32, the tensor-core route: three-term bf16 split; right-padded "
+          "batch compared on valid rows and with dO zero on pad rows: O tol 1e-4, dQ/dK/dV tol "
+          "1e-3 of the peak; library: SDPA f32 with the segment-causal mask and enable_gqa, its "
+          "forward, and autograd through it for the backward)")
     nh, kh, d = 12, 2, 128
+    records = []
     for b, t, lens in ((2, 2048, (2048, 1500)), (1, 8192, (7000,))):
         q, k, v = randn(b, t, nh, d), randn(b, t, kh, d), randn(b, t, kh, d)
         valid = torch.zeros(b, t, dtype=torch.bool, device=dev)
@@ -577,40 +610,76 @@ def check_training_kernels(checks: Checks, seed: int) -> None:
         rows_ok = valid[:, :, None, None]
         kr, vr = k.repeat_interleave(nh // kh, dim=2), v.repeat_interleave(nh // kh, dim=2)
         seg = valid.to(torch.int32)
+        if fa._train_plan(q.dtype, d) != "wgmma":
+            fail(f"training attention {label}: not on the tensor-core route")
         o, lse = fa.flash_train_attention_fwd(q, kr, vr, seg, d ** -0.5)
         fwd_ms = event_ms(lambda: fa.flash_train_attention_fwd(q, kr, vr, seg, d ** -0.5))
         fwd_pms = event_ms(lambda: fa.train_attention_plain(q, k, v, valid))
         bwd_ms = event_ms(lambda: fa.flash_train_attention_bwd(q, kr, vr, seg, o, lse, do,
                                                                d ** -0.5))
+        split_ms = event_ms(lambda: fa._train_operands(q, kr, vr))  # the split pass of q, k, v
         ql, kl, vl = (x.clone().requires_grad_(True) for x in (q, k, v))
         out_p = fa.train_attention_plain(ql, kl, vl, valid)
         bwd_pms = event_ms(lambda: torch.autograd.grad(out_p, (ql, kl, vl), do, retain_graph=True))
         del out_p, ql, kl, vl
-        # the library's forward: SDPA, f32, causal within each segment (valid, pad)
+        # the library: SDPA, f32, causal within each segment (valid, pad); its
+        # forward, and autograd through it (forward excluded) for the backward
         pos = torch.arange(t, device=dev)
         mask = ((pos[:, None] >= pos[None, :])[None]
                 & (valid[:, :, None] == valid[:, None, :]))[:, None]  # (B, 1, T, T)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
         lib_ms = event_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                                  enable_gqa=True))
-        del mask, qt, kt, vt
+        out_l = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        dot = do.transpose(1, 2)
+        lib_bwd = lambda: torch.autograd.grad(out_l, (qt, kt, vt), dot, retain_graph=True)
+        lib_bwd_ms = event_ms(lib_bwd)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            lib_bwd()
+            torch.cuda.synchronize()
+        top = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)[:2]
+        lib_kernels = [e.key[:80] for e in top]
+        del mask, qt, kt, vt, out_l, dot, prof
         # f32 work on the CUDA cores: QK^T and PV over each segment's causal
-        # pairs; the backward recomputes P and forms dV, dP, dQ and dK
+        # pairs; the backward recomputes P and forms dV, dP, dQ and dK (the
+        # math's five products). The tensor-core design computes three bf16
+        # terms a product, two in the forward and seven in the backward (S
+        # and dP in both backward kernels), and its split pass moves each f32
+        # operand once in and once out as hi and lo
         pairs = sum(m * (m + 1) // 2 for n in lens for m in (n, t - n))
         fwd_flops = 4 * d * nh * pairs
+        fwd_tc = 3 * fwd_flops / PEAK_FLOPS["bf16"] * 1e3 + 2 * nbytes(q, kr, vr) / HBM_BYTES_PER_S * 1e3
+        bwd_tc = (3 * 3.5 * fwd_flops / PEAK_FLOPS["bf16"] * 1e3
+                  + 2 * nbytes(q, kr, vr, do) / HBM_BYTES_PER_S * 1e3)
         main = t == 2048
-        checks.case("flash_train_attention_fwd", f"{label}: O (valid rows)", kern[0] * rows_ok,
-                    plain[0] * rows_ok, 1e-4, fwd_ms, fwd_pms, main=main, library_ms=lib_ms,
-                    bound=bound(fwd_flops, nbytes(q, kr, vr, seg, o, lse), "f32"))
-        # no single PyTorch call computes the backward alone
+        fwd_bound = bound(fwd_flops, nbytes(q, kr, vr, seg, o, lse), "f32")
         bwd_bound = bound(2.5 * fwd_flops, nbytes(q, kr, vr, seg, o, lse, do) + 3 * nbytes(q),
                           "f32")
+        checks.case("flash_train_attention_fwd", f"{label}: O (valid rows)", kern[0] * rows_ok,
+                    plain[0] * rows_ok, 1e-4, fwd_ms, fwd_pms, main=main, library_ms=lib_ms,
+                    bound=fwd_bound)
+        errs = {"O": rel_err(kern[0] * rows_ok, plain[0] * rows_ok)[1]}
         for i, nm in ((1, "dQ"), (2, "dK"), (3, "dV")):
-            timing = dict(ms=bwd_ms, plain_ms=bwd_pms, main=main, bound=bwd_bound) if i == 1 else {}
+            timing = dict(ms=bwd_ms, plain_ms=bwd_pms, main=main, bound=bwd_bound,
+                          library_ms=lib_bwd_ms) if i == 1 else {}
             checks.case("flash_train_attention_bwd", f"{label}: {nm}", kern[i], plain[i], 1e-3,
                         **timing)
+            errs[nm] = rel_err(kern[i], plain[i])[1]
+        rec = dict(case=label, fwd_ms=fwd_ms, fwd_f32_bound_ms=fwd_bound[0],
+                   fwd_tc_bound_ms=fwd_tc, bwd_ms=bwd_ms, bwd_f32_bound_ms=bwd_bound[0],
+                   bwd_tc_bound_ms=bwd_tc, split_qkv_ms=split_ms,
+                   split_qkv_bound_ms=2 * nbytes(q, kr, vr) / HBM_BYTES_PER_S * 1e3,
+                   sdpa_fwd_ms=lib_ms, sdpa_bwd_ms=lib_bwd_ms, sdpa_bwd_kernels=lib_kernels,
+                   plain_fwd_ms=fwd_pms, plain_bwd_ms=bwd_pms, rel_err=errs)
+        records.append(rec)
+        print(f"    bounds: forward f32 {fwd_bound[0]:.4f} ms, tensor-core design {fwd_tc:.4f} ms "
+              f"({fwd_tc / fwd_ms:.1%} of it); backward f32 {bwd_bound[0]:.4f} ms, tensor-core "
+              f"design {bwd_tc:.4f} ms ({bwd_tc / bwd_ms:.1%} of it); split pass of q, k, v "
+              f"{split_ms:.4f} ms (bound {rec['split_qkv_bound_ms']:.4f}, bytes); SDPA backward "
+              f"{lib_bwd_ms:.4f} ms ({', '.join(lib_kernels)})", flush=True)
         del kern, plain, o, lse
         torch.cuda.empty_cache()
+    checks.extra["train_attention"] = records
 
 
 def check_ring_kernel(checks: Checks, seed: int) -> None:
@@ -1092,8 +1161,10 @@ def tiny_qlora_card_vs_cpu(seed: int) -> None:
         return {k: v.float().cpu() - init[k] for k, v in TS.tree_leaves_with_path(state.params)}
 
     res = {}
-    names = ("int8_matmul_gemm", "int8_matmul_t", "flash_train_attention_fwd",
-             "flash_train_attention_bwd")  # A on B*T = 192 rows: its GEMM
+    # A on B*T = 192 rows: its GEMM; the tiny config's head_dim 16: the
+    # training attention's CUDA-core route
+    names = ("int8_matmul_gemm", "int8_matmul_t", "flash_train_attention_fwd_cores",
+             "flash_train_attention_bwd_cores")
     for dev in ("cuda", "cpu"):
         reset_counts(names)
         loss, out, grads = grad_fn(_to(lora, dev), _to(p, dev), batch, draws)
@@ -1161,6 +1232,10 @@ def finetune_end_to_end(seed: int) -> dict:
         summary = train.main(common + extra)
         wall = time.perf_counter() - t0
         counts = read_counts(names)
+        cores = read_counts(("flash_train_attention_fwd_cores", "flash_train_attention_bwd_cores"))
+        if any(cores.values()):
+            fail(f"fine-tune {label}: the training attention took the CUDA-core route at head_dim "
+                 f"128: {cores}")
         steps = summary["steps"]
         if not all(math.isfinite(s["loss"]) for s in steps):
             fail(f"fine-tune {label}: non-finite loss {[s['loss'] for s in steps]}")
@@ -1186,7 +1261,7 @@ def finetune_end_to_end(seed: int) -> dict:
               f"{rec['tokens_per_second']:.0f} tokens/s ({rec['valid_tokens_per_second']:.0f} "
               f"valid), collation {rec['data_seconds_per_step']:.2f} s/step between steps, "
               f"peak {rec['peak_gib']:.2f} GiB, B factors moved {moved:.3e}, "
-              f"launches {counts}", flush=True)
+              f"launches {counts} (CUDA-core route {cores})", flush=True)
     return runs
 
 
@@ -1228,6 +1303,8 @@ def main() -> None:
     spills = [ln.strip() for ln in lib.build_log.splitlines()
               if re.search(r"[1-9][0-9]* bytes spill", ln)]
     print(f"  ptxas: {len(spills)} kernel(s) spill registers" + "".join(f"\n    {ln}" for ln in spills))
+    print("  ptxas, the training attention's tensor-core kernels:"
+          + "".join(f"\n    {ln}" for ln in ptxas_report(lib.build_log, "flash_train_")))
 
     # phase 3: kernels against their plain versions
     checks = Checks()

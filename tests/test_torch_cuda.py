@@ -411,25 +411,71 @@ def test_int8_lora_linear_gradients(dev):
 
 @pytest.mark.parametrize("t,d,dtype", [(200, 64, torch.float32), (130, 128, torch.float32),
                                        (64, 128, torch.bfloat16), (77, 16, torch.float32),
-                                       (96, 32, torch.bfloat16)])
+                                       (96, 32, torch.bfloat16), (333, 64, torch.float32),
+                                       (150, 128, torch.bfloat16), (38, 128, torch.float32),
+                                       (38, 64, torch.bfloat16)])
 def test_flash_train_attention(dev, t, d, dtype):
     """The training attention kernels (forward, dQ/dK/dV) against the plain
     version's autograd on a right-padded GQA batch: outputs on valid rows,
-    gradients with dO zero on pad rows (what the loss gives)."""
+    gradients with dO zero on pad rows (what the loss gives). The second
+    sample holds T - 37 valid tokens (one at T 38). D 64 and 128 take the
+    tensor-core route (f32 as three bf16 terms), D 16 and 32 the CUDA cores;
+    each call counts on its route only."""
     g = torch.Generator(device=dev).manual_seed(6)
     b, nh, kh = 2, 6, 2
     q, k, v = (torch.randn(b, t, h, d, generator=g, device=dev).to(dtype) for h in (nh, kh, kh))
     valid = torch.zeros(b, t, dtype=torch.bool, device=dev)
     valid[0, :], valid[1, : t - 37] = True, True
     do = (torch.randn(b, t, nh, d, generator=g, device=dev) * valid[:, :, None, None]).to(dtype)
+    route = "launches" if fa._train_plan(dtype, d) == "wgmma" else "launches_cores"
+    other = "launches_cores" if route == "launches" else "launches"
+    kernels = (fa.flash_train_attention_fwd, fa.flash_train_attention_bwd)
+    before = [(getattr(f, route), getattr(f, other)) for f in kernels]
     res = []
     for fn in (fa.flash_train_attention, fa.train_attention_plain):
         leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
         out = fn(*leaves, valid)
         res.append((out * valid[:, :, None, None], *torch.autograd.grad(out, leaves, do)))
+    assert [(getattr(f, route), getattr(f, other)) for f in kernels] == [
+        (n + 1, m) for n, m in before]
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     for got, want in zip(*res):
         assert got.dtype == dtype and _rel(got, want) < tol
+
+
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 130, 1500, 8192])
+def test_train_walk_kernel_matches_plain(dev, t):
+    """The tile walks as the card computes them (flash_train_walk) against
+    the plain version: a right-padded batch (full, ragged, one valid token),
+    packed runs of distinct ids, and ids in no order."""
+    rng = np.random.RandomState(t)
+    padded = np.zeros((3, t), np.int32)
+    for i, n in enumerate((t, max(1, t - 37), 1)):
+        padded[i, :n] = 1
+    packed = np.cumsum(rng.rand(2, t) < 0.01, axis=1).astype(np.int32)
+    scattered = rng.randint(-3, 3, (2, t)).astype(np.int32)
+    for seg in (padded, packed, scattered):
+        seg = torch.from_numpy(seg)
+        got = fa._train_walk(seg.to(dev))
+        want = fa._train_walk(seg)
+        for g_, w_ in zip(got, want):
+            assert torch.equal(g_.cpu(), w_)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_train_attention_repeats_bit_identical(dev, dtype):
+    """The tensor-core route has no atomics: two calls on the same inputs
+    give the same bits (O, LSE, dQ, dK, dV)."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    b, t, h, d = 2, 300, 4, 128
+    q, k, v, do = (torch.randn(b, t, h, d, generator=g, device=dev).to(dtype) for _ in range(4))
+    seg = torch.ones(b, t, dtype=torch.int32, device=dev)
+    seg[1, 200:] = 0
+    runs = []
+    for _ in range(2):
+        o, lse = fa.flash_train_attention_fwd(q, k, v, seg, d ** -0.5)
+        runs.append((o, lse, *fa.flash_train_attention_bwd(q, k, v, seg, o, lse, do, d ** -0.5)))
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128), (torch.float32, 16)])
@@ -474,10 +520,19 @@ def test_flash_ring_block_raises_on_unsupported_input(dev):
 
 
 def test_training_wrappers_raise_on_unsupported_input(dev):
-    q = torch.randn(1, 8, 2, 96, device=dev)  # D 96: the kernels take 64 or 128
+    q = torch.randn(1, 8, 2, 96, device=dev)  # D 96: no route (16, 32, 64, 128)
     seg = torch.ones(1, 8, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
         fa.flash_train_attention_fwd(q, q, q, seg, 0.1)
+    q = torch.randn(1, 8, 2, 128, device=dev)
+    with pytest.raises(ValueError):  # f16: the tensor-core route takes f32 or bf16
+        fa.flash_train_attention_fwd(q.half(), q.half(), q.half(), seg, 0.1)
+    with pytest.raises(ValueError):  # q, k, v of two dtypes
+        fa.flash_train_attention_fwd(q, q.bfloat16(), q, seg, 0.1)
+    with pytest.raises(ValueError):  # segment ids must be int32
+        fa.flash_train_attention_fwd(q, q, q, seg.long(), 0.1)
+    with pytest.raises(ValueError):  # K with other heads than q: the wrapper repeats GQA
+        fa.flash_train_attention_bwd(q, q[:, :, :1].contiguous(), q, seg, q, seg.float(), q, 0.1)
     with pytest.raises(ValueError):
         quant.int8_matmul_t(torch.randn(2, 8, device=dev), torch.zeros(4, 8, dtype=torch.int8,
                                                                       device=dev),

@@ -350,3 +350,129 @@ def test_ring_two_term_p_keeps_f32_accuracy():
     (_, l1, acc1), plain = _ring_hops(1)
     assert rel(l1, plain[1]) < 1e-5  # l sums the unrounded p either way
     assert rel(acc1, plain[2]) > 1e-4
+
+
+def test_split_bf16_recovers_f32():
+    """The split pass of the training attention's tensor-core route
+    (split_bf16, which csrc/flash_train.cu's flash_train_split mirrors):
+    hi + lo gives x back within 2^-16 of |x|, over a wide exponent range."""
+    rng = np.random.RandomState(8)
+    x = torch.from_numpy((rng.randn(4096) * np.exp2(rng.randint(-30, 30, 4096))).astype(np.float32))
+    hi, lo = tfa.split_bf16(x)
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    err = (hi.double() + lo.double() - x.double()).abs()
+    assert (err <= 2.0 ** -16 * x.double().abs()).all()
+
+
+def _mm_terms(a, b, terms):
+    """a @ b as the tensor-core route computes it: bf16 hi (and lo) of each
+    f32 operand, hi.hi (+ hi.lo + lo.hi) summed in f32."""
+    (ah, al), (bh, bl) = ((h.float(), l.float()) for h, l in (tfa.split_bf16(a), tfa.split_bf16(b)))
+    out = ah @ bh
+    return out + ah @ bl + al @ bh if terms == 3 else out
+
+
+def test_three_term_product_keeps_f32_accuracy():
+    """At D 128, scores Q K^T of f32 operands from three bf16 terms lie
+    within 3e-5 of the f64 product, relative to the peak; a single bf16 term
+    misses 1e-4, the limit the card holds the attention output to."""
+    rng = np.random.RandomState(9)
+    q, k = (torch.from_numpy(rng.randn(64, 128).astype(np.float32)) for _ in range(2))
+    exact = q.double() @ k.double().T
+    rel = lambda terms: float((_mm_terms(q, k.T, terms).double() - exact).abs().max()
+                              / exact.abs().max())
+    assert rel(3) < 3e-5
+    assert rel(1) > 1e-4
+
+
+def _train_tc_emulated(q, k, v, valid, do, scale):
+    """The tensor-core route of csrc/flash_train.cu in plain PyTorch, f32
+    operands as three bf16 terms: the forward over _train_walk's key tiles
+    with an online softmax (m starting at -1e30), then dK/dV per key tile
+    over its query walk and dQ per query tile, P recomputed from the LSE.
+    q, k, v, do (B, T, H, D) f32 with the same heads -> (o, dq, dk, dv)."""
+    import torch.nn.functional as F
+
+    b, t, h, d = q.shape
+    tl = tfa.TRAIN_TILE
+    seg = valid.to(torch.int32)
+    kfirst, qlast = tfa._train_walk(seg)
+    nt = kfirst.shape[1]
+    pad = nt * tl - t
+    qp, kp, vp, dop = (F.pad(x, (0, 0, 0, 0, 0, pad)).transpose(1, 2) for x in (q, k, v, do))
+    segp = F.pad(seg, (0, pad), value=-1)
+    pos = torch.arange(nt * tl)
+    mm = lambda a, b_: _mm_terms(a, b_, 3)
+
+    def live(bi, r, c):  # (rows, cols) live pairs of query slice r, key slice c
+        return ((pos[c][None] <= pos[r][:, None]) & (segp[bi, c][None] == segp[bi, r][:, None])
+                & (pos[r] < t)[:, None])
+
+    o = torch.zeros_like(qp)
+    lse = torch.zeros(b, h, nt * tl)
+    for bi in range(b):
+        for qt in range(nt):
+            r = slice(qt * tl, qt * tl + tl)
+            m, l, acc = torch.full((h, tl), -1e30), torch.zeros(h, tl), torch.zeros(h, tl, d)
+            for kt in range(int(kfirst[bi, qt]), qt + 1):
+                c = slice(kt * tl, kt * tl + tl)
+                s = (mm(qp[bi, :, r], kp[bi, :, c].transpose(1, 2)) * scale).masked_fill(
+                    ~live(bi, r, c), float("-inf"))
+                mn = torch.maximum(m, s.amax(-1))
+                p, corr = torch.exp(s - mn[..., None]), torch.exp(m - mn)
+                l, acc, m = l * corr + p.sum(-1), acc * corr[..., None] + mm(p, vp[bi, :, c]), mn
+            o[bi, :, r] = acc / l.clamp_min(1e-30)[..., None]
+            lse[bi, :, r] = m + torch.log(l.clamp_min(1e-30))
+    delta = (dop * o).sum(-1)
+    dq, dk, dv = torch.zeros_like(qp), torch.zeros_like(kp), torch.zeros_like(vp)
+
+    def ds_tile(bi, r, c):  # (P, dS) of query slice r and key slice c, queries x keys
+        s = mm(qp[bi, :, r], kp[bi, :, c].transpose(1, 2)) * scale
+        p = torch.where(live(bi, r, c), torch.exp(s - lse[bi, :, r, None]), 0.0)
+        return p, p * (mm(dop[bi, :, r], vp[bi, :, c].transpose(1, 2)) - delta[bi, :, r, None])
+
+    for bi in range(b):
+        for kt in range(nt):
+            c = slice(kt * tl, kt * tl + tl)
+            for qt in range(kt, int(qlast[bi, kt]) + 1):
+                r = slice(qt * tl, qt * tl + tl)
+                p, ds = ds_tile(bi, r, c)
+                dv[bi, :, c] += mm(p.transpose(1, 2), dop[bi, :, r])
+                dk[bi, :, c] += mm(ds.transpose(1, 2), qp[bi, :, r]) * scale
+        for qt in range(nt):
+            r = slice(qt * tl, qt * tl + tl)
+            for kt in range(int(kfirst[bi, qt]), qt + 1):
+                c = slice(kt * tl, kt * tl + tl)
+                dq[bi, :, r] += mm(ds_tile(bi, r, c)[1], kp[bi, :, c]) * scale
+    back = lambda x: x.transpose(1, 2)[:, :t]
+    return back(o), back(dq), back(dk), back(dv)
+
+
+@pytest.mark.parametrize("t,lens,d", [(130, (130, 71), 64), (77, (77, 1), 128)])
+def test_train_tensor_core_route_matches_plain(t, lens, d):
+    """The tensor-core route's arithmetic (three-term products over the
+    tile walks, online softmax, FlashAttention-2 backward from the LSE),
+    emulated in PyTorch, against train_attention_plain's autograd (held
+    against JAX in test_torch_finetune.py) on a right-padded GQA batch:
+    outputs on valid rows and the gradients with dO zero on pad rows, 1e-4
+    of the peak, the card's limit for the f32 kernels."""
+    rng = np.random.RandomState(t)
+    b, nh, kh = len(lens), 4, 2
+    q, k, v = (torch.from_numpy(rng.randn(b, t, hh, d).astype(np.float32)) for hh in (nh, kh, kh))
+    valid = torch.zeros(b, t, dtype=torch.bool)
+    for i, n in enumerate(lens):
+        valid[i, :n] = True
+    do = torch.from_numpy(rng.randn(b, t, nh, d).astype(np.float32)) * valid[:, :, None, None]
+    scale = d ** -0.5
+    kr, vr = (x.repeat_interleave(nh // kh, dim=2) for x in (k, v))
+    o, dq, dk, dv = _train_tc_emulated(q, kr, vr, valid, do, scale)
+    dk = dk.reshape(b, t, kh, nh // kh, d).sum(3)  # the GQA repeat's gradient
+    dv = dv.reshape(b, t, kh, nh // kh, d).sum(3)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    ref = tfa.train_attention_plain(*leaves, valid, scale)
+    grads = torch.autograd.grad(ref, leaves, do)
+    rel = lambda a, b_: float((a - b_).abs().max() / b_.abs().max())
+    rows = valid[:, :, None, None]
+    assert rel(o * rows, ref.detach() * rows) < 1e-4
+    for got, want in zip((dq, dk, dv), grads):
+        assert rel(got, want) < 1e-4

@@ -5,14 +5,17 @@ mapping csrc/stream_gemv.cuh repeats on the card), kernel F's row tiles and
 key horizons (ops/flash_attention._ring_plan, _ring_tile, as
 csrc/flash_ring.cu computes them), kernel B's decode tiles and key splits
 (ops/flash_attention._decode_plan, _decode_split, whose arithmetic
-csrc/flash_decode.cu repeats on the card) and its prefill tiles and key
-splits (_prefill_plan, _prefill_split)."""
+csrc/flash_decode.cu repeats on the card), its prefill tiles and key
+splits (_prefill_plan, _prefill_split), and the training attention's route
+and tile walks (ops/flash_attention._train_plan, _train_walk, which
+csrc/flash_train.cu reads)."""
 
 import inspect
 import math
 
 import numpy as np
 import pytest
+import torch
 
 from vibevoice_tpu_torch.ops import flash_attention as fa
 from vibevoice_tpu_torch.ops import quant
@@ -218,3 +221,78 @@ def test_ring_tiles_match_the_mask(w, s, q_start, k_start, g, dtype_rows, k_len)
             nxt = blk[:, unmasked * fa.RING_KEYS:(unmasked + 1) * fa.RING_KEYS]
             assert not nxt.all() or nxt.shape[1] < fa.RING_KEYS
     assert (covered == 1).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_plan_routes_by_dtype_and_head_dim(dtype):
+    """The training attention's route comes from (dtype, D) alone: the
+    tensor-core kernels at D 64 and 128, the CUDA-core kernels at D 16 and
+    32; any other head dim or dtype raises (no route stands in for another)."""
+    for d, route in ((64, "wgmma"), (128, "wgmma"), (16, "cuda_cores"), (32, "cuda_cores")):
+        assert fa._train_plan(dtype, d) == route
+    for d in (8, 48, 96, 256):
+        with pytest.raises(ValueError):
+            fa._train_plan(dtype, d)
+    with pytest.raises(ValueError):
+        fa._train_plan(torch.float16, 128)
+
+
+def _segments(kind, t, rng):
+    """(B, T) int32 segment ids: a right-padded batch (valid 1, pad 0; one
+    sample full, one ragged, one with a single valid token), packed runs of
+    distinct ids, or ids in no order (runs broken up)."""
+    if kind == "padded":
+        seg = np.zeros((3, t), np.int32)
+        for i, n in enumerate((t, max(1, (2 * t) // 3 + 5) if t > 1 else 1, 1)):
+            seg[i, :min(n, t)] = 1
+        return seg
+    if kind == "packed":
+        cuts = np.sort(rng.choice(np.arange(1, t), size=min(5, t - 1), replace=False)) if t > 1 else []
+        return np.repeat(np.arange(len(cuts) + 1, dtype=np.int32),
+                         np.diff(np.concatenate([[0], cuts, [t]])).astype(int))[None]
+    return rng.randint(0, 3, (2, t)).astype(np.int32)
+
+
+@pytest.mark.parametrize("t,kind", [
+    (t, kind) for t in (1, 63, 64, 65, 130, 1500, 2048, 8192) for kind in ("padded", "packed")
+] + [(t, "scattered") for t in (1, 63, 65, 130, 1500)])
+def test_train_tiles_match_the_mask(t, kind):
+    """The tensor-core route's tile walks (_train_walk, read by
+    csrc/flash_train.cu) against the brute-force mask (key j live for query
+    i iff j <= i and seg[j] == seg[i]): the forward's and dQ's key tiles of a
+    query tile run from kfirst to the diagonal, dK/dV's query tiles of a key
+    tile from the diagonal to qlast; every live pair lies in exactly one
+    tile of each walk, and where the segments are runs (a right-padded batch,
+    packed sequences) no tile of a walk is dead."""
+    rng = np.random.RandomState(t)
+    seg = _segments(kind, t, rng)
+    kfirst, qlast = (x.numpy() for x in fa._train_walk(torch.from_numpy(seg)))
+    tl, nt = fa.TRAIN_TILE, math.ceil(t / fa.TRAIN_TILE)
+    assert kfirst.shape == qlast.shape == (seg.shape[0], nt)
+    for b in range(seg.shape[0]):
+        live_tiles = np.zeros((nt, nt), bool)  # [query tile, key tile]
+        for qt in range(nt):
+            rows = np.arange(qt * tl, min(t, qt * tl + tl))
+            live = (np.arange(t)[None] <= rows[:, None]) & (seg[b][None] == seg[b, rows][:, None])
+            pad = np.zeros((len(rows), nt * tl - t), bool)
+            live_tiles[qt] = np.concatenate([live, pad], 1).reshape(len(rows), nt, tl).any((0, 2))
+        for i in range(nt):
+            fwd = np.zeros(nt, bool)
+            fwd[kfirst[b, i]:i + 1] = True  # the forward's and dQ's walk of query tile i
+            assert not (live_tiles[i] & ~fwd).any()
+            bwd = np.zeros(nt, bool)
+            bwd[i:qlast[b, i] + 1] = True  # dK/dV's walk of key tile i
+            assert not (live_tiles[:, i] & ~bwd).any()
+            if kind != "scattered":
+                assert live_tiles[i][fwd].all() and live_tiles[:, i][bwd].all()
+
+
+@pytest.mark.parametrize("t", [1, 7, 300])
+def test_segment_bounds_brute_force(t):
+    rng = np.random.RandomState(t)
+    seg = rng.randint(-2, 3, (3, t)).astype(np.int32)
+    first, last = (x.numpy() for x in fa._seg_bounds(torch.from_numpy(seg)))
+    for b in range(3):
+        for i in range(t):
+            same = np.flatnonzero(seg[b] == seg[b, i])
+            assert first[b, i] == same.min() and last[b, i] == same.max()

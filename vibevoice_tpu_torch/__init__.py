@@ -14,7 +14,8 @@ ops/_cuda.py):
   D ops/vocoder_fused.fused_stage_step         csrc/vocoder_stage.cu
   E ops/quant.int8_matmul_t                    csrc/int8_matmul_t.cu (cast + wgmma GEMM)
   F ops/flash_attention.flash_ring_block       csrc/flash_ring.cu
-  training attention (fwd, bwd)                csrc/flash_train.cu
+  training attention (fwd, bwd)                csrc/flash_train.cu (wgmma at head_dim 64/128,
+                                               CUDA cores at 16/32)
 
 Each wrapper launches its kernel on CUDA tensors and runs its plain PyTorch
 version on CPU tensors. The package imports neither jax nor anything of the

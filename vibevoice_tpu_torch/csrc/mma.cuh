@@ -1,10 +1,12 @@
 // Tensor-core building blocks of the Hopper kernels int8_gemm.cu (kernel A at
 // many rows), int8_matmul_t.cu (kernel E), flash_prefill.cu (kernel B over
 // prefill chunks), flash_decode.cu (kernel B at decode) and flash_ring.cu
-// (kernel F): asynchronous copies into shared memory (cp.async), ldmatrix,
-// bf16 mma.sync m16n8k16, warpgroup wgmma with A from registers and B by
-// shared-memory descriptor (m64n256k16, m64n192k16 and m64n64k16 over a
-// K-major B, m64n128k16 over an MN-major B), setmaxnreg, TMA tile loads with
+// (kernel F) and flash_train.cu (the training attention): asynchronous
+// copies into shared memory (cp.async), ldmatrix, bf16 mma.sync m16n8k16,
+// warpgroup wgmma with A from registers and B by shared-memory descriptor
+// (m64n256k16, m64n192k16 and m64n64k16 over a K-major B, m64n128k16 and
+// m64n64k16 over an MN-major B) or both operands by descriptor (m64n64k16,
+// K-major), setmaxnreg, TMA tile loads with
 // mbarriers, and the exact int8 -> bf16 / f32 conversion (which the
 // streaming GEMV of stream_gemv.cuh uses too). Host-side tensor maps: tma.cuh.
 #pragma once
@@ -232,6 +234,45 @@ static __device__ __forceinline__ void wgmma_rs_m64n128k16_tb(float d[64], const
       "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
       "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// The same with a 64-wide MN-major B (16 x 64): d as in wgmma_rs_m64n64k16.
+static __device__ __forceinline__ void wgmma_rs_m64n64k16_tb(float d[32], const uint32_t a[4],
+                                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 64) += A (64 x 16) B (16 x 64) with both operands K-major bf16 in
+// shared memory by wgmma_desc_sw128 descriptors; d as in wgmma_rs_m64n64k16.
+static __device__ __forceinline__ void wgmma_ss_m64n64k16(float d[32], uint64_t desc_a,
+                                                          uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
 // Shared-memory descriptor of an MN-major bf16 tile with the 128-byte

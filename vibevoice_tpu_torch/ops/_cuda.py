@@ -60,6 +60,10 @@ _SIGNATURES = {
     "vv_int8_matmul_t": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "vv_flash_train_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "vv_flash_train_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "vv_flash_train_split": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "vv_flash_train_walk": [_P, _P, _P, _I, _I, _P],
+    "vv_flash_train_fwd_tc": [_P] * 10 + [_I, _I, _I, _I, _I, _F, _P],
+    "vv_flash_train_bwd_tc": [_P] * 18 + [_I, _I, _I, _I, _I, _F, _P],
     "vv_flash_ring_block": [
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ],

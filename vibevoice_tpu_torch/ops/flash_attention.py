@@ -38,6 +38,10 @@ tensors it runs ``train_attention_plain``, the JAX masked path
 (``_attention_masked`` with the valid & causal mask) under autograd. The two
 agree on valid rows; pad rows differ (the kernel's attend pads, the plain
 version's attend the valid prefix) and are never read by the training loss.
+``_train_plan`` picks the kernels' route from (dtype, D): at D 64 and 128
+both products of each pass run as wgmma on the tensor cores, f32 inputs as
+a three-term bf16 split (``split_bf16`` is the split's plain version), over
+the tile walks of ``_train_walk``; at D 16 and 32 the f32 CUDA-core kernels.
 """
 
 from __future__ import annotations
@@ -423,58 +427,184 @@ def train_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, t, nh, d)
 
 
-def _check_train(q, k, v, seg):
+# csrc/flash_train.cu: the route by head dim, and the query rows or keys per
+# tile of the tensor-core route
+TRAIN_ROUTES = {64: "wgmma", 128: "wgmma", 16: "cuda_cores", 32: "cuda_cores"}
+TRAIN_TILE = 64
+
+
+def _train_plan(dtype: torch.dtype, d: int) -> str:
+    """The route of csrc/flash_train.cu for q, k, v of ``dtype`` at head dim
+    D, from the shapes alone: "wgmma" (tensor cores; f32 as a three-term
+    bf16 split, bf16 as one term) at D 64 and 128, the 1.5B/7B and 0.5B
+    models; "cuda_cores" (f32 arithmetic) at D 16 and 32, the test configs.
+    Anything else raises: no route stands in for another."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the training attention takes f32 or bf16, got {dtype}")
+    if d not in TRAIN_ROUTES:
+        raise ValueError(f"the training attention is built for head_dim {sorted(TRAIN_ROUTES)}, "
+                         f"got {d}")
+    return TRAIN_ROUTES[d]
+
+
+def split_bf16(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the split pass (csrc/flash_train.cu
+    flash_train_split): f32 x -> (hi, lo) bf16 with hi = bf16(x) and
+    lo = bf16(x - hi), so hi + lo is x within 2^-16 of |x|."""
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.float()).to(torch.bfloat16)
+
+
+def _seg_bounds(seg: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(first, last), each (B, T) int64: the first and the last position of
+    sample b whose segment id is seg[b, i]. Any int32 ids, runs or not."""
+    b, t = seg.shape
+    sv, si = torch.sort(seg, dim=1, stable=True)  # equal ids keep their order
+    idx = torch.arange(t, device=seg.device).expand(b, t)
+    start = torch.ones_like(sv, dtype=torch.bool)
+    start[:, 1:] = sv[:, 1:] != sv[:, :-1]
+    end = torch.ones_like(start)
+    end[:, :-1] = start[:, 1:]
+    start_pos = torch.where(start, idx, 0).cummax(1).values
+    end_pos = torch.where(end, idx, t - 1).flip(1).cummin(1).values.flip(1)
+    first = torch.empty_like(si).scatter_(1, si, si.gather(1, start_pos))
+    last = torch.empty_like(si).scatter_(1, si, si.gather(1, end_pos))
+    return first, last
+
+
+def _train_walk_plain(seg: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the walk kernel (csrc/flash_train.cu
+    flash_train_walk): see ``_train_walk``."""
+    b, t = seg.shape
+    nt = -(-t // TRAIN_TILE)
+    first, last = _seg_bounds(seg)
+    pad = nt * TRAIN_TILE - t  # rows past T: no bound of their own
+    first = torch.nn.functional.pad(first, (0, pad), value=t).view(b, nt, TRAIN_TILE)
+    last = torch.nn.functional.pad(last, (0, pad), value=-1).view(b, nt, TRAIN_TILE)
+    return ((first.amin(-1) // TRAIN_TILE).to(torch.int32).contiguous(),
+            (last.amax(-1) // TRAIN_TILE).to(torch.int32).contiguous())
+
+
+def _train_walk(seg: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(kfirst, qlast), each (B, ceil(T / 64)) int32, the tile walks of the
+    tensor-core route: query tile i reads key tiles kfirst[i] .. i (the
+    first tile holding a key of one of its rows' segments, up to the
+    diagonal) in the forward and dQ kernels; key tile j reads query tiles
+    j .. qlast[j] (from the diagonal to the last tile holding a query of one
+    of its keys' segments) in the dK/dV kernel. On a CUDA tensor one launch
+    of the walk kernel; on a CPU tensor its plain version."""
+    if seg.device.type == "cpu":
+        return _train_walk_plain(seg)
+    b, t = seg.shape
+    out = torch.empty(2, b, -(-t // TRAIN_TILE), dtype=torch.int32, device=seg.device)
+    _cuda.library().call("vv_flash_train_walk", seg.data_ptr(), out[0].data_ptr(),
+                         out[1].data_ptr(), b, t, _cuda.stream_ptr(seg.device))
+    return out[0], out[1]
+
+
+def _check_train(q, k, v, seg) -> str:
     _cuda.require_cuda(q, k, v, seg)
     b, t, h, d = q.shape
-    if k.shape != q.shape or v.shape != q.shape or d not in (16, 32, 64, 128):
-        raise ValueError(f"expected q, k, v of one shape (B, T, H, D) with D 16, 32, 64 or 128, got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"expected q, k, v of one shape (B, T, H, D), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must share a dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if seg.dtype != torch.int32 or seg.shape != (b, t):
         raise ValueError(f"segment ids must be (B, T) int32, got {seg.dtype} {tuple(seg.shape)}")
+    return _train_plan(q.dtype, d)
+
+
+def _aligned16(x: torch.Tensor) -> torch.Tensor:
+    return x if x.data_ptr() % 16 == 0 else x.clone()  # an offset view
+
+
+def _train_operands(*xs: torch.Tensor):
+    """The tensor-core route's bf16 operands of same-shaped tensors: the
+    pointers (hi, lo) of each and what holds them. f32: the split pass
+    (csrc/flash_train.cu flash_train_split, one launch) into one workspace;
+    bf16: the tensor itself and a null lo (one term)."""
+    keep = [_aligned16(x) for x in xs]
+    if xs[0].dtype == torch.bfloat16:
+        return [p for x in keep for p in (x.data_ptr(), None)], keep
+    ws =torch.empty((len(xs), 2) + tuple(xs[0].shape), dtype=torch.bfloat16, device=xs[0].device)
+    ptrs = [x.data_ptr() for x in keep] + [None] * (4 - len(keep))
+    _cuda.library().call("vv_flash_train_split", *ptrs, ws.data_ptr(), len(xs), xs[0].numel(),
+                         _cuda.stream_ptr(xs[0].device))
+    return [ws[i, j].data_ptr() for i in range(len(xs)) for j in (0, 1)], (ws, keep)
 
 
 def flash_train_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               seg: torch.Tensor, scale: float):
     """Forward kernel: q, k, v (B, T, H, D) contiguous CUDA tensors of one
-    dtype (f32 or bf16), seg (B, T) int32 -> (O (B, T, H, D), LSE (B, H, T) f32)."""
-    _check_train(q, k, v, seg)
+    dtype (f32 or bf16), seg (B, T) int32 -> (O (B, T, H, D), LSE (B, H, T) f32).
+
+    Launch counts per route (``_train_plan``): ``launches`` (tensor cores,
+    the split pass included) and ``launches_cores`` (CUDA cores)."""
+    route = _check_train(q, k, v, seg)
     b, t, h, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(b, h, t, dtype=torch.float32, device=q.device)
+    if route == "cuda_cores":
+        _cuda.library().call(
+            "vv_flash_train_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
+            o.data_ptr(), lse.data_ptr(), _cuda.dtype_code(q), b, t, h, d, float(scale),
+            _cuda.stream_ptr(q.device),
+        )
+        flash_train_attention_fwd.launches_cores += 1
+        return o, lse
+    kfirst, _ = _train_walk(seg)
+    ptrs, _keep = _train_operands(q, k, v)
     _cuda.library().call(
-        "vv_flash_train_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
-        o.data_ptr(), lse.data_ptr(), _cuda.dtype_code(q), b, t, h, d, float(scale),
-        _cuda.stream_ptr(q.device),
+        "vv_flash_train_fwd_tc", *ptrs, seg.data_ptr(), kfirst.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), _cuda.dtype_code(q), b, t, h, d, float(scale), _cuda.stream_ptr(q.device),
     )
     flash_train_attention_fwd.launches += 1
     return o, lse
 
 
 flash_train_attention_fwd.launches = 0
+flash_train_attention_fwd.launches_cores = 0
 
 
 def flash_train_attention_bwd(q, k, v, seg, o, lse, do, scale: float):
     """Backward kernels (delta = rowsum(dO * O), then dK/dV per key tile and
-    dQ per query tile) -> (dq, dk, dv) in q's dtype."""
-    _check_train(q, k, v, seg)
+    dQ per query tile) -> (dq, dk, dv) in q's dtype. Launch counts per route
+    as for the forward."""
+    route = _check_train(q, k, v, seg)
     do = do.contiguous()
     _cuda.require_cuda(o, lse, do)
     b, t, h, d = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty(b, h, t, dtype=torch.float32, device=q.device)
-    _cuda.library().call(
-        "vv_flash_train_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
-        o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), _cuda.dtype_code(q), b, t, h, d, float(scale),
-        _cuda.stream_ptr(q.device),
+    lib, stream = _cuda.library(), _cuda.stream_ptr(q.device)
+    if route == "cuda_cores":
+        lib.call(
+            "vv_flash_train_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
+            o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), _cuda.dtype_code(q), b, t, h, d, float(scale), stream,
+        )
+        flash_train_attention_bwd.launches_cores += 1
+        return dq, dk, dv
+    kfirst, qlast = _train_walk(seg)
+    ptrs, _keep = _train_operands(q, k, v)
+    if q.dtype == torch.float32:  # dO's split is written by the delta kernel
+        do_split = torch.empty((2,) + tuple(do.shape), dtype=torch.bfloat16, device=do.device)
+        dh, dl = do_split[0].data_ptr(), do_split[1].data_ptr()
+    else:
+        do = _aligned16(do)
+        dh, dl = do.data_ptr(), None
+    lib.call(
+        "vv_flash_train_bwd_tc", *ptrs, seg.data_ptr(), kfirst.data_ptr(), qlast.data_ptr(),
+        o.data_ptr(), do.data_ptr(), dh, dl, lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), _cuda.dtype_code(q), b, t, h, d, float(scale), stream,
     )
     flash_train_attention_bwd.launches += 1
     return dq, dk, dv
 
 
 flash_train_attention_bwd.launches = 0
+flash_train_attention_bwd.launches_cores = 0
 
 
 class FlashTrainAttention(torch.autograd.Function):
