@@ -530,6 +530,7 @@ def check_training_kernels(checks: Checks, seed: int) -> None:
     """Kernel E and the training attention at the 1.5B fine-tuning shapes."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from vibevoice_tpu_torch.ops import flash_attention as fa
     from vibevoice_tpu_torch.ops import quant
@@ -588,8 +589,9 @@ def check_training_kernels(checks: Checks, seed: int) -> None:
     # training attention: 12 query heads over 2 KV heads, D 128, f32, right padded
     print("training attention (f32, the tensor-core route: three-term bf16 split; right-padded "
           "batch compared on valid rows and with dO zero on pad rows: O tol 1e-4, dQ/dK/dV tol "
-          "1e-3 of the peak; library: SDPA f32 with the segment-causal mask and enable_gqa, its "
-          "forward, and autograd through it for the backward)")
+          "1e-3 of the peak; library: SDPA f32 with the segment-causal mask on K/V repeated to the "
+          "query heads, held to its fused memory-efficient kernel: its forward, and autograd "
+          "through it for the backward)")
     nh, kh, d = 12, 2, 128
     records = []
     for b, t, lens in ((2, 2048, (2048, 1500)), (1, 8192, (7000,))):
@@ -622,39 +624,55 @@ def check_training_kernels(checks: Checks, seed: int) -> None:
         out_p = fa.train_attention_plain(ql, kl, vl, valid)
         bwd_pms = event_ms(lambda: torch.autograd.grad(out_p, (ql, kl, vl), do, retain_graph=True))
         del out_p, ql, kl, vl
-        # the library: SDPA, f32, causal within each segment (valid, pad); its
-        # forward, and autograd through it (forward excluded) for the backward
+        # the library: SDPA, f32, causal within each segment (valid, pad), on
+        # K/V repeated to the query heads as the port's wrapper repeats them,
+        # held to PyTorch's fused memory-efficient kernel (enable_gqa with a
+        # mask would take the unfused math fallback); its forward, and
+        # autograd through it (forward excluded) for the backward
         pos = torch.arange(t, device=dev)
         mask = ((pos[:, None] >= pos[None, :])[None]
                 & (valid[:, :, None] == valid[:, None, :]))[:, None]  # (B, 1, T, T)
-        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
-        lib_ms = event_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                                                 enable_gqa=True))
-        out_l = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, kr, vr))
         dot = do.transpose(1, 2)
-        lib_bwd = lambda: torch.autograd.grad(out_l, (qt, kt, vt), dot, retain_graph=True)
-        lib_bwd_ms = event_ms(lib_bwd)
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            lib_bwd()
-            torch.cuda.synchronize()
-        top = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)[:2]
-        lib_kernels = [e.key[:80] for e in top]
+        lib_fwd = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            lib_ms = event_ms(lib_fwd)
+            out_l = lib_fwd()
+            lib_bwd = lambda: torch.autograd.grad(out_l, (qt, kt, vt), dot, retain_graph=True)
+            lib_bwd_ms = event_ms(lib_bwd)
+            lib_kernels = []
+            for fn in (lib_fwd, lib_bwd):
+                with torch.profiler.profile(
+                        activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    fn()
+                    torch.cuda.synchronize()
+                top = max(prof.key_averages(), key=lambda e: e.self_device_time_total).key
+                lib_kernels.append(top[:80])
+                if "fmha" not in top.lower() and "attention" not in top.lower():
+                    fail(f"training attention {label}: SDPA's top kernel is not a fused "
+                         f"attention kernel: {top[:120]}")
         del mask, qt, kt, vt, out_l, dot, prof
-        # f32 work on the CUDA cores: QK^T and PV over each segment's causal
-        # pairs; the backward recomputes P and forms dV, dP, dQ and dK (the
-        # math's five products). The tensor-core design computes three bf16
-        # terms a product, two in the forward and seven in the backward (S
-        # and dP in both backward kernels), and its split pass moves each f32
-        # operand once in and once out as hi and lo
+        # The bound: the function's operations (QK^T and PV over each
+        # segment's causal pairs; the backward recomputes P and forms dV, dP,
+        # dQ and dK: five products) at the bf16 tensor-core peak, the units
+        # these kernels run on, or its bytes if more. Beside it, for reference
+        # only: the same operations at the f32 CUDA-core peak, and the work
+        # this design issues (three bf16 terms a product, two products in the
+        # forward and seven in the backward, S and dP in both backward
+        # kernels, plus the split pass moving each f32 operand in once and out
+        # as hi and lo)
         pairs = sum(m * (m + 1) // 2 for n in lens for m in (n, t - n))
         fwd_flops = 4 * d * nh * pairs
-        fwd_tc = 3 * fwd_flops / PEAK_FLOPS["bf16"] * 1e3 + 2 * nbytes(q, kr, vr) / HBM_BYTES_PER_S * 1e3
-        bwd_tc = (3 * 3.5 * fwd_flops / PEAK_FLOPS["bf16"] * 1e3
-                  + 2 * nbytes(q, kr, vr, do) / HBM_BYTES_PER_S * 1e3)
+        fwd_bytes = nbytes(q, kr, vr, seg, o, lse)
+        bwd_bytes = nbytes(q, kr, vr, seg, o, lse, do) + 3 * nbytes(q)
+        fwd_bound, bwd_bound = bound(fwd_flops, fwd_bytes), bound(2.5 * fwd_flops, bwd_bytes)
+        fwd_f32 = bound(fwd_flops, fwd_bytes, "f32")[0]
+        bwd_f32 = bound(2.5 * fwd_flops, bwd_bytes, "f32")[0]
+        fwd_design = (3 * fwd_flops / PEAK_FLOPS["bf16"] * 1e3
+                      + 2 * nbytes(q, kr, vr) / HBM_BYTES_PER_S * 1e3)
+        bwd_design = (3 * 3.5 * fwd_flops / PEAK_FLOPS["bf16"] * 1e3
+                      + 2 * nbytes(q, kr, vr, do) / HBM_BYTES_PER_S * 1e3)
         main = t == 2048
-        fwd_bound = bound(fwd_flops, nbytes(q, kr, vr, seg, o, lse), "f32")
-        bwd_bound = bound(2.5 * fwd_flops, nbytes(q, kr, vr, seg, o, lse, do) + 3 * nbytes(q),
-                          "f32")
         checks.case("flash_train_attention_fwd", f"{label}: O (valid rows)", kern[0] * rows_ok,
                     plain[0] * rows_ok, 1e-4, fwd_ms, fwd_pms, main=main, library_ms=lib_ms,
                     bound=fwd_bound)
@@ -665,18 +683,20 @@ def check_training_kernels(checks: Checks, seed: int) -> None:
             checks.case("flash_train_attention_bwd", f"{label}: {nm}", kern[i], plain[i], 1e-3,
                         **timing)
             errs[nm] = rel_err(kern[i], plain[i])[1]
-        rec = dict(case=label, fwd_ms=fwd_ms, fwd_f32_bound_ms=fwd_bound[0],
-                   fwd_tc_bound_ms=fwd_tc, bwd_ms=bwd_ms, bwd_f32_bound_ms=bwd_bound[0],
-                   bwd_tc_bound_ms=bwd_tc, split_qkv_ms=split_ms,
+        rec = dict(case=label, fwd_ms=fwd_ms, fwd_bound_ms=fwd_bound[0], fwd_f32_bound_ms=fwd_f32,
+                   fwd_design_ms=fwd_design, bwd_ms=bwd_ms, bwd_bound_ms=bwd_bound[0],
+                   bwd_f32_bound_ms=bwd_f32, bwd_design_ms=bwd_design, split_qkv_ms=split_ms,
                    split_qkv_bound_ms=2 * nbytes(q, kr, vr) / HBM_BYTES_PER_S * 1e3,
-                   sdpa_fwd_ms=lib_ms, sdpa_bwd_ms=lib_bwd_ms, sdpa_bwd_kernels=lib_kernels,
+                   sdpa_fwd_ms=lib_ms, sdpa_bwd_ms=lib_bwd_ms, sdpa_kernels=lib_kernels,
                    plain_fwd_ms=fwd_pms, plain_bwd_ms=bwd_pms, rel_err=errs)
         records.append(rec)
-        print(f"    bounds: forward f32 {fwd_bound[0]:.4f} ms, tensor-core design {fwd_tc:.4f} ms "
-              f"({fwd_tc / fwd_ms:.1%} of it); backward f32 {bwd_bound[0]:.4f} ms, tensor-core "
-              f"design {bwd_tc:.4f} ms ({bwd_tc / bwd_ms:.1%} of it); split pass of q, k, v "
-              f"{split_ms:.4f} ms (bound {rec['split_qkv_bound_ms']:.4f}, bytes); SDPA backward "
-              f"{lib_bwd_ms:.4f} ms ({', '.join(lib_kernels)})", flush=True)
+        print(f"    bounds (tensor cores): forward {fwd_bound[0]:.4f} ms (the kernel at "
+              f"{fwd_bound[0] / fwd_ms:.1%} of it), backward {bwd_bound[0]:.4f} ms (at "
+              f"{bwd_bound[0] / bwd_ms:.1%}); beside them "
+              f"the f32 CUDA-core bounds {fwd_f32:.4f} / {bwd_f32:.4f} ms and the design's issued "
+              f"work {fwd_design:.4f} / {bwd_design:.4f} ms; split pass of q, k, v {split_ms:.4f} "
+              f"ms (bound {rec['split_qkv_bound_ms']:.4f}, bytes); SDPA forward / backward "
+              f"{lib_ms:.4f} / {lib_bwd_ms:.4f} ms ({'; '.join(lib_kernels)})", flush=True)
         del kern, plain, o, lse
         torch.cuda.empty_cache()
     checks.extra["train_attention"] = records
@@ -1214,6 +1234,7 @@ def finetune_end_to_end(seed: int) -> dict:
 
     names = ("int8_matmul_gemm", "int8_matmul_t", "flash_train_attention_fwd",
              "flash_train_attention_bwd")  # A on B*T = 4,096 or 8,192 f32 rows: its GEMM
+    core_names = ("flash_train_attention_fwd_cores", "flash_train_attention_bwd_cores")
     common = ["--config", str(CONFIG_1P5B),
               "--synthetic_data", "--synthetic_items", "4", "--use_lora", "--int8_base",
               "--seed", str(seed), "--device", "cuda", "--no_save", "--log_steps", "1"]
@@ -1227,12 +1248,12 @@ def finetune_end_to_end(seed: int) -> dict:
                                        "1060", "--max_steps", "2", "--remat",
                                        "--ce_chunk_size", "1024"])):
         torch.cuda.empty_cache()
-        reset_counts(names)
+        reset_counts(names + core_names)
         t0 = time.perf_counter()
         summary = train.main(common + extra)
         wall = time.perf_counter() - t0
         counts = read_counts(names)
-        cores = read_counts(("flash_train_attention_fwd_cores", "flash_train_attention_bwd_cores"))
+        cores = read_counts(core_names)
         if any(cores.values()):
             fail(f"fine-tune {label}: the training attention took the CUDA-core route at head_dim "
                  f"128: {cores}")
