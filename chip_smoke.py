@@ -35,13 +35,17 @@ Phases, each of which fails the run:
      kernel B at the decode over 4,096-, 65,536- and 32,768-slot caches,
      full and at a low fill (the serving run's, and 300 of 65,536), as
      replays of one CUDA-graph capture with three other bases written in
-     place, and over chunks of 512 and 2,048 rows; kernel E at 4,096 f32
-     rows at the four LM shapes and at 8,192 at gate/up and down, with its
-     cast pass and its GEMM also timed apart; the training attention (f32,
-     B 2 T 2048 and B 1 T 8192, right-padded) with its f32 bound beside the
-     bound of the products its design computes (three bf16 terms each, plus
-     the split pass's bytes), the split pass timed apart, and SDPA's
-     forward and its autograd backward as the library times;
+     place, and over chunks of 512 and 2,048 rows; kernels C and D at the
+     1.5B head's and vocoder stage's widths with int8 and bf16 weights, each
+     with the device kernels of one call counted and timed by pass by
+     torch.profiler (at most 12 and 24 kernels), a repeat that must give the
+     same bits and one CUDA-graph capture replayed with new inputs; kernel E
+     at 4,096 f32 rows at the four LM shapes and at 8,192 at gate/up and
+     down, with its cast pass and its GEMM also timed apart; the training
+     attention (f32, B 2 T 2048 and B 1 T 8192, right-padded) with its f32
+     bound beside the bound of the products its design computes (three bf16
+     terms each, plus the split pass's bytes), the split pass timed apart,
+     and SDPA's forward and its autograd backward as the library times;
   4. end to end, serving: the full-width 1.5B model (random weights from
      --seed, bf16, int8 LM + lm_head, fuse_for_serving) runs generate() on a
      two-speaker script with two 3 s voice prompts and a forced script of
@@ -459,8 +463,8 @@ def check_kernels(checks: Checks, seed: int) -> None:
         del ref
 
     # C: 4 head layers, 1536 -> 4608 -> 1536; the solver runs the head in f32
-    print("kernel C fused_head_ffn_stack (f32 x and mods (2B=2 rows); int8 or bf16 weights: "
-          "tol 1e-4)")
+    print(f"kernel C fused_head_ffn_stack (f32 x and mods (2B=2 rows); int8 or bf16 weights: "
+          f"tol 1e-4; at most {FUSED_MAX_KERNELS['fused_head_ffn_stack']} device kernels a call)")
     dim, hid, nl = 1536, 4608, 4
     for quantize in (True, False):
         layers = [{"norm": {"w": 1 + 0.1 * randn(dim)},
@@ -470,18 +474,24 @@ def check_kernels(checks: Checks, seed: int) -> None:
                          3 * nl * dim * hid * (1 if quantize else 2), budget=120 << 20)
         x = randn(2, dim, dt=torch.float32)
         mods = randn(nl, 2, 3 * dim, dt=torch.float32) * 0.5
-        out = hf.fused_head_ffn_stack(packs[0], x, mods)
+        w = "int8" if quantize else "bf16"
+        call = lambda: hf.fused_head_ffn_stack(packs[0], x, mods)
+        out = call()
         ref = hf.fused_head_ffn_stack_plain(packs[0], x, mods)
         ms = bench_ms(lambda pk: hf.fused_head_ffn_stack(pk, x, mods), packs)
         pms = bench_ms(lambda pk: hf.fused_head_ffn_stack_plain(pk, x, mods), packs)
         # no single PyTorch call computes a stack of norm + modulation + SwiGLU layers
-        checks.case("fused_head_ffn_stack", f"{nl} layers {'int8' if quantize else 'bf16'} weights",
-                    out, ref, 1e-4, ms, pms, main=quantize,
+        checks.case("fused_head_ffn_stack", f"{nl} layers {w} weights", out, ref, 1e-4, ms, pms,
+                    main=quantize,
                     bound=bound(2 * 2 * 3 * dim * hid * nl,
                                 nbytes(*packs[0].arrays.values(), x, mods, out), "f32"))
+        fused_call_checks(checks, "fused_head_ffn_stack", f"{nl} layers {w} weights", call,
+                          lambda: hf.fused_head_ffn_stack_plain(packs[0], x, mods), (x, mods),
+                          1e-4)
 
     # D: 8 Block1D blocks at 2048 -> 8192 -> 2048, one bf16 frame (B=1)
-    print("kernel D fused_stage_step (bf16 x and state; int8 or bf16 weights: tol 2e-2)")
+    print(f"kernel D fused_stage_step (bf16 x and state; int8 or bf16 weights: tol 2e-2; at most "
+          f"{FUSED_MAX_KERNELS['fused_stage_step']} device kernels a call)")
     dim, nb = 2048, 8
     for quantize in (True, False):
         blocks = [{"norm": {"w": 1 + 0.1 * randn(dim)},
@@ -495,8 +505,8 @@ def check_kernels(checks: Checks, seed: int) -> None:
         packs = rotating(lambda: vf.pack_stage(blocks, 1e-5, quantize),
                          nb * 8 * dim * dim * (1 if quantize else 2), budget=120 << 20)
         x, st = randn(1, 1, dim), randn(nb, 1, 6, dim)
-        (out, ns), (ref, rs) = vf.fused_stage_step(packs[0], x, st), \
-            vf.fused_stage_step_plain(packs[0], x, st)
+        call = lambda: vf.fused_stage_step(packs[0], x, st)
+        (out, ns), (ref, rs) = call(), vf.fused_stage_step_plain(packs[0], x, st)
         ms = bench_ms(lambda pk: vf.fused_stage_step(pk, x, st), packs)
         pms = bench_ms(lambda pk: vf.fused_stage_step_plain(pk, x, st), packs)
         w = "int8" if quantize else "bf16"
@@ -506,6 +516,84 @@ def check_kernels(checks: Checks, seed: int) -> None:
                     bound=bound(2 * nb * (8 * dim * dim + 7 * dim),
                                 nbytes(*packs[0].arrays.values(), x, st, out, ns)))
         checks.case("fused_stage_step", f"{nb} blocks {w} weights: new state", ns, rs, 2e-2)
+        fused_call_checks(checks, "fused_stage_step", f"{nb} blocks {w} weights", call,
+                          lambda: vf.fused_stage_step_plain(packs[0], x, st), (x, st), 2e-2)
+
+
+# Device kernels one call of kernel C (4 layers) and D (8 blocks) may run:
+# C two streaming launches a layer (gate|up, down), D a prologue and two
+# streaming launches a block (fc1, fc2); the split-K GEMV core they ran on
+# before took 5 a layer or block (20 and 40).
+FUSED_MAX_KERNELS = {"fused_head_ffn_stack": 12, "fused_stage_step": 24}
+# Their kernels by the loader or epilogue type in the (mangled) name.
+FUSED_PASSES = {"XHeadMod": "gate|up", "XSwiGLU": "down", "stage_prologue": "prologue",
+                "EpiBiasGelu": "fc1", "EpiBiasScaleResidual": "fc2"}
+
+
+def device_kernels(fn, attempts: int = 3) -> list:
+    """(name, microseconds) of each device activity (kernel, copy, fill) of
+    one fn() call after a warm-up, in order, as torch.profiler records them.
+    A profile that records no device activity at all (the profiler, used
+    many times in one process, now and then returns none) is taken again,
+    up to `attempts` times."""
+    import torch
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        if events:
+            break
+    return [(e.name, e.time_range.elapsed_us()) for e in events]
+
+
+def fused_call_checks(checks: Checks, kernel: str, label: str, call, plain, inputs, tol) -> None:
+    """Kernel C's or D's call: the device kernels of one call (at most
+    FUSED_MAX_KERNELS; their count and mean time by pass are printed and
+    kept), a repeat on the same inputs (the same bits), and one
+    capture in a CUDA graph replayed three times with new inputs written in
+    place, each replay against the plain version (tol as the kernel's)."""
+    import torch
+
+    events = device_kernels(call)
+    passes = {}
+    for name, us in events:
+        passes.setdefault(next((v for k, v in FUSED_PASSES.items() if k in name), name[:60]),
+                          []).append(us)
+    per_pass = {k: (len(v), sum(v) / len(v)) for k, v in passes.items()}
+    checks.extra.setdefault("device_kernels_per_call", {})[f"{kernel} {label}"] = dict(
+        kernels=len(events), per_pass_count_mean_us=per_pass)
+    print(f"  {kernel:<24s} {label:<40s} {len(events)} device kernels a call (profiled: "
+          + ", ".join(f"{k} {n} x {us:.2f} us" for k, (n, us) in per_pass.items()) + ")",
+          flush=True)
+    if not 0 < len(events) <= FUSED_MAX_KERNELS[kernel]:
+        fail(f"{kernel} {label}: {len(events)} device kernels a call, not 1 to "
+             f"{FUSED_MAX_KERNELS[kernel]}: {sorted(passes)}")
+    tup = lambda o: o if isinstance(o, tuple) else (o,)
+    first = tup(call())
+    if not all(torch.equal(a, b) for a, b in zip(tup(call()), first)):
+        fail(f"{kernel} {label}: two calls on the same inputs differ")
+    before = [t.clone() for t in inputs]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = tup(call())
+    for i in range(3):
+        for t, b in zip(inputs, before):
+            t.copy_(torch.roll(b, i + 1, dims=-1) * (1 + 0.5 * i))
+        graph.replay()
+        torch.cuda.synchronize()
+        for j, (o, r) in enumerate(zip(outs, tup(plain()))):
+            checks.case(kernel, f"{label} CUDA-graph replay {i + 1}" + (f" out {j}" if j else ""),
+                        o, r, tol)
+    for t, b in zip(inputs, before):
+        t.copy_(b)
+    del graph
 
 
 def event_ms(fn, iters: int = 3) -> float:

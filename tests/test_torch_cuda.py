@@ -167,37 +167,132 @@ def test_flash_cached_attention(dev, w, int8, dtype):
     assert _rel(out, ref) < (1e-2 if dtype == torch.bfloat16 else 1e-4)
 
 
+def _head_inputs(dev, seed, nb, dim, hid, rows, quantize, dtype=torch.float32, wdtype=None):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rn = lambda *s: torch.randn(s, generator=g, device=dev)
+    layers = [{"norm": {"w": rn(dim)},
+               "ffn": {"gate": {"w": rn(dim, hid) / dim ** 0.5},
+                       "up": {"w": rn(dim, hid) / dim ** 0.5},
+                       "down": {"w": rn(hid, dim) / hid ** 0.5}}} for _ in range(nb)]
+    packed = hf.pack_head_ffns(layers, 1e-5, quantize)
+    if wdtype is not None:  # dense weights in another dtype
+        packed.arrays["wgu"], packed.arrays["wd"] = (packed["wgu"].to(wdtype),
+                                                     packed["wd"].to(wdtype))
+    return packed, rn(rows, dim).to(dtype), (rn(nb, rows, 3 * dim) * 0.5).to(dtype)
+
+
 @pytest.mark.parametrize("quantize", [False, True])
 def test_fused_head_ffn_stack(dev, quantize):
-    g = torch.Generator(device=dev).manual_seed(2)
-    nb, dim, hid, rows = 3, 128, 384, 2
-    rn = lambda *s: torch.randn(s, generator=g, device=dev)
-    layers = [{"norm": {"w": rn(dim)}, "ffn": {"gate": {"w": rn(dim, hid) / 11},
-                                                "up": {"w": rn(dim, hid) / 11},
-                                                "down": {"w": rn(hid, dim) / 20}}} for _ in range(nb)]
-    packed = hf.pack_head_ffns(layers, 1e-5, quantize)
-    x, mods = rn(rows, dim), rn(nb, rows, 3 * dim) * 0.5
+    packed, x, mods = _head_inputs(dev, 2, 3, 128, 384, 2, quantize)
     assert _rel(hf.fused_head_ffn_stack(packed, x, mods),
                 hf.fused_head_ffn_stack_plain(packed, x, mods)) < 1e-4
 
 
-@pytest.mark.parametrize("quantize,dtype", [(False, torch.float32), (True, torch.bfloat16)])
-def test_fused_stage_step(dev, quantize, dtype):
-    g = torch.Generator(device=dev).manual_seed(3)
-    nb, dim, b = 2, 64, 2
+@pytest.mark.parametrize("dtype,quantize,wdtype", [
+    (torch.float32, True, None), (torch.float32, False, None),
+    (torch.float32, False, torch.bfloat16), (torch.bfloat16, True, None),
+    (torch.bfloat16, False, torch.bfloat16)])
+@pytest.mark.parametrize("nb,dim,hid,rows", [(4, 1536, 4608, 2), (4, 1536, 4608, 3),
+                                             (2, 64, 192, 2)])
+def test_fused_head_ffn_stack_widths(dev, nb, dim, hid, rows, quantize, dtype, wdtype):
+    """Kernel C at the 1.5B head's widths (2 rows at bs1 with CFG; 3 rows
+    take the other row tile) and tiny_config's, at each (activation, weight)
+    dtype pair it takes (int8, or dense f32 / bf16): one launch counted a
+    call, within 1e-4 (f32) / 2e-2 (bf16) of the peak of the plain version,
+    and three more calls give the same bits (no float atomics; the counters
+    reset)."""
+    packed, x, mods = _head_inputs(dev, 30, nb, dim, hid, rows, quantize, dtype, wdtype)
+    before = hf.fused_head_ffn_stack.launches
+    out = hf.fused_head_ffn_stack(packed, x, mods)
+    assert hf.fused_head_ffn_stack.launches == before + 1
+    assert out.dtype == dtype and out.shape == (rows, dim)
+    assert _rel(out, hf.fused_head_ffn_stack_plain(packed, x, mods)) < (
+        1e-4 if dtype == torch.float32 else 2e-2)
+    for _ in range(3):
+        assert torch.equal(hf.fused_head_ffn_stack(packed, x, mods), out)
+
+
+def _stage_inputs(dev, seed, nb, dim, b, quantize, dtype):
+    g = torch.Generator(device=dev).manual_seed(seed)
     rn = lambda *s: torch.randn(s, generator=g, device=dev)
     blocks = [{"norm": {"w": rn(dim)}, "mixer": {"w": rn(dim, 1, 7) * 0.3, "b": rn(dim) * 0.1},
                "gamma": torch.full((dim,), 0.5, device=dev), "ffn_norm": {"w": rn(dim)},
-               "ffn": {"fc1": {"w": rn(dim, 4 * dim) / 8, "b": rn(4 * dim) * 0.1},
-                       "fc2": {"w": rn(4 * dim, dim) / 16, "b": rn(dim) * 0.1}},
+               "ffn": {"fc1": {"w": rn(dim, 4 * dim) / dim ** 0.5, "b": rn(4 * dim) * 0.1},
+                       "fc2": {"w": rn(4 * dim, dim) / (4 * dim) ** 0.5, "b": rn(dim) * 0.1}},
                "ffn_gamma": torch.full((dim,), 0.5, device=dev)} for _ in range(nb)]
     packed = vf.pack_stage(blocks, 1e-5, quantize)
     if not quantize:  # dense weights in the activation dtype
         packed.arrays["w1"], packed.arrays["w2"] = (packed["w1"].to(dtype), packed["w2"].to(dtype))
-    x, st = rn(b, 1, dim).to(dtype), rn(nb, b, 6, dim).to(dtype)
+    return packed, rn(b, 1, dim).to(dtype), rn(nb, b, 6, dim).to(dtype)
+
+
+@pytest.mark.parametrize("quantize,dtype", [(False, torch.float32), (True, torch.bfloat16)])
+def test_fused_stage_step(dev, quantize, dtype):
+    packed, x, st = _stage_inputs(dev, 3, 2, 64, 2, quantize, dtype)
     (y, ns), (yr, nsr) = vf.fused_stage_step(packed, x, st), vf.fused_stage_step_plain(packed, x, st)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     assert _rel(y, yr) < tol and _rel(ns, nsr) < tol
+
+
+@pytest.mark.parametrize("quantize,dtype", [(True, torch.bfloat16), (False, torch.bfloat16),
+                                            (True, torch.float32), (False, torch.float32)])
+@pytest.mark.parametrize("nb,dim,b", [(8, 2048, 1), (8, 2048, 2), (2, 16, 1)])
+def test_fused_stage_step_widths(dev, nb, dim, b, quantize, dtype):
+    """Kernel D at the 1.5B vocoder stage's widths (one frame a sample, 1 or
+    2 samples) and tiny_config's, each (activation, weight) dtype pair it
+    takes: one launch counted a call, y and the new state within 1e-4 (f32)
+    / 2e-2 (bf16) of the peak of the plain version, and three more calls
+    give the same bits."""
+    packed, x, st = _stage_inputs(dev, 31, nb, dim, b, quantize, dtype)
+    before = vf.fused_stage_step.launches
+    y, ns = vf.fused_stage_step(packed, x, st)
+    assert vf.fused_stage_step.launches == before + 1
+    yr, nsr = vf.fused_stage_step_plain(packed, x, st)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert _rel(y, yr) < tol and _rel(ns, nsr) < tol
+    for _ in range(3):
+        y2, ns2 = vf.fused_stage_step(packed, x, st)
+        assert torch.equal(y2, y) and torch.equal(ns2, ns)
+
+
+def test_fused_head_and_stage_graph_replay(dev):
+    """One capture of a kernel C call and of a kernel D call in a CUDA graph
+    (1.5B widths, int8), replayed with new x, mods and states written in
+    place: the plans come from the shapes, the workspace persists and the
+    counters reset themselves, so every replay matches the plain version and
+    no call allocates but its outputs."""
+    packed_c, x, mods = _head_inputs(dev, 32, 4, 1536, 4608, 2, True)
+    packed_d, xd, st = _stage_inputs(dev, 33, 8, 2048, 1, True, torch.bfloat16)
+    hf.fused_head_ffn_stack(packed_c, x, mods)  # the workspace, outside the capture
+    vf.fused_stage_step(packed_d, xd, st)
+    torch.cuda.synchronize()
+    ws = quant._gemv_scratch[x.device]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = hf.fused_head_ffn_stack(packed_c, x, mods)
+        yd, ns = vf.fused_stage_step(packed_d, xd, st)
+    assert quant._gemv_scratch[x.device] is ws
+    g = torch.Generator(device=dev).manual_seed(34)
+    for _ in range(3):
+        for t in (x, mods, xd, st):
+            t.copy_(torch.randn(t.shape, generator=g, device=dev) * (0.5 if t is mods else 1))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _rel(y, hf.fused_head_ffn_stack_plain(packed_c, x, mods)) < 1e-4
+        yr, nsr = vf.fused_stage_step_plain(packed_d, xd, st)
+        assert _rel(yd, yr) < 2e-2 and _rel(ns, nsr) < 2e-2
+    assert int(ws[1].abs().max()) == 0
+
+
+def test_fused_head_and_stage_raise_on_ragged_widths(dev):
+    """Widths that are not multiples of 16 (a 16-byte vector of columns
+    would straddle two rows): kernels C and D refuse them on the card."""
+    packed, x, mods = _head_inputs(dev, 35, 1, 72, 200, 2, True)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        hf.fused_head_ffn_stack(packed, x, mods)
+    packed, x, st = _stage_inputs(dev, 36, 1, 24, 1, True, torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        vf.fused_stage_step(packed, x, st)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -237,7 +237,8 @@ def test_voice_features_match_jax(params):
 def test_serving_quantization_bit_equal(params):
     """quantize_for_inference + fuse_for_serving: every int8 tensor and scale
     of the port equals the JAX package's (same f32 max/127, division and
-    round-half-even)."""
+    round-half-even). The port's head pack holds the gate and up weights side
+    by side (wgu): their halves equal the JAX pack's wg and wu."""
     jp, tp = params
     jq_ = jvv.fuse_for_serving(jvv.quantize_for_inference(jp), JCFG, quantize=True)
     tq_ = tvv.fuse_for_serving(tvv.quantize_for_inference(tp), CFG, quantize=True)
@@ -257,4 +258,8 @@ def test_serving_quantization_bit_equal(params):
         names = [k for k in jpk.arrays if k.endswith("_q") or k.endswith("_scale")]
         assert len(names) >= 4
         for k in names:
-            np.testing.assert_array_equal(tpk[k].numpy(), np.asarray(jpk[k]), err_msg=k)
+            if k.startswith(("wg_", "wu_")):  # the gate | up halves of wgu_*
+                half = tpk["wgu" + k[2:]].chunk(2, dim=-1)[k.startswith("wu_")]
+                np.testing.assert_array_equal(half.numpy(), np.asarray(jpk[k]), err_msg=k)
+            else:
+                np.testing.assert_array_equal(tpk[k].numpy(), np.asarray(jpk[k]), err_msg=k)

@@ -248,6 +248,137 @@ def test_stage_step_plain_matches_pallas(quantize, act):
         close(ts.float(), np.asarray(js, np.float32), tol, tol)
 
 
+def _stream_pass(xs, w, plan):
+    """One launch of the streaming core (csrc/weight_stream.cuh) in PyTorch:
+    the rows xs (f32, as the loader formed them) against w (K, N), the K axis
+    cut into the plan's splits, one f32 partial sum each, the partials met
+    as the last block of a column tile meets them (warp j adds splits j,
+    j + 4, ... in order, then the 4 warps in order). Raw sums: the caller's
+    epilogue or next loader applies the scale."""
+    _, splits, kps = plan
+    wf = w.float()
+    parts = [xs[:, s * kps:(s + 1) * kps] @ wf[s * kps:(s + 1) * kps] for s in range(splits)]
+    if splits == 1:
+        return parts[0]
+    total = torch.zeros_like(parts[0])
+    for j in range(4):
+        acc = torch.zeros_like(parts[0])
+        for sp in range(j, splits, 4):
+            acc = acc + parts[sp]
+        total = total + acc
+    return total
+
+
+def _block_row_sum(v):
+    """Sum over the last axis as a 128-thread block takes it: each thread the
+    terms i = t mod 128, the lanes of a warp by a shuffle tree, the 4 warps
+    in order."""
+    n = v.shape[-1]
+    per_thread = torch.nn.functional.pad(v, (0, -n % 128)).reshape(*v.shape[:-1], -1, 128).sum(-2)
+    warps = per_thread.reshape(*v.shape[:-1], 4, 32)
+    for o in (16, 8, 4, 2, 1):
+        warps = warps + torch.roll(warps, o, dims=-1)  # xor-shuffle: every lane ends with the sum
+    w = warps[..., 0]
+    return ((w[..., 0] + w[..., 1]) + w[..., 2]) + w[..., 3]
+
+
+def _head_stream_emulated(packed, x, mods):
+    """Kernel C's route (csrc/head_ffn.cu) in PyTorch: per layer the gate|up
+    pass with the norm and modulation in its loader (the row's sum of
+    squares from the block's pre-pass), raw u|v out; the down pass with
+    SwiGLU in its loader and the gated residual in its epilogue."""
+    dt, dim, hid = x.dtype, packed.dim, packed.hidden
+    rows = x.shape[0]
+    (wgu, sgu), (wd, sd) = packed.weight("wgu", 0), packed.weight("wd", 0)
+    gu, dn = thf._plan(rows, dim, hid, wgu.element_size())
+    rnd = lambda v: v.to(dt).float()
+    y = x.float()
+    for i in range(packed.n_blocks):
+        (wgu, sgu), (wd, sd) = packed.weight("wgu", i), packed.weight("wd", i)
+        m = mods[i].float()
+        ss = _block_row_sum(y * y)[:, None]
+        h = y * torch.rsqrt(ss / dim + packed.eps) * packed["norm_w"][i]
+        hmod = rnd(h * (1.0 + m[:, dim:2 * dim]) + m[:, :dim])
+        uv = _stream_pass(hmod, wgu, gu)
+        u, v = uv[:, :hid], uv[:, hid:]
+        if sgu is not None:
+            u, v = u * sgu[:hid], v * sgu[hid:]
+        g = rnd(u / (1.0 + torch.exp(-u)) * v)
+        d = _stream_pass(g, wd, dn)
+        if sd is not None:
+            d = d * sd
+        y = rnd(y + m[:, 2 * dim:] * d)
+    return y.to(dt)
+
+
+def _stage_stream_emulated(packed, x, states):
+    """Kernel D's route (csrc/vocoder_stage.cu) in PyTorch: per block the
+    prologue (norm, depthwise conv, layer-scale residual xmid in f32, norm
+    hn), the fc1 pass with bias, exact GELU and rounding in its epilogue, the
+    fc2 pass with bias, layer scale and residual in its epilogue."""
+    dt, eps, dim, hid = x.dtype, packed.eps, packed.dim, packed.hidden
+    a = packed.arrays
+    rows = x.shape[0]
+    w1, _ = packed.weight("w1", 0)
+    p1, p2 = tvf._plan(rows, dim, hid, w1.element_size())
+    rnd = lambda v: v.to(dt).float()
+    rms = lambda v, w: v * torch.rsqrt(_block_row_sum(v * v)[:, None] / dim + eps) * w
+    y = x[:, 0].float()
+    new_states = []
+    for i in range(packed.n_blocks):
+        h = rms(y, a["norm_w"][i])
+        st = states[i].float()
+        conv = h * a["conv_w"][i, 6] + sum(st[:, t] * a["conv_w"][i, t] for t in range(6))
+        new_states.append(torch.cat([states[i][:, 1:], h.to(states.dtype)[:, None]], dim=1))
+        xmid = y + (conv + a["conv_b"][i]) * a["gamma"][i]
+        hn = rnd(rms(xmid, a["ffn_norm_w"][i]))
+        (w1, s1), (w2, s2) = packed.weight("w1", i), packed.weight("w2", i)
+        u = _stream_pass(hn, w1, p1) * (1.0 if s1 is None else s1) + a["b1"][i]
+        g = rnd(0.5 * u * (1.0 + torch.erf(u * 0.70710678118654752)))
+        d = _stream_pass(g, w2, p2) * (1.0 if s2 is None else s2) + a["b2"][i]
+        y = rnd(xmid + d * a["ffn_gamma"][i])
+    return y.to(dt)[:, None], torch.stack(new_states)
+
+
+@pytest.mark.parametrize("act", ["f32", "bf16"])
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("kernel,dim,hid,rows", [
+    ("C", 64, 192, 2), ("C", 256, 768, 3), ("D", 16, 64, 1), ("D", 128, 512, 2)])
+def test_head_and_stage_stream_route_matches_plain(kernel, dim, hid, rows, quantize, act):
+    """Kernels C and D as they run on the streaming core, emulated in
+    PyTorch: split-K partial sums met in the kernel's order, the norm,
+    modulation and SwiGLU in C's loaders, bias, GELU, layer scale and
+    residuals in the epilogues, the rounding points of the TPU kernels. Held
+    against the plain versions (which test_head_stack_plain_matches_pallas
+    and test_stage_step_plain_matches_pallas hold against JAX) at
+    tiny_config's widths (splits of one) and at wider ones whose K splits
+    (2 to 6 slices): 1e-5 in f32 (summation order), 2e-2 in bf16 (a sum next
+    to a rounding boundary lands one bf16 ulp away). Dense weights are f32,
+    so their plans are those of 4-byte columns."""
+    rng = np.random.RandomState(dim + rows)
+    dt = torch.float32 if act == "f32" else torch.bfloat16
+    tol = 1e-5 if act == "f32" else 2e-2
+    if kernel == "C":
+        layers = jax.tree.map(T, _head_layers(rng, 2, dim, hid))
+        packed = thf.pack_head_ffns(layers, 1e-5, quantize)
+        x = T(rng.randn(rows, dim).astype(np.float32)).to(dt)
+        mods = T((rng.randn(2, rows, 3 * dim) * 0.5).astype(np.float32)).to(dt)
+        out, ref = _head_stream_emulated(packed, x, mods), thf.fused_head_ffn_stack_plain(
+            packed, x, mods)
+        close(out.float(), ref.float(), tol, tol)
+    else:
+        blocks = jax.tree.map(T, _stage_blocks(rng, 2, dim))
+        for blk in blocks:  # depthwise mixer: JAX TIO (7, 1, C) -> PyTorch (C, 1, 7)
+            blk["mixer"]["w"] = blk["mixer"]["w"].permute(2, 1, 0).contiguous()
+        packed = tvf.pack_stage(blocks, 1e-5, quantize)
+        x = T(rng.randn(rows, 1, dim).astype(np.float32)).to(dt)
+        states = T(rng.randn(2, rows, 6, dim).astype(np.float32)).to(dt)
+        (y, ns), (yr, nsr) = (_stage_stream_emulated(packed, x, states),
+                              tvf.fused_stage_step_plain(packed, x, states))
+        close(y.float(), yr.float(), tol, tol)
+        close(ns.float(), nsr.float(), tol, tol)
+
+
 # ---------------------------------------------------------------------------
 # DPM-Solver
 # ---------------------------------------------------------------------------

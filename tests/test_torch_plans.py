@@ -1,13 +1,14 @@
-"""The launch plans of kernels A, B and F, which the wrappers compute in plain
-Python before they launch: kernel A's route and tiling by row count
+"""The launch plans of kernels A, B, C, D and F, which the wrappers compute in
+plain Python before they launch: kernel A's route and tiling by row count
 (ops/quant._plan; the streaming GEMV's ops/quant._gemv_plan, whose thread
-mapping csrc/stream_gemv.cuh repeats on the card), kernel F's row tiles and
-key horizons (ops/flash_attention._ring_plan, _ring_tile, as
-csrc/flash_ring.cu computes them), kernel B's decode tiles and key splits
-(ops/flash_attention._decode_plan, _decode_split, whose arithmetic
-csrc/flash_decode.cu repeats on the card), its prefill tiles and key
-splits (_prefill_plan, _prefill_split), and the training attention's route
-and tile walks (ops/flash_attention._train_plan, _train_walk, which
+mapping csrc/weight_stream.cuh repeats on the card), the two streaming passes
+a layer of kernels C and D (ops/head_fused._plan, ops/vocoder_fused._plan),
+kernel F's row tiles and key horizons (ops/flash_attention._ring_plan,
+_ring_tile, as csrc/flash_ring.cu computes them), kernel B's decode tiles
+and key splits (ops/flash_attention._decode_plan, _decode_split, whose
+arithmetic csrc/flash_decode.cu repeats on the card), its prefill tiles and
+key splits (_prefill_plan, _prefill_split), and the training attention's
+route and tile walks (ops/flash_attention._train_plan, _train_walk, which
 csrc/flash_train.cu reads)."""
 
 import inspect
@@ -18,7 +19,9 @@ import pytest
 import torch
 
 from vibevoice_tpu_torch.ops import flash_attention as fa
+from vibevoice_tpu_torch.ops import head_fused as hf
 from vibevoice_tpu_torch.ops import quant
+from vibevoice_tpu_torch.ops import vocoder_fused as vf
 
 LM_SHAPES = [(1536, 1536), (1536, 256), (1536, 8960), (8960, 1536), (64, 64), (64, 256)]
 
@@ -130,12 +133,12 @@ DECODE_SHAPES = [(1536, 1536), (1536, 256), (1536, 8960), (8960, 1536)]  # chip_
 @pytest.mark.parametrize("rows", range(1, quant.GEMM_MIN_ROWS))
 @pytest.mark.parametrize("k,n", DECODE_SHAPES + [(64, 64), (320, 1008), (1536, 151936)])
 def test_gemv_plan_reads_every_weight_once(rows, k, n):
-    """The streaming GEMV's grid and thread mapping (csrc/stream_gemv.cuh:
+    """The streaming GEMV's grid and thread mapping (csrc/weight_stream.cuh:
     128 threads = 16 k lanes x 8 groups of 16 columns, 8 loads a round) under
     the plan: every output column and row is owned by one block, every k by
     one (split, k lane, round, slot), and the x slice fits the shared memory
     a block may take without asking. The plan depends on the shapes alone."""
-    assert list(inspect.signature(quant._gemv_plan).parameters) == ["rows", "k", "n"]
+    assert list(inspect.signature(quant._gemv_plan).parameters) == ["rows", "k", "n", "wbytes"]
     rt, splits, kps = quant._gemv_plan(rows, k, n)
     assert quant._plan(rows, k, n) == ("gemv", rt, quant.GEMV_COLS, splits, kps)
     assert rt in quant.GEMV_ROW_TILES and (rt == 1) == (rows == 1)
@@ -178,6 +181,81 @@ def test_gemv_plan_fills_the_card(k, n):
         assert blocks >= quant.SMS or kps == quant.GEMV_MIN_KPS
         if kps < quant.GEMV_MAX_KPS:  # one wave of the blocks the split aims at
             assert blocks <= quant.SMS * quant.GEMV_ROW_TILES[rt] + math.ceil(n / quant.GEMV_COLS)
+
+
+def _stream_pass_covers_once(rows, k, n, wbytes, plan):
+    """One launch of the streaming core (csrc/weight_stream.cuh) over a (k, n)
+    weight of ``wbytes`` bytes an element under ``plan``: 128 threads = 16 k
+    lanes x 8 groups of one 16-byte vector, 8 loads a round. Every weight
+    byte is read by exactly one (split, k lane, round, slot, column group),
+    every output owned by one block, and the x slice plus the block's
+    reduction buffer fit the shared memory a block may take without asking.
+    Returns the launch's block count."""
+    rt, splits, kps = plan
+    cols = quant.GEMV_COLS // wbytes
+    assert rt in quant.GEMV_ROW_TILES and kps % 16 == 0 and 16 <= kps <= quant.GEMV_MAX_KPS
+    assert splits == math.ceil(k / kps) and n % 16 == 0
+    kl_n, unroll = 16, 8
+    kpad = math.ceil(kps / (kl_n * unroll)) * kl_n * unroll
+    assert rt * kpad * 4 + 4 * rt * cols * 4 + 16 <= 48 * 1024
+    vc = 16 // wbytes  # columns of a 16-byte vector
+    starts = np.array([blk * cols + cg * vc for blk in range(math.ceil(n / cols))
+                       for cg in range(8)])
+    starts = starts[starts < n] // vc  # the vectors some thread reads, by index
+    seen = np.zeros((k, n // vc), np.int16)  # 16-byte weight vectors
+    for split in range(splits):
+        kb, ke = split * kps, min(k, (split + 1) * kps)
+        assert kb < ke
+        nit = math.ceil((ke - kb) / (kl_n * unroll))
+        kk = (np.arange(kl_n)[:, None] + kl_n * np.arange(nit * unroll)[None]).ravel()
+        np.add.at(seen, (kb + kk[kb + kk < ke][:, None], starts[None]), 1)
+    assert (seen == 1).all()
+    seen_r = np.zeros(rows, int)
+    for z in range(math.ceil(rows / rt)):
+        seen_r[z * rt:z * rt + rt] += 1
+    assert (seen_r == 1).all()
+    return math.ceil(n / cols) * math.ceil(rows / rt) * splits
+
+
+# (kernel, width, FFN width): the 1.5B's diffusion head and vocoder stage,
+# and tiny_config's
+FUSED_SHAPES = [("C", 1536, 4608), ("D", 2048, 8192), ("C", 64, 192), ("D", 16, 64)]
+
+
+@pytest.mark.parametrize("wbytes", [1, 2, 4])
+@pytest.mark.parametrize("rows", [1, 2, 4])
+@pytest.mark.parametrize("kernel,dim,hid", FUSED_SHAPES)
+def test_head_and_stage_plans_read_every_weight_once(kernel, dim, hid, rows, wbytes):
+    """Kernels C and D run each layer's FFN as two launches of the streaming
+    core: C gate|up (dim -> 2 hid, the two matrices side by side) and down
+    (hid -> dim), D fc1 (dim -> hid) and fc2 (hid -> dim). Under their plans,
+    from the shapes alone, every weight byte is read once, and at the 1.5B
+    shapes each launch fills one wave of the SMs (a block per SM at least)
+    and no more than one wave of the blocks its split aims at."""
+    mod = hf if kernel == "C" else vf
+    assert list(inspect.signature(mod._plan).parameters) == ["rows", "dim", "hid", "wbytes"]
+    first, second = mod._plan(rows, dim, hid, wbytes)
+    n_first = 2 * hid if kernel == "C" else hid
+    for (k, n), plan in (((dim, n_first), first), ((hid, dim), second)):
+        assert plan == quant._gemv_plan(rows, k, n, wbytes)
+        blocks = _stream_pass_covers_once(rows, k, n, wbytes, plan)
+        if dim >= 1536:
+            assert blocks >= quant.SMS
+            rt, _, kps = plan
+            if kps < quant.GEMV_MAX_KPS:
+                assert blocks <= (quant.SMS * quant.GEMV_ROW_TILES[rt]
+                                  + math.ceil(n / (quant.GEMV_COLS // wbytes)))
+
+
+@pytest.mark.parametrize("dim,hid", [(1536, 4600), (1540, 4608), (24, 64), (16, 72)])
+@pytest.mark.parametrize("kernel", ["C", "D"])
+def test_head_and_stage_plans_refuse_ragged_widths(kernel, dim, hid):
+    """A width that is not a multiple of 16 splits a 16-byte vector of
+    columns: both plans refuse it (the CPU path, the plain version, takes
+    any width)."""
+    mod = hf if kernel == "C" else vf
+    with pytest.raises(ValueError, match="multiples of 16"):
+        mod._plan(2, dim, hid, 1)
 
 
 def _ring_live(w, g, s, q_start, k_start, k_len):

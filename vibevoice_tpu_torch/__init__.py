@@ -17,6 +17,10 @@ ops/_cuda.py):
   training attention (fwd, bwd)                csrc/flash_train.cu (wgmma at head_dim 64/128,
                                                CUDA cores at 16/32)
 
+A's GEMV, C and D run on one core, csrc/weight_stream.cuh: a one-launch
+GEMV that streams an int8, bf16 or f32 weight once, with the loader and the
+epilogue (norms, modulation, activations, residuals) fused in.
+
 Each wrapper launches its kernel on CUDA tensors and runs its plain PyTorch
 version on CPU tensors. The package imports neither jax nor anything of the
 JAX package ``vibevoice_tpu``: it keeps its own copies of the framework-free

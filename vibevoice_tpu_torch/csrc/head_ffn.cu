@@ -2,127 +2,151 @@
 //
 // Replaces the Pallas TPU kernel vibevoice_tpu/ops/head_fused.py:144
 // fused_head_ffn_stack (body `_kernel`, :89). Per layer:
-//   h = rmsnorm(y) * norm_w;  hmod = h * (1 + scale) + shift      (prologue)
-//   g = silu(hmod @ Wg * sg) * (hmod @ Wu * su)                   (gate/up GEMV)
-//   y = y + gate * ((g @ Wd) * sd)                                (down GEMV)
+//   hmod = rmsnorm(y) * norm_w * (1 + scale) + shift
+//   g = silu(hmod @ Wg * sg) * (hmod @ Wu * su)
+//   y = y + gate * ((g @ Wd) * sd)
 // with hmod and g held in the activation dtype, as the TPU kernel's scratch.
 //
 // What bounds it on an H100: 2B rows (2 at bs1) against 3 x 1536 x 4608
-// weights per layer, so the weight stream (int8 or bf16), read 10 times per
-// frame. A GPU block cannot carry the residual across a sequential grid as
-// the TPU kernel does (head_fused.py:112-118), so the layers run in order
-// from the host: one prologue launch, then the gate and up matrices read
-// side by side in one split-K GEMV whose epilogue applies SiLU * mul, then
-// the down GEMV whose epilogue adds the gated residual. The 4608-wide g goes
-// through device memory (f32, 2 rows: 37 KB).
-#include "gemv.cuh"
+// weights per layer, so the weight stream (int8, or bf16 / f32 dense), read
+// 10 times per frame. A GPU block cannot carry the residual across a
+// sequential grid as the TPU kernel does (head_fused.py:112-118), so the
+// layers run in order from the host, each as two launches of the one-launch
+// streaming core (weight_stream.cuh), which reads every weight byte once, 16
+// bytes a load, and meets its K splits inside the launch:
+//   - gate|up: the gate and up weights lie side by side in one (H, 2F)
+//     matrix (ops/head_fused.pack_head_ffns), so one pass streams both. Its
+//     loader forms hmod while the first weight loads fly, the row's RMS from
+//     the block's pre-pass over y; its epilogue stores the raw u|v sums (f32,
+//     2 rows: 74 KB) in the workspace;
+//   - down: its loader forms g = silu(u * sg) * (v * su) from them as it
+//     stages x; its epilogue adds the gated residual into y.
+// Two launches a layer, no prologue, no scratch but the persistent
+// workspace: a call is 2L launches and can be captured in a CUDA graph.
+#include "weight_stream.cuh"
 
 namespace vv {
+namespace {
 
-constexpr int HP_THREADS = 256;
-
-// One block per row: hmod = round_XT(rmsnorm(y) * norm_w * (1 + scale) + shift).
+// hmod = round_XT(rmsnorm(y) * norm_w * (1 + scale) + shift), row sums of y^2
 template <typename XT>
-__global__ void head_prologue_kernel(const XT* __restrict__ y, const XT* __restrict__ mods,
-                                     const float* __restrict__ norm_w, float* __restrict__ hmod,
-                                     int H, float eps) {
-  __shared__ float scratch[32];
-  const int row = blockIdx.x;
-  const XT* yr = y + (size_t)row * H;
-  const XT* mr = mods + (size_t)row * 3 * H;
-  float ss = 0.f;
-  for (int i = threadIdx.x; i < H; i += blockDim.x) {
-    const float v = to_f(yr[i]);
-    ss += v * v;
+struct XHeadMod {
+  static constexpr bool kRowSum = true;
+  const XT* y;
+  const XT* mods;  // (R, 3H) of this layer: shift | scale | gate
+  const float* norm_w;
+  int row_len;  // H
+  float eps;
+  __device__ __forceinline__ float row_term(int r, int i) const {
+    const float v = to_f(y[(size_t)r * row_len + i]);
+    return v * v;
   }
-  const float inv = rsqrtf(block_sum(ss, scratch) / H + eps);
-  for (int i = threadIdx.x; i < H; i += blockDim.x) {
-    const float h = to_f(yr[i]) * inv * norm_w[i];
-    const float shift = to_f(mr[i]), scale = to_f(mr[H + i]);
-    hmod[(size_t)row * H + i] = round_to<XT>(h * (1.f + scale) + shift);
+  __device__ __forceinline__ float operator()(int r, int k, float ss) const {
+    const int H = row_len;
+    const float h = to_f(y[(size_t)r * H + k]) * rsqrtf(ss / H + eps) * norm_w[k];
+    const XT* m = mods + (size_t)r * 3 * H;
+    return round_to<XT>(h * (1.f + to_f(m[H + k])) + to_f(m[k]));
   }
-}
+};
 
-template <typename XT>
-struct EpiSwiGLU {
-  float* g;
-  const float* s_gate;
-  const float* s_up;
+struct EpiStore {  // raw f32 sums
+  float* out;
   int N;
-  __device__ __forceinline__ void operator()(int r, int n, const float* acc) const {
-    const float u = acc[0] * col_scale(s_gate, n);
-    const float v = acc[1] * col_scale(s_up, n);
-    g[(size_t)r * N + n] = round_to<XT>(u / (1.f + expf(-u)) * v);
+  __device__ __forceinline__ void operator()(int r, int n, float sum) const {
+    out[(size_t)r * N + n] = sum;
+  }
+};
+
+// g = round_XT(silu(u * sg) * (v * su)) from the raw u|v (R, 2F)
+template <typename XT>
+struct XSwiGLU {
+  static constexpr bool kRowSum = false;
+  const float* uv;
+  const float* s;  // (2F) gate | up scales, or null
+  int F;
+  __device__ __forceinline__ float operator()(int r, int k) const {
+    const float* row = uv + (size_t)r * 2 * F;
+    const float u = row[k] * col_scale(s, k);
+    const float v = row[F + k] * col_scale(s, F + k);
+    return round_to<XT>(u / (1.f + expf(-u)) * v);
   }
 };
 
 template <typename XT>
 struct EpiGatedResidual {
+  const XT* yin;  // the layer's input: x for layer 0, else y itself
   XT* y;
-  const XT* mods;  // (R, 3H) of this layer; gate at [2H, 3H)
-  const float* s_down;
+  const XT* mods;
+  const float* s;  // (H) down scales, or null
   int N;
-  __device__ __forceinline__ void operator()(int r, int n, const float* acc) const {
+  __device__ __forceinline__ void operator()(int r, int n, float sum) const {
     const size_t i = (size_t)r * N + n;
     const float gate = to_f(mods[(size_t)r * 3 * N + 2 * N + n]);
-    y[i] = from_f<XT>(to_f(y[i]) + gate * (acc[0] * col_scale(s_down, n)));
+    y[i] = from_f<XT>(to_f(yin[i]) + gate * (sum * col_scale(s, n)));
   }
 };
 
+struct Plan {
+  int rt, splits, kps;
+};
+
 template <typename XT, typename WT>
-static void run(void* y, const void* mods, const float* norm_w, const void* wg, const void* wu,
-                const void* wd, const float* sg, const float* su, const float* sd, float* hmod,
-                float* gbuf, float* ws, int L, int R, int H, int F, float eps, int split_gu,
-                int kps_gu, int split_d, int kps_d, cudaStream_t stream) {
+cudaError_t run(void* y, const void* x, const void* mods, const float* norm_w, const void* wgu,
+                const void* wd, const float* sgu, const float* sd, float* uv, float* part,
+                unsigned* counters, int L, int R, int H, int F, float eps, Plan gu, Plan dn,
+                cudaStream_t stream) {
   XT* yp = static_cast<XT*>(y);
   const XT* mp = static_cast<const XT*>(mods);
-  const WT* wgp = static_cast<const WT*>(wg);
-  const WT* wup = static_cast<const WT*>(wu);
+  const WT* wgup = static_cast<const WT*>(wgu);
   const WT* wdp = static_cast<const WT*>(wd);
   for (int l = 0; l < L; ++l) {
+    const XT* yin = l == 0 ? static_cast<const XT*>(x) : yp;
     const XT* ml = mp + (size_t)l * R * 3 * H;
-    head_prologue_kernel<XT><<<R, HP_THREADS, 0, stream>>>(yp, ml, norm_w + (size_t)l * H, hmod,
-                                                            H, eps);
-    EpiSwiGLU<XT> e1{gbuf, sg ? sg + (size_t)l * F : nullptr, su ? su + (size_t)l * F : nullptr, F};
-    launch_gemv<float, WT, 2, false>(hmod, wgp + (size_t)l * H * F, wup + (size_t)l * H * F, ws,
-                                     R, H, F, split_gu, kps_gu, e1, stream);
-    EpiGatedResidual<XT> e2{yp, ml, sd ? sd + (size_t)l * H : nullptr, H};
-    launch_gemv<float, WT, 1, false>(gbuf, wdp + (size_t)l * F * H, nullptr, ws, R, F, H, split_d,
-                                     kps_d, e2, stream);
+    const XHeadMod<XT> x1{yin, ml, norm_w + (size_t)l * H, H, eps};
+    cudaError_t err = launch_stream_gemv_rt(gu.rt, x1, wgup + (size_t)l * H * 2 * F, part,
+                                            counters, R, H, 2 * F, gu.splits, gu.kps,
+                                            EpiStore{uv, 2 * F}, stream);
+    if (err != cudaSuccess) return err;
+    const XSwiGLU<XT> x2{uv, sgu ? sgu + (size_t)l * 2 * F : nullptr, F};
+    const EpiGatedResidual<XT> e2{yin, yp, ml, sd ? sd + (size_t)l * H : nullptr, H};
+    err = launch_stream_gemv_rt(dn.rt, x2, wdp + (size_t)l * F * H, part, counters, R, F, H,
+                                dn.splits, dn.kps, e2, stream);
+    if (err != cudaSuccess) return err;
   }
+  return cudaSuccess;
 }
 
+}  // namespace
 }  // namespace vv
 
-// y (R, H) holds x on entry and the result on exit. Scales are null for
-// dense weights. hmod (R, H), gbuf (R, F) and ws (max(2*split_gu*R*F,
-// split_d*R*H)) are f32 scratch.
-extern "C" int vv_fused_head_ffn_stack(void* y, int x_dtype, const void* mods, const void* norm_w,
-                                       const void* wg, const void* wu, const void* wd, int w_dtype,
-                                       const void* sg, const void* su, const void* sd, void* hmod,
-                                       void* gbuf, void* ws, int L, int R, int H, int F, float eps,
-                                       int split_gu, int kps_gu, int split_d, int kps_d,
-                                       void* stream) {
+// x (R, H) in, y (R, H) out, of one dtype; mods (L, R, 3H); norm_w (L, H)
+// f32; wgu (L, H, 2F) and wd (L, F, H) int8, bf16 or f32, 16-byte aligned;
+// sgu (L, 2F) and sd (L, H) f32 scales, null for dense weights. H and F
+// multiples of 16. uv holds R * 2F floats; part and counters are the split-K
+// workspace of both passes (plans (rt, splits, kps) from ops/quant._gemv_plan),
+// counters zero and left zero.
+extern "C" int vv_fused_head_ffn_stack(void* y, const void* x, int x_dtype, const void* mods,
+                                       const void* norm_w, const void* wgu, const void* wd,
+                                       int w_dtype, const void* sgu, const void* sd, void* uv,
+                                       void* part, void* counters, int L, int R, int H, int F,
+                                       float eps, int rt_gu, int split_gu, int kps_gu, int rt_d,
+                                       int split_d, int kps_d, void* stream) {
   using namespace vv;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define VV_HEAD(XT_, WT_)                                                                     \
-  run<XT_, WT_>(y, mods, static_cast<const float*>(norm_w), wg, wu, wd,                       \
-                static_cast<const float*>(sg), static_cast<const float*>(su),                 \
-                static_cast<const float*>(sd), static_cast<float*>(hmod),                     \
-                static_cast<float*>(gbuf), static_cast<float*>(ws), L, R, H, F, eps, split_gu, \
-                kps_gu, split_d, kps_d, s)
-  if (x_dtype == VV_F32 && w_dtype == VV_I8)
-    VV_HEAD(float, int8_t);
-  else if (x_dtype == VV_F32 && w_dtype == VV_BF16)
-    VV_HEAD(float, bf16);
-  else if (x_dtype == VV_F32 && w_dtype == VV_F32)
-    VV_HEAD(float, float);
-  else if (x_dtype == VV_BF16 && w_dtype == VV_I8)
-    VV_HEAD(bf16, int8_t);
-  else if (x_dtype == VV_BF16 && w_dtype == VV_BF16)
-    VV_HEAD(bf16, bf16);
-  else
+  if (!stream_plan_ok(R, H, 2 * F, rt_gu, split_gu, kps_gu) ||
+      !stream_plan_ok(R, F, H, rt_d, split_d, kps_d))
     return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Plan gu{rt_gu, split_gu, kps_gu}, dn{rt_d, split_d, kps_d};
+#define VV_HEAD(XT_, WT_)                                                                        \
+  return (int)run<XT_, WT_>(y, x, mods, static_cast<const float*>(norm_w), wgu, wd,              \
+                            static_cast<const float*>(sgu), static_cast<const float*>(sd),       \
+                            static_cast<float*>(uv), static_cast<float*>(part),                  \
+                            static_cast<unsigned*>(counters), L, R, H, F, eps, gu, dn, s)
+  if (x_dtype == VV_F32 && w_dtype == VV_I8) VV_HEAD(float, int8_t);
+  if (x_dtype == VV_F32 && w_dtype == VV_BF16) VV_HEAD(float, bf16);
+  if (x_dtype == VV_F32 && w_dtype == VV_F32) VV_HEAD(float, float);
+  if (x_dtype == VV_BF16 && w_dtype == VV_I8) VV_HEAD(bf16, int8_t);
+  if (x_dtype == VV_BF16 && w_dtype == VV_BF16) VV_HEAD(bf16, bf16);
 #undef VV_HEAD
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }

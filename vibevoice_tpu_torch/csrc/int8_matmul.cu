@@ -6,15 +6,16 @@
 // the rest. Semantics kept: x is rounded to bf16, w8 is converted in
 // registers, the sum is f32 and the per-column f32 scale is applied after
 // the sum; the output has x's dtype. Bound by the int8 weight stream; the
-// one-launch streaming core of stream_gemv.cuh reads it once, 16 bytes a
+// one-launch streaming core of weight_stream.cuh reads it once, 16 bytes a
 // load, with the row count (1, 2 or 4 rows a block) a template parameter.
-#include "stream_gemv.cuh"
+#include "weight_stream.cuh"
 
 namespace vv {
 namespace {
 
 template <typename T>
 struct XRoundBf16 {  // x.astype(bf16), as f32
+  static constexpr bool kRowSum = false;
   const T* x;
   int K;
   __device__ __forceinline__ float operator()(int r, int k) const {
@@ -38,17 +39,9 @@ cudaError_t run(const void* x, const void* w8, const void* scale, void* out, voi
                 cudaStream_t stream) {
   const XRoundBf16<T> xl{static_cast<const T*>(x), K};
   const EpiScale<T> epi{static_cast<T*>(out), static_cast<const float*>(scale), N};
-#define VV_SG(RT)                                                                            \
-  return launch_stream_gemv<RT>(xl, static_cast<const int8_t*>(w8), static_cast<float*>(part), \
-                                static_cast<unsigned*>(counters), rows, K, N, splits, kps, epi, \
-                                stream)
-  switch (rt) {
-    case 1: VV_SG(1);
-    case 2: VV_SG(2);
-    case 4: VV_SG(4);
-  }
-#undef VV_SG
-  return cudaErrorInvalidValue;
+  return launch_stream_gemv_rt(rt, xl, static_cast<const int8_t*>(w8), static_cast<float*>(part),
+                               static_cast<unsigned*>(counters), rows, K, N, splits, kps, epi,
+                               stream);
 }
 
 }  // namespace
@@ -63,9 +56,7 @@ extern "C" int vv_int8_matmul(const void* x, int x_dtype, const void* w8, const 
                               void* out, void* part, void* counters, int rows, int K, int N,
                               int rt, int splits, int kps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows < 1 || N % 16 || kps % 16 || kps < 16 || kps > 512 ||
-      splits != (K + kps - 1) / kps)
-    return (int)cudaErrorInvalidValue;
+  if (!vv::stream_plan_ok(rows, K, N, rt, splits, kps)) return (int)cudaErrorInvalidValue;
   if (x_dtype == VV_BF16)
     return (int)vv::run<vv::bf16>(x, w8, scale, out, part, counters, rows, K, N, rt, splits, kps, s);
   if (x_dtype == VV_F32)

@@ -8,7 +8,7 @@
 // m64n64k16 over an MN-major B) or both operands by descriptor (m64n64k16,
 // K-major), setmaxnreg, TMA tile loads with
 // mbarriers, and the exact int8 -> bf16 / f32 conversion (which the
-// streaming GEMV of stream_gemv.cuh uses too). Host-side tensor maps: tma.cuh.
+// streaming GEMV of weight_stream.cuh uses too). Host-side tensor maps: tma.cuh.
 #pragma once
 
 #include "common.cuh"

@@ -50,12 +50,12 @@ _SIGNATURES = {
         _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ],
     "vv_fused_head_ffn_stack": [
-        _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _F, _I, _I, _I, _I, _P,
+        _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _P,
     ],
     "vv_fused_stage_step": [
-        _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
-        _I, _I, _I, _I, _F, _I, _I, _I, _I, _P,
+        _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _P,
     ],
     "vv_int8_matmul_t": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "vv_flash_train_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
@@ -189,13 +189,3 @@ def require_cuda(*tensors: torch.Tensor) -> None:
             raise ValueError(f"expected a contiguous tensor, got shape {tuple(t.shape)} "
                              f"with strides {t.stride()}")
 
-
-def split_k(rows: int, k: int, n: int) -> tuple[int, int]:
-    """(splits, k per split) for the split-K GEMV core (csrc/gemv.cuh).
-
-    Blocks cover 128 columns x 8 rows; the K axis is split until the grid
-    holds about two waves of the H100's 132 SMs, down to 32 k rows a split."""
-    blocks = -(-n // 128) * -(-rows // 8)
-    splits = max(1, min(-(-264 // blocks), -(-k // 32)))
-    kps = -(-(-(-k // splits)) // 32) * 32
-    return -(-k // kps), kps

@@ -10,7 +10,7 @@ int8 tensors and scales are bit-equal.
 replaces the Pallas TPU kernel vibevoice_tpu/ops/quant.py:129, chosen by row
 count alone (``_plan``): below ``GEMM_MIN_ROWS`` rows (decode) the
 one-launch weight-streaming GEMV of csrc/int8_matmul.cu (core:
-csrc/stream_gemv.cuh; its plan, ``_gemv_plan``, comes from the shapes alone,
+csrc/weight_stream.cuh; its plan, ``_gemv_plan``, comes from the shapes alone,
 its split-K workspace and counters persist per device, so the launch can be
 captured in a CUDA graph); at and above it (prefill, training) the
 tensor-core GEMM of csrc/int8_gemm.cu (TMA and wgmma, 256 rows x 128 columns a block, no
@@ -61,15 +61,17 @@ def int8_matmul_plain(x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) ->
 # on so long; gate/up alone would switch at 12.
 GEMM_MIN_ROWS = 40
 GEMM_TILE = (256, 128)  # its output tile (rows, columns) per block
-# The streaming GEMV (csrc/stream_gemv.cuh): rows per block (a template
-# parameter there) with the blocks per SM its K split aims at, columns per
-# block, and the least and most k one block takes (x is staged in shared
-# memory). The K axis is split until the grid fills one wave of the H100's
-# 132 SMs and no more: a second, partial wave costs as much as the first.
-# More rows than a tile run as several row tiles that share the weight
-# through L2; the 4-row tile, whose blocks take longer each, pays only where
-# the call has the work to fill the card (from GEMV_WIDE_TILE_MACS
-# multiply-adds: gate/up from 3 rows, q/o from 14, k/v never).
+# The streaming GEMV (csrc/weight_stream.cuh), which kernels C and D run on
+# too: rows per block (a template parameter there) with the blocks per SM its
+# K split aims at, columns per block for int8 weights (8 16-byte vectors: 64
+# for bf16, 32 for f32), and the least and most k one block takes (x is
+# staged in shared memory). The K axis is split until the grid fills one
+# wave of the H100's 132 SMs and no more: a second, partial wave costs as
+# much as the first. More rows than a tile run as several row tiles that
+# share the weight through L2; the 4-row tile, whose blocks take longer each,
+# pays only where the call has the work to fill the card (from
+# GEMV_WIDE_TILE_MACS multiply-adds: gate/up from 3 rows, q/o from 14, k/v
+# never).
 GEMV_ROW_TILES = {1: 4, 2: 4, 4: 2}
 GEMV_WIDE_TILE_MACS = 32 << 20
 GEMV_COLS = 128
@@ -88,19 +90,25 @@ class Int8Plan(NamedTuple):
     k_per_split: int
 
 
-def _gemv_plan(rows: int, k: int, n: int) -> tuple[int, int, int]:
-    """(rows per block, K splits, k per split) of the streaming GEMV, from
-    the shapes alone: 1 or 2 rows a block, or 4 where more than 2 rows bring
-    GEMV_WIDE_TILE_MACS multiply-adds (more rows than the tile run as several
-    row tiles), and the K axis split into as many slices as fill one wave of
-    blocks, each a multiple of 16 k (one k row per k lane) within
-    [GEMV_MIN_KPS, GEMV_MAX_KPS]."""
+def _gemv_plan(rows: int, k: int, n: int, wbytes: int = 1) -> tuple[int, int, int]:
+    """(rows per block, K splits, k per split) of the streaming GEMV over a
+    (k, n) weight of ``wbytes`` bytes an element, from the shapes alone: 1 or
+    2 rows a block, or 4 where more than 2 rows bring GEMV_WIDE_TILE_MACS
+    multiply-adds (more rows than the tile run as several row tiles), and the
+    K axis split into as many slices as fill one wave of blocks, each a
+    multiple of 16 k (one k row per k lane) within [GEMV_MIN_KPS,
+    GEMV_MAX_KPS]."""
     rt = 1 if rows == 1 else 4 if rows > 2 and rows * k * n >= GEMV_WIDE_TILE_MACS else 2
-    tiles = -(-n // GEMV_COLS) * -(-rows // rt)
+    tiles = -(-n // (GEMV_COLS // wbytes)) * -(-rows // rt)
     splits = max(1, SMS * GEMV_ROW_TILES[rt] // tiles)
     kps = -(-(-(-k // splits)) // 16) * 16
     kps = min(max(kps, GEMV_MIN_KPS), GEMV_MAX_KPS, -(-k // 16) * 16)
     return rt, -(-k // kps), kps
+
+
+def _gemv_tiles(rows: int, n: int, rt: int, wbytes: int = 1) -> int:
+    """Arrival counters of one streaming launch: its (row tile, column tile)s."""
+    return -(-rows // rt) * -(-n // (GEMV_COLS // wbytes))
 
 
 def _plan(rows: int, k: int, n: int) -> Int8Plan:
@@ -158,22 +166,24 @@ def _gemm(x2: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) -> torch.Tens
     return out
 
 
-_gemv_scratch: dict = {}  # device -> (f32 partial sums, int32 zeros) of the streaming GEMV
+_gemv_scratch: dict = {}  # device -> (f32 workspace, int32 zeros) of the streaming GEMV
 _gemv_retired: list = []  # outgrown scratch, kept alive for CUDA graphs that captured it
 
 
-def _gemv_workspace(device: torch.device, n_part: int, n_tiles: int):
-    """The GEMV's split-K partial sums and arrival counters (zeros that
-    every launch leaves zero again). Kept per device and grown on demand, so
-    a call allocates nothing but its output and a launch captured in a CUDA
-    graph finds them in place (make one call before capturing). Calls of one
-    stream share them in turn; two calls must not run concurrently on two
-    streams of one device."""
+def _gemv_workspace(device: torch.device, n_floats: int, n_tiles: int):
+    """The streaming core's f32 workspace (split-K partial sums, and the
+    intermediates of kernels C and D behind them) and arrival counters
+    (zeros that every launch leaves zero again). Kept per device and grown
+    on demand, so a call allocates nothing but its outputs and a launch
+    captured in a CUDA graph finds them in place (make one call before
+    capturing). Calls of one stream share them in turn; two calls must not
+    run concurrently on two streams of one device."""
     ws = _gemv_scratch.get(device)
-    if ws is None or ws[0].numel() < n_part or ws[1].numel() < n_tiles:
+    if ws is None or ws[0].numel() < n_floats or ws[1].numel() < n_tiles:
         if ws is not None:
             _gemv_retired.append(ws)
-        ws = (torch.empty(max(n_part, 1 << 20), dtype=torch.float32, device=device),
+            n_floats, n_tiles = max(n_floats, ws[0].numel()), max(n_tiles, ws[1].numel())
+        ws = (torch.empty(max(n_floats, 1 << 20), dtype=torch.float32, device=device),
               torch.zeros(max(n_tiles, 4096), dtype=torch.int32, device=device))
         _gemv_scratch[device] = ws
     return ws
@@ -191,7 +201,7 @@ def _gemv(x2: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) -> torch.Tens
                          "multiple of 16 and w8 16-byte aligned")
     rt, splits, kps = _gemv_plan(rows, cin, cout)
     part, counters = (None, None) if splits == 1 else _gemv_workspace(
-        x2.device, splits * rows * cout, -(-rows // rt) * -(-cout // GEMV_COLS))
+        x2.device, splits * rows * cout, _gemv_tiles(rows, cout, rt))
     _cuda.library().call(
         "vv_int8_matmul", x2.data_ptr(), _cuda.dtype_code(x2), w8.data_ptr(), scale.data_ptr(),
         out.data_ptr(), _cuda.ptr(part), _cuda.ptr(counters), rows, cin, cout, rt, splits, kps,

@@ -6,7 +6,10 @@ shifts) -> layer-scale residual -> RMSNorm -> fc1 + b1 -> exact GELU ->
 fc2 + b2 -> layer-scale residual. The FFN weights may be int8.
 
 On a CUDA tensor ``fused_stage_step`` launches the hand-written kernels
-(csrc/vocoder_stage.cu); on a CPU tensor it runs ``fused_stage_step_plain``.
+(csrc/vocoder_stage.cu: per block a prologue launch, then fc1 and fc2 as two
+launches of the streaming core csrc/weight_stream.cuh with the bias, GELU,
+layer scale and residual in their epilogues); on a CPU tensor it runs
+``fused_stage_step_plain``.
 Both keep the TPU kernel's rounding points: the FFN input and the GELU
 output in the activation dtype, the mid-block residual in f32.
 """
@@ -19,7 +22,7 @@ from typing import Dict, List, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import _cuda
+from . import _cuda, quant
 
 CTX = 6  # depthwise kernel 7 -> 6 carried frames
 _VECTORS = ("norm_w", "conv_w", "conv_b", "gamma", "ffn_norm_w", "b1", "b2", "ffn_gamma")
@@ -74,10 +77,8 @@ def pack_stage(blocks: List[Dict], eps: float, quantize: bool = False) -> Packed
     w1 = stack(lambda b: b["ffn"]["fc1"]["w"])  # (NB, C, H)
     w2 = stack(lambda b: b["ffn"]["fc2"]["w"])  # (NB, H, C)
     if quantize:
-        from .quant import quantize_weight
-
         for name, w in (("w1", w1), ("w2", w2)):
-            qs = [quantize_weight(w[i]) for i in range(nb)]
+            qs = [quant.quantize_weight(w[i]) for i in range(nb)]
             arrays[name + "_q"] = torch.stack([q["w8"] for q in qs])
             arrays[name + "_scale"] = torch.stack([q["scale"] for q in qs])
     else:
@@ -118,11 +119,27 @@ def fused_stage_step_plain(
     return y[:, None, :], torch.stack(new_states)
 
 
+def _plan(rows: int, dim: int, hid: int, wbytes: int):
+    """The launch plans of a block's two streaming passes, fc1 (dim -> hid)
+    and fc2 (hid -> dim), from the shapes alone: (rows per block, splits, k
+    per split) each, as quant._gemv_plan gives them. The kernel reads 16-byte
+    vectors of whole columns: widths must be multiples of 16."""
+    if dim % 16 or hid % 16:
+        raise ValueError(f"the kernel reads 16-byte vectors of 16 columns: the stage's width "
+                         f"({dim}) and FFN width ({hid}) must be multiples of 16")
+    return quant._gemv_plan(rows, dim, hid, wbytes), quant._gemv_plan(rows, hid, dim, wbytes)
+
+
 def fused_stage_step(
     packed: PackedStage, x: torch.Tensor, states: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the packed stack on one frame. x (B, 1, C), states (NB, B, 6, C);
-    returns (y (B, 1, C), new_states (NB, B, 6, C))."""
+    returns (y (B, 1, C), new_states (NB, B, 6, C)).
+
+    On CUDA tensors: 3 launches a block, nothing allocated but the outputs
+    (xmid, hn, g and the split-K partials live in quant's persistent
+    workspace), so a call can be captured in a CUDA graph after one call
+    outside it."""
     if x.device.type == "cpu":
         return fused_stage_step_plain(packed, x, states)
     nb, dim, hid = packed.n_blocks, packed.dim, packed.hidden
@@ -130,32 +147,36 @@ def fused_stage_step(
     if x.shape != (b, 1, dim) or states.shape != (nb, b, CTX, dim) or states.dtype != x.dtype:
         raise ValueError(f"x {tuple(x.shape)} / states {tuple(states.shape)} {states.dtype} do "
                          f"not fit a {nb}-block stack of width {dim}")
-    if dim % 4 or hid % 4:
-        raise ValueError("the kernel reads 4 columns at once: widths must be multiples of 4")
     a = packed.arrays
     w1, w2 = (a["w1_q"], a["w2_q"]) if packed.quantized else (a["w1"], a["w2"])
     scales = [a["w1_scale"], a["w2_scale"]] if packed.quantized else [None, None]
+    wb = w1.element_size()
+    p1, p2 = _plan(max(b, 1), dim, hid, wb)
     vecs = [a[k] for k in _VECTORS]
+    x, states = x.contiguous(), states.contiguous()
     _cuda.require_cuda(x, states, w1, w2, *vecs, *[s for s in scales if s is not None])
-    y = torch.empty(b, dim, dtype=x.dtype, device=x.device)
-    y.copy_(x.reshape(b, dim))
+    if w1.data_ptr() % 16 or w2.data_ptr() % 16:
+        raise ValueError("the kernel reads 16-byte vectors: the packed weights must be "
+                         "16-byte aligned")
+    y = torch.empty(b, 1, dim, dtype=x.dtype, device=x.device)
     new_states = torch.empty_like(states)
-    split1, kps1 = _cuda.split_k(b, dim, hid)
-    split2, kps2 = _cuda.split_k(b, hid, dim)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    xmid, hn = torch.empty(b, dim, **f32), torch.empty(b, dim, **f32)
-    gbuf = torch.empty(b, hid, **f32)
-    ws = torch.empty(max(split1 * b * hid, split2 * b * dim), **f32)
+    if b == 0:
+        return y, new_states
+    n_part = max(p1[1] * b * hid, p2[1] * b * dim)
+    ws, counters = quant._gemv_workspace(
+        x.device, n_part + b * (2 * dim + hid),
+        max(quant._gemv_tiles(b, hid, p1[0], wb), quant._gemv_tiles(b, dim, p2[0], wb)))
+    xmid = ws.data_ptr() + 4 * n_part  # then hn (B, C) and g (B, H), all f32
     # C-side StageVectors order: the 8 vectors, then the two scales
     ptrs = (ctypes.c_void_p * 10)(*[_cuda.ptr(t) for t in vecs + scales])
     _cuda.library().call(
-        "vv_fused_stage_step", y.data_ptr(), _cuda.dtype_code(x), states.data_ptr(),
+        "vv_fused_stage_step", y.data_ptr(), x.data_ptr(), _cuda.dtype_code(x), states.data_ptr(),
         new_states.data_ptr(), ctypes.cast(ptrs, ctypes.c_void_p), w1.data_ptr(), w2.data_ptr(),
-        _cuda.dtype_code(w1), xmid.data_ptr(), hn.data_ptr(), gbuf.data_ptr(), ws.data_ptr(),
-        nb, b, dim, hid, packed.eps, split1, kps1, split2, kps2, _cuda.stream_ptr(x.device),
+        _cuda.dtype_code(w1), xmid, xmid + 4 * b * dim, xmid + 8 * b * dim, ws.data_ptr(),
+        counters.data_ptr(), nb, b, dim, hid, packed.eps, *p1, *p2, _cuda.stream_ptr(x.device),
     )
     fused_stage_step.launches += 1
-    return y[:, None, :], new_states
+    return y, new_states
 
 
 fused_stage_step.launches = 0
