@@ -6,11 +6,14 @@ per-frame time of two checkouts on one card.
 
 Imports chip_smoke.py from DIR (default: this checkout), builds its
 full-width 1.5B serving model once (seed 0) and runs its end_to_end()
-three times (each a 3- and a 32-frame generate() at max_length 4096 and
-65536), printing each run's ms per frame as a JSON line. The eager frame
-is bound by host dispatch and its wall time spreads widely between runs,
-so a comparison alternates checkouts in one call (A, B, A, B) and reads
-the spreads. Needs one CUDA device; exits non-zero otherwise.
+three times, printing each run's ms per frame as a JSON line. Each
+end_to_end() alternates, at max_length 4096 and 65536 and for K = 1 and 4
+frames a window, the graphed generate() (a CUDA-graph replay a window)
+and the same runs through the step function's eager call (each a 3- and
+a 32-frame run). The eager frame is bound by host dispatch and its wall
+time spreads widely between runs, so a comparison of two checkouts
+alternates them in one call (A, B, A, B) and reads the spreads. Needs one
+CUDA device; exits non-zero otherwise.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import subprocess
 import sys
 from pathlib import Path
 
@@ -42,11 +46,16 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     import chip_smoke
 
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
     model = chip_smoke.serving_model(0)
     for i in range(REPEATS):
         runs = chip_smoke.end_to_end(model, 0, 32)["runs"]
         print(json.dumps({"checkout": root.name, "run": i, "device": torch.cuda.get_device_name(0),
-                          "per_frame_ms": {k: v["per_frame_ms"] for k, v in runs.items()}}),
+                          "card": card,
+                          "per_frame_ms": {k: v["per_frame_ms"] for k, v in runs.items()},
+                          "rtf": {k: v["rtf"] for k, v in runs.items()},
+                          "alloc_retries": {k: v["alloc_retries"] for k, v in runs.items()}}),
               flush=True)
 
 

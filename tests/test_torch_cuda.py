@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from vibevoice_tpu_torch.ops import _cuda
 from vibevoice_tpu_torch.ops import flash_attention as fa
 from vibevoice_tpu_torch.ops import head_fused as hf
 from vibevoice_tpu_torch.ops import quant
@@ -741,3 +742,263 @@ def test_ring_over_nccl(dev, tmp_path):
         for bi, n in enumerate(valid.sum(1).tolist()):
             for gc, wc in ((ring.cache.k[li], ref.cache.k[li]), (ring.cache.v[li], ref.cache.v[li])):
                 assert _rel(gc[bi, :, :n], wc[bi, :, :n]) < 1e-4
+
+
+# ---------------------------------------------------------------------------
+# The compiled frame step: generate() replaying a CUDA graph
+# ---------------------------------------------------------------------------
+
+
+def _tiny_serving(dev, seed=0):
+    """Tiny config with the serving packs (int8 LM and lm_head, kernels C
+    and D), f32 activations, on the card; the tokenizer blocks' layer scales
+    at 0.3 so that every block does work."""
+    from vibevoice_tpu_torch.configs import tiny_config
+    from vibevoice_tpu_torch.models import vibevoice as vv
+    from vibevoice_tpu_torch.utils.params import init
+
+    cfg = tiny_config()
+    p = init(cfg, seed=seed, device="cpu")
+    for part in (p["acoustic_tokenizer"]["decoder"], p["semantic_tokenizer"]["encoder"]):
+        for blk in (b for stage in part["stages"] for b in stage):
+            blk["gamma"].fill_(0.3)
+            blk["ffn_gamma"].fill_(0.3)
+    return cfg, vv.fuse_for_serving(vv.quantize_for_inference(_to(p, dev)), cfg, quantize=True)
+
+
+def _step_case(cfg, mode, k, prompt_seed=0):
+    """generate() keywords for one case: "plain" (argmax, latents from the
+    seeded generator), "inject" (noise_bank and forced_tokens), "sde" (the
+    SDE solver and do_sample, all draws from the generator) or "sample"
+    (do_sample with top_p 0.8). Two right-padded prompts, max_length 48,
+    2 solver steps. In "plain", speech_diffusion is id 5, the candidate
+    this random model's argmax chooses first, so that a frame diffuses."""
+    from vibevoice_tpu_torch.models import inference as inf
+
+    rng = np.random.RandomState(prompt_seed)
+    ids = rng.randint(10, 100, (2, 10)).astype(np.int64)
+    valid = np.ones((2, 10), bool)
+    valid[1, 8:] = False
+    ids[0, 9] = ids[1, 7] = TOK["speech_start"]
+    opts = dict(ddpm_steps=2, max_length=48, frames_per_dispatch=k)
+    tok = {**TOK, "speech_start": 7, "speech_diffusion": 5} if mode == "plain" else TOK
+    kw = dict(input_ids=ids, valid_mask=valid, tokens=inf.SpecialTokens(**tok), seed=0)
+    if mode == "inject":
+        kw["noise_bank"] = {"init": rng.randn(8, 2, cfg.acoustic_vae_dim).astype(np.float32)}
+        forced = np.full((12, 2), TOK["speech_diffusion"], np.int64)
+        forced[3] = [TOK["speech_end"], -1]
+        forced[4, 0] = TOK["speech_start"]
+        forced[11, 1] = TOK["eos"]
+        kw["forced_tokens"] = forced
+    elif mode == "sde":
+        opts.update(sde=True, do_sample=True)
+    elif mode == "sample":
+        opts.update(do_sample=True, top_p=0.8)
+    return {**kw, "opts": inf.GenerateOptions(**opts)}
+
+
+def _default_step_fn(cfg, kw):
+    from vibevoice_tpu_torch.models import inference as inf
+
+    o, inject = kw["opts"], "noise_bank" in kw or "forced_tokens" in kw
+    if o.frames_per_dispatch > 1:
+        return inf.make_multi_step_fn(cfg, kw["tokens"], o, o.frames_per_dispatch, inject)
+    return inf.make_step_fn(cfg, kw["tokens"], o, inject)
+
+
+def _captures_of(fn):
+    from vibevoice_tpu_torch.models import inference as inf
+
+    return [c for key, c in inf._captures.items() if key[0] is fn]
+
+
+def _assert_same_run(got, want, tol=1e-5):
+    """Identical tokens and reach_max flags; audio within `tol` of the peak
+    (a replay runs the eager frame's kernels on the same inputs, so the
+    bits are expected to agree; the limit leaves room for a library
+    routine that picks another algorithm under capture)."""
+    np.testing.assert_array_equal(got.sequences, want.sequences)
+    np.testing.assert_array_equal(got.reach_max_step_sample, want.reach_max_step_sample)
+    for a, b in zip(got.speech_outputs, want.speech_outputs):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert a.shape == b.shape and np.isfinite(a).all()
+            assert np.abs(a - b).max() <= tol * max(np.abs(b).max(), 1e-6)
+
+
+@pytest.mark.parametrize("mode", ["plain", "inject", "sde", "sample"])
+@pytest.mark.parametrize("k", [1, 4])
+def test_graphed_generate_matches_eager(dev, k, mode):
+    """The default generate() on the card replays a captured graph of K
+    frames; the same run through the step function's eager call gives the
+    same tokens and audio within 1e-5 of the peak."""
+    from vibevoice_tpu_torch.models import inference as inf
+
+    cfg, params = _tiny_serving(dev)
+    kw = _step_case(cfg, mode, k)
+    fn = _default_step_fn(cfg, kw)
+    replays = fn.replays
+    graphed = inf.generate(cfg, params, **kw)
+    assert fn.replays > replays
+    replays = fn.replays
+    eager = inf.generate(cfg, params, step_fn=fn.eager, **kw)
+    assert fn.replays == replays
+    assert graphed.sequences.shape[1] > (10 + k if mode == "inject" else 10)
+    _assert_same_run(graphed, eager)
+
+
+def test_graphed_generate_reuses_its_capture(dev):
+    """A second generate() with another prompt of the same shapes replays
+    the first call's capture (no new one) and equals its eager run."""
+    from vibevoice_tpu_torch.models import inference as inf
+
+    cfg, params = _tiny_serving(dev)
+    first = _step_case(cfg, "sample", 4, prompt_seed=0)
+    fn = _default_step_fn(cfg, first)
+    inf.generate(cfg, params, **first)
+    captures, replays = _captures_of(fn), fn.replays
+    second = _step_case(cfg, "sample", 4, prompt_seed=1)
+    graphed = inf.generate(cfg, params, **second)
+    assert _captures_of(fn) == captures and fn.replays > replays
+    _assert_same_run(graphed, inf.generate(cfg, params, step_fn=fn.eager, **second))
+
+
+def test_graph_survives_grown_decode_counters(dev):
+    """A graph captured before kernel B's decode counters grow still
+    replays right: the counters are one per (sample, KV head, row tile),
+    so a decode call with more of those than the buffer holds (here 8 KV
+    heads and enough samples, over a 64-slot cache; the cache's length
+    does not size them) replaces the buffer, and the old one, which the
+    graph launches read, stays allocated."""
+    from vibevoice_tpu_torch.models import inference as inf
+
+    cfg, params = _tiny_serving(dev)
+    kw = _step_case(cfg, "plain", 1)
+    first = inf.generate(cfg, params, **kw)  # captures
+    dev = torch.device("cuda", torch.cuda.current_device())  # the counters' key
+    old = fa._decode_counters[dev]
+    b = old.numel() // 8 + 1
+    q = torch.randn(b, 1, 8, 64, device=dev).to(torch.bfloat16)
+    kc = torch.randn(b, 8, 64, 64, device=dev).to(torch.bfloat16)
+    out = fa.flash_cached_attention(q, kc, kc, torch.full((b,), 40, dtype=torch.int32, device=dev))
+    assert fa._decode_counters[dev] is not old and any(t is old for t in fa._decode_retired)
+    torch.testing.assert_close(out.float(), fa.flash_cached_attention_plain(
+        q, kc, kc, torch.full((b,), 40, dtype=torch.int32, device=dev)).float(),
+        rtol=1e-2, atol=1e-2)
+    del out, q, kc
+    torch.cuda.empty_cache()
+    torch.empty(64 << 20, dtype=torch.uint8, device=dev).fill_(0xFF)  # dirty freed memory
+    again = inf.generate(cfg, params, **kw)  # replays the first capture
+    torch.cuda.synchronize()
+    _assert_same_run(again, first, tol=0.0)
+
+
+def test_replays_count_the_captured_launches(dev):
+    """After N replays each kernel counter has grown by N times its count
+    in the capture (beside the eager prefill's launches), which equals what
+    the eager run launches."""
+    from vibevoice_tpu_torch.models import inference as inf
+
+    cfg, params = _tiny_serving(dev)
+    kw = _step_case(cfg, "inject", 4)
+    fn = _default_step_fn(cfg, kw)
+    inf.generate(cfg, params, **kw)  # captures (the memo may hold other tests' captures)
+    cap = next(c for c in _captures_of(fn) if c.params is params)
+    assert sum(cap.launches.values()) > 0
+    counters = _cuda.LAUNCH_COUNTERS
+
+    def counts(run):
+        for f, a in counters.values():
+            setattr(f, a, 0)
+        run()
+        return {name: getattr(f, a) for name, (f, a) in counters.items()}
+
+    prefill = counts(lambda: inf.prefill_fn(
+        cfg, params, torch.as_tensor(kw["input_ids"], device=dev), 48,
+        torch.as_tensor(kw["valid_mask"], device=dev), None, kw["tokens"]))
+    replays = fn.replays
+    graphed = counts(lambda: inf.generate(cfg, params, **kw))
+    n = fn.replays - replays
+    eager = counts(lambda: inf.generate(cfg, params, step_fn=fn.eager, **kw))
+    assert n > 1
+    assert graphed == {k: p + n * cap.launches.get(k, 0) for k, p in prefill.items()}
+    assert graphed == eager
+
+
+def test_concurrent_requests_share_a_capture_one_at_a_time(dev):
+    """Two generate() calls on two threads with one step function (the
+    same options and shapes, so one capture and one static carry) each
+    give what the call gives alone: a request owns the step function from
+    its first window to its last, so neither continues from the other's KV
+    cache and states. The first pair's capture runs while the other
+    thread enqueues its prefill."""
+    import threading
+
+    from vibevoice_tpu_torch.models import inference as inf
+
+    cfg, params = _tiny_serving(dev)
+    cases = [_step_case(cfg, "inject", 4, prompt_seed=s) for s in (0, 1)]
+    fn = _default_step_fn(cfg, cases[0])
+    alone = [inf.generate(cfg, params, **kw) for kw in cases]
+    for key in [k for k in inf._captures if k[0] is fn]:
+        del inf._captures[key]
+    for _ in range(2):  # one thread captures while the other prefills, then both replay
+        got, start = [None, None], threading.Barrier(2)
+
+        def run(i):
+            start.wait()
+            got[i] = inf.generate(cfg, params, **cases[i])
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in (0, 1)]
+        replays = fn.replays
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        assert fn.replays > replays
+        for g, a, kw in zip(got, alone, cases):
+            _assert_same_run(g, a, tol=0.0)
+            _assert_same_run(g, inf.generate(cfg, params, step_fn=fn.eager, **kw))
+
+
+def test_streams_read_in_turn_match_their_runs_alone(dev):
+    """Two VibeVoiceTTS.stream() iterators read in turn (each generates on
+    a thread of its own, both through one step function) give the frames
+    that each stream gives when read alone."""
+    from vibevoice_tpu_torch.models import inference as inf
+    from vibevoice_tpu_torch.processor.processor import VibeVoiceProcessor
+    from vibevoice_tpu_torch.processor.text_tokenizer import FallbackTextTokenizer
+    from vibevoice_tpu_torch.tts import VibeVoiceTTS
+
+    cfg, params = _tiny_serving(dev)
+    hop = cfg.acoustic_tokenizer_config.hop_length
+    proc = VibeVoiceProcessor(tokenizer=FallbackTextTokenizer(), speech_tok_compress_ratio=hop)
+    # speech_diffusion at id 5, which this random model samples often
+    tts = VibeVoiceTTS(cfg, params, proc, inf.SpecialTokens(**{**TOK, "speech_start": 7,
+                                                                "speech_diffusion": 5}))
+    voice = np.random.RandomState(1).randn(3 * hop).astype(np.float32)
+    scripts = ("Speaker 1: hello there", "Speaker 1: good morning to you all")
+    # the random model may sample eos before any speech frame: the first
+    # seed under which both streams speak alone is the one read in turn
+    for seed in range(16):
+        kw = dict(voices=[voice], seed=seed, ddpm_steps=2, max_length=96, frames_per_dispatch=4,
+                  do_sample=True, top_p=0.9)
+        alone = [[np.array(c) for c in tts.stream(s, **kw)] for s in scripts]
+        if all(len(frames) > 0 for frames in alone):
+            break
+    else:
+        pytest.fail("no seed under 16 gives both streams a speech frame")
+    turns: list = [[], []]
+    streams = [iter(tts.stream(s, **kw)) for s in scripts]
+    live = [True, True]
+    while any(live):
+        for i, it in enumerate(streams):
+            if live[i]:
+                try:
+                    turns[i].append(np.array(next(it)))
+                except StopIteration:
+                    live[i] = False
+    for got, want in zip(turns, alone):
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)

@@ -15,14 +15,25 @@ diffusing; ``speech_start`` resets a negative stream to length 1.
 
 ``frames_per_dispatch = K`` runs K steps per window and reads the window's
 outputs back with one host synchronisation; sequences are identical for
-every K. Randomness comes from a ``torch.Generator`` seeded with ``seed``,
-or from the injection hooks (``noise_bank``, ``forced_tokens``) that tests
-use to replay another implementation's draws.
+every K. The window is the compiled step of ``make_step_fn`` /
+``make_multi_step_fn`` (the JAX package's jitted, donated step): on the card
+it is captured once into a CUDA graph and replayed, so a frame costs one
+graph launch instead of a host dispatch per kernel. The step draws nothing
+itself: before each window the host loop draws its noise (``FrameNoise``:
+initial latents, SDE noise, the token choice's uniforms) frame by frame from
+a ``torch.Generator`` seeded with ``seed``, so eager and graphed runs, and
+runs of every K, consume the same numbers. The injection hooks
+(``noise_bank``, ``forced_tokens``) replay another implementation's draws
+in tests.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
+import threading
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Callable, Dict, List, NamedTuple, Optional
 
@@ -31,6 +42,7 @@ import torch
 
 from ..configs import VibeVoiceConfig
 
+from ..ops import _cuda
 from ..schedule import dpm_solver as dpm
 from . import diffusion_head as dh
 from . import qwen2
@@ -212,19 +224,82 @@ def make_solver(cfg: VibeVoiceConfig, opts: GenerateOptions) -> dpm.SolverCoeffs
     )
 
 
-def _choose_tokens(params, carry: DecodeCarry, tokens: SpecialTokens, opts: GenerateOptions,
-                   cand: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+
+class FrameNoise(NamedTuple):
+    """The random draws of a window of K frames, each with a leading K axis
+    (one frame of ``make_step_fn`` has none): ``init`` (K, B, D) initial
+    latents, ``sde`` (K, S, B, D) the SDE solver's noise and ``uniform``
+    (K, B) the token choice's uniforms. A field is None where the step reads
+    no such draw: ``init`` and ``sde`` under injection (the hooks hold them),
+    ``sde`` without opts.sde, ``uniform`` without opts.do_sample."""
+
+    init: Optional[torch.Tensor]
+    sde: Optional[torch.Tensor]
+    uniform: Optional[torch.Tensor]
+
+
+def _empty_noise(cfg: VibeVoiceConfig, opts: GenerateOptions, batch: int, frames: int,
+                 inject: bool, device) -> FrameNoise:
+    f32 = dict(dtype=torch.float32, device=device)
+    d = cfg.acoustic_vae_dim
+    return FrameNoise(
+        None if inject else torch.empty(frames, batch, d, **f32),
+        torch.empty(frames, make_solver(cfg, opts).num_steps, batch, d, **f32)
+        if opts.sde and not inject else None,
+        torch.empty(frames, batch, **f32) if opts.do_sample else None,
+    )
+
+
+def _fill_noise(noise: FrameNoise, generator: torch.Generator) -> FrameNoise:
+    """Redraw a window's noise in place, frame by frame in the order init,
+    sde, uniform, so that a run draws the same numbers for every K."""
+    live = [t for t in noise if t is not None]
+    for f in range(live[0].shape[0] if live else 0):
+        for t, uniform in zip(noise, (False, False, True)):
+            if t is not None:
+                (t[f].uniform_ if uniform else t[f].normal_)(generator=generator)
+    return noise
+
+
+def draw_noise(cfg: VibeVoiceConfig, opts: GenerateOptions, batch: int,
+               generator: torch.Generator, *, frames: Optional[int] = None,
+               inject: bool = False) -> FrameNoise:
+    """A window's draws from ``generator`` on its device: ``frames`` K for
+    ``make_multi_step_fn``, None for one frame of ``make_step_fn``."""
+    noise = _fill_noise(_empty_noise(cfg, opts, batch, frames or 1, inject, generator.device),
+                        generator)
+    return noise if frames else _frame_of(noise, 0)
+
+
+def _frame_of(tree, f: int):
+    """Frame f of a window's stacked tensors (None stays None)."""
+    return _tree_map(lambda t: t[f], tree)
+
+
+def _inverse_cdf(probs: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Index i of each row of ``probs`` (B, C) where ``u`` (B,) in [0, 1),
+    scaled by the row's total, falls in [cdf[i - 1], cdf[i]); never an
+    entry of probability 0."""
+    cdf = probs.cumsum(-1)
+    pick = (cdf <= u[:, None] * cdf[:, -1:]).sum(-1)
+    idx = torch.arange(probs.shape[-1], device=probs.device)
+    last = torch.where(probs > 0, idx, torch.zeros_like(idx)).amax(-1)
+    return torch.minimum(pick, last)
+
+
+def _choose_tokens(params, h_pos: torch.Tensor, opts: GenerateOptions, cand: torch.Tensor,
+                   uniform: Optional[torch.Tensor]) -> torch.Tensor:
     """Constrained token choice over the candidate set; top-p needs the
-    full-vocab distribution, every other mode reads the candidate columns."""
+    full-vocab distribution, every other mode reads the candidate columns.
+    Sampling picks by inverse CDF with the pre-drawn ``uniform`` (B,)."""
     need_full_vocab = opts.do_sample and opts.top_p < 1.0
     if need_full_vocab:
-        logits = vv.lm_logits(params, carry.h_pos).float()
+        logits = vv.lm_logits(params, h_pos).float()
         cand_logits = logits[:, cand]
     else:
-        cand_logits = vv.lm_logits_cand(params, carry.h_pos, cand).float()
+        cand_logits = vv.lm_logits_cand(params, h_pos, cand).float()
     if not opts.do_sample:
         return cand[cand_logits.argmax(-1)]
-    rows = torch.arange(cand_logits.shape[0], device=cand.device)
     if need_full_vocab:
         # the nucleus is computed over the whole distribution, then
         # intersected with the candidates; the best candidate always stays
@@ -238,25 +313,37 @@ def _choose_tokens(params, carry: DecodeCarry, tokens: SpecialTokens, opts: Gene
     else:
         cand_keep = torch.ones_like(cand_logits, dtype=torch.bool)
         cand_scaled = cand_logits / max(opts.temperature, 1e-6)
-    cand_keep[rows, cand_scaled.argmax(-1)] = True
+    best = cand_scaled.argmax(-1, keepdim=True)
+    cand_keep = cand_keep | (torch.arange(cand.shape[0], device=cand.device) == best)
     probs = torch.softmax(cand_scaled.masked_fill(~cand_keep, float("-inf")), -1)
-    return cand[torch.multinomial(probs, 1, generator=generator)[:, 0]]
+    return cand[_inverse_cdf(probs, uniform)]
 
 
-def step(cfg: VibeVoiceConfig, params, carry: DecodeCarry, ext_finish: torch.Tensor, *,
-         tokens: SpecialTokens, opts: GenerateOptions, coeffs: dpm.SolverCoeffs,
-         generator: torch.Generator, hooks: Optional[Dict] = None):
-    """One fused frame. ``hooks`` (injection) holds "forced" (B,) tokens or
-    -1, "init" (E, B, D) per-event initial latents and, for SDE, "sde"
-    (E, S, B, D), indexed by the per-sample diffusion-event count."""
+class _StepConsts(NamedTuple):
+    """What the step reads that does not change between frames, on the device."""
+
+    cand: torch.Tensor  # (C,) candidate token ids
+    timesteps: torch.Tensor  # (S,) solver timesteps
+
+
+def _step_consts(tokens: SpecialTokens, coeffs: dpm.SolverCoeffs, device) -> _StepConsts:
+    return _StepConsts(torch.tensor(tokens.candidates, dtype=torch.long, device=device),
+                       torch.from_numpy(coeffs.timesteps).to(device))
+
+
+def _frame(cfg: VibeVoiceConfig, params, carry: DecodeCarry, ext_finish: torch.Tensor,
+           noise: FrameNoise, hooks: Optional[Dict], *, tokens: SpecialTokens,
+           opts: GenerateOptions, coeffs: dpm.SolverCoeffs, consts: _StepConsts):
+    """The body of one frame over device tensors: it copies nothing from the
+    host and draws nothing (``noise`` holds one frame's draws), so a CUDA
+    graph can capture it."""
     lm_cfg = cfg.decoder_config
     hcfg = cfg.diffusion_head_config
     b = carry.h_pos.shape[0]
     dev = carry.h_pos.device
-    cand = torch.tensor(tokens.candidates, dtype=torch.long, device=dev)
 
     # 1. constrained token choice
-    next_tok = _choose_tokens(params, carry, tokens, opts, cand, generator)
+    next_tok = _choose_tokens(params, carry.h_pos, opts, consts.cand, noise.uniform)
     if hooks is not None:
         next_tok = torch.where(hooks["forced"] >= 0, hooks["forced"], next_tok)
     next_tok = torch.where(carry.finished, torch.full_like(next_tok, tokens.eos), next_tok)
@@ -280,21 +367,18 @@ def step(cfg: VibeVoiceConfig, params, carry: DecodeCarry, ext_finish: torch.Ten
 
     # 4. CFG diffusion; AdaLN modulations of all solver steps computed once
     head = params["diffusion_head"]
-    timesteps = torch.from_numpy(coeffs.timesteps).to(dev)
-    mods = dh.precompute_mods(head, hcfg, timesteps, torch.cat([carry.h_pos, carry.h_neg]))
+    mods = dh.precompute_mods(head, hcfg, consts.timesteps, torch.cat([carry.h_pos, carry.h_neg]))
     extras = [dh.step_mods(mods, i) for i in range(coeffs.num_steps)]
-    sde_noise = None
     if hooks is not None:
         rows = torch.arange(b, device=dev)
         e = carry.n_diff.clamp(0, hooks["init"].shape[0] - 1)
         x_init = hooks["init"][e, rows].float()
-        if opts.sde:
-            sde_noise = hooks["sde"][e, :, rows].transpose(0, 1).float()  # (S, B, D)
+        sde_noise = hooks["sde"][e, :, rows].transpose(0, 1).float() if opts.sde else None
     else:
-        x_init = torch.randn(b, cfg.acoustic_vae_dim, generator=generator, device=dev)
+        x_init, sde_noise = noise.init, noise.sde  # (B, D), (S, B, D)
     latent = dpm.cfg_sample(
         coeffs, lambda x, t, e: dh.apply_with_mods(head, hcfg, x, e), carry.h_pos, carry.h_neg,
-        opts.cfg_scale, x_init, generator=generator, noise=sde_noise, extras=extras,
+        opts.cfg_scale, x_init, noise=sde_noise, extras=extras,
     )
 
     # 5. vocode one frame + semantic re-encode; commit states for diffusing samples
@@ -325,9 +409,277 @@ def step(cfg: VibeVoiceConfig, params, carry: DecodeCarry, ext_finish: torch.Ten
     return new_carry, StepOut(next_tok, audio, diff_mask, finished)
 
 
+def step(cfg: VibeVoiceConfig, params, carry: DecodeCarry, ext_finish: torch.Tensor, *,
+         tokens: SpecialTokens, opts: GenerateOptions, coeffs: dpm.SolverCoeffs,
+         generator: torch.Generator, hooks: Optional[Dict] = None):
+    """One frame, run eagerly, with its draws taken from ``generator``.
+    ``hooks`` (injection) holds "forced" (B,) tokens or -1, "init" (E, B, D)
+    per-event initial latents and, for SDE, "sde" (E, S, B, D), indexed by
+    the per-sample diffusion-event count."""
+    noise = draw_noise(cfg, opts, carry.h_pos.shape[0], generator, inject=hooks is not None)
+    consts = _step_consts(tokens, coeffs, carry.h_pos.device)
+    return _frame(cfg, params, carry, ext_finish, noise, hooks, tokens=tokens, opts=opts,
+                  coeffs=coeffs, consts=consts)
+
+
+# ---------------------------------------------------------------------------
+# The compiled step: K frames captured once in a CUDA graph and replayed
+# ---------------------------------------------------------------------------
+
+
+def _tree_map(fn, *trees):
+    """fn over the tensors of equally shaped NamedTuples, dicts, tuples and
+    lists; None and other leaves of the first tree pass through."""
+    t = trees[0]
+    if isinstance(t, torch.Tensor):
+        return fn(*trees)
+    if isinstance(t, dict):
+        return {k: _tree_map(fn, *(x[k] for x in trees)) for k in t}
+    if isinstance(t, tuple) and hasattr(t, "_fields"):
+        return type(t)(*(_tree_map(fn, *xs) for xs in zip(*trees)))
+    if isinstance(t, (tuple, list)):
+        return type(t)(_tree_map(fn, *xs) for xs in zip(*trees))
+    return t
+
+
+def _copy_into(dst, src) -> None:
+    _tree_map(lambda d, s: d if d is s else d.copy_(s), dst, src)
+
+
+def _read_launches() -> Dict[str, int]:
+    return {name: getattr(fn, attr) for name, (fn, attr) in _cuda.LAUNCH_COUNTERS.items()}
+
+
+def _add_launches(counts: Dict[str, int]) -> None:
+    """A replay launches what its capture recorded without running the
+    kernels' wrappers, so each replay adds the capture's counts itself."""
+    for name, n in counts.items():
+        fn, attr = _cuda.LAUNCH_COUNTERS[name]
+        setattr(fn, attr, getattr(fn, attr) + n)
+
+
+class _Capture:
+    """One captured window: the graph, its static inputs and outputs, and
+    the kernel launches it holds."""
+
+    def __init__(self, params, carry, noise, ext_finish, hooks):
+        self.params = params  # the graph reads these tensors: keep them alive
+        clone = lambda t: t.clone()
+        self.carry = _tree_map(clone, carry)
+        self.noise = _tree_map(clone, noise)
+        self.ext_finish = ext_finish.clone()
+        self.hooks = _tree_map(clone, hooks)
+        self.graph = torch.cuda.CUDAGraph()
+        self.out: Optional[StepOut] = None
+        self.launches: Dict[str, int] = {}  # each kernel's launches in one replay
+
+
+MAX_CAPTURES = 4  # captured windows kept in all, the least recently used dropped
+_captures: "OrderedDict[tuple, _Capture]" = OrderedDict()  # (StepFn, key) -> capture
+_captures_lock = threading.Lock()
+
+
+class StepFn:
+    """The compiled frame step of ``make_step_fn`` / ``make_multi_step_fn``:
+
+        step_fn(params, carry, noise, ext_finish, hooks=None) -> (carry, out)
+
+    ``noise`` is the window's ``FrameNoise`` (``draw_noise``), ``ext_finish``
+    (K, B) bool marks frames stopped from outside, ``hooks`` (injection)
+    holds "init" (E, B, D), "sde" (E, S, B, D) under opts.sde and "forced"
+    (K, B); ``out`` is the StepOut stacked over K. From ``make_step_fn`` the
+    K axis is absent from the per-frame inputs and from ``out``.
+
+    On CUDA tensors the window of K frames is captured once into a
+    ``torch.cuda.CUDAGraph`` per (params object, B, cache slots, cache dtype,
+    device, hook shapes), after one eager frame, and replayed; a capture
+    that fails raises. Each capture holds a static copy
+    of the carry, KV cache included, so at most ``MAX_CAPTURES`` are kept
+    over all step functions. The graph reads the tensors of
+    ``params`` as they were at capture, and runs in static buffers, like
+    JAX's donated carry: the returned carry and ``out`` are overwritten by
+    the next call, so copy out what is kept before calling again. Passing
+    back the carry it returned costs nothing; another carry (a new prefill)
+    is copied in, its KV cache included. So one request at a time owns a
+    step function's captures: ``request()`` holds them for its length
+    (``generate`` takes it), and a call from another thread waits until
+    it ends; each call holds them too. On CPU tensors the same body runs
+    eagerly. ``eager`` is the same call without the graph on any device,
+    the reference that the graphed runs are held to. ``replays`` counts the
+    graph launches."""
+
+    def __init__(self, cfg: VibeVoiceConfig, tokens: SpecialTokens, opts: GenerateOptions,
+                 frames: int, stacked: bool):
+        self.cfg, self.tokens, self.opts = cfg, tokens, opts
+        self.frames, self.stacked = frames, stacked
+        self.coeffs = make_solver(cfg, opts)
+        self.replays = 0
+        self._consts: Dict = {}
+        self._owner = threading.RLock()
+
+    def request(self):
+        """The step function's captures held by the calling thread until the
+        block ends: ``with step_fn.request(): ...`` around one request's
+        windows, so that no other request's carry is copied in between."""
+        return self._owner
+
+    def _window(self, params, carry, noise, ext_finish, hooks, frames):
+        """``frames`` frames of the eager body over stacked inputs."""
+        dev = carry.h_pos.device
+        consts = self._consts.get(dev)
+        if consts is None:
+            consts = self._consts[dev] = _step_consts(self.tokens, self.coeffs, dev)
+        outs = []
+        for f in range(frames):
+            h = None if hooks is None else {**hooks, "forced": hooks["forced"][f]}
+            carry, out = _frame(self.cfg, params, carry, ext_finish[f], _frame_of(noise, f), h,
+                                tokens=self.tokens, opts=self.opts, coeffs=self.coeffs,
+                                consts=consts)
+            outs.append(out)
+        return carry, StepOut(*(torch.stack(x) for x in zip(*outs)))
+
+    def _stack(self, noise, ext_finish, hooks):
+        """Give make_step_fn's per-frame inputs the K axis of one frame."""
+        if self.stacked:
+            return noise, ext_finish, hooks
+        hooks = None if hooks is None else {**hooks, "forced": hooks["forced"][None]}
+        return _tree_map(lambda t: t[None], noise), ext_finish[None], hooks
+
+    def _unstack(self, out: StepOut) -> StepOut:
+        return out if self.stacked else _frame_of(out, 0)
+
+    def eager(self, params, carry: DecodeCarry, noise: FrameNoise, ext_finish: torch.Tensor,
+              hooks: Optional[Dict] = None):
+        """The window run eagerly, launch by launch, on any device."""
+        noise, ext_finish, hooks = self._stack(noise, ext_finish, hooks)
+        carry, out = self._window(params, carry, noise, ext_finish, hooks, self.frames)
+        return carry, self._unstack(out)
+
+    def __call__(self, params, carry: DecodeCarry, noise: FrameNoise, ext_finish: torch.Tensor,
+                 hooks: Optional[Dict] = None):
+        if carry.h_pos.device.type != "cuda":
+            return self.eager(params, carry, noise, ext_finish, hooks)
+        with self._owner:
+            return self._replay(params, carry, noise, ext_finish, hooks)
+
+    def _replay(self, params, carry, noise, ext_finish, hooks):
+        noise, ext_finish, hooks = self._stack(noise, ext_finish, hooks)
+        key = (self, id(params), carry.h_pos.device, tuple(carry.h_pos.shape),
+               carry.h_pos.dtype, carry.cache.max_len, carry.cache.k[0].dtype,
+               None if hooks is None else tuple((k, tuple(v.shape)) for k, v in sorted(hooks.items())))
+        with _captures_lock:
+            cap = _captures.get(key)
+            if cap is not None:
+                _captures.move_to_end(key)
+        if cap is None:
+            cap = self._capture(params, carry, noise, ext_finish, hooks)
+            with _captures_lock:
+                _captures[key] = cap
+                while len(_captures) > MAX_CAPTURES:
+                    _captures.popitem(last=False)
+        if carry is not cap.carry:
+            _copy_into(cap.carry, carry)
+        _copy_into((cap.noise, cap.ext_finish, cap.hooks), (noise, ext_finish, hooks))
+        cap.graph.replay()
+        _add_launches(cap.launches)
+        self.replays += 1
+        return cap.carry, self._unstack(cap.out)
+
+    def _capture(self, params, carry, noise, ext_finish, hooks) -> _Capture:
+        cap = _Capture(params, carry, noise, ext_finish, hooks)
+        # one eager frame first, on the caller's stream, where the kernels'
+        # shared workspaces are used in order: it builds the kernel library,
+        # sizes those workspaces and counters, and lets cuDNN choose its
+        # algorithms; what it writes into the static carry is overwritten
+        # when the caller's carry is copied in
+        first = None if cap.hooks is None else {**cap.hooks, "forced": cap.hooks["forced"][:1]}
+        self._window(params, cap.carry, _tree_map(lambda t: t[:1], cap.noise),
+                     cap.ext_finish[:1], first, 1)
+        before = _read_launches()
+        try:
+            # thread_local: work that other threads enqueue meanwhile does
+            # not invalidate the capture
+            with torch.cuda.graph(cap.graph, capture_error_mode="thread_local"):
+                new_carry, cap.out = self._window(params, cap.carry, cap.noise, cap.ext_finish,
+                                                  cap.hooks, self.frames)
+                _copy_into(cap.carry, new_carry)  # replays chain: the next reads this one's carry
+        finally:
+            delta = {k: n - before.get(k, 0) for k, n in _read_launches().items()}
+            cap.launches = {k: n for k, n in delta.items() if n}
+            _add_launches({k: -n for k, n in cap.launches.items()})  # a capture launches nothing
+        return cap
+
+
+def _trace_opts(opts: GenerateOptions) -> GenerateOptions:
+    """Project opts onto the fields the step reads, so host-only knobs
+    (max_length, max_length_times, prefill_chunk, frames_per_dispatch) do
+    not split the step-function memo into separate captures. kv_int8 is
+    left out too: the step reads the cache's dtype from the carry, and a
+    capture is keyed on it."""
+    return dataclasses.replace(
+        GenerateOptions(),
+        cfg_scale=opts.cfg_scale,
+        ddpm_steps=opts.ddpm_steps,
+        do_sample=opts.do_sample,
+        temperature=opts.temperature,
+        top_p=opts.top_p,
+        refresh_negative=opts.refresh_negative,
+        sde=opts.sde,
+    )
+
+
+def make_step_fn(cfg: VibeVoiceConfig, tokens: SpecialTokens, opts: GenerateOptions,
+                 inject: bool = False) -> StepFn:
+    """The compiled one-frame step (``StepFn`` without the K axis), memoized
+    on the options it reads, so every generate() with these options shares
+    its captures. ``inject`` is the JAX signature's: the step reads hooks
+    whenever they are given, and captures are keyed on their shapes."""
+    return _make_step_fn_cached(cfg, tokens, _trace_opts(opts), 1, False)
+
+
+def make_multi_step_fn(cfg: VibeVoiceConfig, tokens: SpecialTokens, opts: GenerateOptions,
+                       frames_per_dispatch: int, inject: bool = False) -> StepFn:
+    """The compiled window of ``frames_per_dispatch`` frames, one graph
+    replay a window on the card (``StepFn``); memoized as ``make_step_fn``."""
+    return _make_step_fn_cached(cfg, tokens, _trace_opts(opts), frames_per_dispatch, True)
+
+
+@functools.lru_cache(maxsize=16)
+def _make_step_fn_cached(cfg, tokens, opts, frames, stacked) -> StepFn:
+    return StepFn(cfg, tokens, opts, frames, stacked)
+
+
 # ---------------------------------------------------------------------------
 # Host loop
 # ---------------------------------------------------------------------------
+
+
+def _to_device(a: np.ndarray, device) -> torch.Tensor:
+    """A host array on ``device``; on the card through pinned memory, without
+    waiting for the copy."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def _fetch(out: StepOut) -> Callable[[], tuple]:
+    """Start copying a window's outputs to the host now, before the next
+    window's graph replay overwrites them; the returned call waits for the
+    copies and gives (tokens, audio_mask, f32 audio, finished) as numpy."""
+    out = (out.tokens, out.audio_mask, out.audio.float(), out.finished)
+    if out[0].device.type != "cuda":
+        return lambda: tuple(t.numpy() for t in out)
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
+            for t in out]
+    done = torch.cuda.Event()
+    done.record()
+
+    def wait():
+        done.synchronize()
+        return tuple(t.numpy().copy() for t in host)
+
+    return wait
 
 
 def generate(
@@ -345,13 +697,21 @@ def generate(
     seed: int = 0,
     audio_streamer=None,
     stop_check_fn: Optional[Callable[[], bool]] = None,
+    show_progress_bar: bool = False,
+    step_fn: Optional[Callable] = None,
     noise_bank: Optional[Dict[str, np.ndarray]] = None,
     forced_tokens: Optional[np.ndarray] = None,
 ) -> GenerationOutput:
-    """Prefill once, then one step per frame on the parameters' device.
+    """Prefill once, then one compiled step a window of
+    ``opts.frames_per_dispatch`` frames on the parameters' device.
 
     input_ids must be RIGHT-padded; ``valid_mask`` marks real tokens.
-    Injection hooks (replaying another implementation's draws):
+    ``step_fn`` defaults to ``make_multi_step_fn`` (K > 1) or
+    ``make_step_fn`` (K = 1) for these options, which replays a CUDA graph
+    on the card; a step function's ``eager`` runs the same frames launch by
+    launch. The step function's captures hold one request's carry, so
+    calls that share one (the same options and shapes, from any thread)
+    decode one after another. Injection hooks (replaying another implementation's draws):
       noise_bank: {"init": (E, B, D), "sde": (E, S, B, D) [sde only],
                    "vae_std": (N,), "vae_eps": (N, F, D) [voice prompt only]}
       forced_tokens: (T, B) int token script; -1 falls through to the model.
@@ -397,8 +757,11 @@ def generate(
         carry = prefill_fn(cfg, params, ids, max_length, vmask, speech_args, tokens, speech_type,
                            opts.kv_int8)
 
-    coeffs = make_solver(cfg, opts)
     inject = noise_bank is not None or forced_tokens is not None
+    k_frames = max(1, opts.frames_per_dispatch)
+    if step_fn is None:
+        step_fn = (make_multi_step_fn(cfg, tokens, opts, k_frames, inject) if k_frames > 1
+                   else make_step_fn(cfg, tokens, opts, inject))
     hooks_base = None
     if inject:
         bank = noise_bank or {}
@@ -412,42 +775,42 @@ def generate(
             if "sde" not in bank:
                 raise ValueError("injection with opts.sde requires noise_bank['sde']")
             hooks_base["sde"] = as_dev(bank["sde"], torch.float32)
+    noise = _empty_noise(cfg, opts, b, k_frames, inject, dev)  # redrawn in place each window
 
-    k_frames = max(1, opts.frames_per_dispatch)
     sequences = [np.asarray(input_ids)]
     audio_chunks: List[List[np.ndarray]] = [[] for _ in range(b)]
     reach_max = np.zeros(b, bool)
     finished_host = np.zeros(b, bool)
 
     def run_window(carry, step0):
-        """Enqueue K frames; returns (carry, stacked outputs, ext_cap, n_live)."""
+        """Enqueue K frames and the copy of their outputs to the host;
+        returns (carry, the copy's wait, ext_cap, n_live)."""
         steps_now = np.arange(step0, step0 + k_frames)
         # per-sample cap (drives reach_max) plus the global bound: frames
         # past max_steps are masked for every sample, so outputs are
         # identical for any K
         ext_cap = steps_now[:, None] >= max_step_per_sample[None, :]
-        ext_finish = as_dev(ext_cap | (steps_now >= max_steps)[:, None])
-        forced = np.full((k_frames, b), -1, np.int64)
-        if forced_tokens is not None:
-            avail = forced_tokens[step0: step0 + k_frames]
-            forced[: len(avail)] = avail
-        forced = as_dev(forced)
-        outs = []
-        for f in range(k_frames):
-            hooks = {**hooks_base, "forced": forced[f]} if inject else None
-            carry, out = step(cfg, params, carry, ext_finish[f], tokens=tokens, opts=opts,
-                              coeffs=coeffs, generator=generator, hooks=hooks)
-            outs.append(out)
-        stacked = StepOut(*(torch.stack(x) for x in zip(*outs)))
-        return carry, stacked, ext_cap, max(0, min(k_frames, max_steps - step0))
+        ext_finish = _to_device(ext_cap | (steps_now >= max_steps)[:, None], dev)
+        hooks = None
+        if inject:
+            forced = np.full((k_frames, b), -1, np.int64)
+            if forced_tokens is not None:
+                avail = forced_tokens[step0: step0 + k_frames]
+                forced[: len(avail)] = avail
+            hooks = {**hooks_base, "forced": _to_device(forced, dev)}
+        _fill_noise(noise, generator)
+        if k_frames == 1:
+            hooks = None if hooks is None else {**hooks, "forced": hooks["forced"][0]}
+            carry, out = step_fn(params, carry, _frame_of(noise, 0), ext_finish[0], hooks)
+            out = _tree_map(lambda t: t[None], out)
+        else:
+            carry, out = step_fn(params, carry, noise, ext_finish, hooks)
+        return carry, _fetch(out), ext_cap, max(0, min(k_frames, max_steps - step0))
 
-    def process_window(out: StepOut, ext_cap, n_live):
+    def process_window(fetched, ext_cap, n_live):
         """Read one window back (one synchronisation) and deliver it."""
         nonlocal reach_max, finished_host
-        toks = out.tokens.cpu().numpy()
-        amask = out.audio_mask.cpu().numpy()
-        audio = out.audio.float().cpu().numpy()
-        fin = out.finished.cpu().numpy()
+        toks, amask, audio, fin = fetched()
         for f in range(n_live):
             sequences.append(toks[f][:, None])
             if amask[f].any():
@@ -465,31 +828,46 @@ def generate(
             if finished_host.all():
                 break
 
-    # One window kept in flight: window N+1 is enqueued before window N is
-    # read back, so the device works while the host delivers.
-    inflight = None
-    for step0 in range(0, max_steps, k_frames):
-        if stop_check_fn is not None and stop_check_fn():
-            if inflight is not None:
-                process_window(*inflight)
-                inflight = None
-            if audio_streamer is not None:
-                audio_streamer.end()
-            break
-        if audio_streamer is not None and any(getattr(audio_streamer, "finished_flags", None) or []):
-            if inflight is not None:
-                process_window(*inflight)
-                inflight = None
-            break
-        carry, out, ext_cap, n_live = run_window(carry, step0)
-        prev, inflight = inflight, (out, ext_cap, n_live)
-        if prev is not None:
-            process_window(*prev)
-        if finished_host.all():
-            inflight = None  # the window just enqueued runs fully masked
-            break
-    if inflight is not None:
-        process_window(*inflight)
+    windows = range(0, max_steps, k_frames)
+    if show_progress_bar:
+        try:
+            from tqdm import tqdm
+
+            windows = tqdm(windows, desc="Generating", leave=False)
+        except ImportError:
+            pass
+
+    # One request at a time owns a step function's captures: another
+    # thread's generate() with the same step function waits here.
+    owner = step_fn.request() if isinstance(step_fn, StepFn) else contextlib.nullcontext()
+    with owner:
+        # One window kept in flight: window N+1 is enqueued before window N is
+        # read back, so the device works while the host delivers. Window N's
+        # outputs are copied to the host before N+1 is enqueued.
+        inflight = None
+        for step0 in windows:
+            if stop_check_fn is not None and stop_check_fn():
+                if inflight is not None:
+                    process_window(*inflight)
+                    inflight = None
+                if audio_streamer is not None:
+                    audio_streamer.end()
+                break
+            if audio_streamer is not None and any(getattr(audio_streamer, "finished_flags", None)
+                                                  or []):
+                if inflight is not None:
+                    process_window(*inflight)
+                    inflight = None
+                break
+            carry, fetched, ext_cap, n_live = run_window(carry, step0)
+            prev, inflight = inflight, (fetched, ext_cap, n_live)
+            if prev is not None:
+                process_window(*prev)
+            if finished_host.all():
+                inflight = None  # the window just enqueued runs fully masked
+                break
+        if inflight is not None:
+            process_window(*inflight)
     if audio_streamer is not None:
         audio_streamer.end()
 

@@ -90,6 +90,20 @@ class KernelLibrary:
 _lock = threading.Lock()
 _lib: KernelLibrary | None = None
 
+# Every kernel's launch counter, (wrapper, attribute) by the name that
+# chip_smoke.py reports it under. A wrapper adds one to its attribute where
+# it launches its kernel, and nowhere else; kernels A and B count their
+# second route, the training attention its CUDA-core route, in a second
+# attribute. A graph replay runs no wrapper: the step function that
+# replays it adds the counts it recorded at capture (models/inference.py).
+LAUNCH_COUNTERS: dict = {}
+
+
+def count_launches(name: str, fn, attr: str = "launches") -> None:
+    """Give ``fn`` the launch counter ``attr``, at 0, listed as ``name``."""
+    setattr(fn, attr, 0)
+    LAUNCH_COUNTERS[name] = (fn, attr)
+
 
 def _nvcc() -> str:
     for cand in (

@@ -92,15 +92,20 @@ def _decode_split(total: int, n_splits: int, sp: int) -> tuple[int, int]:
 
 
 _decode_counters: dict = {}  # device -> int32 zeros, one per row tile (csrc/flash_decode.cu)
+_decode_retired: list = []  # outgrown counters, kept alive for CUDA graphs that captured them
 
 
 def _counters(device: torch.device, n: int) -> torch.Tensor:
     """The decode kernel's arrival counters: zeros that every launch leaves
     zero again. Kept per device and grown on demand, so a launch captured in
-    a CUDA graph finds them allocated (make one call before capturing). Two
-    decode calls must not run concurrently on two streams of one device."""
+    a CUDA graph finds them allocated (make one call before capturing); a
+    buffer that a larger call outgrows stays allocated, so a graph captured
+    before still replays. Two decode calls must not run concurrently on two
+    streams of one device."""
     c = _decode_counters.get(device)
     if c is None or c.numel() < n:
+        if c is not None:
+            _decode_retired.append(c)
         c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
         _decode_counters[device] = c
     return c
@@ -247,8 +252,9 @@ def flash_cached_attention(
     return out
 
 
-flash_cached_attention.launches = 0
-flash_cached_attention.launches_prefill = 0
+_cuda.count_launches("flash_cached_attention", flash_cached_attention)
+_cuda.count_launches("flash_cached_attention_prefill", flash_cached_attention,
+                     "launches_prefill")
 
 
 # ---------------------------------------------------------------------------
@@ -391,7 +397,7 @@ def flash_ring_block(state, q: torch.Tensor, k_blk: torch.Tensor, v_blk: torch.T
     return state
 
 
-flash_ring_block.launches = 0
+_cuda.count_launches("flash_ring_block", flash_ring_block)
 
 
 def ring_state_out(state, w: int, dtype) -> torch.Tensor:
@@ -563,8 +569,9 @@ def flash_train_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
-flash_train_attention_fwd.launches = 0
-flash_train_attention_fwd.launches_cores = 0
+_cuda.count_launches("flash_train_attention_fwd", flash_train_attention_fwd)
+_cuda.count_launches("flash_train_attention_fwd_cores", flash_train_attention_fwd,
+                     "launches_cores")
 
 
 def flash_train_attention_bwd(q, k, v, seg, o, lse, do, scale: float):
@@ -603,8 +610,9 @@ def flash_train_attention_bwd(q, k, v, seg, o, lse, do, scale: float):
     return dq, dk, dv
 
 
-flash_train_attention_bwd.launches = 0
-flash_train_attention_bwd.launches_cores = 0
+_cuda.count_launches("flash_train_attention_bwd", flash_train_attention_bwd)
+_cuda.count_launches("flash_train_attention_bwd_cores", flash_train_attention_bwd,
+                     "launches_cores")
 
 
 class FlashTrainAttention(torch.autograd.Function):

@@ -126,4 +126,4 @@ def fused_head_ffn_stack(packed: PackedStage, x: torch.Tensor, mods: torch.Tenso
     return y
 
 
-fused_head_ffn_stack.launches = 0
+_cuda.count_launches("fused_head_ffn_stack", fused_head_ffn_stack)

@@ -211,8 +211,8 @@ def _gemv(x2: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) -> torch.Tens
     return out
 
 
-int8_matmul.launches = 0
-int8_matmul.launches_tc = 0
+_cuda.count_launches("int8_matmul", int8_matmul)
+_cuda.count_launches("int8_matmul_gemm", int8_matmul, "launches_tc")
 
 
 def int8_matmul_t_plain(g: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -271,7 +271,7 @@ def int8_matmul_t(g: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) -> tor
     return out.reshape(*g.shape[:-1], cin)
 
 
-int8_matmul_t.launches = 0
+_cuda.count_launches("int8_matmul_t", int8_matmul_t)
 
 
 class Int8MatmulDx(torch.autograd.Function):

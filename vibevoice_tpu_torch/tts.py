@@ -8,6 +8,11 @@
         play(chunk)                                     # 24 kHz float32 frames
 
 The processor is the port's ``vibevoice_tpu_torch.processor.VibeVoiceProcessor``.
+Every call goes through ``inference.generate``, whose step function is
+memoized on the options it reads: on the card, calls with one shape replay
+the CUDA graph that the first of them captured. That graph holds one
+request's state, so such calls decode one after another: two streams read
+in turn are served whole, the first before the second.
 Loading a checkpoint (``from_pretrained``) waits for the checkpoint loader's port.
 """
 
