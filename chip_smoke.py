@@ -35,7 +35,12 @@ Phases, each of which fails the run:
      kernel B at the decode over 4,096-, 65,536- and 32,768-slot caches,
      full and at a low fill (the serving run's, and 300 of 65,536), as
      replays of one CUDA-graph capture with three other bases written in
-     place, and over chunks of 512 and 2,048 rows; kernels C and D at the
+     place, and over chunks of 512 and 2,048 rows; kernel B again at the
+     streaming 0.5B's shapes (14 query heads over 2 KV heads, head_dim 64,
+     one sample): decode over 8,192 bf16 slots at a 36-frame stream's fill
+     and full (one CUDA-graph capture replayed with three other bases) and
+     over 16,384 int8 slots, the prefill route at W = 5 (a text window) and
+     W = 256 from base 0 (the voice preset); kernels C and D at the
      1.5B head's and vocoder stage's widths with int8 and bf16 weights, each
      with the device kernels of one call counted and timed by pass by
      torch.profiler (at most 12 and 24 kernels), a repeat that must give the
@@ -79,7 +84,24 @@ Phases, each of which fails the run:
      finite and non-silent;
      kernels F, A (both routes), B (decode), C and D must all have launched
      in the ring run, and A's GEMM and B's prefill route in chunked_prefill;
-  6. end to end, fine-tuning: a tiny-config QLoRA gradient and two
+  6. end to end, the streaming 0.5B model: the full-width config from
+     vibevoice_tpu_torch/configs/qwen2.5_0.5b_streaming.json (24 layers
+     split 4 + 20, hidden 896, 14/2 heads of 64, FFN 4864, vocab 151936,
+     diffusion head 896 x 4, the full acoustic decoder), random bf16 weights
+     from --seed, fuse_vocoder(quantize=True); a voice preset prefilled from
+     a random 256-token prompt at 8,192 slots; StreamingTTS.stream() at its
+     default options (cfg 1.5, 5 DDPM steps) on a ~40-token script. Random
+     weights give a random EOS, so the timed streams set the EOS
+     classifier's output bias to -30 and stop through stop_check_fn after 6
+     windows (36 frames). After warmup(), which captures the text and speech
+     windows, it prints the time to first audio, ms a frame and RTF graphed
+     and eager (the windows' eager calls), and one replayed text and speech
+     window's device time by CUDA events. Graphed and eager must give the
+     same audio within GRAPH_TOL of the peak and equal launch counts, kernel
+     B (both routes) and D must launch, the audio must be finite and not
+     silent; a run with the bias at +30 must stop after the first frame of
+     the first window, and a stream at 16,384 slots (int8 KV) must complete;
+  7. end to end, fine-tuning: a tiny-config QLoRA gradient and two
      optimizer steps on the card through the kernels against the same on
      the CPU through the plain versions; then the port's trainer (finetune/train.py) fine-tunes the
      full-width 1.5B with QLoRA (int8 LM base, LoRA r 16 on all seven LM
@@ -110,6 +132,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 CONFIG_1P5B = ROOT / "vibevoice_tpu_torch" / "configs" / "qwen2.5_1.5b_64k.json"
+CONFIG_0P5B = ROOT / "vibevoice_tpu_torch" / "configs" / "qwen2.5_0.5b_streaming.json"
 VOICE_SECONDS = 3.0  # length of each synthetic voice prompt
 # Limits of the ring prefill against chunked_prefill (h_pos and the cache of
 # layers 0 and 27, as max |diff| over the peak), by KV type. The two paths
@@ -128,6 +151,17 @@ SP_TOL = {"bf16": 1e-1, "int8": 1.5e-1}
 # them): the positive stream holds the 105-token prompt plus 32 frames, the
 # negative CFG stream restarts at speech_start and holds 16.
 SERVING_FILL = (137, 16)
+# The streaming 0.5B phase: a voice preset from a 256-token prompt at the
+# StreamingTTS default of 8,192 cache slots, and timed streams of 6 windows
+# (36 frames). Kernel B's decode cases at the 0.5B's shapes sit at the fill
+# of such a stream (the preset plus 30 frames) and at a full cache.
+STREAM_PRESET = 256
+STREAM_MAX_LEN = 8192
+STREAM_WINDOWS = 6
+STREAM_FILL = STREAM_PRESET + 30
+STREAM_SCRIPT = ("Welcome back to the show. Today we talk about streaming speech synthesis, where "
+                 "the first words are already spoken while the rest of the sentence is still being "
+                 "written, and the listener never waits for the whole paragraph to be ready.")
 
 
 # Published dense peaks of one H100 SXM (NVIDIA's data sheet): the bound of
@@ -247,7 +281,7 @@ class Checks:
         err, rel = rel_err(out, ref)
         timing = "" if ms is None else f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
         if ms is not None and bound is not None:
-            timing += f"  bound {bound[0]:.4f} ms ({bound[1]}, {bound[0] / ms:.1%} of it)"
+            timing += f"  bound {bound[0]:.4g} ms ({bound[1]}, {bound[0] / ms:.1%} of it)"
         if ms is not None and library_ms is not None:
             timing += f"  library {library_ms:.4f} ms"
         print(f"  {kernel:<24s} {label:<40s} max_abs_err {err:.3e}  rel {rel:.3e} "
@@ -330,9 +364,9 @@ def gemv_graph_check(checks: Checks, label: str, x, w: dict) -> None:
     del graph
 
 
-def decode_graph_check(checks: Checks, q, kc, vc, base) -> None:
+def decode_graph_check(checks: Checks, q, kc, vc, base, bases, label: str = "") -> None:
     """Kernel B's decode call captured once in a CUDA graph, then replayed
-    with three other bases written in place into the captured base tensor;
+    with each of `bases` written in place into the captured base tensor;
     each replay against the plain version at those bases (tol 1e-2)."""
     import torch
 
@@ -344,22 +378,75 @@ def decode_graph_check(checks: Checks, q, kc, vc, base) -> None:
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out = fa.flash_cached_attention(q, kc, vc, base)
-    for bases in ((0, 4095), SERVING_FILL, (3000, 17)):
-        base.copy_(torch.tensor(bases, dtype=torch.int32))
+    for new in bases:
+        base.copy_(torch.tensor(new, dtype=torch.int32))
         graph.replay()
         torch.cuda.synchronize()
-        checks.case("flash_cached_attention", f"W=1 S={kc.shape[2]} bf16 CUDA-graph replay "
-                    f"base={list(bases)}", out, fa.flash_cached_attention_plain(q, kc, vc, base),
+        checks.case("flash_cached_attention", f"{label}W=1 S={kc.shape[2]} bf16 CUDA-graph replay "
+                    f"base={list(new)}", out, fa.flash_cached_attention_plain(q, kc, vc, base),
                     1e-2)
     base.copy_(before)
     del graph
 
 
-def check_kernels(checks: Checks, seed: int) -> None:
+def check_cached_attention(checks: Checks, g, heads: tuple, w: int, s: int, int8: bool,
+                           base: tuple, main: bool = False, label: str = "",
+                           graph_bases=None) -> None:
+    """Kernel B at one shape against its plain version (tol 1e-2), both
+    timed, with its bound and, over a bf16 cache, SDPA's time (the prefix
+    mask, enable_gqa) beside them. heads = (q heads, KV heads, head_dim);
+    one sample per entry of `base`. With `graph_bases` the decode call is
+    also captured in a CUDA graph and replayed at those bases."""
     import torch
     import torch.nn.functional as F
 
     from vibevoice_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    nh, kh, d = heads
+    nb = len(base)
+    q = torch.randn((nb, w, nh, d), generator=g, device=dev).to(torch.bfloat16)
+    base_t = torch.tensor(base, dtype=torch.int32, device=dev)
+    if int8:
+        kc = torch.randint(-127, 128, (nb, kh, s, d), generator=g, device=dev).to(torch.int8)
+        vc = torch.randint(-127, 128, (nb, kh, s, d), generator=g, device=dev).to(torch.int8)
+        ks = torch.rand((nb, kh, 1, s), generator=g, device=dev) / 127
+        vs = torch.rand((nb, kh, 1, s), generator=g, device=dev) / 127
+        kw = dict(k_scale=ks, v_scale=vs)
+    else:
+        kc, vc = (torch.randn((nb, kh, s, d), generator=g, device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        kw = {}
+    if graph_bases:
+        decode_graph_check(checks, q, kc, vc, base_t, graph_bases, label)
+    out = fa.flash_cached_attention(q, kc, vc, base_t, **kw)
+    ref = fa.flash_cached_attention_plain(q, kc, vc, base_t, **kw)
+    big = w * s >= 512 * 65536  # the plain version's scores are 3-6 GB here
+    ms = bench_ms(lambda _: fa.flash_cached_attention(q, kc, vc, base_t, **kw), [None])
+    pms = bench_ms(lambda _: fa.flash_cached_attention_plain(q, kc, vc, base_t, **kw), [None],
+                   iters=3 if big else 20)
+    lms = None
+    if not int8:
+        mask = (base_t[:, None, None, None] + torch.arange(w, device=dev)[:, None]
+                >= torch.arange(s, device=dev))  # (B, 1, W, S): key j live for row i
+        qt = q.transpose(1, 2)
+        lms = bench_ms(lambda _: F.scaled_dot_product_attention(qt, kc, vc, attn_mask=mask,
+                                                                enable_gqa=True), [None])
+        del mask
+    # causal work of these bases: row i of sample b sees min(base + i + 1, S) keys
+    keys = [min(b_ + i + 1, s) for b_ in base for i in range(w)]
+    kv_rows = sum(min(b_ + w, s) for b_ in base) * kh  # live cache rows, read once
+    flops = 4 * d * nh * sum(keys)
+    byt = nbytes(q) * 2 + nbytes(base_t) + kv_rows * d * 2 * kc.element_size() + (
+        kv_rows * 2 * 4 if int8 else 0)
+    kernel = "flash_cached_attention_prefill" if w > 1 else "flash_cached_attention"
+    checks.case(kernel, f"{label}W={w} S={s} {'int8' if int8 else 'bf16'} base={list(base)}", out,
+                ref, 1e-2, ms, pms, main=main, bound=bound(flops, byt), library_ms=lms)
+
+
+def check_kernels(checks: Checks, seed: int) -> None:
+    import torch
+
     from vibevoice_tpu_torch.ops import head_fused as hf
     from vibevoice_tpu_torch.ops import quant
     from vibevoice_tpu_torch.ops import vocoder_fused as vf
@@ -420,51 +507,16 @@ def check_kernels(checks: Checks, seed: int) -> None:
     # two prompts
     print("kernel B flash_cached_attention (bf16 q; bf16 or int8 KV; bf16 out: tol 1e-2; library: "
           "scaled_dot_product_attention with the prefix mask and enable_gqa, bf16 KV only)")
-    nh, kh, d = 12, 2, 128
-    for w, s, int8, base in ((1, 4096, False, (4095, 1234)), (1, 4096, False, SERVING_FILL),
-                             (1, 65536, True, (65535, 300)), (1, 65536, True, (300, 300)),
-                             (1, 32768, False, (16384, 12000, 1, 1)),
-                             (512, 4096, False, (4095, 1000)), (512, 65536, True, (65535, 20000)),
-                             (2048, 32768, False, (14336, 12000))):
-        nb = len(base)
-        q = randn(nb, w, nh, d)
-        base_t = torch.tensor(base, dtype=torch.int32, device=dev)
-        if int8:
-            kc = torch.randint(-127, 128, (nb, kh, s, d), generator=g, device=dev).to(torch.int8)
-            vc = torch.randint(-127, 128, (nb, kh, s, d), generator=g, device=dev).to(torch.int8)
-            ks = torch.rand((nb, kh, 1, s), generator=g, device=dev) / 127
-            vs = torch.rand((nb, kh, 1, s), generator=g, device=dev) / 127
-            kw = dict(k_scale=ks, v_scale=vs)
-        else:
-            kc, vc, kw = randn(nb, kh, s, d), randn(nb, kh, s, d), {}
-        if (w, s, int8, base) == (1, 4096, False, (4095, 1234)):
-            decode_graph_check(checks, q, kc, vc, base_t)
-        out = fa.flash_cached_attention(q, kc, vc, base_t, **kw)
-        ref = fa.flash_cached_attention_plain(q, kc, vc, base_t, **kw)
-        big = w * s >= 512 * 65536  # the plain version's scores are 3-6 GB here
-        ms = bench_ms(lambda _: fa.flash_cached_attention(q, kc, vc, base_t, **kw), [None])
-        pms = bench_ms(lambda _: fa.flash_cached_attention_plain(q, kc, vc, base_t, **kw), [None],
-                       iters=3 if big else 20)
-        lms = None
-        if not int8:
-            mask = (base_t[:, None, None, None] + torch.arange(w, device=dev)[:, None]
-                    >= torch.arange(s, device=dev))  # (B, 1, W, S): key j live for row i
-            qt = q.transpose(1, 2)
-            lms = bench_ms(lambda _: F.scaled_dot_product_attention(qt, kc, vc, attn_mask=mask,
-                                                                    enable_gqa=True), [None])
-            del mask
-        # causal work of these bases: row i of sample b sees min(base + i + 1, S) keys
-        keys = [min(b_ + i + 1, s) for b_ in base for i in range(w)]
-        kv_rows = sum(min(b_ + w, s) for b_ in base) * kh  # live cache rows, read once
-        flops = 4 * d * nh * sum(keys)
-        byt = nbytes(q) * 2 + nbytes(base_t) + kv_rows * d * 2 * kc.element_size() + (
-            kv_rows * 2 * 4 if int8 else 0)
-        kernel = "flash_cached_attention_prefill" if w > 1 else "flash_cached_attention"
-        checks.case(kernel, f"W={w} S={s} {'int8' if int8 else 'bf16'} base={list(base)}", out,
-                    ref, 1e-2, ms, pms,
-                    main=(w, s, base) in ((1, 4096, (4095, 1234)), (2048, 32768, (14336, 12000))),
-                    bound=bound(flops, byt), library_ms=lms)
-        del ref
+    for w, s_, int8, base in ((1, 4096, False, (4095, 1234)), (1, 4096, False, SERVING_FILL),
+                              (1, 65536, True, (65535, 300)), (1, 65536, True, (300, 300)),
+                              (1, 32768, False, (16384, 12000, 1, 1)),
+                              (512, 4096, False, (4095, 1000)), (512, 65536, True, (65535, 20000)),
+                              (2048, 32768, False, (14336, 12000))):
+        first = (w, s_, int8, base) == (1, 4096, False, (4095, 1234))
+        check_cached_attention(checks, g, (12, 2, 128), w, s_, int8, base,
+                               main=(w, s_, base) in ((1, 4096, (4095, 1234)),
+                                                      (2048, 32768, (14336, 12000))),
+                               graph_bases=((0, 4095), SERVING_FILL, (3000, 17)) if first else None)
 
     # C: 4 head layers, 1536 -> 4608 -> 1536; the solver runs the head in f32
     print(f"kernel C fused_head_ffn_stack (f32 x and mods (2B=2 rows); int8 or bf16 weights: "
@@ -522,6 +574,33 @@ def check_kernels(checks: Checks, seed: int) -> None:
         checks.case("fused_stage_step", f"{nb} blocks {w} weights: new state", ns, rs, 2e-2)
         fused_call_checks(checks, "fused_stage_step", f"{nb} blocks {w} weights", call,
                           lambda: vf.fused_stage_step_plain(packs[0], x, st), (x, st), 2e-2)
+
+
+def check_streaming_attention(checks: Checks, seed: int) -> None:
+    """Kernel B at the streaming 0.5B model's shapes: 14 query heads over 2
+    KV heads (G 7), head_dim 64, one sample. Decode (W = 1: each speech
+    frame's two upper-LM forwards) over a bf16 cache of 8,192 slots at the
+    fill of a 36-frame stream and full, also replayed from one CUDA-graph
+    capture with other bases; over an int8 cache of 16,384 slots (the
+    automatic int8-KV length) at that fill and full; the prefill route at
+    W = 5 (a text window) at base 290 and at W = 256 from base 0 (the voice
+    preset's prompt), over 8,192 slots. Not a main-path case of the kernels
+    line (the 1.5B's are); every case is printed and kept in --out."""
+    import torch
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 2)
+    print("kernel B flash_cached_attention at the 0.5B's shapes (14 q heads, 2 KV heads, head_dim "
+          "64, B 1; bf16 q; bf16 out: tol 1e-2; library as above)")
+    for w, s_, int8, base in ((1, STREAM_MAX_LEN, False, (STREAM_FILL,)),
+                              (1, STREAM_MAX_LEN, False, (STREAM_MAX_LEN - 1,)),
+                              (1, 16384, True, (STREAM_FILL,)), (1, 16384, True, (16383,)),
+                              (5, STREAM_MAX_LEN, False, (STREAM_FILL + 4,)),
+                              (STREAM_PRESET, STREAM_MAX_LEN, False, (0,))):
+        graph = (w, int8, base) == (1, False, (STREAM_FILL,))
+        check_cached_attention(checks, g, (14, 2, 64), w, s_, int8, base, label="0.5B ",
+                               graph_bases=((0,), (STREAM_MAX_LEN - 1,), (STREAM_FILL + 7,))
+                               if graph else None)
 
 
 # Device kernels one call of kernel C (4 layers) and D (8 blocks) may run:
@@ -1364,15 +1443,17 @@ def graphed_profile(model: dict, seed: int, frames: int = 17) -> dict:
     if not torch.isfinite(out.audio.float()).all():
         fail("graphed profile: non-finite audio")
     names = tuple(cap.launches)
+    replay_kernels = port_kernel_counts(a[2] for a in acts)
     eager_acts, eager_launches = [], {}
     for _ in range(3):  # the same window eagerly, its wrapper calls counted
         reset_counts(names)
         eager_acts, _ = profiled_acts(lambda: fn.eager(params, eager_carry, noise, ext, hooks),
                                       attempts=1)
         eager_launches = read_counts(names)
-        if eager_acts:
+        # profiled again where the profile recorded nothing or lost records
+        # (a few of ~57,000 kernels now and then), as the comparison shows
+        if eager_acts and port_kernel_counts(a[2] for a in eager_acts) == replay_kernels:
             break
-    replay_kernels = port_kernel_counts(a[2] for a in acts)
     eager_kernels = port_kernel_counts(a[2] for a in eager_acts)
     print(f"  graphed profile: port kernels' device activities in the replay {replay_kernels}, "
           f"in the same window run eagerly {eager_kernels}; wrapper calls of the eager window "
@@ -1609,7 +1690,7 @@ def tiny_qlora_card_vs_cpu(seed: int) -> None:
         rng.randn(b).astype(np.float32), rng.randn(b, f, cfg.acoustic_vae_dim).astype(np.float32),
         rng.randn(b * t * mul, cfg.diffusion_head_config.latent_size).astype(np.float32),
         rng.randint(0, cfg.diffusion_head_config.ddpm_num_steps, b * t * mul).astype(np.int64))))
-    p = init(cfg, seed=seed)
+    p = init(cfg, seed=seed, device="cpu")
     p["speech_scaling_factor"] = torch.tensor(float("nan"))
     p["speech_bias_factor"] = torch.tensor(float("nan"))
     p = {**p, "lm": quant.quantize_lm(p["lm"])}
@@ -1739,6 +1820,242 @@ def finetune_end_to_end(seed: int) -> dict:
     return runs
 
 
+def streaming_model(seed: int) -> dict:
+    """The full-width streaming 0.5B set-up: the config from the port's
+    JSON, random bf16 weights from --seed with the vocoder's stage 0 packed
+    int8 for kernel D (fuse_vocoder(quantize=True)), the streaming processor
+    over the hash-bucket tokenizer, and a voice preset that
+    build_voice_preset prefills from a random 256-token prompt at 8,192
+    slots: one chunk through the 4 + 20 layers (kernel B's prefill route at
+    W = 256), the one-token negative prompt through its decode route."""
+    import numpy as np
+    import torch
+
+    from vibevoice_tpu_torch.configs import VibeVoiceStreamingConfig
+    from vibevoice_tpu_torch.models import streaming as st
+    from vibevoice_tpu_torch.processor.streaming_processor import VibeVoiceStreamingProcessor
+    from vibevoice_tpu_torch.processor.text_tokenizer import QWEN_SPECIAL_IDS, FallbackTextTokenizer
+    from vibevoice_tpu_torch.utils.params import init_streaming
+
+    cfg = VibeVoiceStreamingConfig.from_json_file(str(CONFIG_0P5B))
+    t0 = time.perf_counter()
+    params = st.fuse_vocoder(init_streaming(cfg, seed=seed, dtype=torch.bfloat16, device="cuda"),
+                             cfg, quantize=True)
+    torch.cuda.synchronize()
+    print(f"  0.5B streaming params (bf16, {cfg.lm_num_hidden_layers} + "
+          f"{cfg.tts_backbone_num_hidden_layers} layers, fused int8 vocoder stage 0) built in "
+          f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB on "
+          "the card", flush=True)
+    vocab = cfg.decoder_config.vocab_size
+    tk = FallbackTextTokenizer(vocab_size=vocab, eos_token_id=QWEN_SPECIAL_IDS["eos"],
+                               pad_id=QWEN_SPECIAL_IDS["pad"])
+    prompt = np.random.RandomState(seed).randint(10, vocab, (1, STREAM_PRESET))
+    names = ("flash_cached_attention", "flash_cached_attention_prefill")
+    reset_counts(names)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    preset = st.build_voice_preset(cfg, params, prompt, neg_prompt_id=tk.pad_id,
+                                   max_len=STREAM_MAX_LEN)
+    preset_s = time.perf_counter() - t0
+    counts = read_counts(names)
+    n_layers = cfg.decoder_config.num_hidden_layers
+    if counts != {"flash_cached_attention": n_layers, "flash_cached_attention_prefill": n_layers}:
+        fail(f"voice preset: kernel B launches {counts}, not {n_layers} of each route")
+    print(f"  voice preset from a {STREAM_PRESET}-token prompt at {STREAM_MAX_LEN} slots: "
+          f"{preset_s:.3f} s (host to host), launches {counts}", flush=True)
+    return dict(cfg=cfg, params=params, processor=VibeVoiceStreamingProcessor(tk), preset=preset,
+                hop=cfg.acoustic_tokenizer_config.hop_length, sr=24_000,
+                preset_build=dict(seconds=preset_s, launches=counts))
+
+
+def with_eos_bias(params: dict, bias: float) -> dict:
+    """The streaming params with the EOS classifier's output bias at `bias`
+    (a new params object: new CUDA-graph captures)."""
+    import torch
+
+    eos = params["tts_eos_classifier"]
+    return {**params, "tts_eos_classifier": {
+        **eos, "fc2": {**eos["fc2"], "b": torch.full_like(eos["fc2"]["b"], bias)}}}
+
+
+def streaming_end_to_end(model: dict, seed: int) -> dict:
+    """The streaming 0.5B's main path: StreamingTTS.stream() at batch 1
+    (preset splice, 5-token text windows interleaved with 6-frame speech
+    windows, the default options: cfg 1.5, 5 DDPM steps) on the script
+    STREAM_SCRIPT (one token a word, ~40 tokens).
+
+    Random weights give a random EOS, so the timed runs set the EOS
+    classifier's output bias to -30 (EOS never fires) and stop through
+    stop_check_fn after STREAM_WINDOWS windows (36 frames). After warmup()
+    (which captures the text and speech windows), the graphed stream is
+    timed three times at 6 windows and three at 1: time to first audio
+    (from the stream() call to its first chunk), ms a frame from the two
+    walls' difference over 30 frames (text windows included), RTF of the
+    6-window run. The same runs through the windows' eager calls
+    (models.streaming.generate with each WindowFn's eager) must give the
+    same audio within GRAPH_TOL of the peak and the same launch counts;
+    kernel B (both routes) and D must launch; the audio must be finite and
+    not silent. CUDA events time one replayed text window and one speech
+    window. One run with the bias at +30 must stop at the first frame of the
+    first window (one frame of audio), and one 6-window stream at 16,384
+    slots (int8 KV, on by default from that length) must complete."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from vibevoice_tpu_torch.models import inference as inf
+    from vibevoice_tpu_torch.models import streaming as st
+    from vibevoice_tpu_torch.tts import StreamingTTS
+
+    cfg, processor, preset, hop, sr = (model[k] for k in ("cfg", "processor", "preset", "hop",
+                                                            "sr"))
+    params = with_eos_bias(model["params"], -30.0)
+    names = ("flash_cached_attention", "flash_cached_attention_prefill", "fused_stage_step")
+    tts = StreamingTTS(cfg, params, processor, preset, max_len=STREAM_MAX_LEN)
+    opts = tts._opts(None, {})
+    fns = st.make_window_fns(cfg, opts)[0].fns
+    text_ids = processor.process_input_with_cached_prompt(STREAM_SCRIPT, preset).tts_text_ids
+    print(f"  script of {text_ids.shape[1]} tokens; {STREAM_WINDOWS} windows of 5 text tokens and "
+          f"6 frames ({STREAM_WINDOWS * 6 * hop / sr:.2f} s of audio)", flush=True)
+
+    def check_audio(label, audio, frames):
+        if audio is None or audio.size != frames * hop:
+            fail(f"{label}: {0 if audio is None else audio.size} samples, not {frames} frames")
+        if not np.isfinite(audio).all():
+            fail(f"{label}: non-finite audio")
+        if not np.abs(audio).max() > 0:
+            fail(f"{label}: all-zero audio")
+
+    def graphed(t, windows):
+        calls = itertools.count()
+        reset_counts(names)
+        replays = fns.replays
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first, chunks = None, []
+        for chunk in t.stream(STREAM_SCRIPT, seed=seed,
+                              stop_check_fn=lambda: next(calls) >= windows):
+            if first is None:
+                first = time.perf_counter() - t0
+            chunks.append(chunk)
+        wall = time.perf_counter() - t0
+        audio = np.concatenate(chunks) if chunks else None
+        return audio, wall, first, read_counts(names), fns.replays - replays
+
+    def eager(windows):
+        calls = itertools.count()
+        reset_counts(names)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = st.generate(cfg, params, tts_text_ids=text_ids, preset=preset, opts=opts,
+                          max_len=STREAM_MAX_LEN, seed=seed,
+                          stop_check_fn=lambda: next(calls) >= windows,
+                          window_fns=(fns.text.eager, fns.speech.eager, fns.single.eager))
+        torch.cuda.synchronize()
+        return out.speech_outputs[0], time.perf_counter() - t0, read_counts(names)
+
+    torch.cuda.synchronize()
+    warm_s = tts.warmup()
+    print(f"  warmup() (captures the text and the speech window): {warm_s:.3f} s", flush=True)
+    frames = 6 * STREAM_WINDOWS
+    long_runs = [graphed(tts, STREAM_WINDOWS) for _ in range(3)]
+    short_runs = [graphed(tts, 1) for _ in range(3)]
+    audio, _, _, counts, replays = long_runs[0]
+    check_audio("graphed stream", audio, frames)
+    for a, _, _, c, _ in long_runs[1:]:
+        if not np.array_equal(a, audio) or c != counts:
+            fail("graphed stream: two runs of one seed differ")
+    missing = [n for n, v in counts.items() if v == 0]
+    if missing:
+        fail(f"graphed stream: kernels never launched on the main path: {missing}")
+    if replays != 2 * STREAM_WINDOWS:
+        fail(f"graphed stream: {replays} graph replays, not {2 * STREAM_WINDOWS}")
+    walls = sorted(r[1] for r in long_runs)
+    short_walls = sorted(r[1] for r in short_runs)
+    ttfa = sorted(r[2] for r in long_runs + short_runs)
+    per_frame = (walls[1] - short_walls[1]) / (frames - 6)
+    e_audio, e_wall, e_counts = eager(STREAM_WINDOWS)
+    e_short = eager(1)[1]
+    check_audio("eager stream", e_audio, frames)
+    err = float(np.abs(audio - e_audio).max() / np.abs(e_audio).max())
+    print(f"  graphed against eager: audio max |diff| {err:.3e} of the peak (tol {GRAPH_TOL:g}), "
+          f"launches {'equal' if counts == e_counts else 'DIFFER'} {counts}", flush=True)
+    if not err <= GRAPH_TOL:
+        fail(f"streaming: graphed audio differs from eager by {err:.3e} of the peak")
+    if counts != e_counts:
+        fail(f"streaming: launches {counts} graphed against {e_counts} eager")
+    e_per_frame = (e_wall - e_short) / (frames - 6)
+    seconds = frames * hop / sr
+    rec = dict(frames=frames, audio_seconds=seconds, warmup_s=warm_s,
+               ttfa_ms=[t * 1e3 for t in ttfa], wall_s=walls, short_wall_s=short_walls,
+               per_frame_ms=per_frame * 1e3, rtf=seconds / walls[1], replays=replays,
+               eager_wall_s=e_wall, eager_short_wall_s=e_short,
+               eager_per_frame_ms=e_per_frame * 1e3, eager_rtf=seconds / e_wall,
+               graphed_vs_eager_rel_err=err, launches=counts,
+               peak_abs=float(np.abs(audio).max()))
+    print(f"  stream() graphed, {frames} frames ({seconds:.2f} s audio): time to first audio "
+          f"{ttfa[len(ttfa) // 2] * 1e3:.2f} ms (median of 6; "
+          f"{', '.join(f'{t * 1e3:.2f}' for t in ttfa)}), walls {', '.join(f'{w:.4f}' for w in walls)} s "
+          f"(1 window: {', '.join(f'{w:.4f}' for w in short_walls)}), {per_frame * 1e3:.2f} ms a "
+          f"frame, RTF {rec['rtf']:.3f}; eager {e_wall:.3f} s (1 window {e_short:.3f}), "
+          f"{e_per_frame * 1e3:.2f} ms a frame, RTF {rec['eager_rtf']:.3f}", flush=True)
+
+    # one replayed text window and one speech window by CUDA events
+    state = st.init_stream_state(cfg, params, preset, STREAM_MAX_LEN)
+    ids = torch.as_tensor(text_ids[:, :5], device="cuda")
+    valid = torch.ones(1, 5, dtype=torch.bool, device="cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    noise = inf.FrameNoise(torch.randn(6, 1, cfg.acoustic_vae_dim, generator=g, device="cuda"),
+                           None, None)
+    times = {"text": [], "speech": []}
+    with fns.request():
+        for _ in range(3):
+            for kind in ("text", "speech"):
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                if kind == "text":
+                    state = fns.text(params, state, ids, valid)
+                else:
+                    state, _, _ = fns.speech(params, state, noise)
+                end.record()
+                torch.cuda.synchronize()
+                times[kind].append(start.elapsed_time(end))
+    rec["text_window_ms"], rec["speech_window_ms"] = sorted(times["text"]), sorted(times["speech"])
+    print(f"  one replayed window by CUDA events: text {rec['text_window_ms'][1]:.3f} ms, speech "
+          f"(6 frames) {rec['speech_window_ms'][1]:.3f} ms = "
+          f"{rec['speech_window_ms'][1] / 6:.3f} ms a frame (medians of 3)", flush=True)
+
+    # EOS at the first frame: the bias at +30
+    eos_audio = StreamingTTS(cfg, with_eos_bias(model["params"], 30.0), processor, preset,
+                             max_len=STREAM_MAX_LEN).synthesize(STREAM_SCRIPT, seed=seed)
+    check_audio("EOS at +30", eos_audio, 1)
+    print(f"  EOS bias +30: {eos_audio.size // hop} frame kept (the first of the first window)",
+          flush=True)
+    rec["eos_run_frames"] = eos_audio.size // hop
+
+    # int8 KV: 16,384 slots
+    tts16 = StreamingTTS(cfg, params, processor, preset, max_len=16384)
+    if not inf.resolve_kv_int8(opts, 16384).kv_int8:
+        fail("16384 slots: int8 KV is not on")
+    warm16 = tts16.warmup()
+    a16, wall16, first16, counts16, _ = graphed(tts16, STREAM_WINDOWS)
+    check_audio("int8 KV stream", a16, frames)
+    missing = [n for n, v in counts16.items() if v == 0]
+    if missing:
+        fail(f"int8 KV stream: kernels never launched: {missing}")
+    if counts16 != counts:
+        fail(f"int8 KV stream: launches {counts16}, the bf16 stream's {counts}")
+    rec["int8_kv_16384"] = dict(warmup_s=warm16, wall_s=wall16, ttfa_ms=first16 * 1e3,
+                                rtf=seconds / wall16, launches=counts16,
+                                peak_abs=float(np.abs(a16).max()))
+    print(f"  stream() at 16384 slots (int8 KV), after warmup() ({warm16:.3f} s): {wall16:.4f} s "
+          f"for {frames} frames, RTF {seconds / wall16:.3f}, time to first audio "
+          f"{first16 * 1e3:.2f} ms, launches {counts16}", flush=True)
+    return dict(runs=rec, launches=counts)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1810,6 +2127,7 @@ def main() -> None:
                                     launches=0, max_abs_err=0.0, ms=None, plain_ms=None,
                                     bound_ms=None, bound_by=None, library_ms=None)
     check_kernels(checks, args.seed)
+    check_streaming_attention(checks, args.seed)
     check_ring_kernel(checks, args.seed)
     check_training_kernels(checks, args.seed)
     torch.cuda.synchronize()
@@ -1839,7 +2157,19 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # phase 6: end to end, fine-tuning
+    # phase 6: end to end, the streaming 0.5B model
+    print("end to end: streaming 0.5B", flush=True)
+    stream_model = streaming_model(args.seed)
+    stream = streaming_end_to_end(stream_model, args.seed)
+    for name, n in stream["launches"].items():
+        checks.kernels[name]["launches"] += n
+    runs["streaming"] = {**stream["runs"], "preset_build": stream_model["preset_build"]}
+    del stream_model
+    inf._captures.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 7: end to end, fine-tuning
     print("end to end: fine-tuning", flush=True)
     tiny_qlora_card_vs_cpu(args.seed)
     runs["finetune"] = finetune_end_to_end(args.seed)

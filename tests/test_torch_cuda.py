@@ -1002,3 +1002,111 @@ def test_streams_read_in_turn_match_their_runs_alone(dev):
         assert len(got) == len(want)
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# the streaming 0.5B model
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("w,s,int8,base", [
+    (1, 8192, False, 286), (1, 8192, False, 8191), (1, 16384, True, 286), (1, 16384, True, 16383),
+    (5, 8192, False, 290), (256, 8192, False, 0)])
+def test_flash_cached_attention_streaming_shapes(dev, w, s, int8, base):
+    """Kernel B at the 0.5B's shapes: 14 query heads over 2 KV heads (G 7:
+    7 folded rows in the decode tile, 35 in a W = 5 prefill tile), head_dim
+    64, one sample; decode over bf16 and int8 caches at a stream's fill and
+    full, the prefill route at a text window and at the voice preset's
+    256-token prompt: within 1e-2 of the plain version's peak, one launch
+    of the expected route."""
+    g = torch.Generator(device=dev).manual_seed(15)
+    q, kc, vc, kw = _decode_inputs(g, dev, 1, w, 14, 2, s, 64, torch.bfloat16, int8)
+    base_t = torch.tensor([base], dtype=torch.int32, device=dev)
+    attr = "launches" if w == 1 else "launches_prefill"
+    before = getattr(fa.flash_cached_attention, attr)
+    out = fa.flash_cached_attention(q, kc, vc, base_t, **kw)
+    assert getattr(fa.flash_cached_attention, attr) == before + 1
+    assert _rel(out, fa.flash_cached_attention_plain(q, kc, vc, base_t, **kw)) < 1e-2
+
+
+def _tiny_streaming(dev, fused: bool):
+    """The tiny streaming model of StreamingTTS.smoke (f32), its vocoder
+    stage packed int8 for kernel D when `fused`, the layer scales at 0.3 and
+    the EOS bias at -30 (the stream runs to its stop), with its preset and
+    a noise bank; the weights are drawn on the CPU and moved."""
+    from vibevoice_tpu_torch.models import streaming as st
+    from vibevoice_tpu_torch.tts import StreamingTTS
+
+    tts = StreamingTTS.smoke(device="cpu")
+    cfg, p = tts.cfg, tts.params
+    for blk in (b for stage in p["acoustic_tokenizer"]["decoder"]["stages"] for b in stage):
+        blk["gamma"].fill_(0.3)
+        blk["ffn_gamma"].fill_(0.3)
+    p["tts_eos_classifier"]["fc2"]["b"].fill_(-30.0)
+    preset = st.build_voice_preset(cfg, p, np.random.RandomState(0).randint(10, 200, (1, 16)),
+                                   neg_prompt_id=3, max_len=512)
+    bank = {"init": np.random.RandomState(1).randn(30, 1, cfg.acoustic_vae_dim).astype(np.float32)}
+    p_dev = _to(p, dev)
+    if fused:  # packed on each device (the pack is no dict of tensors)
+        p, p_dev = (st.fuse_vocoder(x, cfg, quantize=True) for x in (p, p_dev))
+    return cfg, p_dev, p, preset, bank
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("kv_int8", [False, True])
+def test_streaming_card_matches_cpu(dev, fused, kv_int8):
+    """The tiny streaming model's generate() on the card (kernels, graphed
+    windows) against the CPU (plain versions), same weights and noise bank:
+    audio within 1e-3 of the peak (f32, summation order), the same stop
+    (the capacity of 64 slots after five windows of a 16-row preset)."""
+    from vibevoice_tpu_torch.models import inference as inf
+    from vibevoice_tpu_torch.models import streaming as st
+
+    cfg, p_dev, p_cpu, preset, bank = _tiny_streaming(dev, fused)
+    kw = dict(tts_text_ids=np.arange(10, 22)[None], preset=preset, max_len=64, noise_bank=bank,
+              opts=inf.GenerateOptions(cfg_scale=1.5, ddpm_steps=3, kv_int8=kv_int8))
+    got, want = st.generate(cfg, p_dev, **kw), st.generate(cfg, p_cpu, **kw)
+    a, b = got.speech_outputs[0], want.speech_outputs[0]
+    assert a.shape == b.shape and len(a) == 30 * cfg.acoustic_tokenizer_config.hop_length
+    assert np.abs(a - b).max() <= 1e-3 * np.abs(b).max()
+    np.testing.assert_array_equal(got.reach_max_step_sample, want.reach_max_step_sample)
+
+
+@pytest.mark.parametrize("sde", [False, True])
+def test_streaming_graphed_matches_eager(dev, sde):
+    """The default (graphed) windows against their eager calls: the same
+    audio bits and the same launch counts of kernels B and D, with graph
+    replays; drawn noise (sde draws the SDE noise too) from the seed. The
+    first run, which captures (and runs one eager window of each kind
+    before each capture), gives the same audio too."""
+    from vibevoice_tpu_torch.models import inference as inf
+    from vibevoice_tpu_torch.models import streaming as st
+
+    cfg, p_dev, _, preset, _ = _tiny_streaming(dev, True)
+    opts = inf.GenerateOptions(cfg_scale=1.5, ddpm_steps=3, sde=sde)
+    fns = st.make_window_fns(cfg, opts)[0].fns
+    kw = dict(tts_text_ids=np.arange(10, 22)[None], preset=preset, max_len=64, opts=opts, seed=4)
+    names = ("flash_cached_attention", "fused_stage_step")
+    runs = []
+    for window_fns in (None, None, (fns.text.eager, fns.speech.eager, fns.single.eager)):
+        for n in names:
+            setattr(*_cuda.LAUNCH_COUNTERS[n], 0)
+        replays = fns.replays
+        out = st.generate(cfg, p_dev, window_fns=window_fns, **kw)
+        runs.append((out.speech_outputs[0], {n: getattr(*_cuda.LAUNCH_COUNTERS[n]) for n in names},
+                     fns.replays - replays))
+    (first, _, _), (graphed, g_counts, g_replays), (eager, e_counts, e_replays) = runs
+    assert g_replays == 8 and e_replays == 0  # three text and five speech windows
+    np.testing.assert_array_equal(graphed, eager)
+    np.testing.assert_array_equal(first, graphed)
+    assert g_counts == e_counts and all(g_counts.values())
+
+
+def test_streaming_tts_smoke_on_the_card(dev):
+    """StreamingTTS.smoke() builds on the card by default and streams."""
+    from vibevoice_tpu_torch.tts import StreamingTTS
+
+    tts = StreamingTTS.smoke()
+    assert tts.params["language_model"]["embed"].device.type == "cuda"
+    chunks = list(tts.stream("hello streaming world", seed=0, stop_check_fn=lambda: False))
+    assert chunks and all(np.isfinite(c).all() for c in chunks)

@@ -139,7 +139,7 @@ def lm():
     jp = jq.init(jax.random.PRNGKey(0), JCFG.decoder_config)
     jp = jax.tree.map(lambda x: jnp.asarray(rng.randn(*x.shape) * 0.1 + (1.0 if x.ndim == 1 else 0.0),
                                             jnp.float32), jp)
-    return jp, from_jax(jax.tree.map(np.asarray, jp), CFG)
+    return jp, from_jax(jax.tree.map(np.asarray, jp), CFG, device="cpu")
 
 
 @pytest.mark.parametrize("remat", [False, True])
@@ -196,7 +196,8 @@ def test_collator_matches_jax():
     from vibevoice_tpu_torch.processor import text_tokenizer as ttok
 
     jp = jvv.init(jax.random.PRNGKey(1), JCFG)
-    tp = from_jax(jax.tree.map(np.asarray, {"semantic_tokenizer": jp["semantic_tokenizer"]}), CFG)
+    tp = from_jax(jax.tree.map(np.asarray, {"semantic_tokenizer": jp["semantic_tokenizer"]}), CFG,
+                  device="cpu")
     raw = synthetic_dataset(n=4, seed=0, min_dur=0.005, max_dur=0.02)
     batches = []
     for mod, pmod, tmod, sem in (
@@ -230,7 +231,7 @@ def test_lora_saved_by_port_loads_in_jax(tmp_path):
     from vibevoice_tpu.finetune import lora as jlora
 
     jp = jvv.init(jax.random.PRNGKey(2), JCFG)
-    tp = from_jax(jax.tree.map(np.asarray, jp), CFG)
+    tp = from_jax(jax.tree.map(np.asarray, jp), CFG, device="cpu")
     cfg = tlora.LoraConfig(r=4, alpha=8)
     lora = tlora.init_lora(3, tp, cfg)
     rng = np.random.RandomState(6)

@@ -51,7 +51,7 @@ def _randomize(tree, seed):
 @pytest.fixture(scope="module")
 def models():
     jp = _randomize(jvv.init(jax.random.PRNGKey(0), JCFG), 1)
-    tp = from_jax(jax.tree.map(np.asarray, jp), CFG)
+    tp = from_jax(jax.tree.map(np.asarray, jp), CFG, device="cpu")
     return jp, tp
 
 
@@ -140,7 +140,7 @@ def test_chunked_prefill_and_forced_only_injection(models):
 def test_tts_synthesize_and_stream():
     """The facade over the processor: the streamed frames concatenate to
     the synthesized waveform (same seed), and sampling with top-p runs."""
-    params = tvv.fuse_for_serving(tvv.quantize_for_inference(init(CFG, seed=5)), CFG)
+    params = tvv.fuse_for_serving(tvv.quantize_for_inference(init(CFG, seed=5, device="cpu")), CFG)
     proc = VibeVoiceProcessor(tokenizer=FallbackTextTokenizer(), speech_tok_compress_ratio=HOP)
     tts = VibeVoiceTTS(CFG, params, proc, tinf.SpecialTokens(**TOK))
     voice = np.random.RandomState(1).randn(3 * HOP).astype(np.float32)

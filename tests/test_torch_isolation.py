@@ -50,6 +50,14 @@ def test_no_jax_or_jax_package_import(path):
     assert _forbidden_imports(path) == []
 
 
+def test_scan_covers_the_streaming_modules():
+    """The scan picks up every module of the port by itself, the streaming
+    slice's among them."""
+    scanned = {str(p.relative_to(PORT)) for p in SOURCES if PORT in p.parents}
+    assert {"models/streaming.py", "processor/streaming_processor.py",
+            "utils/preset_convert.py", "tts.py", "utils/params.py"} <= scanned
+
+
 def test_scan_catches_local_and_module_imports(tmp_path):
     """The scan itself: imports at module level, inside functions, relative
     to nothing, through importlib, and a read of the JAX package's config."""

@@ -55,7 +55,7 @@ def randomize(tree, seed):
 @pytest.fixture(scope="module")
 def params():
     jp = randomize(jvv.init(jax.random.PRNGKey(0), JCFG), 1)
-    return jp, from_jax(jax.tree.map(np.asarray, jp), CFG)
+    return jp, from_jax(jax.tree.map(np.asarray, jp), CFG, device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -76,7 +76,7 @@ def test_qwen2_prefill_decode_matches_jax_flash(kv_int8):
     (Pallas in interpret mode): hidden states in f32 to summation order;
     int8 rows bit-equal except where a row max lands on a rounding tie."""
     jp = randomize(jq.init(jax.random.PRNGKey(2), JLM), 3)
-    tp = from_jax(jax.tree.map(np.asarray, jp), None)
+    tp = from_jax(jax.tree.map(np.asarray, jp), None, device="cpu")
     rng = np.random.RandomState(4)
     s = 512
     e1 = rng.randn(2, 7, 256).astype(np.float32)

@@ -182,7 +182,7 @@ def _voice_prompt(ids):
 @pytest.fixture(scope="module")
 def models():
     jp = jvv.init(jax.random.PRNGKey(0), JCFG)
-    return jp, from_jax(jax.tree.map(np.asarray, jp), CFG)
+    return jp, from_jax(jax.tree.map(np.asarray, jp), CFG, device="cpu")
 
 
 @pytest.fixture(scope="module")

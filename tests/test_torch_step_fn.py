@@ -45,7 +45,7 @@ def _randomize(tree, seed):
 @pytest.fixture(scope="module")
 def models():
     jp = _randomize(jvv.init(jax.random.PRNGKey(0), JCFG), 1)
-    tp = from_jax(jax.tree.map(np.asarray, jp), CFG)
+    tp = from_jax(jax.tree.map(np.asarray, jp), CFG, device="cpu")
     js = jvv.fuse_for_serving(jvv.quantize_for_inference(jp), JCFG, quantize=True)
     ts = tvv.fuse_for_serving(tvv.quantize_for_inference(tp), CFG, quantize=True)
     return {False: (jp, tp), True: (js, ts)}

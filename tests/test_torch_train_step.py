@@ -86,7 +86,7 @@ def setup():
     jp = dict(_randomize(jvv.init(jax.random.PRNGKey(0), JCFG), 1))
     jp["speech_scaling_factor"] = jnp.asarray(float("nan"))
     jp["speech_bias_factor"] = jnp.asarray(float("nan"))
-    tp = from_jax(jax.tree.map(np.asarray, jp), CFG)
+    tp = from_jax(jax.tree.map(np.asarray, jp), CFG, device="cpu")
     jl = jlora.init_lora(jax.random.PRNGKey(1), jp, LCFG)
     return jp, tp, jl
 

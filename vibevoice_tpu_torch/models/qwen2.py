@@ -169,6 +169,10 @@ def train_attention_inputs(valid_mask: torch.Tensor) -> torch.Tensor:
     return (torch.cumsum(valid_mask.to(torch.int32), dim=1) - 1).clamp_min(0)
 
 
+def _final_norm(cfg: Qwen2Config, params: Params, x: torch.Tensor, skip: bool) -> torch.Tensor:
+    return x if skip else rms_norm(x, params["final_norm"]["w"], cfg.rms_norm_eps)
+
+
 def forward(
     cfg: Qwen2Config,
     params: Params,
@@ -177,6 +181,7 @@ def forward(
     cache: Optional[KVCache] = None,
     valid_mask: Optional[torch.Tensor] = None,
     advance: Optional[torch.Tensor] = None,
+    skip_final_norm: bool = False,
     remat: bool = False,
     remat_policy: Optional[str] = None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
@@ -187,8 +192,9 @@ def forward(
     tokens); zeros evaluate speculatively. Without a cache it is the
     training path: causal self-attention within the chunk, and ``remat``
     recomputes each layer in the backward so that only the residual stream
-    is kept between layers. Returns (hidden (B, T, H) after the final norm,
-    the cache with the new lengths or None)."""
+    is kept between layers. ``skip_final_norm`` leaves out the final RMSNorm
+    (the streaming model's lower text LM). Returns (hidden (B, T, H), the
+    cache with the new lengths or None)."""
     b, t, _ = embeds.shape
     if valid_mask is None:
         valid_mask = torch.ones(b, t, dtype=torch.bool, device=embeds.device)
@@ -206,7 +212,7 @@ def forward(
                                use_reentrant=False)
             else:
                 x = _train_layer(cfg, lp, x, cos, sin, valid_mask)
-        return rms_norm(x, params["final_norm"]["w"], cfg.rms_norm_eps), None
+        return _final_norm(cfg, params, x, skip_final_norm), None
     if remat:
         raise ValueError("remat is a training-path option (cache must be None)")
     base = cache.length
@@ -224,7 +230,7 @@ def forward(
         cache_kv = (cache.k[li], cache.v[li],
                     cache.k_scale[li] if quant else None, cache.v_scale[li] if quant else None)
         x = _layer(cfg, lp, x, cos, sin, cache_kv, idx, base)
-    x = rms_norm(x, params["final_norm"]["w"], cfg.rms_norm_eps)
+    x = _final_norm(cfg, params, x, skip_final_norm)
     if advance is None:
         advance = valid_mask.to(torch.int32).sum(dim=1, dtype=torch.int32)
     return x, cache._replace(length=cache.length + advance)

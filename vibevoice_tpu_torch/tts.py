@@ -1,11 +1,16 @@
-"""One-call user API of the multi-speaker model (port of vibevoice_tpu/tts.py).
+"""One-call user API (port of vibevoice_tpu/tts.py): the multi-speaker
+model (``VibeVoiceTTS``) and the streaming 0.5B model (``StreamingTTS``).
 
-    from vibevoice_tpu_torch.tts import VibeVoiceTTS
+    from vibevoice_tpu_torch.tts import StreamingTTS, VibeVoiceTTS
 
     tts = VibeVoiceTTS(cfg, params, processor)          # params on the GPU
     audio = tts.synthesize("Speaker 1: Hello!", voices=[wav])
     for chunk in tts.stream("Speaker 1: Hello!", voices=[wav]):
         play(chunk)                                     # 24 kHz float32 frames
+
+    rt = StreamingTTS(cfg, params, processor, preset)   # a VoicePreset
+    for chunk in rt.stream("Hello!"):
+        play(chunk)
 
 The processor is the port's ``vibevoice_tpu_torch.processor.VibeVoiceProcessor``.
 Every call goes through ``inference.generate``, whose step function is
@@ -13,6 +18,8 @@ memoized on the options it reads: on the card, calls with one shape replay
 the CUDA graph that the first of them captured. That graph holds one
 request's state, so such calls decode one after another: two streams read
 in turn are served whole, the first before the second.
+``StreamingTTS`` goes through ``models.streaming.generate``, whose text and
+speech windows are replayed CUDA graphs on the card, one stream at a time.
 Loading a checkpoint (``from_pretrained``) waits for the checkpoint loader's port.
 """
 
@@ -20,7 +27,8 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Iterator, List, Optional, Sequence, Union
+import time
+from typing import Callable, Iterator, List, Optional, Sequence, Union
 
 import numpy as np
 
@@ -36,6 +44,33 @@ def _tokens_from_processor(processor) -> SpecialTokens:
     tk = processor.tokenizer
     return SpecialTokens(speech_start=tk.speech_start_id, speech_end=tk.speech_end_id,
                          speech_diffusion=tk.speech_diffusion_id, eos=tk.eos_token_id)
+
+
+def _threaded_stream(produce: Callable) -> Iterator[np.ndarray]:
+    """Run ``produce(streamer, stopped)`` on a worker thread and yield the
+    frames it puts into the streamer; its error is re-raised here, and
+    closing the iterator makes ``stopped()`` true and joins the worker."""
+    streamer = AudioStreamer(batch_size=1)
+    stop = threading.Event()
+    err: List[BaseException] = []
+
+    def run():
+        try:
+            produce(streamer, stop.is_set)
+        except BaseException as e:  # re-raised in the consumer below
+            err.append(e)
+        finally:
+            streamer.end()
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    try:
+        yield from streamer.get_stream(0)
+        if err:
+            raise err[0]
+    finally:
+        stop.set()
+        t.join()
 
 
 class VibeVoiceTTS:
@@ -79,25 +114,106 @@ class VibeVoiceTTS:
                opts: Optional[GenerateOptions] = None, **overrides) -> Iterator[np.ndarray]:
         """Yields audio frames as they are produced (generation runs on a
         worker thread). Closing the iterator stops generation."""
-        streamer = AudioStreamer(batch_size=1)
-        stop = threading.Event()
-        err: List[BaseException] = []
+        return _threaded_stream(lambda streamer, stopped: self._generate(
+            script, voices, opts, seed, audio_streamer=streamer, stop_check_fn=stopped,
+            **overrides))
 
-        def run():
-            try:
-                self._generate(script, voices, opts, seed, audio_streamer=streamer,
-                               stop_check_fn=stop.is_set, **overrides)
-            except BaseException as e:  # re-raised in the consumer below
-                err.append(e)
-            finally:
-                streamer.end()
 
-        t = threading.Thread(target=run, daemon=True)
-        t.start()
-        try:
-            yield from streamer.get_stream(0)
-            if err:
-                raise err[0]
-        finally:
-            stop.set()
-            t.join()
+class StreamingTTS:
+    """The streaming 0.5B model (lowest time to first audio) behind the same
+    one-call shape: batch 1, the voice fixed per instance by its preset
+    (``models.streaming.VoicePreset``: ``build_voice_preset``, ``.npz`` or the
+    reference's ``.pt`` through ``utils.preset_convert``). One stream at a
+    time: concurrent calls wait for each other."""
+
+    def __init__(self, cfg, params, processor, preset, *, max_len: int = 8192):
+        from .models import streaming as st
+
+        self.st = st
+        self.cfg = cfg
+        self.params = params
+        self.processor = processor
+        self.preset = preset
+        self.max_len = max_len
+        self.sample_rate = 24_000
+        self._lock = threading.Lock()
+
+    @classmethod
+    def from_pretrained(cls, path: str, *, voice: Optional[str] = None, dtype: str = "bfloat16",
+                        max_len: int = 8192) -> "StreamingTTS":
+        raise NotImplementedError(
+            "StreamingTTS.from_pretrained needs checkpoint loading (hf_interop), a later slice "
+            "of the port; build the model with utils.params.init_streaming and a preset with "
+            "models.streaming.build_voice_preset")
+
+    @classmethod
+    def smoke(cls, max_len: int = 512, device="cuda") -> "StreamingTTS":
+        """Tiny random-weight instance with a synthetic preset, on ``device``
+        (the card unless given device="cpu")."""
+        from .configs import (AcousticTokenizerConfig, DiffusionHeadConfig, Qwen2Config,
+                              VibeVoiceStreamingConfig)
+        from .models import streaming as st
+        from .processor.streaming_processor import VibeVoiceStreamingProcessor
+        from .processor.text_tokenizer import FallbackTextTokenizer
+        from .utils.params import init_streaming
+
+        cfg = VibeVoiceStreamingConfig(
+            acoustic_tokenizer_config=AcousticTokenizerConfig(
+                vae_dim=16, encoder_n_filters=4, encoder_ratios=(4, 2),
+                encoder_depths=(1, 1, 2), decoder_n_filters=4,
+            ),
+            decoder_config=Qwen2Config(
+                vocab_size=256, hidden_size=64, intermediate_size=128,
+                num_hidden_layers=4, num_attention_heads=4, num_key_value_heads=2,
+                max_position_embeddings=1024, rope_theta=10_000.0,
+            ),
+            diffusion_head_config=DiffusionHeadConfig(hidden_size=64, head_layers=2,
+                                                      latent_size=16),
+            tts_backbone_num_hidden_layers=2,
+        )
+        params = init_streaming(cfg, seed=0, device=device)
+        processor = VibeVoiceStreamingProcessor(FallbackTextTokenizer(vocab_size=256))
+        prompt = np.random.RandomState(0).randint(10, 200, (1, 16))
+        preset = st.build_voice_preset(cfg, params, prompt,
+                                       neg_prompt_id=getattr(processor.tokenizer, "pad_id", 3),
+                                       max_len=max_len)
+        return cls(cfg, params, processor, preset, max_len=max_len)
+
+    def _opts(self, opts: Optional[GenerateOptions], overrides) -> GenerateOptions:
+        if opts is None:
+            return GenerateOptions(**{"cfg_scale": 1.5, "ddpm_steps": 5, **overrides})
+        return dataclasses.replace(opts, **overrides) if overrides else opts
+
+    def stream(self, text: str, *, seed: int = 0, opts: Optional[GenerateOptions] = None,
+               stop_check_fn=None, **overrides) -> Iterator[np.ndarray]:
+        """Text -> audio frames as they are produced (generation runs on a
+        worker thread). Closing the iterator stops generation, as does
+        ``stop_check_fn()`` returning True."""
+        opts = self._opts(opts, overrides)
+
+        def produce(streamer, stopped):
+            with self._lock:
+                proc_out = self.processor.process_input_with_cached_prompt(text, self.preset)
+                self.st.generate(
+                    self.cfg, self.params, tts_text_ids=proc_out.tts_text_ids, preset=self.preset,
+                    opts=opts, max_len=self.max_len, seed=seed, audio_streamer=streamer,
+                    stop_check_fn=lambda: stopped() or (stop_check_fn is not None
+                                                        and stop_check_fn()))
+
+        return _threaded_stream(produce)
+
+    def warmup(self, max_frames: int = 12, **overrides) -> float:
+        """Capture the windows (text window, speech window, vocoder) before
+        the first real stream, so that its time to first audio is steady
+        state: one short stream whose audio is dropped. Returns wall
+        seconds."""
+        t0 = time.monotonic()
+        for i, _ in enumerate(self.stream("Warming up the serving path.", **overrides)):
+            if i >= max_frames:  # closing the generator stops generation
+                break
+        return time.monotonic() - t0
+
+    def synthesize(self, text: str, **kw) -> np.ndarray:
+        chunks = list(self.stream(text, **kw))
+        return (np.concatenate([np.asarray(c).reshape(-1) for c in chunks]) if chunks
+                else np.zeros(0, np.float32))

@@ -1,5 +1,7 @@
 """The port's parameter tree: conversion from the JAX package's pytree, and
-random initialisation from a seed.
+random initialisation from a seed (the multi-speaker model's ``init``, the
+streaming 0.5B model's ``init_streaming``). Both constructors and
+``from_jax`` put the weights on the card unless given ``device="cpu"``.
 
 The tree has the JAX pytree's keys. Layouts:
   linear weights      (in, out), as in the JAX package (int8 weights too)
@@ -12,12 +14,13 @@ transposed convs pre-flipped, w[t, i, o] = torch_w[i, o, k-1-t]
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict
 
 import numpy as np
 import torch
 
-from ..configs import VibeVoiceConfig
+from ..configs import VibeVoiceConfig, VibeVoiceStreamingConfig
 
 from ..models.tokenizer import decoder_spec, encoder_spec
 
@@ -63,11 +66,24 @@ def _map(tree, fn):
     return fn(tree)
 
 
-def from_jax(params_np: Dict, cfg: VibeVoiceConfig, *, dtype=None, device=None) -> Dict:
+def _device(device) -> torch.device:
+    """The weights' device: the card unless the caller asks for the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device={str(device)!r}: no CUDA device is available; pass "
+                           "device=\"cpu\" to build the weights on the CPU (the kernels' plain "
+                           "versions)")
+    return device
+
+
+def from_jax(params_np: Dict, cfg, *, dtype=None, device="cuda") -> Dict:
     """Convert the DENSE JAX pytree (after ``jax.tree.map(np.asarray, ...)``)
-    to the port's tree; a partial tree (e.g. only the tokenizers) works too. Quantization and fusion are run by the port itself
+    to the port's tree on ``device``; a partial tree (e.g. only the
+    tokenizers) works too, and so does the streaming model's. Quantization
+    and fusion are run by the port itself
     (models/vibevoice.quantize_for_inference / fuse_for_serving)."""
     del cfg  # the structure is read from the tree
+    device = _device(device)
     t = _map(params_np, lambda a: _tensor(a, device=device))
     if dtype is not None:
         t = _map(t, lambda x: x.to(dtype) if x.is_floating_point() and x.ndim else x)
@@ -77,120 +93,174 @@ def from_jax(params_np: Dict, cfg: VibeVoiceConfig, *, dtype=None, device=None) 
     return t
 
 
-def init(cfg: VibeVoiceConfig, *, seed: int = 0, dtype=torch.float32, device=None) -> Dict:
-    """Random weights from ``seed`` with the reference's shapes. Every matrix
-    is drawn N(0, std) (the AdaLN and final layers too, which the reference
-    zero-initialises, so that every layer does work); norms are ones, biases
-    zeros, layer scales the config's init value."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+class _Draws:
+    """The random draws of ``init`` and ``init_streaming``: every tensor
+    from one seeded generator on ``device``, in the order it is asked for."""
 
-    def normal(*shape, std):
-        return (torch.randn(shape, generator=gen, device=device) * std).to(dtype)
+    def __init__(self, seed: int, dtype, device: torch.device):
+        self.gen = torch.Generator(device=device)
+        self.gen.manual_seed(seed)
+        self.dtype, self.device = dtype, device
 
-    ones = lambda n: torch.ones(n, dtype=dtype, device=device)
-    zeros = lambda n: torch.zeros(n, dtype=dtype, device=device)
+    def normal(self, *shape, std):
+        return (torch.randn(shape, generator=self.gen, device=self.device) * std).to(self.dtype)
 
-    def lin(cin, cout, std, bias=False):
-        p = {"w": normal(cin, cout, std=std)}
+    def ones(self, n):
+        return torch.ones(n, dtype=self.dtype, device=self.device)
+
+    def zeros(self, n):
+        return torch.zeros(n, dtype=self.dtype, device=self.device)
+
+    def lin(self, cin, cout, std, bias=False):
+        p = {"w": self.normal(cin, cout, std=std)}
         if bias:
-            p["b"] = zeros(cout)
+            p["b"] = self.zeros(cout)
         return p
 
-    lm_cfg = cfg.decoder_config
+    def conv(self, cout, cin_g, k, std, bias):
+        p = {"w": self.normal(cout, cin_g, k, std=std)}
+        if bias:
+            p["b"] = self.zeros(cout)
+        return p
+
+
+def _lm(r: _Draws, lm_cfg) -> Dict:
+    """A Qwen2 stack: embedding, layers, final norm."""
     h, inter = lm_cfg.hidden_size, lm_cfg.intermediate_size
     kvw = lm_cfg.num_key_value_heads * lm_cfg.head_dim
     std = lm_cfg.initializer_range
-    lm = {
-        "embed": normal(lm_cfg.vocab_size, h, std=std),
+    return {
+        "embed": r.normal(lm_cfg.vocab_size, h, std=std),
         "layers": [
             {
-                "input_norm": {"w": ones(h)},
-                "attn": {"q": lin(h, h, std, True), "k": lin(h, kvw, std, True),
-                         "v": lin(h, kvw, std, True), "o": lin(h, h, std)},
-                "post_norm": {"w": ones(h)},
-                "mlp": {"gate": lin(h, inter, std), "up": lin(h, inter, std),
-                        "down": lin(inter, h, std)},
+                "input_norm": {"w": r.ones(h)},
+                "attn": {"q": r.lin(h, h, std, True), "k": r.lin(h, kvw, std, True),
+                         "v": r.lin(h, kvw, std, True), "o": r.lin(h, h, std)},
+                "post_norm": {"w": r.ones(h)},
+                "mlp": {"gate": r.lin(h, inter, std), "up": r.lin(h, inter, std),
+                        "down": r.lin(inter, h, std)},
             }
             for _ in range(lm_cfg.num_hidden_layers)
         ],
-        "final_norm": {"w": ones(h)},
+        "final_norm": {"w": r.ones(h)},
     }
 
-    def conv(cout, cin_g, k, std, bias):
-        p = {"w": normal(cout, cin_g, k, std=std)}
-        if bias:
-            p["b"] = zeros(cout)
-        return p
 
-    def block(dim, tcfg):
+def _coder(r: _Draws, tcfg, decoder: bool) -> Dict:
+    """A tokenizer encoder or decoder (convs in PyTorch's layouts)."""
+
+    def block(dim):
         s = tcfg.weight_init_value
         groups = dim if tcfg.mixer_layer == "depthwise_conv" else 1
         p = {
-            "norm": {"w": ones(dim)},
-            "mixer": conv(dim, dim // groups, 7, s, tcfg.conv_bias),
-            "ffn_norm": {"w": ones(dim)},
-            "ffn": {"fc1": lin(dim, 4 * dim, s, tcfg.conv_bias),
-                    "fc2": lin(4 * dim, dim, s, tcfg.conv_bias)},
+            "norm": {"w": r.ones(dim)},
+            "mixer": r.conv(dim, dim // groups, 7, s, tcfg.conv_bias),
+            "ffn_norm": {"w": r.ones(dim)},
+            "ffn": {"fc1": r.lin(dim, 4 * dim, s, tcfg.conv_bias),
+                    "fc2": r.lin(4 * dim, dim, s, tcfg.conv_bias)},
         }
         if tcfg.layer_scale_init_value > 0:
-            p["gamma"] = torch.full((dim,), tcfg.layer_scale_init_value, dtype=dtype, device=device)
+            p["gamma"] = torch.full((dim,), tcfg.layer_scale_init_value, dtype=r.dtype,
+                                    device=r.device)
             p["ffn_gamma"] = p["gamma"].clone()
         return p
 
-    def coder(tcfg, decoder: bool):
-        spec = decoder_spec(tcfg) if decoder else encoder_spec(tcfg)
-        dims, ratios, depths = spec["dims"], spec["ratios"], spec["depths"]
-        s, bias = tcfg.weight_init_value, tcfg.conv_bias
-        convs = [conv(dims[0], spec["in_channels"], 7, s, bias)]
-        for i in range(len(depths) - 1):
-            k = 2 * ratios[i]
-            if decoder:  # transposed: (C_in, C_out, k)
-                p = {"w": normal(dims[i], dims[i + 1], k, std=s)}
-                if bias:
-                    p["b"] = zeros(dims[i + 1])
-                convs.append(p)
-            else:
-                convs.append(conv(dims[i + 1], dims[i], k, s, bias))
-        p = {"up" if decoder else "down": convs,
-             "stages": [[block(dims[i], tcfg) for _ in range(d)] for i, d in enumerate(depths)],
-             "head": conv(spec["out_dim"], dims[-1], 7, s, bias)}
-        if not tcfg.disable_last_norm:
-            p["final_norm"] = {"w": ones(dims[-1])} if tcfg.layernorm_elementwise_affine else {}
-        return p
+    spec = decoder_spec(tcfg) if decoder else encoder_spec(tcfg)
+    dims, ratios, depths = spec["dims"], spec["ratios"], spec["depths"]
+    s, bias = tcfg.weight_init_value, tcfg.conv_bias
+    convs = [r.conv(dims[0], spec["in_channels"], 7, s, bias)]
+    for i in range(len(depths) - 1):
+        k = 2 * ratios[i]
+        if decoder:  # transposed: (C_in, C_out, k)
+            p = {"w": r.normal(dims[i], dims[i + 1], k, std=s)}
+            if bias:
+                p["b"] = r.zeros(dims[i + 1])
+            convs.append(p)
+        else:
+            convs.append(r.conv(dims[i + 1], dims[i], k, s, bias))
+    p = {"up" if decoder else "down": convs,
+         "stages": [[block(dims[i]) for _ in range(d)] for i, d in enumerate(depths)],
+         "head": r.conv(spec["out_dim"], dims[-1], 7, s, bias)}
+    if not tcfg.disable_last_norm:
+        p["final_norm"] = {"w": r.ones(dims[-1])} if tcfg.layernorm_elementwise_affine else {}
+    return p
 
-    def connector(cin, cout):
-        return {"fc1": lin(cin, cout, 0.02, True), "norm": {"w": ones(cout)},
-                "fc2": lin(cout, cout, 0.02, True)}
 
-    hc = cfg.diffusion_head_config
+def _connector(r: _Draws, cin, cout) -> Dict:
+    return {"fc1": r.lin(cin, cout, 0.02, True), "norm": {"w": r.ones(cout)},
+            "fc2": r.lin(cout, cout, 0.02, True)}
+
+
+def _head(r: _Draws, hc) -> Dict:
+    """The diffusion head."""
     hh, lat, ff = hc.hidden_size, hc.latent_size, hc.ffn_dim
-    head = {
-        "noisy_proj": lin(lat, hh, 0.02),
-        "cond_proj": lin(hh, hh, 0.02),
-        "t_embedder": {"fc1": lin(256, hh, 0.02), "fc2": lin(hh, hh, 0.02)},
+    return {
+        "noisy_proj": r.lin(lat, hh, 0.02),
+        "cond_proj": r.lin(hh, hh, 0.02),
+        "t_embedder": {"fc1": r.lin(256, hh, 0.02), "fc2": r.lin(hh, hh, 0.02)},
         "layers": [
-            {"norm": {"w": ones(hh)}, "adaln": lin(hh, 3 * hh, 0.02),
-             "ffn": {"gate": lin(hh, ff, 0.02), "up": lin(hh, ff, 0.02),
-                     "down": lin(ff, hh, 0.02)}}
+            {"norm": {"w": r.ones(hh)}, "adaln": r.lin(hh, 3 * hh, 0.02),
+             "ffn": {"gate": r.lin(hh, ff, 0.02), "up": r.lin(hh, ff, 0.02),
+                     "down": r.lin(ff, hh, 0.02)}}
             for _ in range(hc.head_layers)
         ],
-        "final": {"adaln": lin(hh, 2 * hh, 0.02), "linear": lin(hh, lat, 0.02)},
+        "final": {"adaln": r.lin(hh, 2 * hh, 0.02), "linear": r.lin(hh, lat, 0.02)},
     }
+
+
+def init(cfg: VibeVoiceConfig, *, seed: int = 0, dtype=torch.float32, device="cuda") -> Dict:
+    """Random weights from ``seed`` with the reference's shapes, on
+    ``device`` (the card unless the caller asks for the CPU). Every matrix
+    is drawn N(0, std) (the AdaLN and final layers too, which the reference
+    zero-initialises, so that every layer does work); norms are ones, biases
+    zeros, layer scales the config's init value."""
+    r = _Draws(seed, dtype, _device(device))
+    lm_cfg = cfg.decoder_config
+    h = lm_cfg.hidden_size
+    lm = _lm(r, lm_cfg)
+    head = _head(r, cfg.diffusion_head_config)
     acfg, scfg = cfg.acoustic_tokenizer_config, cfg.semantic_tokenizer_config
     params = {
         "lm": lm,
-        "acoustic_tokenizer": {"encoder": coder(acfg, False), "decoder": coder(acfg, True)},
-        "semantic_tokenizer": {"encoder": coder(scfg, False)},
-        "acoustic_connector": connector(cfg.acoustic_vae_dim, h),
-        "semantic_connector": connector(cfg.semantic_vae_dim, h),
+        "acoustic_tokenizer": {"encoder": _coder(r, acfg, False), "decoder": _coder(r, acfg, True)},
+        "semantic_tokenizer": {"encoder": _coder(r, scfg, False)},
+        "acoustic_connector": _connector(r, cfg.acoustic_vae_dim, h),
+        "semantic_connector": _connector(r, cfg.semantic_vae_dim, h),
         "diffusion_head": head,
-        "speech_scaling_factor": torch.tensor(1.0, device=device),
-        "speech_bias_factor": torch.tensor(0.0, device=device),
+        "speech_scaling_factor": torch.tensor(1.0, device=r.device),
+        "speech_bias_factor": torch.tensor(0.0, device=r.device),
     }
     if not lm_cfg.tie_word_embeddings:
-        params["lm_head"] = normal(lm_cfg.vocab_size, h, std=0.02)
+        params["lm_head"] = r.normal(lm_cfg.vocab_size, h, std=0.02)
     return params
+
+
+def init_streaming(cfg: VibeVoiceStreamingConfig, *, seed: int = 0, dtype=torch.float32,
+                   device="cuda") -> Dict:
+    """Random weights of the streaming 0.5B model (the tree of
+    vibevoice_tpu/models/streaming.py ``init``), drawn as ``init`` draws
+    them: the lower text LM (``lm_num_hidden_layers`` layers) and the upper
+    TTS LM, the text/speech type embedding, the EOS classifier, the
+    acoustic tokenizer, its connector, the diffusion head and the two
+    scaling scalars, on ``device`` (the card unless the caller asks for the
+    CPU)."""
+    r = _Draws(seed, dtype, _device(device))
+    lm_cfg = cfg.decoder_config
+    h, std = lm_cfg.hidden_size, lm_cfg.initializer_range
+    replace = dataclasses.replace
+    acfg = cfg.acoustic_tokenizer_config
+    return {
+        "language_model": _lm(r, replace(lm_cfg, num_hidden_layers=cfg.lm_num_hidden_layers)),
+        "tts_language_model": _lm(r, replace(
+            lm_cfg, num_hidden_layers=cfg.tts_backbone_num_hidden_layers)),
+        "tts_input_types": r.normal(2, h, std=std),
+        "tts_eos_classifier": {"fc1": r.lin(h, h, std, True), "fc2": r.lin(h, 1, std, True)},
+        "acoustic_tokenizer": {"encoder": _coder(r, acfg, False), "decoder": _coder(r, acfg, True)},
+        "acoustic_connector": _connector(r, cfg.acoustic_vae_dim, h),
+        "diffusion_head": _head(r, cfg.diffusion_head_config),
+        "speech_scaling_factor": torch.tensor(1.0, device=r.device),
+        "speech_bias_factor": torch.tensor(0.0, device=r.device),
+    }
 
 
 def lora_from_jax(lora_np: Dict, *, device=None) -> Dict:
