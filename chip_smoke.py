@@ -51,6 +51,13 @@ Phases, each of which fails the run:
      bound beside the bound of the products its design computes (three bf16
      terms each, plus the split pass's bytes), the split pass timed apart,
      and SDPA's forward and its autograd backward as the library times;
+     and at the rows of the batched serving paths (check_batched_kernels):
+     C at 8 rows (int8 and bf16 weights), D at 4 and 8 rows, B's decode
+     route at 8 rows of mixed bases with an idle row past the cache (the
+     1.5B at 4,096 bf16 and 65,536 int8 slots, the 0.5B at 8,192 for each
+     of its two caches), each also captured in a CUDA graph and replayed on
+     new inputs against its eager call (the same bits), as is A's GEMV at 8
+     rows;
   4. end to end, serving: the full-width 1.5B model (random weights from
      --seed, bf16, int8 LM + lm_head, fuse_for_serving) runs generate() on a
      two-speaker script with two 3 s voice prompts and a forced script of
@@ -110,7 +117,32 @@ Phases, each of which fails the run:
      T 8192 with remat and CE chunks of 1024. Losses finite, adapters moved
      after step 2, kernels A (its GEMM), E and the training attention's
      tensor-core route launched, its CUDA-core route never (the tiny
-     config's head_dim 16 takes that one).
+     config's head_dim 16 takes that one);
+  8. end to end, the serving engine: serving.ServingEngine(max_batch=4,
+     max_len=4096, frames_per_dispatch=4, reserved_slots=1) over phase 4's
+     model made to speak (utils.params.speaking), after warmup(): eight
+     requests of the two-speaker prompt and voices capped at 40 frames
+     (four at once, one with priority; four staggered, one cancelled)
+     must end as expected with their audio and agree with stats(); the
+     request in slot 3 against itself alone in the engine (GRAPH_TOL) and
+     against its batch-1 run on the same noise rows (tokens equal, audio
+     within ENGINE_SOLO_TOL); one batched window
+     replayed against eager (the same bits and launches); eight requests at
+     once at max_batch 4 against max_batch 1 (audio seconds a wall second),
+     TTFA, a replay's device time a frame; four requests at 65,536 slots
+     (int8 KV);
+  9. end to end, the session engine: StreamingSessionEngine(n_slots=8,
+     max_len=8192, quantum=3) over phase 6's model (EOS held off): 12
+     sessions of the script (4 queued) and a live one fed in three parts,
+     each capped at 36 frames; join-TTFA, quantum walls against their
+     real-time budget, the aggregate real-time factor; one inject-mode
+     session batched with three others against itself alone in the engine
+     (GRAPH_TOL) and its solo generate() (SESSION_SOLO_TOL);
+ 10. end to end, HTTP: serving/server.py's build_server over phases 8's
+     and 9's engines, in this process on port 0: /health, /tts,
+     /tts/stream, /v1/audio/speech (wav, pcm, an error), /tts/rt plain and
+     live with /append and /end, /stats; status codes, WAV headers and PCM
+     lengths checked.
 The next-to-last line is a JSON object of the kernels' results; the last
 line is the JSON device record. The script runs itself again with
 PYTHONHASHSEED=0: the prompts go through the hash-bucket fallback
@@ -444,6 +476,26 @@ def check_cached_attention(checks: Checks, g, heads: tuple, w: int, s: int, int8
                 ref, 1e-2, ms, pms, main=main, bound=bound(flops, byt), library_ms=lms)
 
 
+def head_layers(randn, dim: int, hid: int, n_layers: int) -> list:
+    """Random diffusion-head FFN layers for kernel C (randn draws bf16)."""
+    return [{"norm": {"w": 1 + 0.1 * randn(dim)},
+             "ffn": {"gate": {"w": randn(dim, hid) * 0.03}, "up": {"w": randn(dim, hid) * 0.03},
+                     "down": {"w": randn(hid, dim) * 0.02}}} for _ in range(n_layers)]
+
+
+def stage_blocks(randn, dim: int, n_blocks: int) -> list:
+    """Random Block1D blocks of one vocoder stage for kernel D."""
+    import torch
+
+    half = lambda: torch.full((dim,), 0.5, dtype=torch.bfloat16, device="cuda")
+    return [{"norm": {"w": 1 + 0.1 * randn(dim)},
+             "mixer": {"w": randn(dim, 1, 7) * 0.3, "b": randn(dim) * 0.1},
+             "gamma": half(), "ffn_norm": {"w": 1 + 0.1 * randn(dim)},
+             "ffn": {"fc1": {"w": randn(dim, 4 * dim) * 0.02, "b": randn(4 * dim) * 0.1},
+                     "fc2": {"w": randn(4 * dim, dim) * 0.01, "b": randn(dim) * 0.1}},
+             "ffn_gamma": half()} for _ in range(n_blocks)]
+
+
 def check_kernels(checks: Checks, seed: int) -> None:
     import torch
 
@@ -466,8 +518,11 @@ def check_kernels(checks: Checks, seed: int) -> None:
             x = randn(rows, k)
             check_int8_matmul(checks, f"{name} {k}x{n} rows={rows}", x, ws, 1e-2,
                               main=(name == "gate/up" and rows == 2))
-            if rows == 2:
+            if rows in (2, 8):
                 gemv_graph_check(checks, f"{name} {k}x{n} rows={rows}", x, ws[0])
+            if rows == 8:
+                graph_vs_eager(checks, "int8_matmul", f"{name} {k}x{n} rows=8",
+                               lambda: quant.int8_matmul(x, ws[0]["w8"], ws[0]["scale"]), (x,))
 
     # A's two routes side by side, to place the row threshold of quant._plan
     print(f"kernel A routes by rows (bf16 x; ms of the GEMV / the GEMM; quant.GEMM_MIN_ROWS = "
@@ -523,9 +578,7 @@ def check_kernels(checks: Checks, seed: int) -> None:
           f"tol 1e-4; at most {FUSED_MAX_KERNELS['fused_head_ffn_stack']} device kernels a call)")
     dim, hid, nl = 1536, 4608, 4
     for quantize in (True, False):
-        layers = [{"norm": {"w": 1 + 0.1 * randn(dim)},
-                   "ffn": {"gate": {"w": randn(dim, hid) * 0.03}, "up": {"w": randn(dim, hid) * 0.03},
-                           "down": {"w": randn(hid, dim) * 0.02}}} for _ in range(nl)]
+        layers = head_layers(randn, dim, hid, nl)
         packs = rotating(lambda: hf.pack_head_ffns(layers, 1e-5, quantize),
                          3 * nl * dim * hid * (1 if quantize else 2), budget=120 << 20)
         x = randn(2, dim, dt=torch.float32)
@@ -550,14 +603,7 @@ def check_kernels(checks: Checks, seed: int) -> None:
           f"{FUSED_MAX_KERNELS['fused_stage_step']} device kernels a call)")
     dim, nb = 2048, 8
     for quantize in (True, False):
-        blocks = [{"norm": {"w": 1 + 0.1 * randn(dim)},
-                   "mixer": {"w": randn(dim, 1, 7) * 0.3, "b": randn(dim) * 0.1},
-                   "gamma": torch.full((dim,), 0.5, dtype=torch.bfloat16, device=dev),
-                   "ffn_norm": {"w": 1 + 0.1 * randn(dim)},
-                   "ffn": {"fc1": {"w": randn(dim, 4 * dim) * 0.02, "b": randn(4 * dim) * 0.1},
-                           "fc2": {"w": randn(4 * dim, dim) * 0.01, "b": randn(dim) * 0.1}},
-                   "ffn_gamma": torch.full((dim,), 0.5, dtype=torch.bfloat16, device=dev)}
-                  for _ in range(nb)]
+        blocks = stage_blocks(randn, dim, nb)
         packs = rotating(lambda: vf.pack_stage(blocks, 1e-5, quantize),
                          nb * 8 * dim * dim * (1 if quantize else 2), budget=120 << 20)
         x, st = randn(1, 1, dim), randn(nb, 1, 6, dim)
@@ -574,6 +620,138 @@ def check_kernels(checks: Checks, seed: int) -> None:
         checks.case("fused_stage_step", f"{nb} blocks {w} weights: new state", ns, rs, 2e-2)
         fused_call_checks(checks, "fused_stage_step", f"{nb} blocks {w} weights", call,
                           lambda: vf.fused_stage_step_plain(packs[0], x, st), (x, st), 2e-2)
+
+
+def graph_vs_eager(checks: Checks, kernel: str, label: str, call, inputs, tweak=None) -> None:
+    """A kernel's call captured once in a CUDA graph and replayed twice
+    with new inputs written in place (`tweak(i)`, or each input rolled and
+    scaled): each replay must give the bits of an eager call on the same
+    inputs. The inputs are restored afterwards."""
+    import torch
+
+    tup = lambda o: o if isinstance(o, tuple) else (o,)
+    call()  # workspaces and counters outside the capture
+    torch.cuda.synchronize()
+    before = [t.clone() for t in inputs]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = tup(call())
+    same = True
+    for i in range(2):
+        if tweak is not None:
+            tweak(i)
+        else:
+            for t, b in zip(inputs, before):
+                t.copy_(torch.roll(b, i + 1, dims=-1) * (1 + 0.5 * i))
+        graph.replay()
+        eager = tup(call())
+        torch.cuda.synchronize()
+        same &= all(torch.equal(o, e) for o, e in zip(outs, eager))
+    for t, b in zip(inputs, before):
+        t.copy_(b)
+    del graph
+    checks.extra.setdefault("graph_vs_eager", {})[f"{kernel} {label}"] = same
+    print(f"  {kernel:<24s} {label:<40s} CUDA-graph replays against eager calls on new inputs: "
+          f"{'the same bits' if same else 'DIFFER'}", flush=True)
+    if not same:
+        fail(f"{kernel} {label}: a CUDA-graph replay differs from the eager call")
+
+
+# Kernel B's decode bases at the batched rows of phase 8 (1.5B, bs4: the
+# positive streams then the negative ones) and phase 9 (eight 0.5B
+# sessions: the positive cache, the negative cache): bases thousands apart,
+# 0, 17, mid-cache, S - 1, and an idle row whose length has run past the
+# cache (a free slot's positive stream advances every frame).
+BATCHED_DECODE = (((12, 2, 128), 4096, False, (0, 17, 2048, 4095, 5096, 1, 9, 33)),
+                  ((12, 2, 128), 65536, True, (0, 17, 32768, 65535, 66536, 1, 9, 33)),
+                  ((14, 2, 64), STREAM_MAX_LEN, False, (286, 300, 0, 8191, 4000, 17, 290, 9191)),
+                  ((14, 2, 64), STREAM_MAX_LEN, False, (31, 7, 1, 40, 8191, 17, 0, 12)))
+
+
+def check_batched_kernels(checks: Checks, seed: int) -> None:
+    """Kernels B, C and D at the rows of the batched serving paths (phases
+    8 and 9) against their plain versions, timed with their bounds, each
+    also replayed from a CUDA graph against its eager call: C at 8 rows
+    (bs4 with CFG), D at 4 rows (the 1.5B at bs4) and 8 (eight 0.5B
+    sessions), B's decode route at 8 rows with mixed bases and an idle row
+    (BATCHED_DECODE). A's GEMV at 8 rows is check_kernels' (with its graph
+    checks)."""
+    import torch
+
+    from vibevoice_tpu_torch.ops import flash_attention as fa
+    from vibevoice_tpu_torch.ops import head_fused as hf
+    from vibevoice_tpu_torch.ops import vocoder_fused as vf
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 3)
+    randn = lambda *s, dt=torch.bfloat16: torch.randn(s, generator=g, device=dev).to(dt)
+    print("batched rows of the serving engines (phases 8 and 9)")
+
+    dim, hid, nl, rows = 1536, 4608, 4, 8
+    for quantize in (True, False):
+        layers = head_layers(randn, dim, hid, nl)
+        packs = rotating(lambda: hf.pack_head_ffns(layers, 1e-5, quantize),
+                         3 * nl * dim * hid * (1 if quantize else 2), budget=120 << 20)
+        x = randn(rows, dim, dt=torch.float32)
+        mods = randn(nl, rows, 3 * dim, dt=torch.float32) * 0.5
+        label = f"{nl} layers {'int8' if quantize else 'bf16'} weights rows={rows}"
+        call = lambda: hf.fused_head_ffn_stack(packs[0], x, mods)
+        out = call()
+        ms = bench_ms(lambda pk: hf.fused_head_ffn_stack(pk, x, mods), packs)
+        pms = bench_ms(lambda pk: hf.fused_head_ffn_stack_plain(pk, x, mods), packs)
+        checks.case("fused_head_ffn_stack", label, out,
+                    hf.fused_head_ffn_stack_plain(packs[0], x, mods), 1e-4, ms, pms,
+                    bound=bound(2 * rows * 3 * dim * hid * nl,
+                                nbytes(*packs[0].arrays.values(), x, mods, out), "f32"))
+        fused_call_checks(checks, "fused_head_ffn_stack", label, call,
+                          lambda: hf.fused_head_ffn_stack_plain(packs[0], x, mods), (x, mods), 1e-4)
+        graph_vs_eager(checks, "fused_head_ffn_stack", label, call, (x, mods))
+        del packs
+
+    dim, nb = 2048, 8
+    for quantize, rows in ((True, 4), (True, 8), (False, 8)):
+        blocks = stage_blocks(randn, dim, nb)
+        packs = rotating(lambda: vf.pack_stage(blocks, 1e-5, quantize),
+                         nb * 8 * dim * dim * (1 if quantize else 2), budget=120 << 20)
+        x, st = randn(rows, 1, dim), randn(nb, rows, 6, dim)
+        label = f"{nb} blocks {'int8' if quantize else 'bf16'} weights rows={rows}"
+        call = lambda: vf.fused_stage_step(packs[0], x, st)
+        (out, ns), (ref, rs) = call(), vf.fused_stage_step_plain(packs[0], x, st)
+        ms = bench_ms(lambda pk: vf.fused_stage_step(pk, x, st), packs)
+        pms = bench_ms(lambda pk: vf.fused_stage_step_plain(pk, x, st), packs)
+        checks.case("fused_stage_step", f"{label}: y", out, ref, 2e-2, ms, pms,
+                    bound=bound(2 * rows * nb * (8 * dim * dim + 7 * dim),
+                                nbytes(*packs[0].arrays.values(), x, st, out, ns)))
+        checks.case("fused_stage_step", f"{label}: new state", ns, rs, 2e-2)
+        fused_call_checks(checks, "fused_stage_step", label, call,
+                          lambda: vf.fused_stage_step_plain(packs[0], x, st), (x, st), 2e-2)
+        graph_vs_eager(checks, "fused_stage_step", label, call, (x, st))
+        del packs
+
+    for heads, s_, int8, base in BATCHED_DECODE:
+        label = f"{'0.5B ' if heads[2] == 64 else ''}8 rows "
+        check_cached_attention(checks, g, heads, 1, s_, int8, base, label=label,
+                               graph_bases=None if int8 else (tuple(reversed(base)),))
+        nh, kh, d = heads
+        q = torch.randn((8, 1, nh, d), generator=g, device=dev).to(torch.bfloat16)
+        base_t = torch.tensor(base, dtype=torch.int32, device=dev)
+        if int8:
+            kc, vc = (torch.randint(-127, 128, (8, kh, s_, d), generator=g, device=dev)
+                      .to(torch.int8) for _ in range(2))
+            kw = dict(k_scale=torch.rand((8, kh, 1, s_), generator=g, device=dev) / 127,
+                      v_scale=torch.rand((8, kh, 1, s_), generator=g, device=dev) / 127)
+        else:
+            kc, vc = (torch.randn((8, kh, s_, d), generator=g, device=dev).to(torch.bfloat16)
+                      for _ in range(2))
+            kw = {}
+        before = base_t.clone()
+        graph_vs_eager(checks, "flash_cached_attention",
+                       f"{label}W=1 S={s_} {'int8' if int8 else 'bf16'} bases rolled",
+                       lambda: fa.flash_cached_attention(q, kc, vc, base_t, **kw), (q,),
+                       tweak=lambda i: (base_t.copy_(torch.roll(before, i + 1)),
+                                        q.mul_(1.5)))
+        del kc, vc
 
 
 def check_streaming_attention(checks: Checks, seed: int) -> None:
@@ -1041,38 +1219,22 @@ def _to(tree, dev):
 
 def serving_model(seed: int) -> dict:
     """The full-width 1.5B serving set-up shared by the serving and the
-    sequence-parallel prefill phases: weights, processor, special tokens,
-    the two voices and the two-speaker script."""
+    sequence-parallel prefill phases (tts.VibeVoiceTTS.random: random bf16
+    weights from the seed, int8 LM + lm_head, the fused serving packs, the
+    hash-bucket tokenizer with the Qwen special ids), the two voices and
+    the two-speaker script."""
     import numpy as np
     import torch
 
-    from vibevoice_tpu_torch.configs import VibeVoiceConfig
-    from vibevoice_tpu_torch.processor.processor import VibeVoiceProcessor
-    from vibevoice_tpu_torch.processor.text_tokenizer import QWEN_SPECIAL_IDS, FallbackTextTokenizer
-    from vibevoice_tpu_torch.models import inference as inf
-    from vibevoice_tpu_torch.models import vibevoice as vv
-    from vibevoice_tpu_torch.utils.params import init
+    from vibevoice_tpu_torch.tts import VibeVoiceTTS
 
-    cfg = VibeVoiceConfig.from_json_file(str(CONFIG_1P5B))
     t0 = time.perf_counter()
-    params = init(cfg, seed=seed, dtype=torch.bfloat16, device="cuda")
-    params = vv.fuse_for_serving(vv.quantize_for_inference(params, ("lm", "lm_head")), cfg,
-                                 quantize=True)
+    tts = VibeVoiceTTS.random(str(CONFIG_1P5B), seed=seed)
     torch.cuda.synchronize()
     print(f"  1.5B params (bf16, int8 LM + lm_head, fused serving packs) built in "
           f"{time.perf_counter() - t0:.1f} s; "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card", flush=True)
-
-    tk = FallbackTextTokenizer(
-        vocab_size=cfg.decoder_config.vocab_size,
-        speech_start_id=QWEN_SPECIAL_IDS["speech_start"],
-        speech_end_id=QWEN_SPECIAL_IDS["speech_end"],
-        speech_diffusion_id=QWEN_SPECIAL_IDS["speech_diffusion"],
-        eos_token_id=QWEN_SPECIAL_IDS["eos"], pad_id=QWEN_SPECIAL_IDS["pad"])
-    hop = cfg.acoustic_tokenizer_config.hop_length
-    processor = VibeVoiceProcessor(tokenizer=tk, speech_tok_compress_ratio=hop)
-    toks = inf.SpecialTokens(speech_start=tk.speech_start_id, speech_end=tk.speech_end_id,
-                             speech_diffusion=tk.speech_diffusion_id, eos=tk.eos_token_id)
+    cfg = tts.cfg
     sr = 24_000
     t = np.arange(int(VOICE_SECONDS * sr)) / sr
     rng = np.random.RandomState(seed)
@@ -1080,8 +1242,8 @@ def serving_model(seed: int) -> dict:
               for f in (180.0, 260.0)]
     script = ("Speaker 1: Welcome back to the show, today we talk about speech synthesis.\n"
               "Speaker 2: Thanks for having me, it is a pleasure to be here.")
-    return dict(cfg=cfg, params=params, processor=processor, toks=toks, voices=voices,
-                script=script, hop=hop, sr=sr)
+    return dict(cfg=cfg, params=tts.params, processor=tts.processor, toks=tts.tokens,
+                voices=voices, script=script, hop=cfg.acoustic_tokenizer_config.hop_length, sr=sr)
 
 
 # Graphed against eager serving (the same forced run, the same kernels): the
@@ -1821,51 +1983,37 @@ def finetune_end_to_end(seed: int) -> dict:
 
 
 def streaming_model(seed: int) -> dict:
-    """The full-width streaming 0.5B set-up: the config from the port's
-    JSON, random bf16 weights from --seed with the vocoder's stage 0 packed
-    int8 for kernel D (fuse_vocoder(quantize=True)), the streaming processor
+    """The full-width streaming 0.5B set-up (tts.StreamingTTS.random): the
+    config from the port's JSON, random bf16 weights from --seed with the
+    vocoder's stage 0 packed int8 for kernel D, the streaming processor
     over the hash-bucket tokenizer, and a voice preset that
     build_voice_preset prefills from a random 256-token prompt at 8,192
     slots: one chunk through the 4 + 20 layers (kernel B's prefill route at
     W = 256), the one-token negative prompt through its decode route."""
-    import numpy as np
     import torch
 
-    from vibevoice_tpu_torch.configs import VibeVoiceStreamingConfig
-    from vibevoice_tpu_torch.models import streaming as st
-    from vibevoice_tpu_torch.processor.streaming_processor import VibeVoiceStreamingProcessor
-    from vibevoice_tpu_torch.processor.text_tokenizer import QWEN_SPECIAL_IDS, FallbackTextTokenizer
-    from vibevoice_tpu_torch.utils.params import init_streaming
+    from vibevoice_tpu_torch.tts import StreamingTTS
 
-    cfg = VibeVoiceStreamingConfig.from_json_file(str(CONFIG_0P5B))
-    t0 = time.perf_counter()
-    params = st.fuse_vocoder(init_streaming(cfg, seed=seed, dtype=torch.bfloat16, device="cuda"),
-                             cfg, quantize=True)
-    torch.cuda.synchronize()
-    print(f"  0.5B streaming params (bf16, {cfg.lm_num_hidden_layers} + "
-          f"{cfg.tts_backbone_num_hidden_layers} layers, fused int8 vocoder stage 0) built in "
-          f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB on "
-          "the card", flush=True)
-    vocab = cfg.decoder_config.vocab_size
-    tk = FallbackTextTokenizer(vocab_size=vocab, eos_token_id=QWEN_SPECIAL_IDS["eos"],
-                               pad_id=QWEN_SPECIAL_IDS["pad"])
-    prompt = np.random.RandomState(seed).randint(10, vocab, (1, STREAM_PRESET))
     names = ("flash_cached_attention", "flash_cached_attention_prefill")
     reset_counts(names)
-    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    preset = st.build_voice_preset(cfg, params, prompt, neg_prompt_id=tk.pad_id,
-                                   max_len=STREAM_MAX_LEN)
-    preset_s = time.perf_counter() - t0
+    tts = StreamingTTS.random(str(CONFIG_0P5B), seed=seed, max_len=STREAM_MAX_LEN,
+                              preset_tokens=STREAM_PRESET)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
     counts = read_counts(names)
+    cfg = tts.cfg
     n_layers = cfg.decoder_config.num_hidden_layers
     if counts != {"flash_cached_attention": n_layers, "flash_cached_attention_prefill": n_layers}:
         fail(f"voice preset: kernel B launches {counts}, not {n_layers} of each route")
-    print(f"  voice preset from a {STREAM_PRESET}-token prompt at {STREAM_MAX_LEN} slots: "
-          f"{preset_s:.3f} s (host to host), launches {counts}", flush=True)
-    return dict(cfg=cfg, params=params, processor=VibeVoiceStreamingProcessor(tk), preset=preset,
+    print(f"  0.5B streaming params (bf16, {cfg.lm_num_hidden_layers} + "
+          f"{cfg.tts_backbone_num_hidden_layers} layers, fused int8 vocoder stage 0) and a voice "
+          f"preset from a {STREAM_PRESET}-token prompt at {STREAM_MAX_LEN} slots built in "
+          f"{build_s:.3f} s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card; preset "
+          f"launches {counts}", flush=True)
+    return dict(cfg=cfg, params=tts.params, processor=tts.processor, preset=tts.preset,
                 hop=cfg.acoustic_tokenizer_config.hop_length, sr=24_000,
-                preset_build=dict(seconds=preset_s, launches=counts))
+                preset_build=dict(seconds=build_s, launches=counts))
 
 
 def with_eos_bias(params: dict, bias: float) -> dict:
@@ -2056,6 +2204,523 @@ def streaming_end_to_end(model: dict, seed: int) -> dict:
     return dict(runs=rec, launches=counts)
 
 
+# Phase 8: the continuous-batching engine on the full-width 1.5B. Its
+# requests are the two-speaker prompt with its two voices, each capped at
+# ENGINE_FRAMES frames; utils.params.speaking makes the random weights
+# diffuse at every frame (greedy), so each request gives exactly its cap of
+# audio through the production path (the engine's own draws, no forced
+# tokens). The request in slot 3 is held, on the noise rows its slot was
+# given, to the same request decoded alone in the same engine (the same
+# batch shape: GRAPH_TOL, rows do not mix) and to its run alone from a
+# batch-1 carry: there kernels A-D and cuBLAS take other plans at 2 rows
+# than at 8 (kernel A's GEMV tiles and K splits, B's splits, C's and D's
+# row tiles), so bf16 roundings differ and the frames drift apart. On an
+# H100 (--seed 0) the batch-1 run read 2.0e-2 and 2.1e-2 of the peak through
+# the first window of 4 frames, and 1.09e-1 and 1.72e-1 through all 40 (the
+# rows a slot is given depend on the windows drawn before, so the reading
+# moves between runs); another request's audio (other noise rows, printed
+# beside) read 1.25-1.36. ENGINE_SOLO_FIRST_TOL and ENGINE_SOLO_TOL sit
+# between the two.
+ENGINE_BATCH = 4
+ENGINE_FRAMES = 40
+ENGINE_SOLO_FIRST_TOL = 5e-2
+ENGINE_SOLO_TOL = 0.4
+ENGINE_NAMES = ("int8_matmul", "int8_matmul_gemm", "flash_cached_attention",
+                "flash_cached_attention_prefill", "fused_head_ffn_stack", "fused_stage_step")
+# Phase 9: the session engine on the full-width 0.5B. An inject-mode
+# session batched with three others is held to itself alone in the same
+# engine (GRAPH_TOL) and to its solo streaming.generate() at batch 1, where
+# the 8-row and 1-row bf16 products round differently: 1.44e-2 of the peak
+# over 36 frames on an H100 (--seed 0); SESSION_SOLO_TOL sits above it.
+SESSION_SOLO_TOL = 5e-2
+SESSION_SLOTS = 8
+SESSION_FRAMES = 36
+SESSION_NAMES = ("flash_cached_attention", "flash_cached_attention_prefill", "fused_stage_step")
+
+
+def serving_engine_end_to_end(model: dict, seed: int) -> dict:
+    """Phase 8: ServingEngine(max_batch=4, max_len=4096, frames_per_dispatch
+    =4, reserved_slots=1) over the speaking 1.5B (bf16, int8 LM + lm_head,
+    fused serving packs), after warmup(): eight requests (seeds 0-7), four
+    at once (one with priority, in the express slot) and four staggered
+    (each submitted at the previous one's first audio), one cancelled at its
+    first audio. Every request ends as expected with its frame cap of audio
+    (the cancelled one with less), stats() agrees; the request in slot 3
+    gives the bits of the same request alone in the engine on the same
+    noise rows, and the tokens of its run from its own batch-1 carry with
+    audio within ENGINE_SOLO_TOL; one batched window replayed by the engine's graph gives
+    the tokens, audio bits and launch counts of the same window run
+    eagerly. Then the aggregate audio seconds per wall second of eight
+    requests at once, against the same engine at max_batch=1, TTFA
+    percentiles, one replay's device time a frame (CUDA events), and a
+    short run at 65,536 slots (int8 KV) joining four requests."""
+    import numpy as np
+    import torch
+
+    from vibevoice_tpu_torch.models import inference as inf
+    from vibevoice_tpu_torch.serving.engine import Request, ServingEngine
+    from vibevoice_tpu_torch.utils.params import speaking
+
+    cfg, toks, hop, sr = (model[k] for k in ("cfg", "toks", "hop", "sr"))
+    params = speaking(model["params"], toks, c=64.0)
+    proc = model["processor"](text=model["script"], voice_samples=[model["voices"]])
+    n = int(proc.attention_mask.sum())
+    opts = inf.GenerateOptions(ddpm_steps=10, cfg_scale=1.3, max_length=4096)
+    k = 4
+
+    def request(s, frames=ENGINE_FRAMES, **kw):
+        return Request(input_ids=proc.input_ids, valid_mask=proc.attention_mask,
+                       speech_tensors=proc.speech_tensors, speech_frame_valid=proc.speech_masks,
+                       speech_input_mask=proc.speech_input_mask, seed=s,
+                       max_length_times=(frames + 0.5) / n, **kw)
+
+    def engine(**kw):
+        eng = ServingEngine(cfg, params, tokens=toks, opts=opts, frames_per_dispatch=k, **kw)
+        t0 = time.perf_counter()
+        warm = eng.warmup()
+        return eng, time.perf_counter() - t0, warm
+
+    def check_audio(label, audio, frames):
+        if (audio.size != frames * hop or not np.isfinite(audio).all()
+                or not np.abs(audio).max() > 0):
+            fail(f"{label}: {audio.size} samples (not {frames} frames of {hop}), or not finite, "
+                 "or silent")
+
+    eng, warm_s, _ = engine(max_batch=ENGINE_BATCH, max_len=4096, reserved_slots=1)
+    print(f"  engine at max_batch {ENGINE_BATCH}, 4096 slots, K {k}, reserved_slots 1: warmup() "
+          f"{warm_s:.3f} s (builds, captures the window); prompt {n} tokens, "
+          f"{ENGINE_FRAMES} frames a request", flush=True)
+    rows: dict = {}  # handle -> [(step, slot, noise rows (K, D))]: the draws each slot was given
+    draw = eng._draw_noise
+
+    def recording_draw():
+        noise = draw()
+        for i, h in enumerate(eng.slots):
+            if h is not None:
+                rows.setdefault(h, []).append((int(eng.slot_steps[i]), i, noise.init[:, i].clone()))
+        return noise
+
+    eng._draw_noise = recording_draw
+    prefill_s: list = []  # each request's prefill wall on the prefill thread
+    prefill = eng._prefill
+
+    def timed_prefill(r):
+        t = time.perf_counter()
+        out = prefill(r)
+        prefill_s.append(time.perf_counter() - t)
+        return out
+
+    eng._prefill = timed_prefill
+    frames0, replays0 = eng.stats().frames_emitted, eng.step_fn.replays
+    reset_counts(ENGINE_NAMES)
+    t0 = time.perf_counter()
+    # the burst is staged behind the step function's lock until two of its
+    # prefills wait in `ready`: one prefill takes longer than a request's
+    # 40 frames beside a decoding slot, so unstaged the first request ends
+    # before the last joins and slot 3 is never used
+    with eng.step_fn.request():
+        handles = [eng.submit(request(s)) for s in range(3)]
+        handles.append(eng.submit(request(3, priority=True)))
+        if not eng.wait_for_state(eng.ready.full, 300):
+            fail("serving engine: the burst's prefills were not staged in 300 s")
+    for s in range(4, 8):
+        prev = handles[-1]
+        if not eng.wait_for_state(lambda: prev.first_audio_time is not None or prev._done.is_set(),
+                                  300):
+            fail(f"serving engine: request {s - 1} gave no audio in 300 s")
+        handles.append(eng.submit(request(s)))
+        if s == 5:
+            h5 = handles[-1]
+            if not eng.wait_for_state(lambda: h5.first_audio_time is not None, 300):
+                fail("serving engine: request 5 gave no audio in 300 s")
+            h5.cancel()
+    audio = [h.result(timeout=600) for h in handles]
+    traffic_s = time.perf_counter() - t0
+    traffic_counts = read_counts(ENGINE_NAMES)
+    for s, (h, a) in enumerate(zip(handles, audio)):
+        want = "cancelled" if s == 5 else "completed"
+        if h.rec["outcome"] != want:
+            fail(f"serving engine: request {s} ended {h.rec['outcome']}, not {want}")
+        if s == 5:
+            if not (0 < a.size < ENGINE_FRAMES * hop and a.size % hop == 0):
+                fail(f"serving engine: the cancelled request has {a.size} samples")
+        else:
+            check_audio(f"serving engine request {s}", a, ENGINE_FRAMES)
+    st = eng.stats()
+    emitted = sum(a.size for a in audio) // hop
+    if (st.submitted, st.completed, st.cancelled, st.failed, st.active,
+            st.frames_emitted - frames0, st.priority_submitted) != (8, 7, 1, 0, 0, emitted, 1):
+        fail(f"serving engine: stats {st} disagree (8 submitted, 7 completed, 1 cancelled, "
+             f"{emitted} frames)")
+    express = {slot for _, slot, _ in rows[handles[3]]}
+    if express != {0}:
+        fail(f"serving engine: the priority request ran in slots {express}, not the express slot 0")
+    print(f"  8 requests (4 at once, one priority; 4 staggered, one cancelled) in "
+          f"{traffic_s:.3f} s: "
+          f"{emitted} frames, outcomes right, stats agree; TTFA p50 {st.ttfa_p50_ms:.1f} ms, p95 "
+          f"{st.ttfa_p95_ms:.1f} ms; prefill walls (on the prefill thread, beside decoding) "
+          f"{', '.join(f'{t:.3f}' for t in prefill_s)} s; {eng.step_fn.replays - replays0} "
+          f"replays, launches {traffic_counts}", flush=True)
+
+    # the request in slot 3 against its run alone on the same noise rows
+    h3 = next(h for h in handles if h.rec["outcome"] == "completed" and rows[h][0][1] == 3)
+    solo_fn = inf.StepFn(cfg, toks, inf._trace_opts(opts), k, True)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(h3.request.seed)
+    r = h3.request
+    carry = inf.prefill_request(cfg, params, r.input_ids, r.valid_mask, r.speech_tensors,
+                                r.speech_frame_valid, r.speech_input_mask, 4096, toks, eng.opts, g)
+    cap = min(4096 - n, int(r.max_length_times * n))
+    solo_toks, solo_audio, done = [], [], False
+    for step, _, init in sorted(rows[h3], key=lambda t: t[0]):
+        ext = torch.as_tensor(np.arange(step, step + k)[:, None] >= cap, device="cuda")
+        carry, out = solo_fn(params, carry, inf.FrameNoise(init[:, None], None, None), ext)
+        toks_k, mask, a, fin = (t.cpu().numpy() for t in (out.tokens, out.audio_mask,
+                                                             out.audio.float(), out.finished))
+        for f in range(k):
+            if done:
+                break
+            solo_toks.append(int(toks_k[f, 0]))
+            if mask[f, 0]:
+                solo_audio.append(a[f, 0, :, 0])
+            done = bool(fin[f, 0])
+    solo = np.concatenate(solo_audio) if solo_audio else np.zeros(0, np.float32)
+    got = audio[handles.index(h3)]
+    if solo.shape != got.shape:
+        fail(f"serving engine: the slot-3 request has {got.size} samples, its run alone "
+             f"{solo.size}")
+    peak = float(np.abs(solo).max())
+    curve = [float(np.abs(got[: f * hop] - solo[: f * hop]).max() / peak)
+             for f in range(k, ENGINE_FRAMES + 1, k)]  # through each window
+    solo_err = curve[-1]
+    print(f"  request {handles.index(h3)} in slot 3 against its run alone (batch 1, the same noise "
+          f"rows): tokens {'equal' if solo_toks == h3.tokens else 'DIFFER'} ({len(solo_toks)}), "
+          f"audio max |diff| over the peak through each window of {k} frames "
+          f"{', '.join(f'{e:.2e}' for e in curve)} (tol {ENGINE_SOLO_FIRST_TOL:g} for the first "
+          f"window, {ENGINE_SOLO_TOL:g} for all)", flush=True)
+    if solo_toks != h3.tokens or not (curve[0] <= ENGINE_SOLO_FIRST_TOL
+                                      and solo_err <= ENGINE_SOLO_TOL):
+        fail("serving engine: the slot-3 request differs from its run alone")
+    del solo_fn, carry
+    # the same request alone in the same engine, its slot given the same rows
+    h3_rows = {step: init for step, _, init in rows[h3]}
+
+    def replay_draw():
+        noise = draw()
+        for i, h in enumerate(eng.slots):
+            if h is not None:
+                noise.init[:, i] = h3_rows[int(eng.slot_steps[i])]
+        return noise
+
+    eng._draw_noise = replay_draw
+    alone = eng.submit(request(h3.request.seed)).result(timeout=600)
+    eng._draw_noise = draw
+    alone_err = float(np.abs(alone - got).max() / np.abs(got).max()) \
+        if alone.shape == got.shape else float("inf")
+    other = next(a for h, a in zip(handles, audio) if h is not h3 and a.size == got.size)
+    fault = float(np.abs(other - got).max() / np.abs(got).max())
+    print(f"  the same request alone in the engine (the same rows, other slots idle): max |diff| "
+          f"{alone_err:.3e} of the peak (tol {GRAPH_TOL:g}); another request's audio (other "
+          f"noise rows) reads {fault:.3e}", flush=True)
+    if not alone_err <= GRAPH_TOL or not fault > ENGINE_SOLO_TOL:
+        fail("serving engine: the slot-3 request differs from itself alone in the engine, or the "
+             "tolerance does not separate another request's audio")
+
+    # one batched window, graphed against eager, from the engine's carry with
+    # every slot active again; then one replay's device time
+    fn, b = eng.step_fn, ENGINE_BATCH
+    clone = lambda c: inf._tree_map(lambda t: t.clone(), c)
+    start = clone(eng.carry)
+    start.finished.zero_()
+    noise = clone(draw())
+    ext = torch.zeros(k, b, dtype=torch.bool, device="cuda")
+    reset_counts(ENGINE_NAMES)
+    _, out_e = fn.eager(params, clone(start), noise, ext)
+    e_counts = read_counts(ENGINE_NAMES)
+    out_e = clone(out_e)
+    reset_counts(ENGINE_NAMES)
+    _, out_g = fn(params, clone(start), noise, ext)
+    g_counts = read_counts(ENGINE_NAMES)
+    torch.cuda.synchronize()
+    same = (torch.equal(out_g.tokens, out_e.tokens) and torch.equal(out_g.audio, out_e.audio)
+            and torch.equal(out_g.finished, out_e.finished))
+    times = []
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        fn(params, eng.carry, noise, ext)
+        ev[1].record()
+        torch.cuda.synchronize()
+        times.append(ev[0].elapsed_time(ev[1]) / k)
+    eng.carry.finished.fill_(True)  # the slots are free again
+    print(f"  one window of {k} frames x {b} slots replayed against eager: tokens and audio "
+          f"{'the same bits' if same else 'DIFFER'}, launches "
+          f"{'equal' if g_counts == e_counts else 'DIFFER'} {g_counts}; device time "
+          f"{sorted(times)[1]:.3f} ms a frame (CUDA events, median of 3: "
+          f"{', '.join(f'{t:.3f}' for t in times)})", flush=True)
+    if not same or g_counts != e_counts:
+        fail("serving engine: a replayed window differs from its eager run")
+
+    # throughput: eight requests at once (priority: any of the 4 slots), then
+    # the same at max_batch=1
+    def burst(e, label):
+        reset_counts(ENGINE_NAMES)
+        t = time.perf_counter()
+        hs = [e.submit(request(10 + i, priority=True)) for i in range(8)]
+        out = [h.result(timeout=900) for h in hs]
+        wall = time.perf_counter() - t
+        for i, a in enumerate(out):
+            check_audio(f"{label} request {i}", a, ENGINE_FRAMES)
+        secs = sum(a.size for a in out) / sr
+        ttfa = sorted(h.rec["ttfa_ms"] for h in hs)
+        return dict(wall_s=wall, audio_s=secs, rtf=secs / wall, ttfa_ms=ttfa,
+                    launches=read_counts(ENGINE_NAMES))
+
+    bs4 = burst(eng, "bs4")
+    for name, v in traffic_counts.items():
+        bs4["launches"][name] += v
+    eng1, warm1, _ = engine(max_batch=1, max_len=4096)
+    bs1 = burst(eng1, "bs1")
+    eng1.shutdown()
+    del eng1
+    print(f"  8 requests at once ({8 * ENGINE_FRAMES} frames, prefill included): max_batch 4 "
+          f"{bs4['wall_s']:.3f} s, {bs4['rtf']:.2f} audio s a wall s (TTFA "
+          f"{bs4['ttfa_ms'][3]:.0f}-{bs4['ttfa_ms'][-1]:.0f} ms); max_batch 1 "
+          f"{bs1['wall_s']:.3f} s, "
+          f"{bs1['rtf']:.2f} (TTFA {bs1['ttfa_ms'][3]:.0f}-{bs1['ttfa_ms'][-1]:.0f} ms); "
+          f"{bs4['rtf'] / bs1['rtf']:.2f}x", flush=True)
+
+    # int8 KV: 65,536 slots, four requests joined
+    eng65, warm65, _ = engine(max_batch=ENGINE_BATCH, max_len=65536)
+    if eng65.carry.cache.k[0].dtype != torch.int8:
+        fail("serving engine at 65536 slots: the KV cache is not int8")
+    t = time.perf_counter()
+    hs = [eng65.submit(request(30 + i, frames=16)) for i in range(4)]
+    a65 = [h.result(timeout=600) for h in hs]
+    wall65 = time.perf_counter() - t
+    for i, a in enumerate(a65):
+        check_audio(f"65536-slot request {i}", a, 16)
+    eng65.shutdown()
+    del eng65
+    print(f"  65536 slots (int8 KV), warmup {warm65:.3f} s: 4 requests of 16 frames joined and "
+          f"decoded in {wall65:.3f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng._draw_noise, eng._prefill = draw, prefill
+    return dict(engine=eng, params=params, runs=dict(
+        warmup_s=warm_s, traffic_s=traffic_s, frames=emitted, prefill_s=prefill_s,
+        ttfa_p50_ms=st.ttfa_p50_ms, ttfa_p95_ms=st.ttfa_p95_ms, solo_rel_err_by_window=curve,
+        alone_in_engine_rel_err=alone_err, other_request_rel_diff=fault,
+        window_device_ms_per_frame=sorted(times), window_launches=g_counts, bs4=bs4, bs1=bs1,
+        bs1_warmup_s=warm1, int8_65536=dict(warmup_s=warm65, wall_s=wall65)),
+        launches=bs4["launches"])
+
+
+def session_engine_end_to_end(model: dict, seed: int) -> dict:
+    """Phase 9: StreamingSessionEngine(n_slots=8, max_len=8192, quantum=3)
+    over the full-width 0.5B of phase 6 (EOS held off: bias -30), after a
+    warm-up session: 12 sessions of STREAM_SCRIPT (4 queue behind the 8
+    slots) and a live one whose script arrives in three parts (two
+    append_text calls, then end_text), each capped at SESSION_FRAMES frames.
+    Every session completes with its cap of frames; join-TTFA percentiles,
+    quantum walls against the real-time budget, the aggregate real-time
+    factor and the launches of kernels B and D are printed. Then one
+    session in inject mode, batched with three others, against itself
+    alone in the engine (GRAPH_TOL) and its solo streaming.generate() with
+    the same noise bank (SESSION_SOLO_TOL)."""
+    import numpy as np
+    import torch
+
+    from vibevoice_tpu_torch.models import inference as inf
+    from vibevoice_tpu_torch.models import streaming as st
+    from vibevoice_tpu_torch.serving.streaming_sessions import StreamingSessionEngine
+
+    cfg, processor, preset, hop, sr = (model[k] for k in ("cfg", "processor", "preset", "hop",
+                                                            "sr"))
+    params = with_eos_bias(model["params"], -30.0)
+    opts = inf.GenerateOptions(cfg_scale=1.5, ddpm_steps=5)
+
+    def engine(**kw):
+        return StreamingSessionEngine(cfg, params, n_slots=SESSION_SLOTS, max_len=STREAM_MAX_LEN,
+                                      quantum=3, opts=opts, default_preset=preset,
+                                      processor=processor, seed=seed, **kw)
+
+    eng = engine()
+    warm_s = eng.warmup(timeout=300)
+    text = processor.process_input_with_cached_prompt(STREAM_SCRIPT, preset).tts_text_ids[0]
+    reset_counts(SESSION_NAMES)
+    windows0, replays0 = eng.windows_run, eng.fns.replays
+    t0 = time.perf_counter()
+    hs = [eng.submit(text, max_new_frames=SESSION_FRAMES) for _ in range(12)]
+    parts = np.array_split(text, 3)
+    live = eng.submit(parts[0], live=True, max_new_frames=SESSION_FRAMES)
+    frames = live.frames(timeout=300)
+    got = [next(frames)]
+    live.append_text(parts[1])
+    got += [next(frames) for _ in range(5)]
+    live.append_text(parts[2])
+    live.end_text()
+    got += list(frames)
+    audio = [h.result(timeout=300) for h in hs] + [np.concatenate(got)]
+    wall = time.perf_counter() - t0
+    counts = read_counts(SESSION_NAMES)
+    for i, a in enumerate(audio):
+        if a.size != SESSION_FRAMES * hop or not np.isfinite(a).all() or not np.abs(a).max() > 0:
+            fail(f"session engine: session {i} has {a.size} samples (not {SESSION_FRAMES} "
+                 "frames), or is not finite, or silent")
+    if any(h.rec["outcome"] != "completed" for h in hs + [live]):
+        fail(f"session engine: outcomes {[h.rec['outcome'] for h in hs + [live]]}")
+    stats = eng.stats()
+    secs = sum(a.size for a in audio) / sr
+    missing = [n_ for n_, v in counts.items() if v == 0]
+    if missing:
+        fail(f"session engine: kernels never launched: {missing}")
+    print(f"  {len(audio)} sessions ({SESSION_SLOTS} slots, quantum 3, one live in three parts) "
+          f"after a warm-up session ({warm_s:.3f} s): {secs:.2f} s of audio in {wall:.3f} s, "
+          f"aggregate RTF {secs / wall:.2f}; join-TTFA p50 {stats['ttfa_p50_ms']} ms, p95 "
+          f"{stats['ttfa_p95_ms']} ms; quantum wall p50 {stats['window_p50_ms']} ms, p95 "
+          f"{stats['window_p95_ms']} ms (budget {stats['window_budget_ms']} ms); "
+          f"{eng.windows_run - windows0} quanta, {eng.fns.replays - replays0} replays, launches "
+          f"{counts}", flush=True)
+
+    # inject mode: one session batched with three others against its solo run
+    eng_i = engine(inject=True)
+    rng = np.random.RandomState(seed)
+    banks = [{"init": rng.randn(SESSION_FRAMES + 6, 1, cfg.acoustic_vae_dim).astype(np.float32)}
+             for _ in range(4)]
+    his = [eng_i.submit(text, noise_bank=bk, max_new_frames=SESSION_FRAMES) for bk in banks]
+    batched = [h.result(timeout=300) for h in his]
+    alone = eng_i.submit(text, noise_bank=banks[0], max_new_frames=SESSION_FRAMES).result(300)
+    eng_i.shutdown(drain=False)
+    del eng_i
+    calls = iter(range(10 ** 6))
+    solo = st.generate(cfg, params, tts_text_ids=text[None], preset=preset, opts=opts,
+                       max_len=STREAM_MAX_LEN, noise_bank=banks[0],
+                       stop_check_fn=lambda: next(calls) >= SESSION_FRAMES // 6).speech_outputs[0]
+    rel = lambda a, r: float(np.abs(a - r).max() / np.abs(r).max()) if a.shape == r.shape \
+        else float("inf")
+    err_alone, err, fault = rel(batched[0], alone), rel(batched[0], solo), rel(batched[1], solo)
+    print(f"  inject mode: session 0 of 4 batched against itself alone in the engine: max |diff| "
+          f"{err_alone:.3e} of the peak (tol {GRAPH_TOL:g}); against its solo generate() at "
+          f"batch 1 (same bank): {err:.3e} (tol {SESSION_SOLO_TOL:g}); another session's audio "
+          f"(another bank) reads {fault:.3e}", flush=True)
+    if not (err_alone <= GRAPH_TOL and err <= SESSION_SOLO_TOL < fault):
+        fail("session engine: a batched inject-mode session differs from its solo runs")
+    return dict(engine=eng, params=params, runs=dict(
+        warmup_s=warm_s, sessions=len(audio), audio_s=secs, wall_s=wall, rtf=secs / wall,
+        stats=stats, launches=counts, inject_vs_alone_rel_err=err_alone,
+        inject_vs_solo_rel_err=err, other_session_rel_diff=fault), launches=counts)
+
+
+def http_end_to_end(engine, processor, rt_engine, rt_params) -> dict:
+    """Phase 10: the HTTP server (serving/server.py build_server) in this
+    process on port 0 over phase 8's and phase 9's engines: /health,
+    /tts (two speakers, voices from demo/voices) as a whole WAV and as
+    /tts/stream, /v1/audio/speech as wav and pcm (and a 400 for opus),
+    /tts/rt plain and live (/append, /end), /stats. Phase 9 held EOS off;
+    here the session engine's EOS bias, the tensor its graphs read, is set
+    to +30 in place, so that every /tts/rt session ends: a plain one after
+    its first frame, a live one parks there and speaks one more frame when
+    /append resumes it. Status codes, WAV headers and PCM lengths must be
+    right."""
+    import http.client
+    import struct
+    import threading
+
+    from vibevoice_tpu_torch.serving import server as srv
+
+    rt_params["tts_eos_classifier"]["fc2"]["b"].fill_(30.0)
+    httpd = srv.build_server(srv.parse_args(["--port", "0", "--request_timeout", "600"]),
+                             engine=engine, processor=processor, rt_engine=rt_engine)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    port, hop = httpd.server_address[1], engine._hop
+    rt_hop = rt_engine.cfg.acoustic_tokenizer_config.hop_length
+    rec = {}
+
+    def call(method, path, payload=None):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=900)
+        conn.request(method, path, None if payload is None else json.dumps(payload).encode(),
+                     {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        return conn, r
+
+    def read(method, path, payload=None, status=200):
+        t = time.perf_counter()
+        conn, r = call(method, path, payload)
+        body = r.read()
+        conn.close()
+        if r.status != status:
+            fail(f"HTTP {method} {path}: status {r.status}, not {status}: {body[:200]!r}")
+        rec[f"{method} {path} {len(rec)}"] = dict(status=r.status, bytes=len(body),
+                                                  seconds=time.perf_counter() - t)
+        return r, body
+
+    def whole_wav(path, body):
+        n = struct.unpack("<I", body[40:44])[0] // 2
+        if not (body[:4] == b"RIFF" and body[8:16] == b"WAVEfmt " and len(body) == 44 + 2 * n
+                and struct.unpack("<I", body[4:8])[0] == 36 + 2 * n and n > 0 and n % hop == 0):
+            fail(f"HTTP {path}: not a whole 16-bit WAV of whole frames ({len(body)} bytes)")
+        return n
+
+    def stream_wav(path, r, body, step):
+        if not (r.getheader("Transfer-Encoding") == "chunked"
+                and body[:44] == srv.STREAM_WAV_HEADER and (len(body) - 44) % (2 * step) == 0):
+            fail(f"HTTP {path}: not a chunked live WAV of whole frames ({len(body)} bytes)")
+        return (len(body) - 44) // (2 * step)
+
+    _, body = read("GET", "/health")
+    if json.loads(body)["status"] != "ok":
+        fail(f"HTTP /health: {body!r}")
+    two = {"text": "Speaker 1: Hello from the port's server.\nSpeaker 2: And hello back.",
+           "speaker_names": ["Alice", "Carter"]}
+    _, body = read("POST", "/tts", two)
+    n = whole_wav("/tts", body)
+    r, body = read("POST", "/tts/stream", two)
+    if stream_wav("/tts/stream", r, body, hop) * hop != n:
+        fail("HTTP /tts/stream: another frame count than /tts for the same request")
+    one = {"model": "vibevoice", "input": "A single speaker, bare text.", "voice": "Frank"}
+    r, body = read("POST", "/v1/audio/speech", one)
+    n1 = whole_wav("/v1/audio/speech", body)
+    r, pcm = read("POST", "/v1/audio/speech", {**one, "response_format": "pcm"})
+    if r.getheader("Content-Type") != "audio/pcm" or len(pcm) != 2 * n1:
+        fail(f"HTTP /v1/audio/speech pcm: {len(pcm)} bytes, not {2 * n1}")
+    _, body = read("POST", "/v1/audio/speech", {**one, "response_format": "opus"}, status=400)
+    if "opus" not in json.loads(body)["error"]["message"]:
+        fail(f"HTTP /v1/audio/speech opus: {body!r}")
+    r, body = read("POST", "/tts/rt", {"text": STREAM_SCRIPT})
+    if stream_wav("/tts/rt", r, body, rt_hop) != 1:
+        fail("HTTP /tts/rt: not the one frame before EOS")
+    conn, r = call("POST", "/tts/rt", {"text": "Live text arrives", "live": True})
+    sid = r.getheader("X-Session-Id")
+    if r.status != 200 or not sid:
+        fail(f"HTTP /tts/rt live: status {r.status}, session {sid!r}")
+    box = {}
+    reader = threading.Thread(target=lambda: box.update(wav=r.read()), daemon=True)
+    reader.start()
+    if not httpd.live_sessions[sid].parked.wait(300):
+        fail("HTTP /tts/rt live: the session never parked")
+    _, body = read("POST", "/tts/rt/append", {"session": sid, "text": "in three parts"})
+    if json.loads(body)["appended_tokens"] != 3:
+        fail(f"HTTP /tts/rt/append: {body!r}")
+    read("POST", "/tts/rt/end", {"session": sid})
+    reader.join(300)
+    conn.close()
+    if reader.is_alive() or stream_wav("/tts/rt live", r, box["wav"], rt_hop) != 2:
+        fail("HTTP /tts/rt live: the stream did not end with its two frames")
+    read("POST", "/tts/rt/append", {"session": sid, "text": "late"}, status=404)
+    _, body = read("GET", "/stats")
+    stats = json.loads(body)
+    if stats["rt_sessions"]["parked"] != 0 or stats["failed"] != 0:
+        fail(f"HTTP /stats: {stats}")
+    httpd.shutdown()
+    httpd.server_close()
+    print(f"  HTTP on port {port}: /health, /tts ({n // hop} frames) and /tts/stream, "
+          f"/v1/audio/speech wav ({n1 // hop} frames), pcm and 400 for opus, /tts/rt (1 frame), "
+          f"live /tts/rt + /append + /end (2 frames), 404 after it, /stats: every status, header "
+          f"and length right", flush=True)
+    return dict(requests=rec, stats=stats)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2085,6 +2750,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     # phase 2: build
+    from vibevoice_tpu_torch.models import inference as inf
     from vibevoice_tpu_torch.ops import _cuda
 
     t0 = time.perf_counter()
@@ -2128,6 +2794,7 @@ def main() -> None:
                                     bound_ms=None, bound_by=None, library_ms=None)
     check_kernels(checks, args.seed)
     check_streaming_attention(checks, args.seed)
+    check_batched_kernels(checks, args.seed)
     check_ring_kernel(checks, args.seed)
     check_training_kernels(checks, args.seed)
     torch.cuda.synchronize()
@@ -2151,7 +2818,6 @@ def main() -> None:
         checks.kernels[name]["launches"] += n
     runs["sp_prefill"] = sp["runs"]
     del model
-    from vibevoice_tpu_torch.models import inference as inf
 
     inf._captures.clear()  # the captured graphs and their static carries
     gc.collect()
@@ -2176,6 +2842,32 @@ def main() -> None:
     for rec in runs["finetune"].values():
         for name, n in rec["launches"].items():
             checks.kernels[name]["launches"] += n
+
+    # phase 8: end to end, the continuous-batching serving engine (1.5B)
+    print("end to end: the serving engine (1.5B, batched slots)", flush=True)
+    inf._captures.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = serving_model(args.seed)
+    served = serving_engine_end_to_end(model, args.seed)
+    for name, n in served["launches"].items():
+        checks.kernels[name]["launches"] += n
+    runs["serving_engine"] = served["runs"]
+
+    # phase 9: end to end, the multi-session engine (0.5B)
+    print("end to end: the session engine (0.5B, batched sessions)", flush=True)
+    stream_model = streaming_model(args.seed)
+    sessions = session_engine_end_to_end(stream_model, args.seed)
+    for name, n in sessions["launches"].items():
+        checks.kernels[name]["launches"] += n
+    runs["session_engine"] = sessions["runs"]
+
+    # phase 10: end to end, the HTTP server over both engines
+    print("end to end: the HTTP server", flush=True)
+    runs["http"] = http_end_to_end(served["engine"], model["processor"], sessions["engine"],
+                                   sessions["params"])
+    served["engine"].shutdown()
+    sessions["engine"].shutdown(drain=False)
 
     unmeasured = [k["name"] for k in checks.kernels.values() if k["ms"] is None or k["launches"] == 0]
     if unmeasured:

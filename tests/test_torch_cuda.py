@@ -1110,3 +1110,213 @@ def test_streaming_tts_smoke_on_the_card(dev):
     assert tts.params["language_model"]["embed"].device.type == "cuda"
     chunks = list(tts.stream("hello streaming world", seed=0, stop_check_fn=lambda: False))
     assert chunks and all(np.isfinite(c).all() for c in chunks)
+
+
+# ---------------------------------------------------------------------------
+# The serving engines: kernels A-D at batched rows, the engines on the card
+# ---------------------------------------------------------------------------
+
+
+def _graph_equals_eager(call, inputs):
+    """One capture of call() in a CUDA graph, replayed twice with new
+    inputs written in place: each replay gives the bits of an eager call
+    on the same inputs."""
+    tup = lambda o: o if isinstance(o, tuple) else (o,)
+    call()  # workspaces and counters outside the capture
+    torch.cuda.synchronize()
+    before = [t.clone() for t in inputs]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = tup(call())
+    for i in range(2):
+        for t, b in zip(inputs, before):
+            t.copy_(torch.roll(b, i + 1, dims=-1) * (1 + 0.5 * i))
+        graph.replay()
+        eager = tup(call())
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, e) for o, e in zip(outs, eager))
+
+
+@pytest.mark.parametrize("k,n", [(1536, 1536), (1536, 8960), (8960, 1536)])
+def test_int8_matmul_eight_rows_graph_equals_eager(dev, k, n):
+    """Kernel A's GEMV at 8 rows (a bs4 batch's two CFG streams) replayed
+    from a CUDA graph gives the eager call's bits, within 1e-2 of plain."""
+    g = torch.Generator(device=dev).manual_seed(41)
+    w = quant.quantize_weight(torch.randn(k, n, generator=g, device=dev) * 0.02)
+    x = torch.randn(8, k, generator=g, device=dev).to(torch.bfloat16)
+    assert _rel(quant.int8_matmul(x, w["w8"], w["scale"]),
+                quant.int8_matmul_plain(x, w["w8"], w["scale"])) < 1e-2
+    _graph_equals_eager(lambda: quant.int8_matmul(x, w["w8"], w["scale"]), (x,))
+
+
+@pytest.mark.parametrize("quantize", [True, False])
+def test_fused_head_ffn_stack_eight_rows(dev, quantize):
+    """Kernel C at the 1.5B head's widths with 8 rows (bs4 with CFG): within
+    1e-4 of the plain version's peak (f32), and a graph replay gives the
+    eager call's bits."""
+    packed, x, mods = _head_inputs(dev, 42, 4, 1536, 4608, 8, quantize)
+    assert _rel(hf.fused_head_ffn_stack(packed, x, mods),
+                hf.fused_head_ffn_stack_plain(packed, x, mods)) < 1e-4
+    _graph_equals_eager(lambda: hf.fused_head_ffn_stack(packed, x, mods), (x, mods))
+
+
+@pytest.mark.parametrize("quantize", [True, False])
+@pytest.mark.parametrize("rows", [4, 8])
+def test_fused_stage_step_batched_rows(dev, rows, quantize):
+    """Kernel D at the vocoder stage's widths with 4 rows (the 1.5B at bs4)
+    and 8 (eight 0.5B sessions), bf16: y and the new state within 2e-2 of
+    the plain version's peak; a graph replay gives the eager call's bits."""
+    packed, x, st = _stage_inputs(dev, 43, 8, 2048, rows, quantize, torch.bfloat16)
+    (y, ns), (yr, nsr) = (vf.fused_stage_step(packed, x, st),
+                          vf.fused_stage_step_plain(packed, x, st))
+    assert _rel(y, yr) < 2e-2 and _rel(ns, nsr) < 2e-2
+    _graph_equals_eager(lambda: vf.fused_stage_step(packed, x, st), (x, st))
+
+
+@pytest.mark.parametrize("heads,s,int8,bases", [
+    ((12, 2, 128), 4096, False, (0, 17, 2048, 4095, 5096, 1, 9, 33)),
+    ((12, 2, 128), 65536, True, (0, 17, 32768, 65535, 66536, 1, 9, 33)),
+    ((14, 2, 64), 8192, False, (286, 300, 0, 8191, 4000, 17, 290, 9191)),
+    ((14, 2, 64), 8192, False, (31, 7, 1, 40, 8191, 17, 0, 12))])
+def test_flash_decode_eight_mixed_rows(dev, heads, s, int8, bases):
+    """Kernel B's decode route over 8 rows of one batch whose bases differ
+    by thousands, an idle row's base past the cache among them (a free
+    slot's length keeps moving): the 1.5B's layout at 4,096 bf16 and 65,536
+    int8 slots, the 0.5B's at 8,192 (the positive and the negative cache of
+    eight sessions). Within 1e-2 of the plain version's peak; a graph
+    replay with new q and the bases moved between rows (and past the
+    cache) gives the eager call's bits."""
+    g = torch.Generator(device=dev).manual_seed(44)
+    nh, kh, d = heads
+    q, kc, vc, kw = _decode_inputs(g, dev, 8, 1, nh, kh, s, d, torch.bfloat16, int8)
+    base = torch.tensor(bases, dtype=torch.int32, device=dev)
+    assert _rel(fa.flash_cached_attention(q, kc, vc, base, **kw),
+                fa.flash_cached_attention_plain(q, kc, vc, base, **kw)) < 1e-2
+    _graph_equals_eager(lambda: fa.flash_cached_attention(q, kc, vc, base, **kw), (q, base))
+
+
+def _tiny_speaking(device):
+    """_tiny_serving's model made to speak (utils.params.speaking: greedy
+    decoding diffuses at every frame), and its special tokens."""
+    from vibevoice_tpu_torch.models import inference as inf
+    from vibevoice_tpu_torch.utils.params import speaking
+
+    tokens = inf.SpecialTokens(speech_start=5, speech_end=6, speech_diffusion=7, eos=2)
+    cfg, params = _tiny_serving(device)
+    return cfg, speaking(params, tokens), tokens
+
+
+def _tiny_engine(device, frames=2):
+    """A 2-slot engine over _tiny_speaking whose frame noise is each
+    request's own draws (a CPU generator seeded with the request's seed),
+    so the card and the CPU decode the same numbers."""
+    from vibevoice_tpu_torch.models import inference as inf
+    from vibevoice_tpu_torch.serving import ServingEngine
+
+    cfg, params, tokens = _tiny_speaking(device)
+    eng = ServingEngine(cfg, params, tokens=tokens, max_batch=2, max_len=96,
+                        opts=inf.GenerateOptions(ddpm_steps=2, max_length=96),
+                        frames_per_dispatch=frames)
+    draws = {}
+
+    def draw():
+        init = torch.zeros(frames, 2, cfg.acoustic_vae_dim)
+        for i, h in enumerate(eng.slots):
+            if h is not None:
+                if h not in draws:
+                    g = torch.Generator().manual_seed(h.request.seed)
+                    draws[h] = torch.randn(96, cfg.acoustic_vae_dim, generator=g)
+                s = int(eng.slot_steps[i])
+                init[:, i] = draws[h][s: s + frames]
+        return inf.FrameNoise(init.to(device), None, None)
+
+    eng._draw_noise = draw
+    return eng
+
+
+def _tiny_request(seed, n):
+    from vibevoice_tpu_torch.serving import Request
+
+    ids = np.random.RandomState(seed).randint(10, 100, (1, n)).astype(np.int64)
+    ids[0, -1] = 5
+    return Request(input_ids=ids, valid_mask=np.ones((1, n), bool), seed=seed)
+
+
+def test_serving_engine_card_matches_cpu(dev):
+    """Three requests through a 2-slot engine on the card (kernels A-D,
+    the graphed step) and on the CPU (plain versions), each slot given its
+    request's draws: the same tokens, every waveform its frame cap, within
+    1e-3 of the CPU's peak."""
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        eng = _tiny_engine(device)
+        try:
+            handles = [eng.submit(_tiny_request(50 + i, 6 + 3 * i)) for i in range(3)]
+            runs.append([(h.result(timeout=300), list(h.tokens)) for h in handles])
+        finally:
+            eng.shutdown()
+    hop = 8
+    for i, ((a, ta), (b, tb)) in enumerate(zip(*runs)):
+        assert ta == tb and len(a) == len(b) == min(96 - (6 + 3 * i), 2 * (6 + 3 * i)) * hop
+        assert np.isfinite(a).all() and np.abs(a - b).max() <= 1e-3 * np.abs(b).max()
+
+
+def test_serving_engine_replays_on_its_carry_and_recaptures(dev, monkeypatch):
+    """After warmup() the engine's carry is its capture's static carry:
+    requests join into it and windows replay with no whole-carry copy and
+    no change of its tensors. Evicting the capture makes the next window
+    capture again from the engine's carry, which it then keeps; a request
+    decoded after that gives the audio it gave before."""
+    from vibevoice_tpu_torch.models import inference as inf
+
+    copies = []
+    real_copy = inf._copy_into
+    monkeypatch.setattr(inf, "_copy_into", lambda dst, src: (
+        copies.append(dst) if isinstance(dst, inf.DecodeCarry) else None, real_copy(dst, src)))
+    eng = _tiny_engine(dev)
+    try:
+        eng.warmup(prompt_tokens=8, timeout=300)
+        caps = [c for c in inf._captures.values() if getattr(c, "carry", None) is eng.carry]
+        assert len(caps) == 1 and eng.step_fn.replays > 0
+        leaves = lambda c: [t.data_ptr() for t in (*c.cache.k, c.cache.length, c.h_pos, c.finished)]
+        ptrs, replays, n_copies = leaves(eng.carry), eng.step_fn.replays, len(copies)
+        first = eng.submit(_tiny_request(60, 10)).result(timeout=300)
+        others = [eng.submit(_tiny_request(61 + i, 8)) for i in range(2)]
+        [h.result(timeout=300) for h in others]
+        assert len(copies) == n_copies and leaves(eng.carry) == ptrs
+        assert eng.carry is caps[0].carry and eng.step_fn.replays > replays
+        inf._captures.clear()
+        again = eng.submit(_tiny_request(60, 10)).result(timeout=300)
+        assert len(copies) > n_copies  # the new capture took the engine's carry once
+        new = [c for c in inf._captures.values() if getattr(c, "carry", None) is eng.carry]
+        assert len(new) == 1 and new[0] is not caps[0]
+        assert len(again) == len(first)
+        assert np.abs(again - first).max() <= 1e-3 * np.abs(first).max()
+    finally:
+        eng.shutdown()
+
+
+def test_session_engine_card_matches_cpu(dev):
+    """Three sessions over two slots of StreamingSessionEngine in inject
+    mode on the card (kernels B and D, the graphed windows) and on the CPU,
+    with the same banks: audio within 1e-3 of the CPU's peak, 12 frames
+    each."""
+    from vibevoice_tpu_torch.models import inference as inf
+    from vibevoice_tpu_torch.serving.streaming_sessions import StreamingSessionEngine
+
+    cfg, p_dev, p_cpu, preset, _ = _tiny_streaming(dev, True)
+    banks = [{"init": np.random.RandomState(70 + i).randn(30, 1, cfg.acoustic_vae_dim)
+              .astype(np.float32)} for i in range(3)]
+    runs = []
+    for params in (p_dev, p_cpu):
+        eng = StreamingSessionEngine(cfg, params, n_slots=2, max_len=96, inject=True,
+                                     opts=inf.GenerateOptions(cfg_scale=1.5, ddpm_steps=3))
+        try:
+            hs = [eng.submit(np.arange(10 + i, 19 + i), preset, noise_bank=banks[i],
+                             max_new_frames=12) for i in range(3)]
+            runs.append([h.result(timeout=300) for h in hs])
+        finally:
+            eng.shutdown(drain=False)
+    for a, b in zip(*runs):
+        assert len(a) == len(b) == 12 * cfg.acoustic_tokenizer_config.hop_length
+        assert np.abs(a - b).max() <= 1e-3 * np.abs(b).max()

@@ -254,7 +254,7 @@ def test_lora_saved_by_port_loads_in_jax(tmp_path):
                                   tmerged["lm"]["layers"][1]["attn"]["v"]["w"].numpy())
     # and a JAX adapter tree converts to the port's
     jl = jlora.init_lora(jax.random.PRNGKey(4), jp, jlora.LoraConfig(r=4))
-    conv = lora_from_jax(jax.tree.map(np.asarray, jl))
+    conv = lora_from_jax(jax.tree.map(np.asarray, jl), device="cpu")
     np.testing.assert_array_equal(conv["lm_layers"][0]["q"]["a"].numpy(),
                                   np.asarray(jl["lm_layers"][0]["q"]["a"]))
 

@@ -1,5 +1,6 @@
 """The port stands alone: no module of vibevoice_tpu_torch and no line of
-chip_smoke.py or chip_serving.py imports jax or the JAX package vibevoice_tpu, nor reads a
+chip_smoke.py or chip_serving.py imports jax, the JAX package vibevoice_tpu
+or the JAX package's demo scripts (demo/), nor reads a
 file under vibevoice_tpu/, and importing every module of the port leaves
 neither in sys.modules."""
 
@@ -15,7 +16,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "vibevoice_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "vibevoice_tpu")
+FORBIDDEN = ("jax", "jaxlib", "vibevoice_tpu", "demo")
 # a file of the JAX package named as a path: the whole string "vibevoice_tpu"
 # (a path component) or a data file under vibevoice_tpu/ (prose that names
 # a module, like "port of vibevoice_tpu/ops/quant.py:129", is no read)
@@ -58,6 +59,14 @@ def test_scan_covers_the_streaming_modules():
             "utils/preset_convert.py", "tts.py", "utils/params.py"} <= scanned
 
 
+def test_scan_covers_the_serving_modules():
+    """The serving slice's modules are scanned too: none may import the JAX
+    package's demo/serve.py or demo/inference_from_file.py either."""
+    scanned = {str(p.relative_to(PORT)) for p in SOURCES if PORT in p.parents}
+    assert {"serving/__init__.py", "serving/engine.py", "serving/streaming_sessions.py",
+            "serving/server.py"} <= scanned
+
+
 def test_scan_catches_local_and_module_imports(tmp_path):
     """The scan itself: imports at module level, inside functions, relative
     to nothing, through importlib, and a read of the JAX package's config."""
@@ -66,10 +75,11 @@ def test_scan_catches_local_and_module_imports(tmp_path):
                    "def f():\n    from vibevoice_tpu.configs import tiny_config\n"
                    "    import importlib; importlib.import_module('vibevoice_tpu.streamer')\n"
                    "    return open('vibevoice_tpu/configs/qwen2.5_1.5b_64k.json')\n"
-                   "from . import sibling\nimport vibevoice_tpu_torch.configs\n")
+                   "from . import sibling\nimport vibevoice_tpu_torch.configs\n"
+                   "from demo.inference_from_file import VoiceMapper\n")
     assert [n for _, n in _forbidden_imports(src)] == [
-        "jax.numpy", "vibevoice_tpu.configs", "vibevoice_tpu.streamer",
-        "vibevoice_tpu/configs/qwen2.5_1.5b_64k.json"]
+        "jax.numpy", "demo.inference_from_file", "vibevoice_tpu.configs",
+        "vibevoice_tpu.streamer", "vibevoice_tpu/configs/qwen2.5_1.5b_64k.json"]
 
 
 def test_importing_the_port_loads_no_jax():

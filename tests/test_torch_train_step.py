@@ -119,8 +119,8 @@ def test_train_forward_and_lora_grads_match_jax(setup, int8):
 
     (_, jout), jgrads = jax.jit(jax.value_and_grad(jloss_fn, has_aux=True))(jl)
     grad_fn = tts.make_lora_grad_fn(CFG, tlora.LoraConfig(r=4), tloss.TrainOptions(**opts))
-    _, tout, tgrads = grad_fn(lora_from_jax(jax.tree.map(np.asarray, jl)), tp, batch,
-                              _draws(key, batch))
+    _, tout, tgrads = grad_fn(lora_from_jax(jax.tree.map(np.asarray, jl), device="cpu"), tp,
+                              batch, _draws(key, batch))
 
     tol_loss, tol_grad = (2e-2, 3e-2) if int8 else (1e-5, 1e-4)
     std = 1.0 / float(jout.speech_scaling_factor)  # the latents' spread
@@ -131,7 +131,7 @@ def test_train_forward_and_lora_grads_match_jax(setup, int8):
         assert abs(got - want) <= tol_loss * ref, (name, got, want)
     for name in ("ce_token_count", "speech_frame_count"):
         assert int(getattr(tout, name)) == int(getattr(jout, name))
-    want = _leaves(lora_from_jax(jax.tree.map(np.asarray, jgrads)))
+    want = _leaves(lora_from_jax(jax.tree.map(np.asarray, jgrads), device="cpu"))
     assert set(want) == set(tgrads)
     for path, w in want.items():
         g, w = tgrads[path].numpy(), w.numpy()
@@ -154,7 +154,7 @@ def test_lora_train_steps_match_jax(setup):
     jstep = jax.jit(jts.make_lora_train_step(JCFG, jopt, LCFG))
     tstep = tts.make_lora_train_step(CFG, topt, tlora.LoraConfig(r=4))
     jstate = jts.init_train_state(jl, jopt)
-    tl0 = lora_from_jax(jax.tree.map(np.asarray, jl))
+    tl0 = lora_from_jax(jax.tree.map(np.asarray, jl), device="cpu")
     tstate = tts.init_train_state(tl0, topt)
     jb = jax.tree.map(jnp.asarray, batch)
     for i in range(3):
@@ -162,7 +162,7 @@ def test_lora_train_steps_match_jax(setup):
         jstate, jout = jstep(jstate, jp, jb, key)
         tstate, tout = tstep(tstate, tp, batch, _draws(key, batch))
         assert abs(float(tout.loss) - float(jout.loss)) <= 1e-5 * abs(float(jout.loss))
-        want = _leaves(lora_from_jax(jax.tree.map(np.asarray, jstate.params)))
+        want = _leaves(lora_from_jax(jax.tree.map(np.asarray, jstate.params), device="cpu"))
         got = _leaves(tstate.params)
         for path, w in want.items():
             np.testing.assert_allclose(got[path].numpy(), w.numpy(), rtol=0, atol=1e-5,
@@ -189,18 +189,28 @@ def test_optimizer_matches_optax(accum):
     jopt, topt = jts.make_optimizer(**kw), tts.make_optimizer(**kw)
     jparams = jax.tree.map(jnp.asarray, params)
     jstate = jopt.init(jparams)
-    tparams = lora_from_jax(params)
+    tparams = lora_from_jax(params, device="cpu")
     tstate = topt.init(tparams)
     for step in range(5 * accum):
         grads = jax.tree.map(lambda x: (rng.randn(*x.shape) * 3).astype(np.float32), params)
         updates, jstate = jopt.update(jax.tree.map(jnp.asarray, grads), jstate, jparams)
         jparams = optax.apply_updates(jparams, updates)
-        new, tstate = topt.update(_leaves(lora_from_jax(grads)), tstate, tparams)
+        new, tstate = topt.update(_leaves(lora_from_jax(grads, device="cpu")), tstate, tparams)
         tparams = tts.tree_replace(tparams, new)
-        for path, w in _leaves(lora_from_jax(jax.tree.map(np.asarray, jparams))).items():
+        want = lora_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
+        for path, w in _leaves(want).items():
             np.testing.assert_allclose(_leaves(tparams)[path].numpy(), w.numpy(), rtol=1e-5,
                                        atol=1e-6, err_msg=str((step, path)))
     np.testing.assert_array_equal(tparams["lm"]["embed"].numpy(), params["lm"]["embed"])
+
+
+def test_lora_from_jax_wants_a_card():
+    """Without device="cpu" the LoRA tree is built on the card, as from_jax
+    builds the weights, and the call raises where there is none."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device works")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        lora_from_jax({"a": np.zeros((2, 2), np.float32)})
 
 
 def test_component_and_filtered_full_steps(setup):

@@ -500,7 +500,11 @@ class StepFn:
     JAX's donated carry: the returned carry and ``out`` are overwritten by
     the next call, so copy out what is kept before calling again. Passing
     back the carry it returned costs nothing; another carry (a new prefill)
-    is copied in, its KV cache included. So one request at a time owns a
+    is copied in, its KV cache included. A caller that owns the step
+    function, as ``serving.ServingEngine`` does, may edit rows of the
+    returned carry in place between calls (a request joined into a slot):
+    the next call replays on the edited static carry and copies nothing.
+    Otherwise one request at a time owns a
     step function's captures: ``request()`` holds them for its length
     (``generate`` takes it), and a call from another thread waits until
     it ends; each call holds them too. On CPU tensors the same body runs
@@ -682,6 +686,48 @@ def _fetch(out: StepOut) -> Callable[[], tuple]:
     return wait
 
 
+def prefill_request(cfg: VibeVoiceConfig, params, input_ids: np.ndarray, valid_mask: np.ndarray,
+                    speech_tensors: Optional[np.ndarray], speech_frame_valid: Optional[np.ndarray],
+                    speech_input_mask: Optional[np.ndarray], max_length: int,
+                    tokens: SpecialTokens, opts: GenerateOptions, generator: torch.Generator, *,
+                    speech_type: str = "audio",
+                    noise_bank: Optional[Dict[str, np.ndarray]] = None) -> DecodeCarry:
+    """The first DecodeCarry of a request given as host arrays, on the
+    parameters' device: ``prefill_fn``, or ``chunked_prefill`` for prompts
+    longer than opts.prefill_chunk, into ``max_length`` cache slots (int8
+    per opts.kv_int8). The voice prompt's VAE noise is the first draw from
+    ``generator`` (or noise_bank's "vae_std"/"vae_eps"). The host arrays go
+    to the card through pinned memory without waiting for the stream, so a
+    prefill beside a decoding engine does not wait for its windows."""
+    dev = params["lm"]["embed"].device
+    t0 = input_ids.shape[1]
+    if max_length <= t0:
+        raise ValueError(f"max_length={max_length} must exceed the prompt length ({t0} tokens)")
+    as_dev = lambda a, dt: _to_device(np.asarray(a), dev).to(dt)
+    speech_args = None
+    if speech_tensors is not None:
+        if speech_type == "audio":
+            hop = cfg.acoustic_tokenizer_config.hop_length
+            expected = -(-speech_tensors.shape[1] // hop)
+            if speech_frame_valid.shape[1] != expected:
+                raise ValueError(f"speech_frame_valid has {speech_frame_valid.shape[1]} frames but "
+                                 f"the acoustic tokenizer (hop {hop}) produces {expected}")
+        vae_noise = None
+        if noise_bank is not None and "vae_eps" in noise_bank:
+            vae_noise = (as_dev(noise_bank["vae_std"], torch.float32),
+                         as_dev(noise_bank["vae_eps"], torch.float32))
+        speech_args = (as_dev(speech_tensors, torch.float32), as_dev(speech_frame_valid, torch.bool),
+                       as_dev(speech_input_mask, torch.bool), generator, vae_noise)
+    ids = as_dev(input_ids, torch.long)
+    vmask = as_dev(valid_mask, torch.bool)
+    if t0 > opts.prefill_chunk:
+        return chunked_prefill(cfg, params, ids, vmask, max_length, tokens, speech_args,
+                               chunk=opts.prefill_chunk, speech_type=speech_type,
+                               kv_int8=bool(opts.kv_int8))
+    return prefill_fn(cfg, params, ids, max_length, vmask, speech_args, tokens, speech_type,
+                      bool(opts.kv_int8))
+
+
 def generate(
     cfg: VibeVoiceConfig,
     params,
@@ -722,8 +768,6 @@ def generate(
         valid_mask = np.ones((b, t0), bool)
     lengths = valid_mask.sum(axis=1).astype(np.int64)
     max_length = opts.max_length or cfg.decoder_config.max_position_embeddings
-    if max_length <= t0:
-        raise ValueError(f"max_length={max_length} must exceed the prompt length ({t0} tokens)")
     opts = resolve_kv_int8(opts, max_length)
     max_steps = int(min(max_length - t0, opts.max_length_times * t0))
     max_step_per_sample = np.minimum(max_length - lengths,
@@ -731,31 +775,9 @@ def generate(
     generator = torch.Generator(device=dev)
     generator.manual_seed(seed)
     as_dev = lambda a, dt=None: torch.as_tensor(np.asarray(a), device=dev, dtype=dt)
-
-    speech_args = None
-    if speech_tensors is not None:
-        if speech_type == "audio":
-            hop = cfg.acoustic_tokenizer_config.hop_length
-            expected = -(-speech_tensors.shape[1] // hop)
-            if speech_frame_valid.shape[1] != expected:
-                raise ValueError(f"speech_frame_valid has {speech_frame_valid.shape[1]} frames but "
-                                 f"the acoustic tokenizer (hop {hop}) produces {expected}")
-        vae_noise = None
-        if noise_bank is not None and "vae_eps" in noise_bank:
-            vae_noise = (as_dev(noise_bank["vae_std"], torch.float32),
-                         as_dev(noise_bank["vae_eps"], torch.float32))
-        speech_args = (as_dev(speech_tensors, torch.float32), as_dev(speech_frame_valid, torch.bool),
-                       as_dev(speech_input_mask, torch.bool), generator, vae_noise)
-
-    ids = as_dev(input_ids, torch.long)
-    vmask = as_dev(valid_mask, torch.bool)
-    if t0 > opts.prefill_chunk:
-        carry = chunked_prefill(cfg, params, ids, vmask, max_length, tokens, speech_args,
-                                chunk=opts.prefill_chunk, speech_type=speech_type,
-                                kv_int8=opts.kv_int8)
-    else:
-        carry = prefill_fn(cfg, params, ids, max_length, vmask, speech_args, tokens, speech_type,
-                           opts.kv_int8)
+    carry = prefill_request(cfg, params, input_ids, valid_mask, speech_tensors, speech_frame_valid,
+                            speech_input_mask, max_length, tokens, opts, generator,
+                            speech_type=speech_type, noise_bank=noise_bank)
 
     inject = noise_bank is not None or forced_tokens is not None
     k_frames = max(1, opts.frames_per_dispatch)

@@ -256,7 +256,8 @@ def preset_admit_arrays(preset: VoicePreset, lane_dim: int, bucket: int = 128,
 
 def admit_session(state: StreamState, slot: int, *, lm_k, lm_v, lm_len, tts_k, tts_v, tts_len,
                   ng_k, ng_v, ng_len, tts_h, neg_tts_h) -> StreamState:
-    """Splice a voice preset (``preset_admit_arrays``) into slot ``slot`` of
+    """Splice a voice preset (``preset_admit_arrays``; its float arrays as
+    numpy or as tensors on any device) into slot ``slot`` of
     a multi-session state: its KV prefix is overwritten in place (quantized
     per row into an int8 cache), its lengths set, its vocoder conv state
     zeroed, the preset hidden states installed and the slot un-finished.
@@ -264,7 +265,8 @@ def admit_session(state: StreamState, slot: int, *, lm_k, lm_v, lm_len, tts_k, t
     (valid-prefix attention)."""
     slot = int(slot)
     dev, dt = state.tts_h.device, state.tts_h.dtype
-    on_dev = lambda x: torch.as_tensor(np.array(x, np.float32), device=dev)
+    on_dev = lambda x: (x.to(dev, torch.float32) if isinstance(x, torch.Tensor)
+                        else torch.as_tensor(np.array(x, np.float32), device=dev))
 
     def put(cache: qwen2.KVCache, k_new, v_new, ln) -> qwen2.KVCache:
         kt, vt = on_dev(k_new), on_dev(v_new)
@@ -288,6 +290,14 @@ def admit_session(state: StreamState, slot: int, *, lm_k, lm_v, lm_len, tts_k, t
         neg_tts_h=row(state.neg_tts_h, on_dev(neg_tts_h).to(dt)),
         finished=row(state.finished, False),
     )
+
+
+def clear_finished(state: StreamState, slot: int) -> StreamState:
+    """Clear slot ``slot``'s finished flag in place, so that its next
+    session windows commit again (a live session resuming after its EOS
+    with more text). Returns ``state`` itself."""
+    state.finished[int(slot)] = False
+    return state
 
 
 def build_voice_preset(cfg: VibeVoiceStreamingConfig, params: Params, prompt_ids: np.ndarray, *,

@@ -193,6 +193,20 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def workspace_key(device: torch.device):
+    """The key of the kernels' persistent workspaces and arrival counters on
+    ``device`` (kernel A's GEMV, C and D: ``quant._gemv_workspace``; B's
+    decode: ``flash_attention._counters``): the device for its default
+    stream and for CUDA-graph captures (whose replays run there), the
+    (device, stream) pair for any other stream. So work on a side stream,
+    the serving engine's prefill, never shares them with the default
+    stream's launches, which may run at the same time."""
+    stream = torch.cuda.current_stream(device)
+    if stream == torch.cuda.default_stream(device) or torch.cuda.is_current_stream_capturing():
+        return device
+    return (device, stream.cuda_stream)
+
+
 def require_cuda(*tensors: torch.Tensor) -> None:
     """Raise unless every tensor is a contiguous CUDA tensor on one device."""
     dev = tensors[0].device

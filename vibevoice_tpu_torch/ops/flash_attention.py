@@ -91,7 +91,7 @@ def _decode_split(total: int, n_splits: int, sp: int) -> tuple[int, int]:
     return sp * nblk // ns, (sp + 1) * nblk // ns
 
 
-_decode_counters: dict = {}  # device -> int32 zeros, one per row tile (csrc/flash_decode.cu)
+_decode_counters: dict = {}  # _cuda.workspace_key -> int32 zeros, one per row tile
 _decode_retired: list = []  # outgrown counters, kept alive for CUDA graphs that captured them
 
 
@@ -100,14 +100,15 @@ def _counters(device: torch.device, n: int) -> torch.Tensor:
     zero again. Kept per device and grown on demand, so a launch captured in
     a CUDA graph finds them allocated (make one call before capturing); a
     buffer that a larger call outgrows stays allocated, so a graph captured
-    before still replays. Two decode calls must not run concurrently on two
-    streams of one device."""
-    c = _decode_counters.get(device)
+    before still replays. A side stream has its own
+    (``_cuda.workspace_key``)."""
+    key = _cuda.workspace_key(device)
+    c = _decode_counters.get(key)
     if c is None or c.numel() < n:
         if c is not None:
             _decode_retired.append(c)
         c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _decode_counters[device] = c
+        _decode_counters[key] = c
     return c
 
 

@@ -166,7 +166,7 @@ def _gemm(x2: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) -> torch.Tens
     return out
 
 
-_gemv_scratch: dict = {}  # device -> (f32 workspace, int32 zeros) of the streaming GEMV
+_gemv_scratch: dict = {}  # _cuda.workspace_key -> (f32 workspace, int32 zeros)
 _gemv_retired: list = []  # outgrown scratch, kept alive for CUDA graphs that captured it
 
 
@@ -176,16 +176,17 @@ def _gemv_workspace(device: torch.device, n_floats: int, n_tiles: int):
     (zeros that every launch leaves zero again). Kept per device and grown
     on demand, so a call allocates nothing but its outputs and a launch
     captured in a CUDA graph finds them in place (make one call before
-    capturing). Calls of one stream share them in turn; two calls must not
-    run concurrently on two streams of one device."""
-    ws = _gemv_scratch.get(device)
+    capturing). Calls of one stream share them in turn; a side stream has
+    its own (``_cuda.workspace_key``)."""
+    key = _cuda.workspace_key(device)
+    ws = _gemv_scratch.get(key)
     if ws is None or ws[0].numel() < n_floats or ws[1].numel() < n_tiles:
         if ws is not None:
             _gemv_retired.append(ws)
             n_floats, n_tiles = max(n_floats, ws[0].numel()), max(n_tiles, ws[1].numel())
         ws = (torch.empty(max(n_floats, 1 << 20), dtype=torch.float32, device=device),
               torch.zeros(max(n_tiles, 4096), dtype=torch.int32, device=device))
-        _gemv_scratch[device] = ws
+        _gemv_scratch[key] = ws
     return ws
 
 

@@ -20,7 +20,9 @@ request's state, so such calls decode one after another: two streams read
 in turn are served whole, the first before the second.
 ``StreamingTTS`` goes through ``models.streaming.generate``, whose text and
 speech windows are replayed CUDA graphs on the card, one stream at a time.
-Loading a checkpoint (``from_pretrained``) waits for the checkpoint loader's port.
+``smoke()`` builds a tiny random-weight instance, ``random(config)`` a
+full-width configuration with random weights. Loading a checkpoint
+(``from_pretrained``) waits for the checkpoint loader's port.
 """
 
 from __future__ import annotations
@@ -82,6 +84,55 @@ class VibeVoiceTTS:
         self.processor = processor
         self.tokens = tokens or _tokens_from_processor(processor)
         self.sample_rate = 24_000
+
+    @classmethod
+    def smoke(cls, device="cuda") -> "VibeVoiceTTS":
+        """Tiny random-weight instance (``configs.tiny_config``, the
+        hash-bucket tokenizer and its special tokens) on ``device``, the
+        card unless given device="cpu"."""
+        from .configs import tiny_config
+        from .processor.processor import VibeVoiceProcessor
+        from .processor.text_tokenizer import FallbackTextTokenizer
+        from .utils.params import init
+
+        cfg = tiny_config()
+        params = init(cfg, seed=0, device=device)
+        processor = VibeVoiceProcessor(
+            tokenizer=FallbackTextTokenizer(),
+            speech_tok_compress_ratio=cfg.acoustic_tokenizer_config.hop_length)
+        tokens = SpecialTokens(speech_start=5, speech_end=6, speech_diffusion=7, eos=2)
+        return cls(cfg, params, processor, tokens)
+
+    @classmethod
+    def random(cls, config: str, *, seed: int = 0, device="cuda") -> "VibeVoiceTTS":
+        """A full-width configuration (a config JSON) with random bf16
+        weights from ``seed``, set up for serving as the benchmarks serve
+        it: int8 LM and lm_head, ``fuse_for_serving(quantize=True)``; the
+        hash-bucket tokenizer with the Qwen special token ids."""
+        import torch
+
+        from .configs import VibeVoiceConfig
+        from .models import vibevoice as vv
+        from .processor.processor import VibeVoiceProcessor
+        from .processor.text_tokenizer import QWEN_SPECIAL_IDS, FallbackTextTokenizer
+        from .utils.params import init
+
+        cfg = VibeVoiceConfig.from_json_file(config)
+        params = init(cfg, seed=seed, dtype=torch.bfloat16, device=device)
+        params = vv.fuse_for_serving(vv.quantize_for_inference(params, ("lm", "lm_head")), cfg,
+                                     quantize=True)
+        tk = FallbackTextTokenizer(
+            vocab_size=cfg.decoder_config.vocab_size,
+            speech_start_id=QWEN_SPECIAL_IDS["speech_start"],
+            speech_end_id=QWEN_SPECIAL_IDS["speech_end"],
+            speech_diffusion_id=QWEN_SPECIAL_IDS["speech_diffusion"],
+            eos_token_id=QWEN_SPECIAL_IDS["eos"], pad_id=QWEN_SPECIAL_IDS["pad"])
+        processor = VibeVoiceProcessor(
+            tokenizer=tk, speech_tok_compress_ratio=cfg.acoustic_tokenizer_config.hop_length)
+        return cls(cfg, params, processor)
+
+    def save_audio(self, audio: np.ndarray, path: str) -> None:
+        self.processor.save_audio(audio, output_path=path)
 
     def _generate(self, script: str, voices: Optional[Sequence[Audio]],
                   opts: Optional[GenerateOptions], seed: int, audio_streamer=None,
@@ -178,6 +229,32 @@ class StreamingTTS:
                                        neg_prompt_id=getattr(processor.tokenizer, "pad_id", 3),
                                        max_len=max_len)
         return cls(cfg, params, processor, preset, max_len=max_len)
+
+    @classmethod
+    def random(cls, config: str, *, seed: int = 0, max_len: int = 8192, preset_tokens: int = 256,
+               device="cuda") -> "StreamingTTS":
+        """A full-width streaming configuration (a config JSON) with random
+        bf16 weights from ``seed``, the vocoder's stage 0 packed int8 for
+        kernel D, the hash-bucket tokenizer, and a voice preset prefilled
+        from a random ``preset_tokens``-token prompt."""
+        import torch
+
+        from .configs import VibeVoiceStreamingConfig
+        from .models import streaming as st
+        from .processor.streaming_processor import VibeVoiceStreamingProcessor
+        from .processor.text_tokenizer import QWEN_SPECIAL_IDS, FallbackTextTokenizer
+        from .utils.params import init_streaming
+
+        cfg = VibeVoiceStreamingConfig.from_json_file(config)
+        params = st.fuse_vocoder(init_streaming(cfg, seed=seed, dtype=torch.bfloat16,
+                                                device=device), cfg, quantize=True)
+        vocab = cfg.decoder_config.vocab_size
+        tk = FallbackTextTokenizer(vocab_size=vocab, eos_token_id=QWEN_SPECIAL_IDS["eos"],
+                                   pad_id=QWEN_SPECIAL_IDS["pad"])
+        prompt = np.random.RandomState(seed).randint(10, vocab, (1, preset_tokens))
+        preset = st.build_voice_preset(cfg, params, prompt, neg_prompt_id=tk.pad_id,
+                                       max_len=max_len)
+        return cls(cfg, params, VibeVoiceStreamingProcessor(tk), preset, max_len=max_len)
 
     def _opts(self, opts: Optional[GenerateOptions], overrides) -> GenerateOptions:
         if opts is None:

@@ -263,9 +263,63 @@ def init_streaming(cfg: VibeVoiceStreamingConfig, *, seed: int = 0, dtype=torch.
     }
 
 
-def lora_from_jax(lora_np: Dict, *, device=None) -> Dict:
+def lora_from_jax(lora_np: Dict, *, device="cuda") -> Dict:
     """Convert the JAX package's LoRA tree (after ``jax.tree.map(np.asarray,
-    ...)``) to the port's: the same keys and the same layouts, A (IN, r) and
-    B (r, OUT); dense extras (connectors, a full diffusion head) are linears
-    in (in, out) layout on both sides."""
+    ...)``) to the port's on ``device`` (the card unless the caller asks for
+    the CPU): the same keys and the same layouts, A (IN, r) and B (r, OUT);
+    dense extras (connectors, a full diffusion head) are linears in (in,
+    out) layout on both sides."""
+    device = _device(device)
     return _map(lora_np, lambda a: _tensor(a, device=device))
+
+
+def speaking(params: Dict, tokens, *, c: float = 4.0, alpha: float = 10.0, beta: float = 10.0,
+             d0: int = 0) -> Dict:
+    """Random multi-speaker weights that speak, for checks and benches on
+    random weights (whose LM otherwise picks <speech_start> or EOS at every
+    frame). Hidden dimension ``d0`` carries ``c`` at every position: its
+    embedding column is set, the two connectors' output biases give c / 2
+    each, and the columns that would change it (each layer's attention
+    output and MLP down projection, the connectors' output weights) are
+    zeroed. The LM head adds ``alpha`` per unit of that dimension to the
+    <speech_diffusion> logit and takes ``beta`` from EOS's; an int8 head
+    (``lm_head_q``) has those two columns replaced by that alone. Greedy
+    decoding then diffuses at every frame; sampling mixes the other speech
+    tokens in. Returns a new tree; ``params`` is left as it is (tensors that
+    change are copied, the others shared). ``tokens`` is the model's
+    ``inference.SpecialTokens``."""
+    lm = dict(params["lm"])
+    lm["embed"] = lm["embed"].clone()
+    lm["embed"][:, d0] = c
+    layers = []
+    for layer in lm["layers"]:
+        layer = {**layer, "attn": dict(layer["attn"]), "mlp": dict(layer["mlp"])}
+        for group, name in (("attn", "o"), ("mlp", "down")):
+            lin = dict(layer[group][name])
+            for key in ("w8", "w", "b"):
+                if key in lin:
+                    lin[key] = lin[key].clone()
+                    lin[key][..., d0] = 0
+            layer[group][name] = lin
+        layers.append(layer)
+    lm["layers"] = layers
+    out = {**params, "lm": lm}
+    for conn in ("acoustic_connector", "semantic_connector"):
+        fc2 = {k: v.clone() for k, v in params[conn]["fc2"].items()}
+        fc2["w"][:, d0] = 0
+        fc2["b"][d0] = c / 2
+        out[conn] = {**params[conn], "fc2": fc2}
+    owner = lm if "lm_head_q" in lm else out if "lm_head_q" in params else None
+    if owner is not None:
+        head = {k: v.clone() for k, v in owner["lm_head_q"].items()}
+        for tok, gain in ((tokens.speech_diffusion, alpha), (tokens.eos, -beta)):
+            head["w8"][:, tok] = 0
+            head["w8"][d0, tok] = 127 if gain > 0 else -127
+            head["scale"][tok] = abs(gain) / 127
+        owner["lm_head_q"] = head
+    else:
+        head = (params["lm_head"] if "lm_head" in params else lm["embed"]).clone()
+        head[tokens.speech_diffusion, d0] += alpha
+        head[tokens.eos, d0] -= beta
+        out["lm_head"] = head
+    return out
