@@ -142,7 +142,19 @@ Phases, each of which fails the run:
      and 9's engines, in this process on port 0: /health, /tts,
      /tts/stream, /v1/audio/speech (wav, pcm, an error), /tts/rt plain and
      live with /append and /end, /stats; status codes, WAV headers and PCM
-     lengths checked.
+     lengths checked;
+ 11. end to end from checkpoints (checkpoint_end_to_end): the 1.5B's and
+     the 0.5B's random weights written as reference-layout checkpoints
+     (bf16 safetensors shards with an index) under build/phase11, loaded by
+     VibeVoiceTTS / StreamingTTS.from_pretrained (int8 and the serving packs
+     for the 1.5B) bit-equal to the random-weight trees; phase 4's forced
+     generate() on the loaded 1.5B gives phase 4's tokens and audio bits
+     through kernels A-D, a 36-frame stream() of the loaded 0.5B gives
+     StreamingTTS.random's bits through B and D; the load's walls, host
+     RSS and card memory are printed; both file CLIs run once as
+     subprocesses (the streaming one on that checkpoint, the multi-speaker
+     one on the 1.5B's weights made to speak, written the same way) and
+     must write audio; the files are removed at the end.
 The next-to-last line is a JSON object of the kernels' results; the last
 line is the JSON device record. The script runs itself again with
 PYTHONHASHSEED=0: the prompts go through the hash-bucket fallback
@@ -1256,6 +1268,16 @@ GRAPH_TOL = 1e-3
 FRAMES_PER_DISPATCH = (1, 4)
 
 
+def forced_scripts(toks, frames: int) -> tuple:
+    """The forced token script of `frames` frames (frames - 3 speech frames,
+    one speech_end -> speech_start in the middle, eos) and the short
+    3-frame one, as lists of ids."""
+    half = (frames - 3) // 2
+    forced = ([toks.speech_diffusion] * half + [toks.speech_end, toks.speech_start]
+              + [toks.speech_diffusion] * (frames - 3 - half) + [toks.eos])
+    return forced, [toks.speech_diffusion] * 2 + [toks.eos]
+
+
 def end_to_end(model: dict, seed: int, frames: int) -> dict:
     """The serving path at max_length 4096 (bf16 KV) and 65536 (int8 KV):
     for K in FRAMES_PER_DISPATCH, the default generate(), which replays the
@@ -1264,7 +1286,9 @@ def end_to_end(model: dict, seed: int, frames: int) -> dict:
     a forced (`frames`-frame) run; per-frame ms comes from their difference.
     Graphed and eager must give identical tokens, audio within GRAPH_TOL of
     the peak and equal, non-zero launch counts of every serving kernel, and
-    the graphed run must replay a graph."""
+    the graphed run must replay a graph. The graphed forced run at 4096
+    and K = 4 (its tokens and audio) is returned as ``reference``, which
+    phase 11 repeats on the weights loaded from a checkpoint."""
     import numpy as np
     import torch
 
@@ -1272,11 +1296,8 @@ def end_to_end(model: dict, seed: int, frames: int) -> dict:
 
     cfg, params, toks, hop, sr = (model[k] for k in ("cfg", "params", "toks", "hop", "sr"))
     proc = model["processor"](text=model["script"], voice_samples=[model["voices"]])
-    half = (frames - 3) // 2
-    forced = ([toks.speech_diffusion] * half + [toks.speech_end, toks.speech_start]
-              + [toks.speech_diffusion] * (frames - 3 - half) + [toks.eos])
+    forced, short = forced_scripts(toks, frames)
     n_diff = frames - 3
-    short = [toks.speech_diffusion] * 2 + [toks.eos]
     print(f"  prompt {proc.input_ids.shape[1]} tokens, voice prompts "
           f"{proc.speech_tensors.shape} ({proc.speech_masks.sum()} latent frames); forced script "
           f"{len(forced)} frames ({n_diff} speech frames, one speech_end -> speech_start)",
@@ -1297,7 +1318,7 @@ def end_to_end(model: dict, seed: int, frames: int) -> dict:
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
-    runs = {}
+    runs, reference = {}, None
     total_launches = dict.fromkeys(names, 0)
     for max_length in (4096, None):
         length = max_length or cfg.decoder_config.max_position_embeddings
@@ -1355,6 +1376,8 @@ def end_to_end(model: dict, seed: int, frames: int) -> dict:
                     base = (out, counts)
                     for n, v in counts.items():
                         total_launches[n] += v
+                    if max_length == 4096 and k == 4:  # outputs are static buffers: copy
+                        reference = (np.array(out.sequences), np.array(audio))
                 else:  # eager against the graphed run before it
                     ref = base[0].speech_outputs[0]
                     err = float(np.abs(audio - ref).max() / np.abs(ref).max())
@@ -1380,7 +1403,7 @@ def end_to_end(model: dict, seed: int, frames: int) -> dict:
                       + f"{retries} allocator retries, "
                       f"decode fill at the last frame {fill} (SERVING_FILL {SERVING_FILL}), "
                       f"launches {counts}", flush=True)
-    return dict(runs=runs, launches=total_launches)
+    return dict(runs=runs, launches=total_launches, reference=reference)
 
 
 def unforced_end_to_end(model: dict, seed: int, k: int = 4, windows: int = 3,
@@ -2721,6 +2744,558 @@ def http_end_to_end(engine, processor, rt_engine, rt_params) -> dict:
     return dict(requests=rec, stats=stats)
 
 
+# Phase 11: end to end from a checkpoint. The writer below is the inverse
+# of vibevoice_tpu_torch/utils/torch_convert.py: it lays a dense port tree
+# out as the reference's state dict (PyTorch modules' key paths, linear
+# weights (out, in), convolutions as stored) and writes it as an HF-style
+# directory of safetensors shards. The package has no exporter (nor has the
+# JAX package); tests/test_torch_hf_interop.py holds this writer against the
+# JAX package's converter, which must read every key it writes.
+CKPT_SHARDS = 3
+
+
+def reference_state_dict(params: dict, *, streaming: bool = False, prefix: str = "model.",
+                         lower_norm: bool = True, upper_embed: bool = True) -> dict:
+    """The reference state dict of a dense port tree (views; nothing is
+    copied). Multi-speaker: ``{prefix}language_model``, the tokenizers,
+    connectors and ``prediction_head`` under ``prefix``, ``lm_head`` beside
+    it (an untied tree's). Streaming: ``{prefix}language_model`` (its final
+    norm left out with ``lower_norm=False``, as the reference's Identity
+    leaves it), ``{prefix}tts_language_model`` (its embedding left out with
+    ``upper_embed=False``) and ``tts_eos_classifier`` without the prefix."""
+    sd = {}
+
+    def lin(key, p):
+        sd[key + ".weight"] = p["w"].t()
+        if "b" in p:
+            sd[key + ".bias"] = p["b"]
+
+    def conv(key, p):
+        sd[key + ".weight"] = p["w"]
+        if "b" in p:
+            sd[key + ".bias"] = p["b"]
+
+    def qwen2(pre, p, norm=True, embed=True):
+        if embed:
+            sd[pre + "embed_tokens.weight"] = p["embed"]
+        for i, layer in enumerate(p["layers"]):
+            lp = f"{pre}layers.{i}."
+            sd[lp + "input_layernorm.weight"] = layer["input_norm"]["w"]
+            for name in ("q", "k", "v", "o"):
+                lin(f"{lp}self_attn.{name}_proj", layer["attn"][name])
+            sd[lp + "post_attention_layernorm.weight"] = layer["post_norm"]["w"]
+            for name in ("gate", "up", "down"):
+                lin(f"{lp}mlp.{name}_proj", layer["mlp"][name])
+        if norm:
+            sd[pre + "norm.weight"] = p["final_norm"]["w"]
+
+    def coder(pre, p):
+        for i, c in enumerate(p.get("down", [])):
+            conv(f"{pre}downsample_layers.{i}.0.conv.conv", c)
+        for i, c in enumerate(p.get("up", [])):
+            conv(f"{pre}upsample_layers.{i}.0." + ("conv.conv" if i == 0 else "convtr.convtr"), c)
+        for i, stage in enumerate(p["stages"]):
+            for j, blk in enumerate(stage):
+                bp = f"{pre}stages.{i}.{j}."
+                sd[bp + "norm.weight"] = blk["norm"]["w"]
+                conv(bp + "mixer.conv.conv.conv", blk["mixer"])
+                sd[bp + "ffn_norm.weight"] = blk["ffn_norm"]["w"]
+                lin(bp + "ffn.linear1", blk["ffn"]["fc1"])
+                lin(bp + "ffn.linear2", blk["ffn"]["fc2"])
+                if "gamma" in blk:
+                    sd[bp + "gamma"], sd[bp + "ffn_gamma"] = blk["gamma"], blk["ffn_gamma"]
+        conv(pre + "head.conv.conv", p["head"])
+        if "w" in p.get("final_norm", {}):
+            sd[pre + "norm.weight"] = p["final_norm"]["w"]
+
+    def tokenizer(pre, p):
+        for part, sub in p.items():
+            coder(f"{pre}{part}.", sub)
+
+    def connector(pre, p):
+        lin(pre + "fc1", p["fc1"])
+        sd[pre + "norm.weight"] = p["norm"]["w"]
+        lin(pre + "fc2", p["fc2"])
+
+    def head(pre, p):
+        for i, layer in enumerate(p["layers"]):
+            lp = f"{pre}layers.{i}."
+            sd[lp + "norm.weight"] = layer["norm"]["w"]
+            lin(lp + "adaLN_modulation.1", layer["adaln"])
+            for name in ("gate", "up", "down"):
+                lin(f"{lp}ffn.{name}_proj", layer["ffn"][name])
+        lin(pre + "noisy_images_proj", p["noisy_proj"])
+        lin(pre + "cond_proj", p["cond_proj"])
+        lin(pre + "t_embedder.mlp.0", p["t_embedder"]["fc1"])
+        lin(pre + "t_embedder.mlp.2", p["t_embedder"]["fc2"])
+        lin(pre + "final_layer.adaLN_modulation.1", p["final"]["adaln"])
+        lin(pre + "final_layer.linear", p["final"]["linear"])
+
+    if streaming:
+        qwen2(prefix + "language_model.", params["language_model"], norm=lower_norm)
+        qwen2(prefix + "tts_language_model.", params["tts_language_model"], embed=upper_embed)
+        sd[prefix + "tts_input_types.weight"] = params["tts_input_types"]
+        for name in ("fc1", "fc2"):
+            lin(f"tts_eos_classifier.{name}", params["tts_eos_classifier"][name])
+    else:
+        qwen2(prefix + "language_model.", params["lm"])
+        tokenizer(prefix + "semantic_tokenizer.", params["semantic_tokenizer"])
+        connector(prefix + "semantic_connector.", params["semantic_connector"])
+        if "lm_head" in params:
+            sd["lm_head.weight"] = params["lm_head"]
+    tokenizer(prefix + "acoustic_tokenizer.", params["acoustic_tokenizer"])
+    connector(prefix + "acoustic_connector.", params["acoustic_connector"])
+    head(prefix + "prediction_head.", params["diffusion_head"])
+    for name in ("speech_scaling_factor", "speech_bias_factor"):
+        sd[prefix + name] = params[name]
+    return sd
+
+
+def write_safetensors(path, tensors: dict) -> int:
+    """Write ``tensors`` (on any device) as one safetensors file, one tensor
+    at a time through the host; returns the file's bytes."""
+    import torch
+
+    from vibevoice_tpu_torch.utils.safetensors_io import DTYPES
+
+    names = {dt: name for name, dt in DTYPES.items()}
+    header, offset = {}, 0
+    for key, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[key] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                       "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little") + raw)
+        for t in tensors.values():
+            f.write(t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy())
+    return 8 + len(raw) + offset
+
+
+def write_checkpoint(path, sd: dict, config, shards: int = CKPT_SHARDS) -> int:
+    """An HF-style checkpoint directory: ``sd`` in ``shards`` safetensors
+    files of about equal bytes (in key order), model.safetensors.index.json,
+    config.json (``config``: a config JSON file, or a dict) and a
+    preprocessor_config.json. Returns the shards' bytes."""
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    sizes = [t.numel() * t.element_size() for t in sd.values()]
+    total, groups, acc = sum(sizes), [dict() for _ in range(shards)], 0
+    for (key, t), n in zip(sd.items(), sizes):
+        groups[min(shards - 1, acc * shards // max(total, 1))][key] = t
+        acc += n
+    weight_map, written = {}, 0
+    for i, group in enumerate(groups):
+        name = f"model-{i + 1:05d}-of-{shards:05d}.safetensors"
+        written += write_safetensors(path / name, group)
+        weight_map.update(dict.fromkeys(group, name))
+    (path / "model.safetensors.index.json").write_text(
+        json.dumps({"metadata": {"total_size": total}, "weight_map": weight_map}, indent=1))
+    (path / "config.json").write_text(json.dumps(config, indent=1) if isinstance(config, dict)
+                                      else Path(config).read_text())
+    (path / "preprocessor_config.json").write_text(json.dumps(
+        {"processor_class": "VibeVoiceProcessor", "speech_tok_compress_ratio": 3200,
+         "db_normalize": True}, indent=1))
+    return written
+
+
+CKPT_ROOT = ROOT / "build" / "phase11"
+CLI_TIMEOUT = 300  # s, each CLI subprocess: start, build or load the kernels, load, run
+PHASE11_NAMES = ("int8_matmul", "int8_matmul_gemm", "flash_cached_attention",
+                 "flash_cached_attention_prefill", "fused_head_ffn_stack", "fused_stage_step")
+
+
+class PeakRss:
+    """The process's resident set while the block runs, sampled every 5 ms
+    from /proc/self/statm on a thread: ``before`` and ``peak``, bytes."""
+
+    def __init__(self):
+        import threading
+
+        self.page = os.sysconf("SC_PAGE_SIZE")
+        self.before = self.peak = self.now()
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self.sample, daemon=True)
+
+    def now(self) -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self.page
+
+    def sample(self):
+        while not self.stop.wait(0.005):
+            self.peak = max(self.peak, self.now())
+
+    def __enter__(self):
+        self.before = self.peak = self.now()
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join()
+        self.peak = max(self.peak, self.now())
+
+
+def tree_leaves(tree, path=""):
+    """(path, tensor or value) of every leaf; a packed stack (PackedStage)
+    gives its arrays and its shape fields."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves(tree[k], f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_leaves(v, f"{path}/{i}")
+    elif hasattr(tree, "arrays"):
+        yield from tree_leaves(tree.arrays, f"{path}/arrays")
+        for k in ("eps", "dim", "hidden", "n_blocks", "quantized"):
+            yield f"{path}/{k}", getattr(tree, k)
+    else:
+        yield path, tree
+
+
+def tree_mismatches(got, want, label: str) -> dict:
+    """Leaves of `got` that differ from `want`: keys, dtypes, shapes, bits.
+    The two scale scalars are the loader's dtype (every floating leaf is
+    cast, as the JAX loader's _to_dtype casts it) where random weights keep
+    them f32: theirs compare by value. Returns {"leaves", "scalars"}."""
+    import torch
+
+    g, w = dict(tree_leaves(got)), dict(tree_leaves(want))
+    if sorted(g) != sorted(w):
+        fail(f"{label}: keys differ: {sorted(set(g) ^ set(w))[:8]}")
+    bad, scalars = [], {}
+    for k, wv in w.items():
+        gv = g[k]
+        if not isinstance(wv, torch.Tensor):
+            if gv != wv:
+                bad.append(k)
+        elif k.endswith("_factor"):
+            scalars[k] = (str(gv.dtype), str(wv.dtype))
+            if not (gv.shape == wv.shape == () and gv.float().item() == wv.float().item()):
+                bad.append(k)
+        elif not (gv.dtype == wv.dtype and gv.shape == wv.shape and torch.equal(
+                gv.reshape(-1).view(torch.uint8), wv.reshape(-1).view(torch.uint8))):
+            bad.append(k)
+    if bad:
+        fail(f"{label}: {len(bad)} of {len(w)} leaves differ from the reference, e.g. {bad[:6]}")
+    print(f"  {label}: {len(w)} leaves bit-equal to the reference's, key by key (the two scale "
+          f"scalars by value: loaded / reference dtype {sorted(set(scalars.values()))})",
+          flush=True)
+    return dict(leaves=len(w), scalars=scalars)
+
+
+def run_cli(module: str, args: list, wav: Path, label: str) -> dict:
+    """One CLI as a subprocess on the card: exit 0, its WAV written (a
+    16-bit mono header and whole samples) and its RTF line printed."""
+    import struct
+
+    env = {**os.environ, "VIBEVOICE_ALLOW_FALLBACK_TOKENIZER": "1"}
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", module, "--device", "cuda", *args], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=CLI_TIMEOUT)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        fail(f"{label}: exit {res.returncode}\n{res.stdout[-2000:]}\n{res.stderr[-3000:]}")
+    rtf = [ln for ln in res.stdout.splitlines() if "RTF:" in ln]
+    if not rtf:
+        fail(f"{label}: no RTF line in\n{res.stdout[-2000:]}")
+    body = wav.read_bytes() if wav.exists() else b""
+    n = struct.unpack("<I", body[40:44])[0] // 2 if len(body) >= 44 else -1
+    if not (body[:4] == b"RIFF" and body[8:16] == b"WAVEfmt " and len(body) == 44 + 2 * n
+            and n > 0):
+        fail(f"{label}: no whole 16-bit WAV with audio at {wav} ({len(body)} bytes)")
+    lines = [ln for ln in res.stdout.splitlines() if ln and not ln.startswith("Generating")]
+    print(f"  {label}: exit 0 in {wall:.1f} s (process start, kernels, load and run), "
+          f"{n} samples ({n / 24_000:.2f} s) in its WAV; " + " | ".join(lines[-4:]), flush=True)
+    return dict(wall_s=wall, samples=n, stdout_tail=lines[-6:])
+
+
+def page_cache_bytes() -> int:
+    """The host's page cache (/proc/meminfo's Cached), bytes."""
+    with open("/proc/meminfo") as f:
+        return next(int(line.split()[1]) * 1024 for line in f if line.startswith("Cached:"))
+
+
+def drop_page_cache(path: Path):
+    """Write back and evict the page cache's copy of every file in ``path``
+    (fsync, then POSIX_FADV_DONTNEED), so that the next read comes from the
+    disk. Returns how far the page cache shrank and the files' size, bytes:
+    a file system whose cache lies outside this kernel (a 9p mount's host)
+    ignores the advice, and the cache does not shrink."""
+    before, size = page_cache_bytes(), 0
+    for f in sorted(path.iterdir()):
+        if f.is_file():
+            size += f.stat().st_size
+            fd = os.open(f, os.O_RDONLY)
+            try:
+                os.fsync(fd)
+                os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+            finally:
+                os.close(fd)
+    return before - page_cache_bytes(), size
+
+
+def load_cold_and_warm(path: Path, load, label: str):
+    """Run ``load()``, a checkpoint load onto the card that returns a model
+    with ``.load_walls``, twice: cold (the checkpoint's pages first dropped
+    from the page cache, as a server starting on a checkpoint it has not
+    read lately reads it; the print says whether the cache shrank by the
+    checkpoint's size) and warm (just read, still cached). Prints and
+    returns each load's wall, its phases' walls, the host's resident set
+    before and at its peak, and the card memory it holds; returns the warm
+    load's model."""
+    import torch
+
+    rec = {}
+    for cache in ("cold", "warm"):
+        dropped, size = drop_page_cache(path) if cache == "cold" else (0, 0)
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated()
+        with PeakRss() as rss:
+            t0 = time.perf_counter()
+            model = load()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        card_bytes = torch.cuda.memory_allocated() - base_mem
+        rec[cache] = dict(load_s=wall, walls=dict(model.load_walls), rss_before=rss.before,
+                          rss_peak=rss.peak, card_bytes=card_bytes, cache_dropped=dropped)
+        note = ""
+        if cache == "cold":
+            kept = "" if dropped >= 0.9 * size else (
+                ": the file system kept its pages, so this read was not cold")
+            note = (f" (the page cache shrank by {dropped / 2**30:.3f} GiB of the checkpoint's "
+                    f"{size / 2**30:.3f}{kept})")
+        print(f"  {label}, {cache} page cache{note}: {wall:.3f} s; walls "
+              f"{', '.join(f'{k} {v:.3f} s' for k, v in model.load_walls.items())}; host RSS "
+              f"{rss.before / 2**30:.2f} GiB before, peak {rss.peak / 2**30:.2f} GiB "
+              f"(+{(rss.peak - rss.before) / 2**30:.2f}); the loaded tree "
+              f"{card_bytes / 2**30:.3f} GiB on the card", flush=True)
+        if cache == "cold":
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+    return model, rec
+
+
+def checkpoint_end_to_end(seed: int, frames: int, phase4_reference) -> dict:
+    """Phase 11: end to end from checkpoints written here, under
+    build/phase11 (removed at the end).
+
+    1.5B: the dense bf16 weights VibeVoiceTTS.random starts from
+    (utils.params.init at --seed) as a reference-layout checkpoint (three
+    safetensors shards, model.safetensors.index.json, the port's 1.5B
+    config.json, preprocessor_config.json, no tokenizer files: the
+    processor refuses it unless VIBEVOICE_ALLOW_FALLBACK_TOKENIZER=1, which
+    this phase then sets). VibeVoiceTTS.from_pretrained(int8=True) and the
+    serving packs must give VibeVoiceTTS.random's tree bit for bit, key by
+    key; phase 4's forced 32-frame generate() at 4096 (graphed, K = 4) on
+    it must give phase 4's tokens and audio bits, launching kernels A (both
+    routes), B (both routes), C and D. The checkpoint's bytes and, for a
+    cold and a warm load (load_cold_and_warm), the load's walls (read: the
+    shards mapped; transfer: their pages read and copied to the card;
+    convert: layouts and dtype on the card; quantize; the serving packs),
+    the host's resident set before and at its peak during the load and the
+    card's memory after it are printed.
+
+    0.5B: init_streaming at --seed with the EOS classifier's output bias at
+    -30, written the same way (without the lower stack's final norm, as the
+    reference stores it), and phase 6's voice preset as .npz;
+    StreamingTTS.from_pretrained (cold, then warm) must give the dense tree
+    bit for bit, and
+    after fuse_vocoder(quantize=True) a 36-frame stream() must launch B and
+    D, be finite, not silent, and equal the same stream of
+    StreamingTTS.random's model (the same bits).
+
+    Then both file CLIs run once as subprocesses (--device cuda --int8,
+    bounded lengths): the streaming one on that checkpoint, the
+    multi-speaker one on the 1.5B's weights made to speak
+    (utils.params.speaking, c 64, with an untied lm_head: random weights
+    pick eos or speech_start at the first frame and give no audio), each
+    written the same way. Each must exit 0, write a WAV with audio and print
+    its RTF line."""
+    import itertools
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from vibevoice_tpu_torch.configs import VibeVoiceConfig, VibeVoiceStreamingConfig
+    from vibevoice_tpu_torch.models import inference as inf
+    from vibevoice_tpu_torch.models import streaming as st
+    from vibevoice_tpu_torch.models import vibevoice as vv
+    from vibevoice_tpu_torch.processor.processor import VibeVoiceProcessor
+    from vibevoice_tpu_torch.tts import StreamingTTS, VibeVoiceTTS
+    from vibevoice_tpu_torch.utils.params import init, init_streaming, speaking
+
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    rec = {}
+    try:
+        # -- the 1.5B checkpoint
+        path = CKPT_ROOT / "vibevoice-1.5b"
+        t0 = time.perf_counter()
+        dense = init(VibeVoiceConfig.from_json_file(str(CONFIG_1P5B)), seed=seed,
+                     dtype=torch.bfloat16)
+        nbytes = write_checkpoint(path, reference_state_dict(dense), CONFIG_1P5B)
+        write_s = time.perf_counter() - t0
+        del dense
+        torch.cuda.empty_cache()
+        print(f"  1.5B checkpoint: {nbytes} bytes in {CKPT_SHARDS} bf16 shards "
+              f"({nbytes / 2**30:.3f} GiB), written in {write_s:.2f} s", flush=True)
+        os.environ.pop("VIBEVOICE_ALLOW_FALLBACK_TOKENIZER", None)
+        try:
+            VibeVoiceProcessor.from_pretrained(str(path))
+            fail("a checkpoint without tokenizer files loaded without the fallback variable")
+        except RuntimeError as e:
+            if "tokenizer" not in str(e):
+                raise
+        os.environ["VIBEVOICE_ALLOW_FALLBACK_TOKENIZER"] = "1"
+
+        def load_1p5b():
+            tts = VibeVoiceTTS.from_pretrained(str(path), int8=True)
+            t0 = time.perf_counter()
+            tts.params = vv.fuse_for_serving(tts.params, tts.cfg, quantize=True)
+            torch.cuda.synchronize()
+            tts.load_walls["serving_packs"] = time.perf_counter() - t0
+            return tts
+
+        tts, loads = load_cold_and_warm(
+            path, load_1p5b, "1.5B VibeVoiceTTS.from_pretrained(int8=True) + serving packs")
+        model = serving_model(seed)
+        rec["vibevoice_1.5b"] = dict(
+            checkpoint_bytes=nbytes, write_s=write_s, loads=loads,
+            tree=tree_mismatches(tts.params, model["params"], "1.5B loaded tree"))
+
+        # phase 4's forced run on the loaded weights
+        cfg, toks = model["cfg"], model["toks"]
+        proc = model["processor"](text=model["script"], voice_samples=[model["voices"]])
+        forced, short = forced_scripts(toks, frames)
+        opts = inf.GenerateOptions(ddpm_steps=10, cfg_scale=1.3, max_length=4096,
+                                   frames_per_dispatch=4)
+
+        def run(script):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = inf.generate(cfg, tts.params, input_ids=proc.input_ids,
+                               valid_mask=proc.attention_mask, speech_tensors=proc.speech_tensors,
+                               speech_frame_valid=proc.speech_masks,
+                               speech_input_mask=proc.speech_input_mask, tokens=toks, seed=seed,
+                               opts=opts, forced_tokens=np.asarray(script, np.int64)[:, None])
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t
+
+        run(short)  # captures the graph
+        reset_counts(PHASE11_NAMES)
+        out, wall = run(forced)
+        counts = read_counts(PHASE11_NAMES)
+        audio = out.speech_outputs[0]
+        missing = [n for n, v in counts.items() if v == 0]
+        if missing:
+            fail(f"1.5B from a checkpoint: kernels never launched: {missing}")
+        same_tokens = np.array_equal(out.sequences, phase4_reference[0])
+        same_audio = audio is not None and np.array_equal(audio, phase4_reference[1])
+        print(f"  1.5B from the checkpoint, phase 4's forced {len(forced)}-frame generate() at "
+              f"4096 (graphed, K = 4): wall {wall:.3f} s, tokens "
+              f"{'equal' if same_tokens else 'DIFFER'}, audio bits "
+              f"{'equal' if same_audio else 'DIFFER'} to phase 4's, launches {counts}",
+              flush=True)
+        if not (same_tokens and same_audio):
+            fail("1.5B from a checkpoint: generate() differs from phase 4's")
+        rec["vibevoice_1.5b"].update(generate_wall_s=wall, launches=counts)
+        launches = dict(counts)
+        # for the CLI: the same weights made to speak (utils.params.speaking
+        # at the checkpoint processor's special ids; greedy decoding then
+        # diffuses every frame), whose lm_head is then untied
+        blob = json.loads(CONFIG_1P5B.read_text())
+        blob["decoder_config"]["tie_word_embeddings"] = False
+        speak_path = CKPT_ROOT / "vibevoice-1.5b-speaking"
+        t0 = time.perf_counter()
+        dense = speaking(init(VibeVoiceConfig.from_dict(blob), seed=seed, dtype=torch.bfloat16),
+                         tts.tokens, c=64.0)
+        speak_bytes = write_checkpoint(speak_path, reference_state_dict(dense), blob)
+        print(f"  the speaking 1.5B checkpoint for the CLI: {speak_bytes} bytes in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        del tts, model, out, dense
+        inf._captures.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- the 0.5B checkpoint and phase 6's preset
+        rt_path = CKPT_ROOT / "vibevoice-0.5b-streaming"
+        scfg = VibeVoiceStreamingConfig.from_json_file(str(CONFIG_0P5B))
+        t0 = time.perf_counter()
+        sdense = with_eos_bias(init_streaming(scfg, seed=seed, dtype=torch.bfloat16), -30.0)
+        snbytes = write_checkpoint(rt_path, reference_state_dict(sdense, streaming=True,
+                                                                 lower_norm=False), CONFIG_0P5B)
+        swrite_s = time.perf_counter() - t0
+        smodel = streaming_model(seed)
+        voice = CKPT_ROOT / "voice.npz"
+        smodel["preset"].save(str(voice))
+        print(f"  0.5B checkpoint: {snbytes} bytes ({snbytes / 2**30:.3f} GiB) written in "
+              f"{swrite_s:.2f} s", flush=True)
+        rt, sloads = load_cold_and_warm(
+            rt_path, lambda: StreamingTTS.from_pretrained(str(rt_path), voice=str(voice),
+                                                          max_len=STREAM_MAX_LEN),
+            "0.5B StreamingTTS.from_pretrained")
+        stree = tree_mismatches(rt.params, sdense, "0.5B loaded tree")
+        del sdense
+        rt.params = st.fuse_vocoder(rt.params, rt.cfg, quantize=True)
+        # the same processor (the checkpoint's fallback tokenizer), so the same text ids
+        ref = StreamingTTS(smodel["cfg"], with_eos_bias(smodel["params"], -30.0), rt.processor,
+                           smodel["preset"], max_len=STREAM_MAX_LEN)
+        names = ("flash_cached_attention", "flash_cached_attention_prefill", "fused_stage_step")
+
+        def stream(t):
+            calls = itertools.count()
+            reset_counts(names)
+            chunks = list(t.stream(STREAM_SCRIPT, seed=seed,
+                                   stop_check_fn=lambda: next(calls) >= STREAM_WINDOWS))
+            return (np.concatenate(chunks) if chunks else np.zeros(0, np.float32)), \
+                read_counts(names)
+
+        rt.warmup()
+        saudio, scounts = stream(rt)
+        ref.warmup()
+        raudio = stream(ref)[0]
+        hop = scfg.acoustic_tokenizer_config.hop_length
+        sframes = STREAM_WINDOWS * 6
+        missing = [n for n, v in scounts.items() if v == 0]
+        print(f"  0.5B from the checkpoint: stream() of {saudio.size // hop} frames, peak "
+              f"{float(np.abs(saudio).max()) if saudio.size else 0.0:.3e}, "
+              f"{'equal' if np.array_equal(saudio, raudio) else 'NOT equal'} to "
+              f"StreamingTTS.random's stream, launches {scounts}", flush=True)
+        if missing or saudio.size != sframes * hop or not np.isfinite(saudio).all() \
+                or not np.abs(saudio).max() > 0:
+            fail(f"0.5B from a checkpoint: {saudio.size} samples, launches {scounts}")
+        if not np.array_equal(saudio, raudio):
+            fail("0.5B from a checkpoint: the stream differs from StreamingTTS.random's")
+        for n, v in scounts.items():
+            launches[n] += v
+        rec["vibevoice_0.5b"] = dict(checkpoint_bytes=snbytes, write_s=swrite_s, loads=sloads,
+                                     tree=stree, launches=scounts)
+        del rt, ref, smodel
+        inf._captures.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- the two CLIs
+        out_dir = CKPT_ROOT / "out"
+        rec["cli"] = run_cli("vibevoice_tpu_torch.demo.inference_from_file",
+                             ["--model_path", str(speak_path), "--int8", "--output_dir",
+                              str(out_dir), "--max_length", "96"],
+                             out_dir / "generated_0.wav", "inference_from_file (1.5B)")
+        rec["streaming_cli"] = run_cli(
+            "vibevoice_tpu_torch.demo.streaming_inference_from_file",
+            ["--model_path", str(rt_path), "--voice_preset", str(voice), "--int8",
+             "--max_len", str(STREAM_PRESET + 11 * STREAM_WINDOWS),
+             "--output_path", str(out_dir / "streaming.wav"), "--text", STREAM_SCRIPT],
+            out_dir / "streaming.wav", "streaming_inference_from_file (0.5B)")
+    finally:
+        shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    return dict(runs=rec, launches=launches)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2868,6 +3443,17 @@ def main() -> None:
                                    sessions["params"])
     served["engine"].shutdown()
     sessions["engine"].shutdown(drain=False)
+    del model, served, sessions, stream_model
+    inf._captures.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 11: end to end from checkpoints
+    print("end to end: from checkpoints (1.5B and 0.5B, the two file CLIs)", flush=True)
+    ckpt = checkpoint_end_to_end(args.seed, args.frames, e2e["reference"])
+    for name, n in ckpt["launches"].items():
+        checks.kernels[name]["launches"] += n
+    runs["checkpoints"] = ckpt["runs"]
 
     unmeasured = [k["name"] for k in checks.kernels.values() if k["ms"] is None or k["launches"] == 0]
     if unmeasured:

@@ -1320,3 +1320,96 @@ def test_session_engine_card_matches_cpu(dev):
     for a, b in zip(*runs):
         assert len(a) == len(b) == 12 * cfg.acoustic_tokenizer_config.hop_length
         assert np.abs(a - b).max() <= 1e-3 * np.abs(b).max()
+
+
+# ---------------------------------------------------------------------------
+# checkpoint loading on the card
+# ---------------------------------------------------------------------------
+
+
+def _tiny_checkpoint(path, monkeypatch):
+    """A tiny untied multi-speaker checkpoint (three bf16 shards), written
+    by chip_smoke's reference-layout writer from the port's init."""
+    import dataclasses
+    import json
+
+    import chip_smoke
+    from vibevoice_tpu_torch.configs import tiny_config
+    from vibevoice_tpu_torch.utils.params import init
+
+    cfg = tiny_config()
+    cfg = dataclasses.replace(cfg, decoder_config=dataclasses.replace(
+        cfg.decoder_config, tie_word_embeddings=False))
+    params = init(cfg, seed=4, dtype=torch.bfloat16, device="cpu")
+    sd = {k: v.contiguous() for k, v in chip_smoke.reference_state_dict(params).items()}
+    blob = json.loads(json.dumps(dataclasses.asdict(cfg), default=str))
+    chip_smoke.write_checkpoint(path, sd, {**blob, "model_type": "vibevoice"})
+    monkeypatch.setenv("VIBEVOICE_ALLOW_FALLBACK_TOKENIZER", "1")
+    return path
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_from_pretrained_card_matches_cpu(dev, tmp_path, monkeypatch, int8):
+    """VibeVoiceTTS.from_pretrained on the card gives the CPU load's tree,
+    bit for bit, leaf by leaf: the transfer, the layout changes and (int8)
+    the quantization on the card give the CPU's bits."""
+    from vibevoice_tpu_torch.tts import VibeVoiceTTS
+
+    path = _tiny_checkpoint(tmp_path / "ckpt", monkeypatch)
+    card = VibeVoiceTTS.from_pretrained(str(path), int8=int8)
+    cpu = VibeVoiceTTS.from_pretrained(str(path), int8=int8, device="cpu")
+    got, want = dict(_leaves(card.params)), dict(_leaves(cpu.params))
+    assert sorted(got) == sorted(want) and ("/lm_head_q/w8" in got) == int8
+    for k, w in want.items():
+        g = got[k]
+        assert g.device.type == "cuda" and g.dtype == w.dtype and g.shape == w.shape, k
+        assert torch.equal(g.cpu().reshape(-1).view(torch.uint8), w.reshape(-1).view(torch.uint8)), k
+    assert set(card.load_walls) == {"read", "transfer", "convert"} | ({"quantize"} if int8 else set())
+
+
+def test_converters_default_to_the_card(dev, tmp_path, monkeypatch):
+    """convert_full_model on the CPU state dict that load_state_dict reads,
+    with no device given, builds the tree on the card: the CPU
+    conversion's bits."""
+    from vibevoice_tpu_torch.configs import VibeVoiceConfig
+    from vibevoice_tpu_torch.utils import hf_interop
+
+    path = _tiny_checkpoint(tmp_path / "ckpt", monkeypatch)
+    cfg = VibeVoiceConfig.from_json_file(str(path / "config.json"))
+    sd = hf_interop.load_state_dict(str(path))
+    assert all(v.device.type == "cpu" for v in sd.values())
+    got = dict(_leaves(hf_interop.convert_full_model(sd, cfg)))
+    want = dict(_leaves(hf_interop.convert_full_model(sd, cfg, device="cpu")))
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        assert got[k].device.type == "cuda" and torch.equal(got[k].cpu(), w), k
+
+
+def test_safetensors_reader_maps_to_the_card(dev, tmp_path):
+    """utils.safetensors_io.load_file(device="cuda") gives card tensors of the
+    stored dtypes, equal to the CPU read."""
+    import chip_smoke
+    from vibevoice_tpu_torch.utils import safetensors_io
+
+    g = torch.Generator().manual_seed(0)
+    tensors = {"w": torch.randn(64, 48, generator=g).to(torch.bfloat16),
+               "b": torch.randn(48, generator=g), "q": torch.randint(-127, 128, (16, 8),
+                                                                     dtype=torch.int8),
+               "s": torch.tensor(1.0)}
+    path = str(tmp_path / "shard.safetensors")
+    chip_smoke.write_safetensors(path, tensors)
+    on_card = safetensors_io.load_file(path, device="cuda")
+    for k, v in tensors.items():
+        assert on_card[k].device.type == "cuda" and on_card[k].dtype == v.dtype, k
+        assert torch.equal(on_card[k].cpu(), v), k

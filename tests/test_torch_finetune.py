@@ -279,9 +279,10 @@ def test_trainer_cli_qlora_smoke(tmp_path):
     from vibevoice_tpu_torch.finetune.train import parse_args
 
     for flag in (["--mesh_dp", "2"], ["--fsdp"], ["--checkpoint_format", "orbax"],
-                 ["--model_path", "x"], ["--report_to", "wandb"], ["--remat_policy", "dots"]):
+                 ["--report_to", "wandb"], ["--remat_policy", "dots"]):
         with pytest.raises(SystemExit, match="slice"):
             parse_args(flag)
+    assert parse_args(["--model_path", "x"]).model_path == "x"  # tests/test_torch_cli.py loads one
 
 
 def test_trainer_needs_a_card_unless_told_cpu():

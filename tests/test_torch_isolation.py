@@ -67,6 +67,16 @@ def test_scan_covers_the_serving_modules():
             "serving/server.py"} <= scanned
 
 
+def test_scan_covers_the_checkpoint_modules():
+    """The checkpoint slice's modules and its two file CLIs are scanned: the
+    CLIs keep their own code, not the JAX package's demo/ scripts."""
+    scanned = {str(p.relative_to(PORT)) for p in SOURCES if PORT in p.parents}
+    assert {"utils/torch_convert.py", "utils/safetensors_io.py", "utils/hf_interop.py",
+            "demo/__init__.py", "demo/inference_from_file.py",
+            "demo/streaming_inference_from_file.py", "scripts/__init__.py",
+            "scripts/convert_checkpoint.py"} <= scanned
+
+
 def test_scan_catches_local_and_module_imports(tmp_path):
     """The scan itself: imports at module level, inside functions, relative
     to nothing, through importlib, and a read of the JAX package's config."""

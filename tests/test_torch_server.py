@@ -207,11 +207,13 @@ def _live_session(server):
     assert r2.status == 400
 
 
-def test_command_line_models(monkeypatch):
+def test_command_line_models(monkeypatch, tmp_path):
     """--smoke --device cpu builds both tiny models and, with
-    --rt_sessions 2, the session engine; a checkpoint path exits naming
-    ROADMAP's checkpoint slice; --config without a card raises naming
-    device="cpu" (no fallback); no model option exits."""
+    --rt_sessions 2, the session engine; a checkpoint directory without a
+    config raises FileNotFoundError; --config or --model_path without a
+    card raises naming device="cpu" (no fallback); no multi-speaker model
+    option exits (a streaming checkpoint alone too). Serving a checkpoint:
+    tests/test_torch_cli.py."""
     args = srv.parse_args(["--smoke", "--device", "cpu", "--port", "0", "--rt_sessions", "2",
                            "--max_len", "64", "--streaming_max_len", "256"])
     httpd = srv.build_server(args)
@@ -222,12 +224,14 @@ def test_command_line_models(monkeypatch):
         httpd.server_close()
         httpd.engine.shutdown()
         httpd.rt_engine.shutdown(drain=False)
-    for argv, match in ((["--model_path", "ckpt"], "checkpoint loading"),
-                        (["--config", "1.5b", "--streaming_model_path", "x"], "checkpoint"),
+    for argv, match in ((["--streaming_model_path", "x", "--device", "cpu"], "--model_path"),
                         ([], "--config 1.5b")):
         with pytest.raises(SystemExit, match=match):
             srv.build_server(srv.parse_args(argv))
+    with pytest.raises(FileNotFoundError):
+        srv.build_server(srv.parse_args(["--model_path", str(tmp_path), "--device", "cpu"]))
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match='device="cpu"'):
-            srv.build_server(srv.parse_args(["--config", "1.5b"]))
+        for argv in (["--config", "1.5b"], ["--model_path", str(tmp_path)]):
+            with pytest.raises(RuntimeError, match='device="cpu"'):
+                srv.build_server(srv.parse_args(argv))
     assert srv._config("1.5b").endswith("qwen2.5_1.5b_64k.json")

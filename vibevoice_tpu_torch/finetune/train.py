@@ -8,14 +8,16 @@ freeze/unfreeze flags, remat, chunked CE, a diffusion-head position budget,
 gradient accumulation, eval, EMA of the diffusion head, pickle checkpoints
 and the startup CE smoke check.
 
-Model: without ``--config`` a tiny random-weight model (smoke mode); with
-``--config <config.json>`` that configuration at full width with random
-weights from ``--seed``. Data: ``--dataset_jsonl`` ({text, audio} lines) or
-``--synthetic_data`` (sine-wave clips). Batches are collated on the host
+Model: ``--model_path <checkpoint dir>`` loads a checkpoint at float32
+(utils/hf_interop.load_checkpoint); without it, ``--config <config.json>``
+gives that configuration at full width with random weights from ``--seed``;
+with neither, a tiny random-weight model (smoke mode). Data:
+``--dataset_jsonl`` ({text, audio} lines) or ``--synthetic_data`` (sine-wave
+clips). Batches are collated on the host
 between steps. It runs on the card (``--device cuda``, the default) and exits
 naming ``--device cpu`` where there is none; it never picks the CPU itself.
-The multi-device flags, orbax checkpoints, ``--model_path``
-and wandb belong to later slices of the port and exit with a message.
+The multi-device flags, orbax checkpoints and wandb belong to later
+slices of the port and exit with a message.
 """
 
 from __future__ import annotations
@@ -31,8 +33,6 @@ from typing import Dict
 import numpy as np
 
 LATER = {
-    "model_path": "--model_path needs checkpoint loading (hf_interop), a later slice of the "
-                  "port; use --config <config.json> for random weights",
     "mesh": "the mesh flags (--mesh_dcn/--mesh_dp/--mesh_tp/--mesh_pp) belong to the parallel "
             "slice of the port (with kernel F)",
     "fsdp": "--fsdp belongs to the parallel slice of the port",
@@ -47,7 +47,8 @@ LATER = {
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     # model
-    ap.add_argument("--model_path", type=str, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--model_path", type=str, default=None,
+                    help="a checkpoint directory (HF-style or native), loaded at float32")
     ap.add_argument("--config", type=str, default=None,
                     help="model config json (e.g. vibevoice_tpu_torch/configs/qwen2.5_1.5b_64k.json): "
                     "that model at full width with random weights from --seed")
@@ -121,8 +122,6 @@ def parse_args(argv=None):
     ap.add_argument("--report_to", type=str, default=None, choices=[None, "wandb"])
     ap.add_argument("--run_name", type=str, default="vibevoice-torch-finetune")
     args = ap.parse_args(argv)
-    if args.model_path:
-        raise SystemExit(LATER["model_path"])
     if any((getattr(args, n) or 1) > 1 for n in ("mesh_dcn", "mesh_dp", "mesh_tp", "mesh_pp")):
         raise SystemExit(LATER["mesh"])
     for flag, key in ((args.fsdp, "fsdp"), (args.multihost, "multihost"),
@@ -155,6 +154,11 @@ def _build_model(args, device):
 
     from ..utils.params import init
 
+    if args.model_path:
+        from ..utils.hf_interop import load_checkpoint
+
+        print(f"{args.model_path}: loading the checkpoint at float32")
+        return load_checkpoint(args.model_path, dtype="float32", device=device)
     if args.config:
         cfg = VibeVoiceConfig.from_json_file(args.config)
         tk = FallbackTextTokenizer(

@@ -41,7 +41,9 @@ from . import _cuda
 def quantize_weight(w: torch.Tensor) -> Dict[str, torch.Tensor]:
     """w (IN, OUT) float -> {'w8': int8 (IN, OUT), 'scale': (OUT,) f32}."""
     wf = w.float()
-    scale = wf.abs().amax(dim=0).clamp_min(1e-8) / 127.0
+    # the divisor is a tensor on w's device: CUDA divides by a host scalar as
+    # a multiply by its reciprocal, one ulp away from the CPU's division
+    scale = wf.abs().amax(dim=0).clamp_min(1e-8) / torch.full((), 127.0, device=w.device)
     wq = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
     return {"w8": wq.contiguous(), "scale": scale}
 

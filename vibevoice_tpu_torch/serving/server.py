@@ -30,14 +30,20 @@ the streaming 0.5B model, through ``StreamingSessionEngine`` with
 
 Usage (on the card; --device cpu runs the plain versions of the kernels):
 
+  python -m vibevoice_tpu_torch.serving.server --model_path <ckpt> --int8 \\
+      --streaming_model_path <ckpt-0.5b> --streaming_voice voice.npz --rt_sessions 8 --warmup
   python -m vibevoice_tpu_torch.serving.server --config 1.5b --streaming_config 0.5b \\
       --rt_sessions 8 --warmup
   python -m vibevoice_tpu_torch.serving.server --smoke --device cpu
 
+``--model_path`` / ``--streaming_model_path`` load checkpoint directories
+(tts.VibeVoiceTTS / StreamingTTS.from_pretrained; the streaming model needs
+``--streaming_voice``, a .npz or the reference's .pt preset); ``--int8``
+quantizes the LM and lm_head and packs the serving stacks for kernels C and
+D (and the streaming vocoder for D), as the random-weight models are served.
 ``--config 1.5b`` / ``--streaming_config 0.5b`` (or a config JSON) serve the
 full-width models with random weights from ``--seed``; ``--smoke`` the tiny
-ones. Checkpoints (``--model_path``, ``--streaming_model_path``) wait for the
-port of checkpoint loading.
+ones.
 """
 
 from __future__ import annotations
@@ -58,9 +64,6 @@ CONFIGS = Path(__file__).resolve().parent.parent / "configs"
 CONFIG_ALIASES = {"1.5b": CONFIGS / "qwen2.5_1.5b_64k.json",
                   "0.5b": CONFIGS / "qwen2.5_0.5b_streaming.json"}
 VOICES_DIR = Path(__file__).resolve().parents[2] / "demo" / "voices"
-CHECKPOINTS_LATER = (
-    "{flag}: loading a checkpoint needs the port of checkpoint loading (ROADMAP Queue 1, "
-    "item 3); serve random weights with {alt} or the tiny models with --smoke")
 # the unknown-length convention of live WAV streams (RIFF and data sizes)
 STREAM_WAV_HEADER = (b"RIFF" + struct.pack("<I", 0xFFFFFFFF) + b"WAVEfmt "
                      + struct.pack("<IHHIIHH", 16, 1, 1, SAMPLE_RATE, SAMPLE_RATE * 2, 2, 16)
@@ -113,12 +116,19 @@ def parse_args(argv=None) -> argparse.Namespace:
                             "random weights from --seed")
     model.add_argument("--smoke", action="store_true",
                        help="the tiny random-weight models (and /tts/rt on the tiny 0.5B)")
-    model.add_argument("--model_path", default=None, help="a checkpoint (not ported yet)")
+    model.add_argument("--model_path", default=None,
+                       help="a multi-speaker checkpoint directory (HF-style or native)")
+    model.add_argument("--int8", action="store_true",
+                       help="with checkpoints: int8 LM + lm_head and the serving packs of "
+                            "kernels C and D (the random-weight models are always served so)")
     model.add_argument("--streaming_config", default=None,
                        help="'0.5b' or a config JSON: serve /tts/rt on that streaming "
                             "configuration with random weights")
     model.add_argument("--streaming_model_path", default=None,
-                       help="a streaming checkpoint (not ported yet)")
+                       help="a streaming checkpoint directory: serve /tts/rt on it")
+    model.add_argument("--streaming_voice", default=None,
+                       help="the voice preset of --streaming_model_path (.npz or the "
+                            "reference's .pt)")
     model.add_argument("--seed", type=int, default=0)
     model.add_argument("--device", default="cuda",
                        help="cuda (default; raises without a card) or cpu (the plain versions)")
@@ -159,22 +169,29 @@ def _config(name: str) -> str:
 
 def _build_models(args):
     """(tts, rt) for the options: a VibeVoiceTTS and a StreamingTTS or None."""
+    from ..models import streaming as st
+    from ..models import vibevoice as vv
     from ..tts import StreamingTTS, VibeVoiceTTS
 
-    if args.model_path:
-        raise SystemExit(CHECKPOINTS_LATER.format(flag="--model_path", alt="--config 1.5b"))
-    if args.streaming_model_path:
-        raise SystemExit(CHECKPOINTS_LATER.format(flag="--streaming_model_path",
-                                                  alt="--streaming_config 0.5b"))
     if args.smoke:
         return (VibeVoiceTTS.smoke(device=args.device),
                 StreamingTTS.smoke(max_len=args.streaming_max_len, device=args.device))
-    if not args.config:
-        raise SystemExit("give --config 1.5b (random full-width weights), --smoke (the tiny "
-                         "models) or --model_path")
-    tts = VibeVoiceTTS.random(_config(args.config), seed=args.seed, device=args.device)
+    if args.model_path:
+        tts = VibeVoiceTTS.from_pretrained(args.model_path, int8=args.int8, device=args.device)
+        if args.int8:
+            tts.params = vv.fuse_for_serving(tts.params, tts.cfg, quantize=True)
+    elif args.config:
+        tts = VibeVoiceTTS.random(_config(args.config), seed=args.seed, device=args.device)
+    else:
+        raise SystemExit("give --model_path (a checkpoint), --config 1.5b (random full-width "
+                         "weights) or --smoke (the tiny models)")
     rt = None
-    if args.streaming_config:
+    if args.streaming_model_path:
+        rt = StreamingTTS.from_pretrained(args.streaming_model_path, voice=args.streaming_voice,
+                                          max_len=args.streaming_max_len, device=args.device)
+        if args.int8:
+            rt.params = st.fuse_vocoder(rt.params, rt.cfg, quantize=True)
+    elif args.streaming_config:
         rt = StreamingTTS.random(_config(args.streaming_config), seed=args.seed,
                                  max_len=args.streaming_max_len, device=args.device)
     return tts, rt

@@ -20,9 +20,9 @@ request's state, so such calls decode one after another: two streams read
 in turn are served whole, the first before the second.
 ``StreamingTTS`` goes through ``models.streaming.generate``, whose text and
 speech windows are replayed CUDA graphs on the card, one stream at a time.
+``from_pretrained(path)`` loads a checkpoint directory (utils/hf_interop),
 ``smoke()`` builds a tiny random-weight instance, ``random(config)`` a
-full-width configuration with random weights. Loading a checkpoint
-(``from_pretrained``) waits for the checkpoint loader's port.
+full-width configuration with random weights.
 """
 
 from __future__ import annotations
@@ -78,12 +78,41 @@ def _threaded_stream(produce: Callable) -> Iterator[np.ndarray]:
 class VibeVoiceTTS:
     """Multi-speaker model behind a one-call API."""
 
+    load_walls: Optional[dict] = None  # from_pretrained: the load's phases, wall seconds
+
     def __init__(self, cfg, params, processor, tokens: Optional[SpecialTokens] = None):
         self.cfg = cfg
         self.params = params
         self.processor = processor
         self.tokens = tokens or _tokens_from_processor(processor)
         self.sample_rate = 24_000
+
+    @classmethod
+    def from_pretrained(cls, path: str, *, int8: bool = False, dtype: str = "bfloat16",
+                        lora_path: Optional[str] = None, device="cuda") -> "VibeVoiceTTS":
+        """Load a multi-speaker checkpoint directory (HF-style safetensors or
+        native) onto ``device``, the card unless given device="cpu".
+        int8=True quantizes the LM and lm_head there; ``lora_path`` merges a
+        fine-tune's ``lora/`` assets first, and int8 quantizes after the
+        merge. The serving packs of kernels C and D are the caller's:
+        ``models.vibevoice.fuse_for_serving``."""
+        from .utils.hf_interop import load_pretrained
+
+        loaded = load_pretrained(path, dtype=dtype, int8=int8 and not lora_path, device=device)
+        if loaded.model_type != "vibevoice":
+            raise ValueError(f"{path} is a {loaded.model_type} checkpoint; use "
+                             "StreamingTTS.from_pretrained for streaming models")
+        cfg, params, processor = loaded
+        if lora_path:
+            from .finetune.lora import load_lora_assets
+            from .models.vibevoice import quantize_for_inference
+
+            params = load_lora_assets(params, lora_path)
+            if int8:
+                params = quantize_for_inference(params)
+        tts = cls(cfg, params, processor)
+        tts.load_walls = loaded.walls
+        return tts
 
     @classmethod
     def smoke(cls, device="cuda") -> "VibeVoiceTTS":
@@ -177,6 +206,8 @@ class StreamingTTS:
     reference's ``.pt`` through ``utils.preset_convert``). One stream at a
     time: concurrent calls wait for each other."""
 
+    load_walls: Optional[dict] = None  # from_pretrained: the load's phases, wall seconds
+
     def __init__(self, cfg, params, processor, preset, *, max_len: int = 8192):
         from .models import streaming as st
 
@@ -191,11 +222,30 @@ class StreamingTTS:
 
     @classmethod
     def from_pretrained(cls, path: str, *, voice: Optional[str] = None, dtype: str = "bfloat16",
-                        max_len: int = 8192) -> "StreamingTTS":
-        raise NotImplementedError(
-            "StreamingTTS.from_pretrained needs checkpoint loading (hf_interop), a later slice "
-            "of the port; build the model with utils.params.init_streaming and a preset with "
-            "models.streaming.build_voice_preset")
+                        max_len: int = 8192, device="cuda") -> "StreamingTTS":
+        """Load a streaming checkpoint directory onto ``device`` (the card
+        unless given device="cpu"), with the voice preset ``voice``: .npz
+        (VoicePreset.save) or the reference's .pt (utils/preset_convert).
+        Kernel D's vocoder pack is the caller's: models.streaming.fuse_vocoder."""
+        from .models import streaming as st
+        from .utils.hf_interop import load_pretrained
+
+        if voice is None:
+            raise ValueError("StreamingTTS needs a voice preset (.npz or .pt)")
+        loaded = load_pretrained(path, dtype=dtype, device=device)
+        if loaded.model_type != "vibevoice_streaming":
+            raise ValueError(f"{path} is a {loaded.model_type} checkpoint; use "
+                             "VibeVoiceTTS.from_pretrained for multi-speaker models")
+        cfg, params, processor = loaded
+        if voice.endswith(".pt"):
+            from .utils.preset_convert import convert_torch_preset
+
+            preset = convert_torch_preset(voice)
+        else:
+            preset = st.VoicePreset.load(voice)
+        tts = cls(cfg, params, processor, preset, max_len=max_len)
+        tts.load_walls = loaded.walls
+        return tts
 
     @classmethod
     def smoke(cls, max_len: int = 512, device="cuda") -> "StreamingTTS":
