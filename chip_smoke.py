@@ -10,9 +10,10 @@ Phases, each of which fails the run:
   1. device: CUDA present; prints the card's name and power limit;
   2. build: compiles the kernels from the nine sources in
      vibevoice_tpu_torch/csrc/ (one nvcc per source, all at once), ten
-     entries of the kernels line: A int8_matmul by its two routes (the
-     one-launch streaming GEMV below quant.GEMM_MIN_ROWS rows, the
-     tensor-core GEMM int8_matmul_gemm from there up), B flash_cached_attention by its two routes (flash-decoding at
+     entries of the kernels line (and their "@7b" twins, phase 12): A
+     int8_matmul by its two routes (the one-launch streaming GEMV below
+     quant.GEMM_MIN_ROWS rows, the tensor-core GEMM int8_matmul_gemm from
+     there up), B flash_cached_attention by its two routes (flash-decoding at
      W = 1 and for f32 q, the tensor-core flash_cached_attention_prefill for
      bf16 chunks), C fused_head_ffn_stack, D fused_stage_step, E
      int8_matmul_t, F flash_ring_block, and the training attention's forward
@@ -154,9 +155,35 @@ Phases, each of which fails the run:
      RSS and card memory are printed; both file CLIs run once as
      subprocesses (the streaming one on that checkpoint, the multi-speaker
      one on the 1.5B's weights made to speak, written the same way) and
-     must write audio; the files are removed at the end.
-The next-to-last line is a JSON object of the kernels' results; the last
-line is the JSON device record. The script runs itself again with
+     must write audio; the files are removed at the end;
+ 12. the 7B (vibevoice_tpu_torch/configs/qwen2.5_7b_32k.json: hidden 3584,
+     28 query heads over 4 KV heads of 128, FFN 18944, an untied lm_head of
+     152,064 x 3584, a 3584-10752-3584 diffusion head, 32,768 positions) at
+     full width, random weights from --seed (the_7b): (a) every kernel at its
+     shapes against its plain version (phase 3's tolerances), timed with its
+     bound and library call and replayed from a CUDA graph against its eager
+     call (the same bits): A's GEMV at 2 and 8 rows (the LM linears and the
+     lm_head) and A's GEMM at 16,384 rows, B's decode at 4,096 bf16 and
+     32,768 int8 slots and its prefill route on a 2,048-row chunk, C, D, E
+     at 2,048 f32 rows, F over 16,384 tokens, the training attention at B1
+     T2048; (b) VibeVoiceTTS.random on the 7B JSON: phase 4's forced script
+     at 4,096 bf16 slots, graphed (K = 4) against eager (the same tokens,
+     audio within GRAPH_TOL), and the profile of one replayed 17-frame
+     window; (c) a 16,384-token prompt by chunked_prefill and the world-of-
+     one ring prefill into a 32,768-slot int8 cache, held together, then 32
+     graphed frames; (d) ServingEngine(max_batch=4, max_len=4096,
+     frames_per_dispatch=4) over the 7B made to speak, eight 40-frame
+     requests at once, the request in slot 3 against itself alone in the
+     engine (GRAPH_TOL); (e) the trainer, --config <7B> --use_lora
+     --int8_base, B1 T2048, 3 steps (finite losses, s/step, peak memory);
+     (f) the 7B cut to 4 layers at full width (~7.4 GB bf16, untied
+     lm_head.weight) as a reference-layout checkpoint, loaded by
+     from_pretrained(int8=True) bit-equal to VibeVoiceTTS.random's tree.
+     The kernels line's "<kernel>@7b" entries hold (a)'s main-path cases
+     and the launches of (b)-(e).
+The next-to-last line is a JSON object of the kernels' results (twenty
+entries: the ten of phases 3-11 and their "@7b" twins); the last line is
+the JSON device record. The script runs itself again with
 PYTHONHASHSEED=0: the prompts go through the hash-bucket fallback
 tokenizer, so every run of one --seed then feeds the model the same ids.
 """
@@ -177,6 +204,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 CONFIG_1P5B = ROOT / "vibevoice_tpu_torch" / "configs" / "qwen2.5_1.5b_64k.json"
 CONFIG_0P5B = ROOT / "vibevoice_tpu_torch" / "configs" / "qwen2.5_0.5b_streaming.json"
+CONFIG_7B = ROOT / "vibevoice_tpu_torch" / "configs" / "qwen2.5_7b_32k.json"
 VOICE_SECONDS = 3.0  # length of each synthetic voice prompt
 # Limits of the ring prefill against chunked_prefill (h_pos and the cache of
 # layers 0 and 27, as max |diff| over the peak), by KV type. The two paths
@@ -307,12 +335,15 @@ def rel_err(out, ref) -> tuple[float, float]:
 class Checks:
     """Collects the per-case comparisons; each kernel's JSON entry keeps its
     worst error and the times of its main-path case, and every timed case
-    is kept for the --out record."""
+    is kept for the --out record. While ``tag`` is set (phase 12: "@7b")
+    the cases go to the entries ``<kernel><tag>``, the kernels at another
+    configuration's shapes."""
 
     def __init__(self):
         self.kernels: dict = {}
         self.cases: list = []
         self.extra: dict = {}
+        self.tag = ""
 
     def case(self, kernel: str, label: str, out, ref, tol_rel: float, ms=None, plain_ms=None,
              main: bool = False, bound=None, library_ms=None) -> None:
@@ -320,6 +351,7 @@ class Checks:
         the time of one PyTorch call computing the same function, if any."""
         import torch
 
+        kernel += self.tag
         if not torch.isfinite(out.float()).all():
             fail(f"{kernel} {label}: non-finite output")
         err, rel = rel_err(out, ref)
@@ -435,12 +467,14 @@ def decode_graph_check(checks: Checks, q, kc, vc, base, bases, label: str = "") 
 
 def check_cached_attention(checks: Checks, g, heads: tuple, w: int, s: int, int8: bool,
                            base: tuple, main: bool = False, label: str = "",
-                           graph_bases=None) -> None:
+                           graph_bases=None, graph_bits: bool = False) -> None:
     """Kernel B at one shape against its plain version (tol 1e-2), both
     timed, with its bound and, over a bf16 cache, SDPA's time (the prefix
     mask, enable_gqa) beside them. heads = (q heads, KV heads, head_dim);
     one sample per entry of `base`. With `graph_bases` the decode call is
-    also captured in a CUDA graph and replayed at those bases."""
+    also captured in a CUDA graph and replayed at those bases; with
+    `graph_bits` the call is replayed from a capture on new q and rolled
+    bases against eager calls (the same bits)."""
     import torch
     import torch.nn.functional as F
 
@@ -484,8 +518,16 @@ def check_cached_attention(checks: Checks, g, heads: tuple, w: int, s: int, int8
     byt = nbytes(q) * 2 + nbytes(base_t) + kv_rows * d * 2 * kc.element_size() + (
         kv_rows * 2 * 4 if int8 else 0)
     kernel = "flash_cached_attention_prefill" if w > 1 else "flash_cached_attention"
-    checks.case(kernel, f"{label}W={w} S={s} {'int8' if int8 else 'bf16'} base={list(base)}", out,
-                ref, 1e-2, ms, pms, main=main, bound=bound(flops, byt), library_ms=lms)
+    case = f"{label}W={w} S={s} {'int8' if int8 else 'bf16'} base={list(base)}"
+    checks.case(kernel, case, out, ref, 1e-2, ms, pms, main=main, bound=bound(flops, byt),
+                library_ms=lms)
+    if graph_bits:
+        del out, ref
+        before = base_t.clone()
+        graph_vs_eager(checks, kernel, case,
+                       lambda: fa.flash_cached_attention(q, kc, vc, base_t, **kw), (q,),
+                       tweak=lambda i: (base_t.copy_(torch.roll(before, i + 1)), q.mul_(1.5)))
+        base_t.copy_(before)
 
 
 def head_layers(randn, dim: int, hid: int, n_layers: int) -> list:
@@ -634,14 +676,19 @@ def check_kernels(checks: Checks, seed: int) -> None:
                           lambda: vf.fused_stage_step_plain(packs[0], x, st), (x, st), 2e-2)
 
 
-def graph_vs_eager(checks: Checks, kernel: str, label: str, call, inputs, tweak=None) -> None:
+def graph_vs_eager(checks: Checks, kernel: str, label: str, call, inputs, tweak=None,
+                   eager=None) -> None:
     """A kernel's call captured once in a CUDA graph and replayed twice
     with new inputs written in place (`tweak(i)`, or each input rolled and
     scaled): each replay must give the bits of an eager call on the same
-    inputs. The inputs are restored afterwards."""
+    inputs (`eager`, by default `call`: a call that updates its outputs in
+    place passes one writing to other tensors). The inputs are restored
+    afterwards."""
     import torch
 
     tup = lambda o: o if isinstance(o, tuple) else (o,)
+    eager = eager or call
+    kernel += checks.tag
     call()  # workspaces and counters outside the capture
     torch.cuda.synchronize()
     before = [t.clone() for t in inputs]
@@ -656,9 +703,9 @@ def graph_vs_eager(checks: Checks, kernel: str, label: str, call, inputs, tweak=
             for t, b in zip(inputs, before):
                 t.copy_(torch.roll(b, i + 1, dims=-1) * (1 + 0.5 * i))
         graph.replay()
-        eager = tup(call())
+        ref = tup(eager())
         torch.cuda.synchronize()
-        same &= all(torch.equal(o, e) for o, e in zip(outs, eager))
+        same &= all(torch.equal(o, e) for o, e in zip(outs, ref))
     for t, b in zip(inputs, before):
         t.copy_(b)
     del graph
@@ -856,9 +903,10 @@ def fused_call_checks(checks: Checks, kernel: str, label: str, call, plain, inpu
         passes.setdefault(next((v for k, v in FUSED_PASSES.items() if k in name), name[:60]),
                           []).append(us)
     per_pass = {k: (len(v), sum(v) / len(v)) for k, v in passes.items()}
-    checks.extra.setdefault("device_kernels_per_call", {})[f"{kernel} {label}"] = dict(
+    tagged = kernel + checks.tag
+    checks.extra.setdefault("device_kernels_per_call", {})[f"{tagged} {label}"] = dict(
         kernels=len(events), per_pass_count_mean_us=per_pass)
-    print(f"  {kernel:<24s} {label:<40s} {len(events)} device kernels a call (profiled: "
+    print(f"  {tagged:<24s} {label:<40s} {len(events)} device kernels a call (profiled: "
           + ", ".join(f"{k} {n} x {us:.2f} us" for k, (n, us) in per_pass.items()) + ")",
           flush=True)
     if not 0 < len(events) <= FUSED_MAX_KERNELS[kernel]:
@@ -904,8 +952,22 @@ def event_ms(fn, iters: int = 3) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def check_training_kernels(checks: Checks, seed: int) -> None:
-    """Kernel E and the training attention at the 1.5B fine-tuning shapes."""
+# Kernel E's cases at the 1.5B's fine-tuning rows: B*T = 4,096 (B2 T2048)
+# at every LM shape, 8,192 (B1 T8192) at gate/up and down; the training
+# attention's (B, T, valid lengths), right-padded. The first of each is the
+# main-path case.
+TRAIN_E_CASES = ((4096, LM_SHAPES), (8192, [s for s in LM_SHAPES if s[0] in ("gate/up", "down")]))
+TRAIN_ATTN_CASES = ((2, 2048, (2048, 1500)), (1, 8192, (7000,)))
+
+
+def check_training_kernels(checks: Checks, seed: int, heads=(12, 2, 128), e_cases=TRAIN_E_CASES,
+                           attn_cases=TRAIN_ATTN_CASES, graphs: bool = False,
+                           a_f32_tol: float = 1e-5) -> None:
+    """Kernel E and the training attention at a fine-tuning path's shapes
+    (the 1.5B's by default: 12 query heads over 2 KV heads of 128), and
+    kernel A's GEMM on the same f32 rows (tol `a_f32_tol`). With `graphs`,
+    E's and the attention's main-path calls are also replayed from a CUDA
+    graph against eager calls (the same bits)."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -924,9 +986,9 @@ def check_training_kernels(checks: Checks, seed: int) -> None:
     print("kernel E int8_matmul_t (f32 g, int8 w, f32 scale; f32 out: tol 1e-4 of the peak; "
           "library: torch.mm of bf16 g and a bf16 copy of the weight, transposed; then the cast "
           "pass and the GEMM alone)")
+    nh, kh, d = heads
     phases = []
-    for rows, shapes in ((4096, LM_SHAPES), (8192, [s for s in LM_SHAPES
-                                                    if s[0] in ("gate/up", "down")])):
+    for rows, shapes in e_cases:
         for name, k, n in shapes:
             ws = rotating(lambda: quant.quantize_weight(randn(k, n) * 0.02), k * n)
             gr = randn(rows, n) * 1e-3
@@ -940,9 +1002,12 @@ def check_training_kernels(checks: Checks, seed: int) -> None:
             del wbs, gb
             byt = nbytes(gr, ws[0]["w8"], ws[0]["scale"], out)
             flops = 2 * rows * k * n
+            main = name == "gate/up" and rows == e_cases[0][0]
             checks.case("int8_matmul_t", f"{name} dx {rows}x{n} -> {k}", out, ref, 1e-4, ms, pms,
-                        main=(name == "gate/up" and rows == 4096), bound=bound(flops, byt),
-                        library_ms=lms)
+                        main=main, bound=bound(flops, byt), library_ms=lms)
+            if graphs and main:
+                graph_vs_eager(checks, "int8_matmul_t", f"{name} dx {rows}x{n} -> {k}",
+                               lambda: quant.int8_matmul_t(gr, ws[0]["w8"], ws[0]["scale"]), (gr,))
             gs = torch.empty(rows, n, dtype=torch.bfloat16, device=dev)
             cast_ms = bench_ms(lambda w: quant._dx_launch(gr, w["w8"], w["scale"], gs, out,
                                                           quant.DX_CAST), ws)
@@ -958,21 +1023,21 @@ def check_training_kernels(checks: Checks, seed: int) -> None:
                   f"bytes), GEMM {gemm_ms:.4f} ms (bound {rec['gemm_bound_ms']:.4f}); together "
                   f"{ms:.4f} ms = {ms / lms:.2f}x torch.mm", flush=True)
             del gs
-            if rows == 4096:  # kernel A at the same training rows (f32 x): its GEMM route
+            if rows == e_cases[0][0]:  # kernel A at the same training rows (f32 x): its GEMM route
                 check_int8_matmul(checks, f"{name} {k}x{n} rows={rows} f32 (training)",
-                                  randn(rows, k), ws, 1e-5, iters=5)
+                                  randn(rows, k), ws, a_f32_tol, iters=5)
             del ws
-    checks.extra["int8_matmul_t_phases"] = phases
+    checks.extra["int8_matmul_t_phases" + checks.tag] = phases
 
-    # training attention: 12 query heads over 2 KV heads, D 128, f32, right padded
-    print("training attention (f32, the tensor-core route: three-term bf16 split; right-padded "
+    # training attention: `heads` (query heads, KV heads, D), f32, right padded
+    print(f"training attention ({nh} query heads over {kh} KV heads of {d}; f32, the tensor-core "
+          "route: three-term bf16 split; right-padded "
           "batch compared on valid rows and with dO zero on pad rows: O tol 1e-4, dQ/dK/dV tol "
           "1e-3 of the peak; library: SDPA f32 with the segment-causal mask on K/V repeated to the "
           "query heads, held to its fused memory-efficient kernel: its forward, and autograd "
           "through it for the backward)")
-    nh, kh, d = 12, 2, 128
     records = []
-    for b, t, lens in ((2, 2048, (2048, 1500)), (1, 8192, (7000,))):
+    for b, t, lens in attn_cases:
         q, k, v = randn(b, t, nh, d), randn(b, t, kh, d), randn(b, t, kh, d)
         valid = torch.zeros(b, t, dtype=torch.bool, device=dev)
         for i, n in enumerate(lens):
@@ -1020,16 +1085,17 @@ def check_training_kernels(checks: Checks, seed: int) -> None:
             lib_bwd_ms = event_ms(lib_bwd)
             lib_kernels = []
             for fn in (lib_fwd, lib_bwd):
-                with torch.profiler.profile(
-                        activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-                    fn()
-                    torch.cuda.synchronize()
-                top = max(prof.key_averages(), key=lambda e: e.self_device_time_total).key
+                # device_kernels profiles again where the profiler, used many
+                # times in one process, recorded no device activity
+                by_name: dict = {}
+                for nm, us in device_kernels(fn):
+                    by_name[nm] = by_name.get(nm, 0.0) + us
+                top = max(by_name, key=by_name.get) if by_name else "no device activity recorded"
                 lib_kernels.append(top[:80])
                 if "fmha" not in top.lower() and "attention" not in top.lower():
                     fail(f"training attention {label}: SDPA's top kernel is not a fused "
                          f"attention kernel: {top[:120]}")
-        del mask, qt, kt, vt, out_l, dot, prof
+        del mask, qt, kt, vt, out_l, dot
         # The bound: the function's operations (QK^T and PV over each
         # segment's causal pairs; the backward recomputes P and forms dV, dP,
         # dQ and dK: five products) at the bf16 tensor-core peak, the units
@@ -1050,7 +1116,7 @@ def check_training_kernels(checks: Checks, seed: int) -> None:
                       + 2 * nbytes(q, kr, vr) / HBM_BYTES_PER_S * 1e3)
         bwd_design = (3 * 3.5 * fwd_flops / PEAK_FLOPS["bf16"] * 1e3
                       + 2 * nbytes(q, kr, vr, do) / HBM_BYTES_PER_S * 1e3)
-        main = t == 2048
+        main = (b, t, lens) == attn_cases[0]
         checks.case("flash_train_attention_fwd", f"{label}: O (valid rows)", kern[0] * rows_ok,
                     plain[0] * rows_ok, 1e-4, fwd_ms, fwd_pms, main=main, library_ms=lib_ms,
                     bound=fwd_bound)
@@ -1075,15 +1141,27 @@ def check_training_kernels(checks: Checks, seed: int) -> None:
               f"work {fwd_design:.4f} / {bwd_design:.4f} ms; split pass of q, k, v {split_ms:.4f} "
               f"ms (bound {rec['split_qkv_bound_ms']:.4f}, bytes); SDPA forward / backward "
               f"{lib_ms:.4f} / {lib_bwd_ms:.4f} ms ({'; '.join(lib_kernels)})", flush=True)
+        if graphs and main:
+            graph_vs_eager(checks, "flash_train_attention_fwd", label,
+                           lambda: fa.flash_train_attention_fwd(q, kr, vr, seg, d ** -0.5), (q,))
+            graph_vs_eager(checks, "flash_train_attention_bwd", label,
+                           lambda: fa.flash_train_attention_bwd(q, kr, vr, seg, o, lse, do,
+                                                                d ** -0.5), (q, do))
         del kern, plain, o, lse
         torch.cuda.empty_cache()
-    checks.extra["train_attention"] = records
+    checks.extra["train_attention" + checks.tag] = records
 
 
-def check_ring_kernel(checks: Checks, seed: int) -> None:
-    """Kernel F at the 1.5B widths (12 query heads over 2 KV heads, D 128,
-    bf16 q/K/V, f32 state), two samples, the second ending mid-shard; then
-    kernel A at the rows the world-of-one ring prefill gives it."""
+def check_ring_kernel(checks: Checks, seed: int, heads=(12, 2, 128), k_lens=(16384, 12000),
+                      lm_shapes=LM_SHAPES, four_ring: bool = True, graphs: bool = False) -> None:
+    """Kernel F at a model's widths (the 1.5B's by default: 12 query heads
+    over 2 KV heads, D 128), bf16 q/K/V, f32 state, one sample per entry of
+    `k_lens` (the 1.5B's second ends mid-shard): with `four_ring` the hops
+    of rank 2 of a 4-way ring over a 16,384-token prompt, then the one hop
+    of a world of one over the longest prompt; then kernel A at the rows
+    that world-of-one ring prefill gives it (`lm_shapes`). With `graphs`,
+    F's hop and A's gate/up call are also replayed from a CUDA graph
+    against eager calls (the same bits)."""
     import torch
 
     from vibevoice_tpu_torch.ops import flash_attention as fa
@@ -1093,7 +1171,7 @@ def check_ring_kernel(checks: Checks, seed: int) -> None:
     g = torch.Generator(device=dev)
     g.manual_seed(seed + 2)
     randn = lambda *s: torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
-    b, nh, kh, d = 2, 12, 2, 128
+    b, (nh, kh, d) = len(k_lens), heads
     tol = 1e-4
     print(f"kernel F flash_ring_block (bf16 q/K/V, f32 state; state after each hop and the "
           f"normalised output: tol {tol:g} of the peak; a wholly-future block must leave the "
@@ -1124,48 +1202,67 @@ def check_ring_kernel(checks: Checks, seed: int) -> None:
                     main=main, bound=bound(flops, byt))
         return before
 
-    # rank 2 of a 4-way ring over a 16,384-token prompt: its own block, then
-    # ranks 1, 0 and 3's; the last lies wholly in the future
-    n, rank, tl = 4, 2, 4096
-    k_len = torch.tensor([n * tl, 10000], dtype=torch.int32, device=dev)
-    q = randn(b, tl, nh, d)
-    blocks = [(randn(b, kh, tl, d), randn(b, kh, tl, d)) for _ in range(n)]
-    state_k = fa.ring_state_init(b, kh, tl * nh // kh, d, device=dev)
-    state_p = fa.ring_state_init(b, kh, tl * nh // kh, d, device=dev)
-    for h in range(n):
-        src = (rank - h) % n
-        before = hop(f"4-ring rank {rank} Tl={tl} hop {h} k_start={src * tl}", state_k, state_p,
-                     q, *blocks[src], q_start=rank * tl, k_start=src * tl, k_len=k_len)
-    if not all(torch.equal(x, y) for x, y in zip(state_k, before)):
-        fail("flash_ring_block: the wholly-future block changed the state")
-    checks.case("flash_ring_block", f"4-ring rank {rank} Tl={tl}: output",
-                fa.ring_state_out(state_k, tl, torch.float32),
-                fa.ring_state_out(state_p, tl, torch.float32), tol)
-    del blocks, state_k, state_p
+    if four_ring:
+        # rank 2 of a 4-way ring over a 16,384-token prompt: its own block, then
+        # ranks 1, 0 and 3's; the last lies wholly in the future
+        n, rank, tl = 4, 2, 4096
+        k_len = torch.tensor([n * tl, 10000], dtype=torch.int32, device=dev)
+        q = randn(b, tl, nh, d)
+        blocks = [(randn(b, kh, tl, d), randn(b, kh, tl, d)) for _ in range(n)]
+        state_k = fa.ring_state_init(b, kh, tl * nh // kh, d, device=dev)
+        state_p = fa.ring_state_init(b, kh, tl * nh // kh, d, device=dev)
+        for h in range(n):
+            src = (rank - h) % n
+            before = hop(f"4-ring rank {rank} Tl={tl} hop {h} k_start={src * tl}", state_k,
+                         state_p, q, *blocks[src], q_start=rank * tl, k_start=src * tl,
+                         k_len=k_len)
+        if not all(torch.equal(x, y) for x, y in zip(state_k, before)):
+            fail("flash_ring_block: the wholly-future block changed the state")
+        checks.case("flash_ring_block", f"4-ring rank {rank} Tl={tl}: output",
+                    fa.ring_state_out(state_k, tl, torch.float32),
+                    fa.ring_state_out(state_p, tl, torch.float32), tol)
+        del blocks, state_k, state_p
 
-    # a world of one: one hop over the whole 16,384-token prompt (the main path)
-    tl = 16384
-    k_len = torch.tensor([tl, 12000], dtype=torch.int32, device=dev)
+    # a world of one: one hop over the whole prompt (the main path)
+    tl = max(k_lens)
+    k_len = torch.tensor(k_lens, dtype=torch.int32, device=dev)
     q, kb, vb = randn(b, tl, nh, d), randn(b, kh, tl, d), randn(b, kh, tl, d)
     state_k = fa.ring_state_init(b, kh, tl * nh // kh, d, device=dev)
     state_p = fa.ring_state_init(b, kh, tl * nh // kh, d, device=dev)
-    hop(f"world of one Tl={tl} k_len={k_len.tolist()}", state_k, state_p, q, kb, vb, main=True,
-        q_start=0, k_start=0, k_len=k_len)
+    label = f"world of one Tl={tl} k_len={k_len.tolist()}"
+    hop(label, state_k, state_p, q, kb, vb, main=True, q_start=0, k_start=0, k_len=k_len)
     checks.case("flash_ring_block", f"world of one Tl={tl}: output",
                 fa.ring_state_out(state_k, tl, torch.float32),
                 fa.ring_state_out(state_p, tl, torch.float32), tol)
-    del q, kb, vb, state_k, state_p
+    if graphs:  # the hop from a fresh state, into a graph's scratch and an eager one's
+        del state_p
+        init = fa.ring_state_init(b, kh, tl * nh // kh, d, device=dev)
+        scratch = [[x.clone() for x in init] for _ in range(2)]
+
+        def ring_hop(st):
+            for x, x0 in zip(st, init):
+                x.copy_(x0)
+            return tuple(fa.flash_ring_block(st, q, kb, vb, q_start=0, k_start=0, k_len=k_len))
+
+        graph_vs_eager(checks, "flash_ring_block", label, lambda: ring_hop(scratch[0]), (q,),
+                       eager=lambda: ring_hop(scratch[1]))
+        del scratch, init
+    del q, kb, vb, state_k
 
     # A on every LM linear of the world-of-one ring prefill: B * Tl rows
     rows = b * tl
     print(f"kernel A int8_matmul at the ring prefill's {rows} rows (bf16 x, int8 w, f32 scale; "
           f"bf16 out: tol 1e-2 of the peak; library: torch.mm on a bf16 copy of the weight)")
-    for name, k, n in LM_SHAPES:
+    for name, k, n in lm_shapes:
         w = quant.quantize_weight(torch.randn((k, n), generator=g, device=dev) * 0.02)
-        check_int8_matmul(checks, f"{name} {k}x{n} rows={rows} (ring prefill)", randn(rows, k),
+        x = randn(rows, k)
+        check_int8_matmul(checks, f"{name} {k}x{n} rows={rows} (ring prefill)", x,
                           [w], 1e-2, main=name == "gate/up",
                           timer=lambda fn, ops: event_ms(lambda: fn(ops[0])))
-        del w
+        if graphs and name == "gate/up":
+            graph_vs_eager(checks, "int8_matmul_gemm", f"{name} {k}x{n} rows={rows}",
+                           lambda: quant.int8_matmul(x, w["w8"], w["scale"]), (x,))
+        del w, x
 
 
 def tiny_card_vs_cpu(seed: int) -> None:
@@ -1229,21 +1326,21 @@ def _to(tree, dev):
     return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
 
 
-def serving_model(seed: int) -> dict:
-    """The full-width 1.5B serving set-up shared by the serving and the
-    sequence-parallel prefill phases (tts.VibeVoiceTTS.random: random bf16
-    weights from the seed, int8 LM + lm_head, the fused serving packs, the
-    hash-bucket tokenizer with the Qwen special ids), the two voices and
-    the two-speaker script."""
+def serving_model(seed: int, config: Path = CONFIG_1P5B) -> dict:
+    """The full-width serving set-up (the 1.5B's by default) shared by the
+    serving and the sequence-parallel prefill phases (tts.VibeVoiceTTS.random:
+    random bf16 weights from the seed, int8 LM + lm_head, the fused serving
+    packs, the hash-bucket tokenizer with the Qwen special ids), the two
+    voices and the two-speaker script."""
     import numpy as np
     import torch
 
     from vibevoice_tpu_torch.tts import VibeVoiceTTS
 
     t0 = time.perf_counter()
-    tts = VibeVoiceTTS.random(str(CONFIG_1P5B), seed=seed)
+    tts = VibeVoiceTTS.random(str(config), seed=seed)
     torch.cuda.synchronize()
-    print(f"  1.5B params (bf16, int8 LM + lm_head, fused serving packs) built in "
+    print(f"  {config.name} params (bf16, int8 LM + lm_head, fused serving packs) built in "
           f"{time.perf_counter() - t0:.1f} s; "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card", flush=True)
     cfg = tts.cfg
@@ -1278,9 +1375,11 @@ def forced_scripts(toks, frames: int) -> tuple:
     return forced, [toks.speech_diffusion] * 2 + [toks.eos]
 
 
-def end_to_end(model: dict, seed: int, frames: int) -> dict:
-    """The serving path at max_length 4096 (bf16 KV) and 65536 (int8 KV):
-    for K in FRAMES_PER_DISPATCH, the default generate(), which replays the
+def end_to_end(model: dict, seed: int, frames: int, lengths=(4096, None),
+               ks=FRAMES_PER_DISPATCH) -> dict:
+    """The serving path at max_length 4096 (bf16 KV) and the model's own
+    (None: 65,536 for the 1.5B, int8 KV), or `lengths`:
+    for K in `ks`, the default generate(), which replays the
     captured graph of make_step_fn / make_multi_step_fn, and the same runs
     through that step function's eager call. Each is a short (3-frame) and
     a forced (`frames`-frame) run; per-frame ms comes from their difference.
@@ -1320,10 +1419,10 @@ def end_to_end(model: dict, seed: int, frames: int) -> dict:
 
     runs, reference = {}, None
     total_launches = dict.fromkeys(names, 0)
-    for max_length in (4096, None):
+    for max_length in lengths:
         length = max_length or cfg.decoder_config.max_position_embeddings
         kv_int8 = inf.resolve_kv_int8(inf.GenerateOptions(max_length=max_length), length).kv_int8
-        for k in FRAMES_PER_DISPATCH:
+        for k in ks:
             opts = inf.GenerateOptions(ddpm_steps=10, cfg_scale=1.3, max_length=max_length,
                                        frames_per_dispatch=k)
             fn = (inf.make_multi_step_fn(cfg, toks, opts, k, inject=True) if k > 1
@@ -1710,12 +1809,18 @@ def long_prompts(model: dict, lengths=(16384, 12000)):
     return processor(text=texts, voice_samples=[voices] * len(texts))
 
 
-def sp_prefill_end_to_end(model: dict, seed: int, frames: int = 8) -> dict:
+# Phase 5's caches: (max_length, int8 KV, limit against chunked_prefill)
+SP_CASES = ((32768, False, SP_TOL["bf16"]), (65536, True, SP_TOL["int8"]))
+
+
+def sp_prefill_end_to_end(model: dict, seed: int, frames: int = 8, lengths=(16384, 12000),
+                          cases=SP_CASES) -> dict:
     """The sequence-parallel prefill (parallel/sp_prefill.ring_prefill_carry)
-    in a one-rank NCCL group on the full-width 1.5B, bf16 KV at max_length
-    32768 and int8 KV at 65536, each held against inference.chunked_prefill
-    (kernel B, chunks of 2048) on the same prompt and followed by `frames`
-    forced frames of inference.step."""
+    in a one-rank NCCL group on a full-width model (phase 5: the 1.5B, bf16
+    KV at max_length 32768 and int8 KV at 65536), a right-padded batch of
+    prompts of `lengths` tokens, each cache held against
+    inference.chunked_prefill (kernel B, chunks of 2048) on the same prompt
+    and followed by `frames` forced frames of the graphed step."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -1725,7 +1830,7 @@ def sp_prefill_end_to_end(model: dict, seed: int, frames: int = 8) -> dict:
 
     cfg, params, toks = model["cfg"], model["params"], model["toks"]
     dev = torch.device("cuda")
-    proc = long_prompts(model)
+    proc = long_prompts(model, lengths)
     ids = torch.as_tensor(proc.input_ids, device=dev)
     valid = torch.as_tensor(proc.attention_mask, device=dev)
     b = ids.shape[0]
@@ -1769,7 +1874,7 @@ def sp_prefill_end_to_end(model: dict, seed: int, frames: int = 8) -> dict:
     runs, total = {}, dict.fromkeys(ring_names + chunked_names, 0)
     try:
         mesh = make_mesh(dp=1, tp=1)
-        for max_len, kv_int8, tol in ((32768, False, SP_TOL["bf16"]), (65536, True, SP_TOL["int8"])):
+        for max_len, kv_int8, tol in cases:
             label = f"max_length={max_len} ({'int8' if kv_int8 else 'bf16'} KV)"
             torch.cuda.synchronize()
             reset_counts(chunked_names)
@@ -1942,10 +2047,21 @@ def tiny_qlora_card_vs_cpu(seed: int) -> None:
         fail("tiny QLoRA: the card's optimizer steps disagree with the CPU's")
 
 
-def finetune_end_to_end(seed: int) -> dict:
-    """The port's trainer on the full-width 1.5B config, QLoRA, synthetic
-    clips sized to fill the sequence: 3 steps at B 2, T 2048 (trainer
-    defaults), 2 steps at B 1, T 8192 with remat and chunked CE."""
+# Phase 7's trainer runs on the 1.5B: (label, arguments)
+FINETUNE_RUNS = (
+    ("B2 T2048", ["--per_device_batch_size", "2", "--max_length", "2048",
+                  "--pad_to_multiple", "2048", "--synthetic_seconds", "220", "250",
+                  "--max_steps", "3"]),
+    ("B1 T8192 remat ce1024", ["--per_device_batch_size", "1", "--max_length", "8192",
+                               "--pad_to_multiple", "8192", "--synthetic_seconds", "1000",
+                               "1060", "--max_steps", "2", "--remat", "--ce_chunk_size", "1024"]))
+
+
+def finetune_end_to_end(seed: int, config: Path = CONFIG_1P5B, runs=FINETUNE_RUNS) -> dict:
+    """The port's trainer on a full-width config (the 1.5B's by default),
+    QLoRA, synthetic clips sized to fill the sequence: phase 7's runs are 3
+    steps at B 2, T 2048 (trainer defaults), 2 steps at B 1, T 8192 with
+    remat and chunked CE."""
     import torch
 
     from vibevoice_tpu_torch.finetune import train
@@ -1954,18 +2070,11 @@ def finetune_end_to_end(seed: int) -> dict:
     names = ("int8_matmul_gemm", "int8_matmul_t", "flash_train_attention_fwd",
              "flash_train_attention_bwd")  # A on B*T = 4,096 or 8,192 f32 rows: its GEMM
     core_names = ("flash_train_attention_fwd_cores", "flash_train_attention_bwd_cores")
-    common = ["--config", str(CONFIG_1P5B),
+    common = ["--config", str(config),
               "--synthetic_data", "--synthetic_items", "4", "--use_lora", "--int8_base",
               "--seed", str(seed), "--device", "cuda", "--no_save", "--log_steps", "1"]
-    runs = {}
-    for label, extra in (
-            ("B2 T2048", ["--per_device_batch_size", "2", "--max_length", "2048",
-                          "--pad_to_multiple", "2048", "--synthetic_seconds", "220", "250",
-                          "--max_steps", "3"]),
-            ("B1 T8192 remat ce1024", ["--per_device_batch_size", "1", "--max_length", "8192",
-                                       "--pad_to_multiple", "8192", "--synthetic_seconds", "1000",
-                                       "1060", "--max_steps", "2", "--remat",
-                                       "--ce_chunk_size", "1024"])):
+    recs = {}
+    for label, extra in runs:
         torch.cuda.empty_cache()
         reset_counts(names + core_names)
         t0 = time.perf_counter()
@@ -1995,14 +2104,14 @@ def finetune_end_to_end(seed: int) -> dict:
                    peak_gib=summary["peak_bytes"] / 2**30, wall_s=wall, launches=counts,
                    b_factor_moved=moved,
                    data_seconds_per_step=sum(s["data_seconds"] for s in timed) / len(timed))
-        runs[label] = rec
+        recs[label] = rec
         print(f"  fine-tune {label}: losses {[round(s['loss'], 4) for s in steps]}, "
               f"{sec:.3f} s/step (steps 2..{len(steps)}; step 1 {steps[0]['seconds']:.3f} s), "
               f"{rec['tokens_per_second']:.0f} tokens/s ({rec['valid_tokens_per_second']:.0f} "
               f"valid), collation {rec['data_seconds_per_step']:.2f} s/step between steps, "
               f"peak {rec['peak_gib']:.2f} GiB, B factors moved {moved:.3e}, "
               f"launches {counts} (CUDA-core route {cores})", flush=True)
-    return runs
+    return recs
 
 
 def streaming_model(seed: int) -> dict:
@@ -2261,6 +2370,45 @@ SESSION_FRAMES = 36
 SESSION_NAMES = ("flash_cached_attention", "flash_cached_attention_prefill", "fused_stage_step")
 
 
+def record_noise_rows(eng) -> tuple:
+    """Keep the initial-latent rows every window's draw gives each busy slot
+    of ``eng``: returns (rows: handle -> [(slot step, slot, rows (K, D))],
+    the engine's own draw, which the caller puts back)."""
+    rows: dict = {}
+    draw = eng._draw_noise
+
+    def recording_draw():
+        noise = draw()
+        for i, h in enumerate(eng.slots):
+            if h is not None:
+                rows.setdefault(h, []).append((int(eng.slot_steps[i]), i, noise.init[:, i].clone()))
+        return noise
+
+    eng._draw_noise = recording_draw
+    return rows, draw
+
+
+def run_alone_on_rows(eng, request, recorded: list, draw):
+    """``request`` decoded alone in ``eng`` (the other slots idle), its slot
+    given at each step the rows ``recorded`` for it in an earlier run
+    (record_noise_rows), so that it must repeat that run's audio; ``draw``
+    is the engine's own draw, put back afterwards."""
+    by_step = {step: init for step, _, init in recorded}
+
+    def replay_draw():
+        noise = draw()
+        for i, h in enumerate(eng.slots):
+            if h is not None:
+                noise.init[:, i] = by_step[int(eng.slot_steps[i])]
+        return noise
+
+    eng._draw_noise = replay_draw
+    try:
+        return eng.submit(request).result(timeout=600)
+    finally:
+        eng._draw_noise = draw
+
+
 def serving_engine_end_to_end(model: dict, seed: int) -> dict:
     """Phase 8: ServingEngine(max_batch=4, max_len=4096, frames_per_dispatch
     =4, reserved_slots=1) over the speaking 1.5B (bf16, int8 LM + lm_head,
@@ -2313,17 +2461,7 @@ def serving_engine_end_to_end(model: dict, seed: int) -> dict:
     print(f"  engine at max_batch {ENGINE_BATCH}, 4096 slots, K {k}, reserved_slots 1: warmup() "
           f"{warm_s:.3f} s (builds, captures the window); prompt {n} tokens, "
           f"{ENGINE_FRAMES} frames a request", flush=True)
-    rows: dict = {}  # handle -> [(step, slot, noise rows (K, D))]: the draws each slot was given
-    draw = eng._draw_noise
-
-    def recording_draw():
-        noise = draw()
-        for i, h in enumerate(eng.slots):
-            if h is not None:
-                rows.setdefault(h, []).append((int(eng.slot_steps[i]), i, noise.init[:, i].clone()))
-        return noise
-
-    eng._draw_noise = recording_draw
+    rows, draw = record_noise_rows(eng)  # the draws each slot was given
     prefill_s: list = []  # each request's prefill wall on the prefill thread
     prefill = eng._prefill
 
@@ -2426,18 +2564,7 @@ def serving_engine_end_to_end(model: dict, seed: int) -> dict:
         fail("serving engine: the slot-3 request differs from its run alone")
     del solo_fn, carry
     # the same request alone in the same engine, its slot given the same rows
-    h3_rows = {step: init for step, _, init in rows[h3]}
-
-    def replay_draw():
-        noise = draw()
-        for i, h in enumerate(eng.slots):
-            if h is not None:
-                noise.init[:, i] = h3_rows[int(eng.slot_steps[i])]
-        return noise
-
-    eng._draw_noise = replay_draw
-    alone = eng.submit(request(h3.request.seed)).result(timeout=600)
-    eng._draw_noise = draw
+    alone = run_alone_on_rows(eng, request(h3.request.seed), rows[h3], draw)
     alone_err = float(np.abs(alone - got).max() / np.abs(got).max()) \
         if alone.shape == got.shape else float("inf")
     other = next(a for h, a in zip(handles, audio) if h is not h3 and a.size == got.size)
@@ -3296,6 +3423,384 @@ def checkpoint_end_to_end(seed: int, frames: int, phase4_reference) -> dict:
     return dict(runs=rec, launches=launches)
 
 
+# Phase 12: the 7B (vibevoice_tpu_torch/configs/qwen2.5_7b_32k.json) at full
+# width on one card: hidden 3584, 28 query heads over 4 KV heads of 128 (G
+# 7), FFN 18944, an untied lm_head of 152,064 columns, a 3584-10752-3584
+# diffusion head, 32,768 positions; the tokenizers, so kernel D, are the
+# 1.5B's. Its kernels' entries in the kernels line are "<kernel>@7b".
+LM_SHAPES_7B = (("q/o", 3584, 3584), ("k/v", 3584, 512), ("gate/up", 3584, 18944),
+                ("down", 18944, 3584))  # (name, IN, OUT) of the 7B decoder's int8 linears
+LM_HEAD_7B = ("lm_head", 3584, 152064)  # its untied int8 lm_head (kernel A's GEMV at decode)
+HEADS_7B = (28, 4, 128)
+# The long-form run: a 16,384-token prompt into a 32,768-slot int8 cache
+# (the config's max_position_embeddings; int8 from KV_INT8_AUTO_LEN), then
+# 32 graphed frames at that fill.
+LONG_7B = 16384
+# utils.params.speaking's constant for the 7B's random weights: the 1.5B
+# needs 64 (phase 8); the 7B's wider random layers grow the residual stream
+# that the final norm divides by, so its hidden unit is held twice as high.
+SPEAK_C_7B = 128.0
+CKPT_7B_LAYERS = 4  # the 7B checkpoint at full width, cut to 4 layers (~7.4 GB in bf16)
+# the trainer's run: QLoRA, B 1, T 2048, 3 steps
+FINETUNE_RUNS_7B = (("B1 T2048", ["--per_device_batch_size", "1", "--max_length", "2048",
+                                  "--pad_to_multiple", "2048", "--synthetic_seconds", "220",
+                                  "250", "--max_steps", "3"]),)
+
+
+def check_7b_kernels(checks: Checks, seed: int) -> None:
+    """Phase 12 (a): every kernel at the 7B's shapes against its plain
+    version (the tolerances of phase 3), timed with its bound and library
+    call, and replayed from a CUDA graph against its eager call (the same
+    bits): A's GEMV at 2 and 8 rows over the four LM shapes and the lm_head
+    (the 2-row call also replayed on new x against the plain version), B's
+    decode at 4,096 bf16 slots (also replayed at three other bases) and at
+    32,768 int8 slots, B's prefill route on the long-form run's last chunk
+    (2,048 rows from base 14,336 of 32,768, int8 and bf16), C at 4 layers
+    3584-10752-3584 (2 rows f32; int8 and bf16 weights), D at its 1.5B
+    shapes (1 row, int8), F over a world of one's 16,384-token prompt with
+    A's GEMM at those 16,384 rows, E at B1 T2048's 2,048 f32 rows, and the
+    training attention forward and backward at B1 T2048."""
+    import torch
+
+    from vibevoice_tpu_torch.ops import head_fused as hf
+    from vibevoice_tpu_torch.ops import quant
+    from vibevoice_tpu_torch.ops import vocoder_fused as vf
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 12)
+    randn = lambda *s, dt=torch.bfloat16: torch.randn(s, generator=g, device=dev).to(dt)
+
+    print("kernel A int8_matmul at the 7B's decode shapes (bf16 x, int8 w, f32 scale; tol 1e-2; "
+          "library: torch.mm on a bf16 copy of the weight)")
+    for name, k, n in LM_SHAPES_7B + (LM_HEAD_7B,):
+        ws = rotating(lambda: quant.quantize_weight(randn(k, n, dt=torch.float32) * 0.02), k * n)
+        for rows in (2, 8):
+            x = randn(rows, k)
+            label = f"{name} {k}x{n} rows={rows}"
+            check_int8_matmul(checks, label, x, ws, 1e-2, main=(name == "gate/up" and rows == 2))
+            if rows == 2:
+                gemv_graph_check(checks, label, x, ws[0])
+            graph_vs_eager(checks, "int8_matmul", label,
+                           lambda: quant.int8_matmul(x, ws[0]["w8"], ws[0]["scale"]), (x,))
+        del ws
+
+    print("kernel B flash_cached_attention at the 7B's layout (28 q heads, 4 KV heads, head_dim "
+          "128; bf16 q; tol 1e-2; library as above)")
+    for w, s_, int8, base, main in ((1, 4096, False, (4095, 1234), True),
+                                    (1, 32768, True, (32767, LONG_7B + 32), False),
+                                    (2048, 32768, True, (LONG_7B - 2048,), True),
+                                    (2048, 32768, False, (LONG_7B - 2048,), False)):
+        check_cached_attention(checks, g, HEADS_7B, w, s_, int8, base, main=main,
+                               graph_bases=((0, 4095), SERVING_FILL, (3000, 17))
+                               if (w, int8) == (1, False) else None, graph_bits=True)
+        torch.cuda.empty_cache()
+
+    dim, hid, nl = 3584, 10752, 4
+    print(f"kernel C fused_head_ffn_stack at the 7B's head ({nl} layers {dim}-{hid}-{dim}; f32 x "
+          f"and mods, 2 rows; int8 or bf16 weights: tol 1e-4)")
+    for quantize in (True, False):
+        layers = head_layers(randn, dim, hid, nl)
+        packs = [hf.pack_head_ffns(layers, 1e-5, quantize)]  # 0.46 / 0.92 GB: no copy needed
+        del layers
+        x = randn(2, dim, dt=torch.float32)
+        mods = randn(nl, 2, 3 * dim, dt=torch.float32) * 0.5
+        label = f"{nl} layers {dim}-{hid} {'int8' if quantize else 'bf16'} weights"
+        call = lambda: hf.fused_head_ffn_stack(packs[0], x, mods)
+        out = call()
+        ms = bench_ms(lambda pk: hf.fused_head_ffn_stack(pk, x, mods), packs)
+        pms = bench_ms(lambda pk: hf.fused_head_ffn_stack_plain(pk, x, mods), packs)
+        checks.case("fused_head_ffn_stack", label, out,
+                    hf.fused_head_ffn_stack_plain(packs[0], x, mods), 1e-4, ms, pms, main=quantize,
+                    bound=bound(2 * 2 * 3 * dim * hid * nl,
+                                nbytes(*packs[0].arrays.values(), x, mods, out), "f32"))
+        fused_call_checks(checks, "fused_head_ffn_stack", label, call,
+                          lambda: hf.fused_head_ffn_stack_plain(packs[0], x, mods), (x, mods), 1e-4)
+        graph_vs_eager(checks, "fused_head_ffn_stack", label, call, (x, mods))
+        del packs
+
+    dim, nb = 2048, 8
+    print("kernel D fused_stage_step on the 7B's path (its tokenizers are the 1.5B's: 8 blocks "
+          "2048-8192-2048, 1 row bf16, int8 weights: tol 2e-2)")
+    blocks = stage_blocks(randn, dim, nb)
+    packs = rotating(lambda: vf.pack_stage(blocks, 1e-5, True), nb * 8 * dim * dim,
+                     budget=120 << 20)
+    x, st = randn(1, 1, dim), randn(nb, 1, 6, dim)
+    call = lambda: vf.fused_stage_step(packs[0], x, st)
+    (out, ns), (ref, rs) = call(), vf.fused_stage_step_plain(packs[0], x, st)
+    ms = bench_ms(lambda pk: vf.fused_stage_step(pk, x, st), packs)
+    pms = bench_ms(lambda pk: vf.fused_stage_step_plain(pk, x, st), packs)
+    label = f"{nb} blocks int8 weights"
+    checks.case("fused_stage_step", f"{label}: y", out, ref, 2e-2, ms, pms, main=True,
+                bound=bound(2 * nb * (8 * dim * dim + 7 * dim),
+                            nbytes(*packs[0].arrays.values(), x, st, out, ns)))
+    checks.case("fused_stage_step", f"{label}: new state", ns, rs, 2e-2)
+    fused_call_checks(checks, "fused_stage_step", label, call,
+                      lambda: vf.fused_stage_step_plain(packs[0], x, st), (x, st), 2e-2)
+    graph_vs_eager(checks, "fused_stage_step", label, call, (x, st))
+    del packs, blocks
+    torch.cuda.empty_cache()
+
+    check_ring_kernel(checks, seed + 12, heads=HEADS_7B, k_lens=(LONG_7B,), lm_shapes=LM_SHAPES_7B,
+                      four_ring=False, graphs=True)
+    torch.cuda.empty_cache()
+    # A's GEMM on f32 training rows is held to E's tolerance (1e-4), the
+    # phase's bound for the same arithmetic (bf16 operands, f32 sums on the
+    # tensor cores, f32 out) over the 7B's reductions: the tensor cores'
+    # f32 accumulation drifts from the plain version's FFMA sums with K (on
+    # an H100, --seed 0: 2.8e-6 of the peak at K 3,584, 1.9e-5 at down's
+    # 18,944), past the 1e-5 that the 1.5B's K of at most 8,960 keeps (its
+    # down reads 6.2e-6).
+    check_training_kernels(checks, seed + 12, heads=HEADS_7B, e_cases=((2048, LM_SHAPES_7B),),
+                           attn_cases=((1, 2048, (1900,)),), graphs=True, a_f32_tol=1e-4)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def serving_engine_7b(model: dict, seed: int) -> dict:
+    """Phase 12 (d): ServingEngine(max_batch=4, max_len=4096,
+    frames_per_dispatch=4) over the 7B made to speak (utils.params.speaking,
+    SPEAK_C_7B), after warmup(): eight requests of the two-speaker prompt,
+    ENGINE_FRAMES frames each, submitted at once (staged as phase 8 stages
+    its burst, so that four decode together): each completes with its
+    frames of audio; audio seconds a wall second, TTFA p50/p95 and a
+    replayed window's device time a frame are printed; the request that ran
+    in slot 3 is run again alone in the same engine on the noise rows its
+    slot was given and must give the same audio (GRAPH_TOL)."""
+    import numpy as np
+    import torch
+
+    from vibevoice_tpu_torch.models import inference as inf
+    from vibevoice_tpu_torch.serving.engine import Request, ServingEngine
+    from vibevoice_tpu_torch.utils.params import speaking
+
+    cfg, toks, hop, sr = (model[k] for k in ("cfg", "toks", "hop", "sr"))
+    params = speaking(model["params"], toks, c=SPEAK_C_7B)
+    proc = model["processor"](text=model["script"], voice_samples=[model["voices"]])
+    n = int(proc.attention_mask.sum())
+    k = 4
+    eng = ServingEngine(cfg, params, tokens=toks, frames_per_dispatch=k, max_batch=ENGINE_BATCH,
+                        max_len=4096,
+                        opts=inf.GenerateOptions(ddpm_steps=10, cfg_scale=1.3, max_length=4096))
+    t0 = time.perf_counter()
+    eng.warmup()
+    warm_s = time.perf_counter() - t0
+
+    def request(s):
+        return Request(input_ids=proc.input_ids, valid_mask=proc.attention_mask,
+                       speech_tensors=proc.speech_tensors, speech_frame_valid=proc.speech_masks,
+                       speech_input_mask=proc.speech_input_mask, seed=s,
+                       max_length_times=(ENGINE_FRAMES + 0.5) / n)
+
+    rows, draw = record_noise_rows(eng)
+    reset_counts(ENGINE_NAMES)
+    t0 = time.perf_counter()
+    with eng.step_fn.request():  # staged until two prefills wait, as phase 8's burst
+        handles = [eng.submit(request(s)) for s in range(8)]
+        if not eng.wait_for_state(eng.ready.full, 300):
+            fail("7B serving engine: the burst's prefills were not staged in 300 s")
+    audio = [h.result(timeout=900) for h in handles]
+    wall = time.perf_counter() - t0
+    counts = read_counts(ENGINE_NAMES)
+    for s, (h, a) in enumerate(zip(handles, audio)):
+        if h.rec["outcome"] != "completed" or a.size != ENGINE_FRAMES * hop \
+                or not np.isfinite(a).all() or not np.abs(a).max() > 0:
+            fail(f"7B serving engine: request {s} ended {h.rec['outcome']} with {a.size} samples "
+                 f"(not {ENGINE_FRAMES} frames of {hop}), or not finite, or silent; its tokens "
+                 f"{h.tokens[:8]}")
+    missing = [name for name, v in counts.items() if v == 0]
+    if missing:
+        fail(f"7B serving engine: kernels never launched: {missing}")
+    st = eng.stats()
+    secs = sum(a.size for a in audio) / sr
+    slots = {h: {slot for _, slot, _ in rows.get(h, [])} for h in handles}
+    h3 = next((h for h in handles if 3 in slots[h]), None)
+    if h3 is None:
+        fail(f"7B serving engine: no request ran in slot 3 (slots {list(slots.values())})")
+    got = audio[handles.index(h3)]
+    alone = run_alone_on_rows(eng, request(h3.request.seed), rows[h3], draw)
+    err = float(np.abs(alone - got).max() / np.abs(got).max()) \
+        if alone.shape == got.shape else float("inf")
+    times = []
+    noise = inf._tree_map(lambda t: t.clone(), draw())
+    ext = torch.zeros(k, ENGINE_BATCH, dtype=torch.bool, device="cuda")
+    for _ in range(3):  # one replayed window of the 4 slots, its device time a frame
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        eng.step_fn(params, eng.carry, noise, ext)
+        ev[1].record()
+        torch.cuda.synchronize()
+        times.append(ev[0].elapsed_time(ev[1]) / k)
+    eng.carry.finished.fill_(True)
+    eng.shutdown()
+    print(f"  7B engine, max_batch {ENGINE_BATCH}, 4096 slots, K {k} (warmup {warm_s:.3f} s): 8 "
+          f"requests of {ENGINE_FRAMES} frames at once in {wall:.3f} s, {secs / wall:.2f} audio s "
+          f"a wall s; TTFA p50 {st.ttfa_p50_ms:.1f} ms, p95 {st.ttfa_p95_ms:.1f} ms; a replayed "
+          f"window {sorted(times)[1]:.3f} ms a frame of device time; request "
+          f"{handles.index(h3)} (slot 3) alone in the engine on its rows: max |diff| {err:.3e} of "
+          f"the peak (tol {GRAPH_TOL:g}); launches {counts}", flush=True)
+    if not err <= GRAPH_TOL:
+        fail("7B serving engine: the slot-3 request differs from itself alone in the engine")
+    return dict(runs=dict(warmup_s=warm_s, wall_s=wall, audio_s=secs, rtf=secs / wall,
+                          ttfa_p50_ms=st.ttfa_p50_ms, ttfa_p95_ms=st.ttfa_p95_ms,
+                          window_device_ms_per_frame=sorted(times), alone_in_engine_rel_err=err),
+                launches=counts)
+
+
+def checkpoint_7b_end_to_end(seed: int) -> dict:
+    """Phase 12 (f): the 7B's random bf16 weights at full width, cut to
+    CKPT_7B_LAYERS layers, written as a reference-layout checkpoint with an
+    untied lm_head.weight (152,064 x 3584) under build/phase12, loaded cold
+    and warm by VibeVoiceTTS.from_pretrained(int8=True) with the serving
+    packs: the tree must be VibeVoiceTTS.random's on the same config, bit for
+    bit, key by key. The files are removed at the end."""
+    import shutil
+
+    import torch
+
+    from vibevoice_tpu_torch.configs import VibeVoiceConfig
+    from vibevoice_tpu_torch.models import vibevoice as vv
+    from vibevoice_tpu_torch.tts import VibeVoiceTTS
+    from vibevoice_tpu_torch.utils.params import init
+
+    root = ROOT / "build" / "phase12"
+    shutil.rmtree(root, ignore_errors=True)
+    path = root / f"vibevoice-7b-{CKPT_7B_LAYERS}-layers"
+    blob = json.loads(CONFIG_7B.read_text())
+    blob["decoder_config"]["num_hidden_layers"] = CKPT_7B_LAYERS
+    try:
+        t0 = time.perf_counter()
+        dense = init(VibeVoiceConfig.from_dict(blob), seed=seed, dtype=torch.bfloat16)
+        sd = reference_state_dict(dense)
+        head = sd.get("lm_head.weight")
+        if head is None or tuple(head.shape) != (152064, 3584):
+            fail(f"7B checkpoint: no untied lm_head.weight of (152064, 3584) in the state dict")
+        nbytes_ = write_checkpoint(path, sd, blob)
+        write_s = time.perf_counter() - t0
+        del dense, sd, head
+        torch.cuda.empty_cache()
+        print(f"  7B checkpoint ({CKPT_7B_LAYERS} layers, untied lm_head): {nbytes_} bytes in "
+              f"{CKPT_SHARDS} bf16 shards ({nbytes_ / 2**30:.3f} GiB), written in {write_s:.2f} s",
+              flush=True)
+        os.environ["VIBEVOICE_ALLOW_FALLBACK_TOKENIZER"] = "1"
+
+        def load():
+            tts = VibeVoiceTTS.from_pretrained(str(path), int8=True)
+            t = time.perf_counter()
+            tts.params = vv.fuse_for_serving(tts.params, tts.cfg, quantize=True)
+            torch.cuda.synchronize()
+            tts.load_walls["serving_packs"] = time.perf_counter() - t
+            return tts
+
+        tts, loads = load_cold_and_warm(
+            path, load, f"7B ({CKPT_7B_LAYERS} layers) VibeVoiceTTS.from_pretrained(int8=True) + "
+                        "serving packs")
+        ref = VibeVoiceTTS.random(str(path / "config.json"), seed=seed)
+        if "lm_head_q" not in tts.params or "lm_head" in tts.params:
+            fail("7B checkpoint: the loaded tree has no int8 untied lm_head (lm_head_q)")
+        tree = tree_mismatches(tts.params, ref.params, f"7B ({CKPT_7B_LAYERS} layers) loaded tree")
+        del tts, ref
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(checkpoint_bytes=nbytes_, write_s=write_s, loads=loads, tree=tree)
+
+
+def the_7b(checks: Checks, seed: int, frames: int) -> dict:
+    """Phase 12: the 7B on one card. (a) its kernels (check_7b_kernels);
+    (b) serving at bs1: tts.VibeVoiceTTS.random on the 7B JSON (int8 LM and
+    lm_head_q, fuse_for_serving(quantize=True)), phase 4's forced
+    `frames`-frame script at 4,096 bf16 slots, graphed (K = 4) against eager:
+    the same tokens, audio within GRAPH_TOL, equal launches; then the profile
+    of one replayed 17-frame window; (c) long-form: a LONG_7B-token prompt
+    by inference.chunked_prefill and by the world-of-one ring prefill into a
+    32,768-slot int8 cache (held together within SP_TOL), then 32 graphed
+    frames at that fill; (d) the serving engine (serving_engine_7b); (e)
+    QLoRA: the trainer at --config <7B> --use_lora --int8_base, B1 T2048, 3
+    steps; (f) a checkpoint (checkpoint_7b_end_to_end). Every kernel's
+    "@7b" entry must launch on these paths."""
+    import torch
+
+    from vibevoice_tpu_torch.models import inference as inf
+
+    t0 = time.perf_counter()
+    walls, runs = {}, {}
+
+    def add(launches):
+        for name, v in launches.items():
+            checks.kernels[name + "@7b"]["launches"] += v
+
+    checks.tag = "@7b"
+    try:
+        check_7b_kernels(checks, seed)
+    finally:
+        checks.tag = ""
+    walls["kernels"] = time.perf_counter() - t0
+
+    t = time.perf_counter()
+    model = serving_model(seed, CONFIG_7B)
+    serving = end_to_end(model, seed, frames, lengths=(4096,), ks=(4,))
+    add(serving["launches"])
+    runs["serving"] = serving["runs"]
+    runs["graphed_profile"] = graphed_profile(model, seed)
+    walls["serving"] = time.perf_counter() - t
+    inf._captures.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    long_form = sp_prefill_end_to_end(model, seed, frames=32, lengths=(LONG_7B,),
+                                      cases=((32768, True, SP_TOL["int8"]),))
+    add(long_form["launches"])
+    runs["long_form"] = long_form["runs"]
+    walls["long_form"] = time.perf_counter() - t
+    inf._captures.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    engine = serving_engine_7b(model, seed)
+    add(engine["launches"])
+    runs["serving_engine"] = engine["runs"]
+    walls["serving_engine"] = time.perf_counter() - t
+    del model
+    inf._captures.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    runs["finetune"] = finetune_end_to_end(seed, CONFIG_7B, FINETUNE_RUNS_7B)
+    for rec in runs["finetune"].values():
+        add(rec["launches"])
+    walls["finetune"] = time.perf_counter() - t
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    runs["checkpoint"] = checkpoint_7b_end_to_end(seed)
+    walls["checkpoint"] = time.perf_counter() - t
+    walls["phase"] = time.perf_counter() - t0
+
+    graphed = runs["serving"]["max_length=4096 K=4 graphed"]
+    eager = runs["serving"]["max_length=4096 K=4 eager"]
+    prof = runs["graphed_profile"]
+    lf = next(iter(runs["long_form"].values()))
+    ft = next(iter(runs["finetune"].values()))
+    ld = runs["checkpoint"]["loads"]
+    eng = runs["serving_engine"]
+    print(f"  the 7B: {graphed['per_frame_ms']:.2f} ms a frame graphed, "
+          f"{eager['per_frame_ms']:.2f} eager (bs1, 4096 slots); one replayed "
+          f"{prof['frames']}-frame window {prof['replay_ms']:.3f} ms of device time "
+          f"({prof['replay_ms'] / prof['frames']:.3f} a frame); {LONG_7B}-token prefill: chunked "
+          f"{lf['chunked_prefill_wall_s']:.3f} s, ring {lf['prefill_wall_s']:.3f} s; engine "
+          f"{eng['rtf']:.2f} audio s a wall s, TTFA p50 {eng['ttfa_p50_ms']:.1f} ms; QLoRA "
+          f"{ft['seconds_per_step']:.3f} s/step, peak {ft['peak_gib']:.2f} GiB; checkpoint load "
+          f"cold {ld['cold']['load_s']:.3f} s, warm {ld['warm']['load_s']:.3f} s; walls "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()), flush=True)
+    return dict(runs=runs, walls=walls)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3308,6 +3813,7 @@ def main() -> None:
     if os.environ.get("PYTHONHASHSEED") != "0":  # Python salts str hashes per process
         os.environ["PYTHONHASHSEED"] = "0"
         os.execv(sys.executable, [sys.executable, *sys.orig_argv[1:]])
+    t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT))
     import torch
 
@@ -3363,10 +3869,12 @@ def main() -> None:
         "flash_ring_block": ("vibevoice_tpu_torch/csrc/flash_ring.cu",
                              "vibevoice_tpu/ops/flash_attention.py:311"),
     }
-    for name, (src, rep) in sources.items():
-        checks.kernels[name] = dict(name=name, route="cuda", source=src, replaces=rep,
-                                    launches=0, max_abs_err=0.0, ms=None, plain_ms=None,
-                                    bound_ms=None, bound_by=None, library_ms=None)
+    for tag in ("", "@7b"):  # the 1.5B's and 0.5B's shapes (phases 3-11), the 7B's (phase 12)
+        for name, (src, rep) in sources.items():
+            checks.kernels[name + tag] = dict(name=name + tag, route="cuda", source=src,
+                                              replaces=rep, launches=0, max_abs_err=0.0, ms=None,
+                                              plain_ms=None, bound_ms=None, bound_by=None,
+                                              library_ms=None)
     check_kernels(checks, args.seed)
     check_streaming_attention(checks, args.seed)
     check_batched_kernels(checks, args.seed)
@@ -3454,6 +3962,15 @@ def main() -> None:
     for name, n in ckpt["launches"].items():
         checks.kernels[name]["launches"] += n
     runs["checkpoints"] = ckpt["runs"]
+    del e2e
+    inf._captures.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 12: the 7B at full width
+    print("the 7B (qwen2.5_7b_32k.json): kernels at its shapes, serving, long-form prefill, the "
+          "serving engine, QLoRA, a checkpoint", flush=True)
+    runs["7b"] = the_7b(checks, args.seed, args.frames)
 
     unmeasured = [k["name"] for k in checks.kernels.values() if k["ms"] is None or k["launches"] == 0]
     if unmeasured:
@@ -3465,6 +3982,8 @@ def main() -> None:
             json.dumps({**result, "card": card, "end_to_end": runs, "cases": checks.cases,
                         **checks.extra}, indent=1))
         (Path(args.out) / "kernel_build.log").write_text(lib.build_log)
+    print(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s of wall (this process, after the "
+          f"re-exec)", flush=True)
     print(card)
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,7 @@
 """The port's own copies of the JAX package's framework-free modules agree
 with the originals: the config dataclasses field for field (the three JSON
-configs and tiny_config()), the copied 1.5B and 0.5B streaming JSONs byte
-for byte, the processor (fallback tokenizer, voice prompts) on a
+configs and tiny_config()), the copied 1.5B, 7B and 0.5B streaming JSONs
+byte for byte, the processor (fallback tokenizer, voice prompts) on a
 two-speaker script, and the streaming processor on a script over a
 cached voice prompt."""
 
@@ -42,11 +42,12 @@ def test_configs_equal_jax(which):
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
 
 
-COPIED = {"qwen2.5_1.5b_64k.json": 1536, "qwen2.5_0.5b_streaming.json": 896}
+COPIED = {"qwen2.5_1.5b_64k.json": 1536, "qwen2.5_7b_32k.json": 3584,
+          "qwen2.5_0.5b_streaming.json": 896}
 
 
 def test_copied_json_is_byte_equal_and_loads():
-    """The port copies two of the three JSONs: the 1.5B and the 0.5B
+    """The port copies all three JSONs: the 1.5B's, the 7B's and the 0.5B
     streaming model's."""
     port_dir = ROOT / "vibevoice_tpu_torch" / "configs"
     assert len(JSONS) == 3

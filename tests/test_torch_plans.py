@@ -9,7 +9,9 @@ and key splits (ops/flash_attention._decode_plan, _decode_split, whose
 arithmetic csrc/flash_decode.cu repeats on the card), its prefill tiles and
 key splits (_prefill_plan, _prefill_split), and the training attention's
 route and tile walks (ops/flash_attention._train_plan, _train_walk, which
-csrc/flash_train.cu reads)."""
+csrc/flash_train.cu reads). The 1.5B's shapes and the 7B's (hidden 3584,
+28 query heads over 4 KV heads of 128, FFN 18944, an untied lm_head of
+152,064 columns, a 3584-10752 diffusion head, 32,768 positions)."""
 
 import inspect
 import math
@@ -57,7 +59,8 @@ def test_int8_route_switches_at_the_threshold():
 
 @pytest.mark.parametrize("b,w,g,kh,s", [
     (1, 512, 6, 2, 4096), (2, 512, 6, 2, 4096), (2, 512, 6, 2, 65536), (2, 2048, 6, 2, 32768),
-    (2, 2, 6, 2, 64), (3, 7, 3, 2, 1000), (1, 100, 7, 4, 100000), (8, 2048, 7, 4, 32768)])
+    (2, 2, 6, 2, 64), (3, 7, 3, 2, 1000), (1, 100, 7, 4, 100000), (8, 2048, 7, 4, 32768),
+    (1, 2048, 7, 4, 32768), (1, 105, 7, 4, 4096), (1, 2048, 7, 4, 16384)])
 def test_prefill_plan_fills_the_card(b, w, g, kh, s):
     tiles, n_splits = fa._prefill_plan(b, w, g, kh, s)
     assert tiles == math.ceil(w * g / fa.PREFILL_ROWS)
@@ -73,7 +76,7 @@ def test_prefill_plan_fills_the_card(b, w, g, kh, s):
 @pytest.mark.parametrize("b,w,g,kh,s", [
     (2, 1, 6, 2, 4096), (2, 1, 6, 2, 65536), (4, 1, 6, 2, 32768), (1, 1, 1, 1, 64),
     (1, 1, 6, 2, 100), (16, 1, 6, 2, 4096), (64, 1, 7, 4, 8192), (3, 7, 3, 2, 1000),
-    (1, 12, 2, 2, 64)])
+    (1, 12, 2, 2, 64), (2, 1, 7, 4, 4096), (2, 1, 7, 4, 32768), (8, 1, 7, 4, 4096)])
 @pytest.mark.parametrize("rows", sorted(set(fa.DECODE_ROWS.values())))
 def test_decode_plan_fills_the_card(b, w, g, kh, s, rows):
     """The decode grid comes from the shapes alone (no base: a CUDA graph
@@ -89,7 +92,7 @@ def test_decode_plan_fills_the_card(b, w, g, kh, s, rows):
     assert b * kh * tiles * (n_splits - 1) < 2 * fa.SMS  # no more splits than two waves need
 
 
-@pytest.mark.parametrize("s", [4096, 65536])
+@pytest.mark.parametrize("s", [4096, 65536, 32768])
 @pytest.mark.parametrize("total", ["1", "2", "tile-1", "tile", "tile+1", "mid", "S"])
 @pytest.mark.parametrize("n_splits", [1, 2, 33, 132])
 def test_decode_splits_cover_the_horizon_once(total, n_splits, s):
@@ -127,7 +130,59 @@ def test_prefill_splits_cover_the_horizon_once(total, n_splits):
     assert sorted(seen) == list(range(nblk))
 
 
+def _fold_positions(w, g):
+    """Each folded row's query position, by folding a (1, W, KH, G) tensor
+    of positions as the wrappers fold q (flash_attention._fold_heads): an
+    account of the layout independent of the kernels' ``r // G``."""
+    pos = torch.arange(w)[None, :, None, None].expand(1, w, 1, g).float()[..., None]
+    return fa._fold_heads(pos.reshape(1, w, g, 1), 1)[0, 0, :, 0].long().numpy()
+
+
+@pytest.mark.parametrize("kind,w,s,base", [
+    ("decode", 1, 4096, 4095), ("decode", 1, 4096, 137), ("decode", 1, 32768, 16384),
+    ("decode", 1, 32768, 0), ("prefill", 2048, 32768, 14336), ("prefill", 2048, 32768, 0),
+    ("prefill", 2048, 32768, 31000), ("prefill", 105, 4096, 0)])
+def test_tile_horizons_at_7b_gqa(kind, w, s, base):
+    """Kernel B at the 7B's layout (G 7 query heads a KV head, KH 4), where
+    a row tile (16 folded rows for bf16 decode, 64 for prefill) holds rows
+    of several query positions, and the last tile of a chunk runs past the
+    W * G rows: each tile's key horizon, computed as csrc/flash_decode.cu
+    and csrc/flash_prefill.cu compute it from base (min(base + (row0 + nr -
+    1) // G + 1, S)), is one past the tile's last live key by the brute-force
+    mask, its splits under the wrapper's plan cover the live key tiles once,
+    and the key tiles the prefill kernel leaves unmasked (below the tile's
+    first row's slot, base + row0 // G) hold only live pairs."""
+    g, kh, b = 7, 4, 2
+    rows = fa.DECODE_ROWS[torch.bfloat16] if kind == "decode" else fa.PREFILL_ROWS
+    keys = fa.DECODE_KEYS if kind == "decode" else fa.PREFILL_KEYS
+    plan, split = ((fa._decode_plan, fa._decode_split) if kind == "decode"
+                   else (fa._prefill_plan, fa._prefill_split))
+    tiles, n_splits = (plan(b, w, g, kh, s, rows) if kind == "decode" else plan(b, w, g, kh, s))
+    assert tiles == math.ceil(w * g / rows)
+    pos = base + _fold_positions(w, g)  # each folded row's last live key
+    assert (pos == base + np.arange(w * g) // g).all()
+    for t in range(tiles):
+        row0, nr = t * rows, min(rows, w * g - t * rows)
+        live = (np.arange(s)[None] <= pos[row0:row0 + nr, None])  # (nr, S)
+        total = min(base + (row0 + nr - 1) // g + 1, s)
+        assert total == np.flatnonzero(live.any(0)).max() + 1
+        seen = []
+        for sp in range(n_splits):
+            first, end = split(total, n_splits, sp)
+            seen += range(first, end)
+        nblk = math.ceil(total / keys)
+        assert sorted(seen) == list(range(nblk))
+        if kind == "prefill":
+            lim_min = base + row0 // g
+            unmasked = [j for j in range(nblk)
+                        if not (j * keys + keys - 1 > lim_min or j * keys + keys > s)]
+            for j in unmasked:
+                assert live[:, j * keys:(j + 1) * keys].all()
+
+
 DECODE_SHAPES = [(1536, 1536), (1536, 256), (1536, 8960), (8960, 1536)]  # chip_smoke's LM_SHAPES
+# the 7B decoder's int8 linears (q/o, k/v, gate/up, down) and its untied lm_head
+DECODE_SHAPES_7B = [(3584, 3584), (3584, 512), (3584, 18944), (18944, 3584), (3584, 152064)]
 
 
 @pytest.mark.parametrize("rows", range(1, quant.GEMM_MIN_ROWS))
@@ -138,6 +193,19 @@ def test_gemv_plan_reads_every_weight_once(rows, k, n):
     the plan: every output column and row is owned by one block, every k by
     one (split, k lane, round, slot), and the x slice fits the shared memory
     a block may take without asking. The plan depends on the shapes alone."""
+    _gemv_plan_covers_once(rows, k, n)
+
+
+@pytest.mark.parametrize("rows", [1, 2, 4, 8, quant.GEMM_MIN_ROWS - 1])
+@pytest.mark.parametrize("k,n", DECODE_SHAPES_7B)
+def test_gemv_plan_reads_every_weight_once_7b(rows, k, n):
+    """The same at the 7B's decode shapes, where the plans take more blocks
+    than one wave (gate/up at 2 rows 148 column tiles x 7 splits, down 37
+    splits, the lm_head 1,188 x 7): still every weight byte read once."""
+    _gemv_plan_covers_once(rows, k, n)
+
+
+def _gemv_plan_covers_once(rows, k, n):
     assert list(inspect.signature(quant._gemv_plan).parameters) == ["rows", "k", "n", "wbytes"]
     rt, splits, kps = quant._gemv_plan(rows, k, n)
     assert quant._plan(rows, k, n) == ("gemv", rt, quant.GEMV_COLS, splits, kps)
@@ -169,12 +237,13 @@ def test_gemv_plan_reads_every_weight_once(rows, k, n):
     assert (seen_r == 1).all()
 
 
-@pytest.mark.parametrize("k,n", DECODE_SHAPES)
+@pytest.mark.parametrize("k,n", DECODE_SHAPES + DECODE_SHAPES_7B)
 def test_gemv_plan_fills_the_card(k, n):
-    """At the 1.5B decode shapes the K axis is split until the grid holds at
-    least a block per SM (k/v, 0.4 MB, is too small for that: one round of
-    loads a block), and never past one wave of the blocks it aims at unless
-    a block already takes the most k it can stage."""
+    """At the 1.5B's and the 7B's decode shapes the K axis is split until the
+    grid holds at least a block per SM (k/v, 0.4 MB at the 1.5B and 1.8 MB
+    at the 7B, is too small for that at 1 and 2 rows: one round of loads a
+    block), and never past one wave of the blocks it aims at unless a block
+    already takes the most k it can stage (the 7B's wide linears all do)."""
     for rows in (1, 2, 4, 8):
         rt, splits, kps = quant._gemv_plan(rows, k, n)
         blocks = math.ceil(n / quant.GEMV_COLS) * math.ceil(rows / rt) * splits
@@ -202,13 +271,14 @@ def _stream_pass_covers_once(rows, k, n, wbytes, plan):
     starts = np.array([blk * cols + cg * vc for blk in range(math.ceil(n / cols))
                        for cg in range(8)])
     starts = starts[starts < n] // vc  # the vectors some thread reads, by index
-    seen = np.zeros((k, n // vc), np.int16)  # 16-byte weight vectors
+    seen = np.zeros(k * (n // vc), np.int64)  # 16-byte weight vectors, row-major (k, n // vc)
     for split in range(splits):
         kb, ke = split * kps, min(k, (split + 1) * kps)
         assert kb < ke
         nit = math.ceil((ke - kb) / (kl_n * unroll))
         kk = (np.arange(kl_n)[:, None] + kl_n * np.arange(nit * unroll)[None]).ravel()
-        np.add.at(seen, (kb + kk[kb + kk < ke][:, None], starts[None]), 1)
+        idx = (kb + kk[kb + kk < ke])[:, None] * (n // vc) + starts[None]
+        seen += np.bincount(idx.ravel(), minlength=seen.size)
     assert (seen == 1).all()
     seen_r = np.zeros(rows, int)
     for z in range(math.ceil(rows / rt)):
@@ -218,8 +288,9 @@ def _stream_pass_covers_once(rows, k, n, wbytes, plan):
 
 
 # (kernel, width, FFN width): the 1.5B's diffusion head and vocoder stage,
-# and tiny_config's
-FUSED_SHAPES = [("C", 1536, 4608), ("D", 2048, 8192), ("C", 64, 192), ("D", 16, 64)]
+# tiny_config's, and the 7B's head (its vocoder stage is the 1.5B's)
+FUSED_SHAPES = [("C", 1536, 4608), ("D", 2048, 8192), ("C", 64, 192), ("D", 16, 64),
+                ("C", 3584, 10752)]
 
 
 @pytest.mark.parametrize("wbytes", [1, 2, 4])
@@ -230,8 +301,9 @@ def test_head_and_stage_plans_read_every_weight_once(kernel, dim, hid, rows, wby
     core: C gate|up (dim -> 2 hid, the two matrices side by side) and down
     (hid -> dim), D fc1 (dim -> hid) and fc2 (hid -> dim). Under their plans,
     from the shapes alone, every weight byte is read once, and at the 1.5B
-    shapes each launch fills one wave of the SMs (a block per SM at least)
-    and no more than one wave of the blocks its split aims at."""
+    and 7B shapes each launch fills one wave of the SMs (a block per SM at
+    least) and no more than one wave of the blocks its split aims at unless
+    a block already takes the most k it can stage."""
     mod = hf if kernel == "C" else vf
     assert list(inspect.signature(mod._plan).parameters) == ["rows", "dim", "hid", "wbytes"]
     first, second = mod._plan(rows, dim, hid, wbytes)
@@ -266,7 +338,7 @@ def _ring_live(w, g, s, q_start, k_start, k_len):
 
 
 @pytest.mark.parametrize("dtype_rows", [64, 32])
-@pytest.mark.parametrize("g", [3, 6])
+@pytest.mark.parametrize("g", [3, 6, 7])
 @pytest.mark.parametrize("w,s,q_start,k_start", [
     (100, 100, 100, 100),  # the rank's own block
     (100, 100, 100, 0),    # an earlier rank's
@@ -276,8 +348,9 @@ def _ring_live(w, g, s, q_start, k_start, k_len):
 ])
 @pytest.mark.parametrize("k_len", ["inside", "before", "after", "at_start"])
 def test_ring_tiles_match_the_mask(w, s, q_start, k_start, g, dtype_rows, k_len):
-    """Kernel F's tile arithmetic against the brute-force mask, ragged W, G 3
-    and 6, k_len inside, before and after the block: a tile's horizon is one
+    """Kernel F's tile arithmetic against the brute-force mask, ragged W, G 3,
+    6 and 7 (the 7B's, whose 64-row tiles straddle query positions), k_len
+    inside, before and after the block: a tile's horizon is one
     past its last live key (0 and skipped iff it has none), and the key
     tiles it leaves unmasked hold only live pairs."""
     k_len = {"inside": k_start + s // 3, "before": max(k_start - 5, 0), "after": k_start + s + 50,
