@@ -180,10 +180,41 @@ Phases, each of which fails the run:
      lm_head.weight) as a reference-layout checkpoint, loaded by
      from_pretrained(int8=True) bit-equal to VibeVoiceTTS.random's tree.
      The kernels line's "<kernel>@7b" entries hold (a)'s main-path cases
-     and the launches of (b)-(e).
-The next-to-last line is a JSON object of the kernels' results (twenty
-entries: the ten of phases 3-11 and their "@7b" twins); the last line is
-the JSON device record. The script runs itself again with
+     and the launches of (b)-(e);
+ 13. tensor parallelism on the one card (tensor_parallel): (a) kernel B at
+     the 7B's local heads under TP (14/2 at tp 2, 7/1 at tp 4: decode over
+     4,096 bf16 and 32,768 int8 slots; the prefill route on a 2,048-row
+     chunk, bf16 and int8) and the training attention at the 1.5B's tp 2
+     heads (6/1, B2 T2048), each against its plain version, timed with its
+     bound and SDPA, and replayed from a CUDA graph against its eager call
+     (the "<kernel>@tp" entries); (b) the 7B with a dense bf16 LM and the
+     serving packs, made to speak, through ServingEngine(mesh=<tp 1>,
+     max_batch=4, max_len=4096, frames_per_dispatch=4) in a world of one
+     over NCCL, graphed (the graph captures the all-reduces), against the
+     same engine without a mesh (four requests of TP_ENGINE_FRAMES frames,
+     the initial latents from one bank by slot: the same tokens, audio
+     within GRAPH_TOL), then phase 4's forced script at 4,096 bf16 and
+     32,768 int8 slots (the references of (c)); (c) two ranks on the one
+     card over gloo (eager windows; this process is rank 0): the engine's
+     four requests (the same tokens on both ranks and as tp 1's) and the
+     forced script at both lengths, held against (b) (the same tokens;
+     h_pos and the cache of layers 0 and 27 within TP_TOL; the audio's
+     drift printed), and three planted faults over two windows (the o
+     shards swapped between ranks, layer 0's attention all-reduce skipped,
+     the KV heads swapped), each of which must read TP_FAULT_FACTOR times
+     the limit; then the trainer on the full-width 1.5B (--use_lora over
+     the dense f32 base, B2 T1024, 3 steps) on one rank, under --mesh_tp 2
+     and --mesh_dp 2 (gloo, both ranks on the card): step 1's loss within
+     TP_TRAIN_TOL of one rank's, s/step and the peak memory of each rank;
+     a tp 2 train state (the 7B's layer-0 attention shards, AdamW moments)
+     saved and restored through utils/checkpoint must come back bit-equal;
+     (d) it prints which
+     multi-card cases (FSDP, GPipe, the graphed NCCL engine at tp 2 and 4,
+     in tests/test_torch_cuda.py) the machine's cards could not run.
+The next-to-last line is a JSON object of the kernels' results
+(twenty-four entries: the ten of phases 3-11, their "@7b" twins, and the
+four "@tp" entries of B's two routes and the training attention); the last
+line is the JSON device record. The script runs itself again with
 PYTHONHASHSEED=0: the prompts go through the hash-bucket fallback
 tokenizer, so every run of one --seed then feeds the model the same ids.
 """
@@ -983,9 +1014,10 @@ def check_training_kernels(checks: Checks, seed: int, heads=(12, 2, 128), e_case
     # E: dx of every int8 LM linear of the 1.5B decoder at R = B*T = 4096, f32
     # g (B2 T2048), and of gate/up and down at 8192 (B1 T8192); its two phases
     # (the cast pass forming bf16(g * scale), the GEMM) also timed apart
-    print("kernel E int8_matmul_t (f32 g, int8 w, f32 scale; f32 out: tol 1e-4 of the peak; "
-          "library: torch.mm of bf16 g and a bf16 copy of the weight, transposed; then the cast "
-          "pass and the GEMM alone)")
+    if e_cases:
+        print("kernel E int8_matmul_t (f32 g, int8 w, f32 scale; f32 out: tol 1e-4 of the peak; "
+              "library: torch.mm of bf16 g and a bf16 copy of the weight, transposed; then the "
+              "cast pass and the GEMM alone)")
     nh, kh, d = heads
     phases = []
     for rows, shapes in e_cases:
@@ -3801,6 +3833,787 @@ def the_7b(checks: Checks, seed: int, frames: int) -> dict:
     return dict(runs=runs, walls=walls)
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: tensor parallelism (the rest of parallel/) on one card
+# ---------------------------------------------------------------------------
+
+# Kernel B's local heads under TP: the 7B's 28/4 over tp 2 and 4; the
+# training attention's at the 1.5B's 12/2 over tp 2.
+HEADS_7B_TP = {2: (14, 2, 128), 4: (7, 1, 128)}
+HEADS_1P5B_TP2 = (6, 1, 128)
+TP_ENGINE_FRAMES = 40
+TP_ENGINE_BATCH = 4
+CONFIG_HOP = 3200  # the acoustic tokenizer's hop (samples a frame) of every config here
+TP_NAMES = ("flash_cached_attention", "flash_cached_attention_prefill", "fused_head_ffn_stack",
+            "fused_stage_step")
+# Limits of the two-rank (gloo, tp 2) run against the world of one (NCCL,
+# tp 1) on the full-width 7B: max |diff| over the peak of h_pos after the
+# prefill and of the valid cache of layers 0 and 27, by KV type. The two
+# split the o and down sums in two and add the halves in f32 before one
+# rounding to bf16 (tp 1 rounds the whole sum), so 28 layers drift apart
+# as the ring prefill does (SP_TOL). On an H100 with --seed 0 (the same
+# reading in two processes): h_pos 1.29e-2 / 1.21e-2, layer 0 0.0, layer 27
+# 2.75e-2 / 3.20e-2 (bf16 / int8 KV). The limit is about three times the
+# largest; the planted faults read 0.53 and above (h_pos), layer 27 1.08
+# and above (the KV-head swap reads 1.44 at layer 0, the two others 0.0
+# there: layer 0's cache is written before any all-reduce). The audio is
+# printed, not held: the random-weight diffusion head and vocoder amplify
+# the hidden states' drift (1.3e-2 at h_pos) to 0.41-0.53 of the peak in
+# the first window and 1.05-1.14 over 32 frames (each frame's audio is
+# encoded into the next frame's input), against 0.78-1.06 in the first
+# window with a fault: no limit separates the two. The tokens are held
+# equal instead.
+TP_TOL = {"bf16": 1e-1, "int8": 1e-1}
+# The decode step under TP is held on a text script: TP_TEXT_WINDOWS
+# windows of K = 4 frames forced to the plain token TP_TEXT_TOKEN, whose
+# next input is its embedding, the same on both runs (a speech frame's next
+# input is its audio re-encoded, which the diffusion head amplifies as
+# above). Read after the last window: h_pos, and the cache rows the windows
+# wrote at positions n..n+4*windows of layers 0 and 27 (every KV head), as
+# max |diff| over the peak against tp 1 (graphed). On an H100 with --seed 0:
+# h_pos 1.29e-2, layer 0 0.0, layer 27 2.64e-2; the limit is about four
+# times the largest. The all-reduce skipped in the decode step only reads
+# 0.35 (h_pos) and 0.75 (layer 27) there, and as without a fault after the
+# prefill; the three other faults 0.48 and above.
+TP_TEXT_TOKEN = 1000
+TP_TEXT_WINDOWS = 2
+TP_STEP_TOL = 1e-1
+# a planted fault must read at least this many times the limit
+TP_FAULT_FACTOR = 3.0
+TP_TRAIN_COMMON = ["--synthetic_data", "--synthetic_items", "4", "--synthetic_seconds", "100",
+                   "115", "--use_lora", "--device", "cuda", "--max_length", "1024",
+                   "--pad_to_multiple", "1024", "--max_steps", "3", "--log_steps", "1",
+                   "--warmup_steps", "0"]  # step 1 updates the adapters
+TP_TRAIN_TOL = 1e-4  # step 1's loss on a mesh against one rank, relative
+# After the updates: the losses of steps 2-3, relative, and by the worst
+# adapter leaf |mesh - one rank| / |one rank's change over the three steps|
+# (norms). On an H100 with --seed 0: losses 2.2e-7 (tp 2) and 0.0 (dp 2),
+# the adapters 3.3e-3 / 3.5e-3 (the updates took the loss from 13.97 to
+# 12.55); the limits are three to five times the largest.
+TP_TRAIN_STEP_TOL = 1e-6
+TP_TRAIN_ADAPTER_TOL = 1e-2
+
+
+def check_tp_kernels(checks: Checks, seed: int) -> None:
+    """Phase 13 (a): kernel B at the local heads of tensor-parallel ranks of
+    the 7B (14/2 at tp 2, 7/1 at tp 4; decode over 4,096 bf16 and 32,768
+    int8 slots, and the prefill route on a 2,048-row chunk from base 14,336
+    of 32,768, bf16 and int8), the training attention forward and backward
+    at the 1.5B's tp 2 heads (6/1), B2 T2048, each against its plain version
+    (phase 3's tolerances), timed with its bound and SDPA's time, and
+    replayed from a CUDA graph against its eager call (the same bits)."""
+    import torch
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 13)
+    print("kernel B flash_cached_attention at tensor-parallel local heads of the 7B (head_dim "
+          "128; bf16 q; tol 1e-2; library: SDPA with the prefix mask and enable_gqa)")
+    for tp, w, s_, int8, base, main in ((2, 1, 4096, False, (4095, 1234), True),
+                                        (2, 1, 32768, True, (32767, LONG_7B + 32), False),
+                                        (4, 1, 4096, False, (4095, 1234), False),
+                                        (4, 1, 32768, True, (32767, LONG_7B + 32), False),
+                                        (2, 2048, 32768, False, (LONG_7B - 2048,), True),
+                                        (2, 2048, 32768, True, (LONG_7B - 2048,), False)):
+        heads = HEADS_7B_TP[tp]
+        check_cached_attention(checks, g, heads, w, s_, int8, base, main=main,
+                               label=f"tp {tp} {heads[0]}/{heads[1]} ", graph_bits=True)
+        torch.cuda.empty_cache()
+    check_training_kernels(checks, seed + 13, heads=HEADS_1P5B_TP2, e_cases=(),
+                           attn_cases=((2, 2048, (2048, 1500)),), graphs=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def tp_model(seed: int, device: str = "cuda") -> dict:
+    """The 7B at full width for tensor-parallel serving: random bf16 weights
+    from the seed with a dense LM (tts.VibeVoiceTTS.random(int8_lm=False)),
+    the serving packs of kernels C and D (fuse_for_serving(quantize=True)),
+    made to speak (utils.params.speaking, SPEAK_C_7B), with phase 4's
+    voices and script."""
+    import numpy as np
+
+    from vibevoice_tpu_torch.tts import VibeVoiceTTS
+    from vibevoice_tpu_torch.utils.params import speaking
+
+    tts = VibeVoiceTTS.random(str(CONFIG_7B), seed=seed, device=device, int8_lm=False)
+    sr = 24_000
+    t = np.arange(int(VOICE_SECONDS * sr)) / sr
+    rng = np.random.RandomState(seed)
+    voices = [(0.3 * np.sin(2 * np.pi * f * t) + 0.05 * rng.randn(t.size)).astype(np.float32)
+              for f in (180.0, 260.0)]
+    script = ("Speaker 1: Welcome back to the show, today we talk about speech synthesis.\n"
+              "Speaker 2: Thanks for having me, it is a pleasure to be here.")
+    return dict(cfg=tts.cfg, params=speaking(tts.params, tts.tokens, c=SPEAK_C_7B),
+                processor=tts.processor, toks=tts.tokens, voices=voices, script=script,
+                hop=tts.cfg.acoustic_tokenizer_config.hop_length, sr=sr)
+
+
+def tp_engine_run(model: dict, seed: int, mesh=None, eager: bool = False) -> dict:
+    """ServingEngine(max_batch=4, max_len=4096, frames_per_dispatch=4) over
+    the model (its shards under `mesh`), four requests of the two-speaker
+    prompt capped at TP_ENGINE_FRAMES frames submitted at once. The initial
+    latents come from one bank indexed by each slot's diffusion count (an
+    injection hook), so each request's audio depends on its slot only; the
+    tokens are the model's own. Rank 0 returns each request's audio and
+    tokens; every rank its windows' tokens and the launches it counted."""
+    import numpy as np
+    import torch
+
+    from vibevoice_tpu_torch.models import inference as inf
+    from vibevoice_tpu_torch.serving.engine import Request, ServingEngine
+
+    cfg, toks = model["cfg"], model["toks"]
+    proc = model["processor"](text=model["script"], voice_samples=[model["voices"]])
+    n = int(proc.attention_mask.sum())
+    k, b = 4, TP_ENGINE_BATCH
+    eng = ServingEngine(cfg, model["params"], tokens=toks, frames_per_dispatch=k, max_batch=b,
+                        max_len=4096, mesh=mesh, eager_windows=eager,
+                        opts=inf.GenerateOptions(ddpm_steps=10, cfg_scale=1.3, max_length=4096))
+    g = torch.Generator(device=eng.device)
+    g.manual_seed(seed + 131)
+    hooks = {"forced": torch.full((k, b), -1, dtype=torch.long, device=eng.device),
+             "init": torch.randn(TP_ENGINE_FRAMES + 8, b, cfg.acoustic_vae_dim, generator=g,
+                                 device=eng.device)}
+    real = eng.step_fn
+
+    class Hooked:  # the engine's step function with the bank's hooks
+        def __call__(self, p, c, noise, ext):
+            return real(p, c, noise, ext, hooks)
+
+        def eager(self, p, c, noise, ext):
+            return real.eager(p, c, noise, ext, hooks)
+
+    eng.step_fn = Hooked()
+    reset_counts(TP_NAMES)
+    out = {}
+    t0 = time.perf_counter()
+    try:
+        if eng.leader:
+            handles = [eng.submit(Request(
+                input_ids=proc.input_ids, valid_mask=proc.attention_mask,
+                speech_tensors=proc.speech_tensors, speech_frame_valid=proc.speech_masks,
+                speech_input_mask=proc.speech_input_mask, seed=s,
+                max_length_times=(TP_ENGINE_FRAMES + 0.5) / n)) for s in range(b)]
+            out["audio"] = [h.result(timeout=900) for h in handles]
+            out["tokens"] = [list(h.tokens) for h in handles]
+    finally:
+        eng.shutdown()
+    out["wall_s"] = time.perf_counter() - t0
+    out["launches"] = read_counts(TP_NAMES)
+    out["token_log"] = [np.asarray(x) for x in eng.token_log]
+    out["replays"] = real.replays
+    del eng
+    return out
+
+
+_IN_DECODE_STEP = [False]  # set while tp_generate's step runs (a step-only planted fault)
+
+
+def tp_generate(model: dict, seed: int, frames: int, max_length: int, tp_group=None,
+                eager: bool = False, windows=None, text: bool = False) -> dict:
+    """Phase 4's forced script (or, with `text`, TP_TEXT_TOKEN in every
+    frame) through the prefill and generate() (K = 4) at `max_length` slots
+    (int8 KV from 16,384), the LM on this rank's shards under `tp_group`,
+    stopped after `windows` windows if given: h_pos after the prefill, the
+    valid cache of layers 0 and 27 (this rank's KV heads, dequantized), the
+    audio and its first window's; with `text`, also h_pos after the last
+    window and the rows of layers 0 and 27 that the windows wrote."""
+    import numpy as np
+    import torch
+
+    from vibevoice_tpu_torch.models import inference as inf
+
+    cfg, params, toks = model["cfg"], model["params"], model["toks"]
+    proc = model["processor"](text=model["script"], voice_samples=[model["voices"]])
+    opts = inf.resolve_kv_int8(inf.GenerateOptions(ddpm_steps=10, cfg_scale=1.3,
+                                                   max_length=max_length, frames_per_dispatch=4),
+                               max_length)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    n = int(proc.attention_mask.sum())
+    last = (0, cfg.decoder_config.num_hidden_layers - 1)
+
+    def rows(cache, start, stop):  # (2, local KV heads, rows, D) of each layer in `last`
+        out = {}
+        for li in last:
+            kv = []
+            for buf, scale in ((cache.k, cache.k_scale), (cache.v, cache.v_scale)):
+                x = buf[li][0, :, start:stop].float()
+                if cache.quantized:
+                    x = x * scale[li][0, :, 0, start:stop, None]
+                kv.append(x)
+            out[li] = torch.stack(kv)
+        return out
+
+    with torch.no_grad():
+        carry = inf.prefill_request(cfg, params, proc.input_ids, proc.attention_mask,
+                                    proc.speech_tensors, proc.speech_masks,
+                                    proc.speech_input_mask, max_length, toks, opts, gen,
+                                    tp_group=tp_group)
+    layers = rows(carry.cache, 0, n)
+    h_pos = carry.h_pos.float().clone()
+    del carry
+    forced = [TP_TEXT_TOKEN] * (4 * windows) if text else forced_scripts(toks, frames)[0]
+    step = inf.make_multi_step_fn(cfg, toks, opts, 4, True, tp_group)
+    step = step.eager if eager else step
+    final = [None]
+
+    def recording(*a):  # the step, keeping the carry it returns
+        _IN_DECODE_STEP[0] = True
+        try:
+            final[0], out = step(*a)
+        finally:
+            _IN_DECODE_STEP[0] = False
+        return final[0], out
+
+    reset_counts(TP_NAMES)
+    calls = [0]
+
+    def stop():
+        calls[0] += 1
+        return windows is not None and calls[0] > windows
+
+    t0 = time.perf_counter()
+    out = inf.generate(cfg, params, input_ids=proc.input_ids, valid_mask=proc.attention_mask,
+                       speech_tensors=proc.speech_tensors, speech_frame_valid=proc.speech_masks,
+                       speech_input_mask=proc.speech_input_mask, tokens=toks, opts=opts, seed=seed,
+                       forced_tokens=np.asarray(forced, np.int64)[:, None], step_fn=recording,
+                       tp_group=tp_group, stop_check_fn=stop)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res = dict(h_pos=h_pos, layers=layers, sequences=np.array(out.sequences), wall_s=wall,
+               launches=read_counts(TP_NAMES), kv_int8=bool(opts.kv_int8))
+    if text:
+        # the carry after the last window (a graphed step's static carry,
+        # which nothing replays after generate() returns)
+        res["step"] = dict(h_pos=final[0].h_pos.float().clone(),
+                           layers=rows(final[0].cache, n, n + 4 * windows))
+        return res
+    audio = out.speech_outputs[0]
+    if audio is None or not np.isfinite(audio).all() or not np.abs(audio).max() > 0:
+        fail(f"tp generate at {max_length} slots: no, non-finite or silent audio")
+    hop = cfg.acoustic_tokenizer_config.hop_length
+    return dict(res, audio=np.array(audio), audio_window=np.array(audio[:4 * hop]))
+
+
+def tp1_end_to_end(seed: int, frames: int) -> dict:
+    """Phase 13 (b): the 7B (tp_model) in a world of one over NCCL:
+    ServingEngine(mesh=<tp 1>) graphed against the same engine without a
+    mesh (tp_engine_run: the same tokens, audio within GRAPH_TOL; the
+    window's graph captures its NCCL all-reduces), then the references of
+    (c): the forced script at 4,096 bf16 and 32,768 int8 slots."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from vibevoice_tpu_torch.models import inference as inf
+    from vibevoice_tpu_torch.parallel import make_mesh
+    from vibevoice_tpu_torch.parallel.mesh import free_port
+
+    t0 = time.perf_counter()
+    model = tp_model(seed)
+    torch.cuda.synchronize()
+    print(f"  7B, dense bf16 LM + serving packs, built in {time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card", flush=True)
+    plain = tp_engine_run(model, seed)
+    inf._captures.clear()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_mesh(dp=1, tp=1)
+        meshed = tp_engine_run(model, seed, mesh=mesh)
+        inf._captures.clear()
+        refs = {length: tp_generate(model, seed, frames, length, mesh.get_group("tp"))
+                for length in (4096, 32768)}
+        refs["text"] = tp_generate(model, seed, frames, 4096, mesh.get_group("tp"),
+                                   windows=TP_TEXT_WINDOWS, text=True)
+    finally:
+        dist.destroy_process_group()
+    inf._captures.clear()
+    errs = []
+    for i, (a, b) in enumerate(zip(meshed["audio"], plain["audio"])):
+        if meshed["tokens"][i] != plain["tokens"][i]:
+            fail(f"tp 1 engine: request {i}'s tokens differ from the engine without a mesh")
+        if a.shape != b.shape or a.size == 0:
+            fail(f"tp 1 engine: request {i}'s audio has {a.size} samples, not {b.size}")
+        errs.append(float(np.abs(a - b).max() / np.abs(b).max()))
+    if not meshed["replays"] > 0:
+        fail("tp 1 engine: no graph replayed")
+    missing = [k for k, v in meshed["launches"].items() if v == 0]
+    if missing:
+        fail(f"tp 1 engine: kernels never launched: {missing}")
+    print(f"  world of one (NCCL, tp 1), graphed: {TP_ENGINE_BATCH} requests of "
+          f"{[len(t) for t in meshed['tokens']]} frames in {meshed['wall_s']:.2f} s "
+          f"({plain['wall_s']:.2f} s without a mesh), {meshed['replays']} replays, tokens equal, "
+          f"audio max |diff| {max(errs):.3e} of the peak (tol {GRAPH_TOL:g}); launches "
+          f"{meshed['launches']}", flush=True)
+    if not max(errs) <= GRAPH_TOL:
+        fail("tp 1 engine: audio differs from the engine without a mesh")
+    for length, r in refs.items():
+        what = (f"at 4096 slots (bf16 KV): {TP_TEXT_WINDOWS} windows forced to token "
+                f"{TP_TEXT_TOKEN}" if length == "text" else
+                f"at {length} slots ({'int8' if r['kv_int8'] else 'bf16'} KV): "
+                f"{r['audio'].size} samples")
+        print(f"  tp 1 generate {what} in {r['wall_s']:.2f} s (graphed), launches "
+              f"{r['launches']}", flush=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(engine=plain, meshed=meshed, refs=refs, audio_rel_err=errs)
+
+
+def _swap_with_peer(local: dict, names, group) -> dict:
+    """The tree with the leaves under attn[name] of every layer replaced by
+    the other rank's shards (a world of two): a planted fault."""
+    import torch
+    import torch.distributed as dist
+
+    out = dict(local)
+    layers = []
+    me = dist.get_rank(group)
+    for lp in local["lm"]["layers"]:
+        attn = dict(lp["attn"])
+        for name in names:
+            entry = {}
+            for key, x in attn[name].items():
+                parts = [torch.empty_like(x) for _ in range(2)]
+                dist.all_gather(parts, x.contiguous(), group=group)
+                entry[key] = parts[1 - me]
+            attn[name] = entry
+        layers.append({**lp, "attn": attn})
+    out["lm"] = {**local["lm"], "layers": layers}
+    return out
+
+
+def tp2_work(rank: int, port: int, seed: int, frames: int, out_path: str) -> None:
+    """Phase 13 (c) on one rank of two (gloo, both ranks on cuda:0, eager
+    windows): the 7B's engine run, the forced script at 4,096 bf16 and
+    32,768 int8 slots and the text windows at 4,096, a train state's
+    checkpoint round trip, then the text windows with each planted fault
+    (the o shards swapped, the KV heads swapped, layer 0's attention
+    all-reduce skipped in every forward, and in the decode step's only).
+    Rank 0 gathers rank 1's KV heads and window tokens and saves the
+    results."""
+    import torch
+    import torch.distributed as dist
+
+    from vibevoice_tpu_torch.models import inference as inf
+    from vibevoice_tpu_torch.models import qwen2
+    from vibevoice_tpu_torch.parallel import make_mesh
+    from vibevoice_tpu_torch.parallel import mesh as pmesh
+
+    torch.cuda.set_device(0)
+    torch.cuda.reset_peak_memory_stats()
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=2)
+    res = {}
+    try:
+        t0 = time.perf_counter()
+        model = tp_model(seed)
+        mesh = make_mesh(dp=1, tp=2)
+        group = mesh.get_group("tp")
+        res["build_s"] = time.perf_counter() - t0
+        engine = tp_engine_run(model, seed, mesh=mesh, eager=True)
+        logs = [None, None]
+        dist.all_gather_object(logs, engine["token_log"], group=group)
+        res["engine"], res["engine_logs"] = engine, logs
+        cfg = model["cfg"]
+        full = model["params"]
+        model["params"] = pmesh.shard_params(full, pmesh.model_param_shardings(
+            full, mesh, cfg.decoder_config.head_dim), mesh)
+        del full
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+
+        def gather_heads(layers):  # every rank's KV heads, in rank order
+            for li, x in layers.items():
+                parts = [torch.empty_like(x) for _ in range(2)]
+                dist.all_gather(parts, x.contiguous(), group=group)
+                layers[li] = torch.cat(parts, dim=1).cpu()
+
+        def run(length, params=None, text=False):
+            kw = {} if params is None else {"params": params}
+            r = tp_generate({**model, **kw}, seed, frames, length, group, eager=True,
+                            windows=TP_TEXT_WINDOWS if text else None, text=text)
+            gather_heads(r["layers"])
+            r["h_pos"] = r["h_pos"].cpu()
+            if text:
+                gather_heads(r["step"]["layers"])
+                r["step"]["h_pos"] = r["step"]["h_pos"].cpu()
+            inf._captures.clear()
+            return r
+
+        res["runs"] = {length: run(length) for length in (4096, 32768)}
+        res["runs"]["text"] = run(4096, text=True)
+        res["checkpoint"] = tp2_checkpoint_roundtrip(model, mesh, seed)
+        faults = {}
+        faults["o shards swapped"] = run(4096, _swap_with_peer(model["params"], ("o",), group),
+                                         text=True)
+        faults["KV heads swapped"] = run(4096, _swap_with_peer(model["params"], ("k", "v"),
+                                                               group), text=True)
+        real, calls = qwen2.reduce_from_group, [0, 0]
+        n_calls = 2 * cfg.decoder_config.num_hidden_layers
+
+        def skipping(x, grp):  # layer 0's attention all-reduce, in every forward
+            calls[0] += 1
+            return x if calls[0] % n_calls == 1 else real(x, grp)
+
+        def skipping_in_step(x, grp):  # the same, in the decode step's forwards only
+            if not _IN_DECODE_STEP[0]:
+                return real(x, grp)
+            calls[1] += 1
+            return x if calls[1] % n_calls == 1 else real(x, grp)
+
+        for name, fn in (("layer 0's attention all-reduce skipped", skipping),
+                         ("the same, in the decode step only", skipping_in_step)):
+            qwen2.reduce_from_group = fn
+            try:
+                faults[name] = run(4096, text=True)
+            finally:
+                qwen2.reduce_from_group = real
+        res["faults"] = faults
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        import torch as _t
+
+        _t.save(res, out_path)
+
+
+def tp2_checkpoint_roundtrip(model: dict, mesh, seed: int) -> dict:
+    """A tp 2 train state (this rank's shards of the 7B's first layer's
+    attention, bf16, with f32 AdamW moments drawn at random, count and step 3) saved
+    through utils/checkpoint.save_train_state (each rank writes its own
+    shards) and restored into zeros of the same layout: whether every
+    tensor and value came back bit-equal, and the bytes written."""
+    import shutil
+
+    import torch
+
+    from vibevoice_tpu_torch.finetune import train_step as tts
+    from vibevoice_tpu_torch.parallel import mesh as pmesh
+    from vibevoice_tpu_torch.utils import checkpoint as ck
+
+    lm = model["params"]["lm"]
+    params = {"attn": lm["layers"][0]["attn"]}
+    specs = {"attn": pmesh.qwen2_param_shardings(lm, mesh)["layers"][0]["attn"]}
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 132)
+    leaves = dict(tts.tree_leaves_with_path(params))
+    rand = lambda: {p: torch.randn(x.shape, generator=g, device="cuda") for p, x in leaves.items()}
+    state = tts.TrainState(params, tts.OptState(3, rand(), rand(), 0, rand()), 3)
+    by_path = {p: tts._spec_of(specs, p) for p in leaves}
+    st_specs = tts.TrainState(specs, tts.OptState((), by_path, by_path, (), by_path), ())
+    path = ROOT / "build" / "phase13" / "state"
+    t0 = time.perf_counter()
+    ck.save_train_state(str(path), state, mesh, st_specs)
+    save_s = time.perf_counter() - t0
+    zeros = lambda d: {p: torch.zeros_like(x) for p, x in d.items()}
+    target = tts.TrainState(
+        pmesh._tree_map(torch.zeros_like, params),
+        tts.OptState(0, zeros(state.opt_state.mu), zeros(state.opt_state.nu), 0,
+                     zeros(state.opt_state.acc)), 0)
+    t0 = time.perf_counter()
+    back = ck.restore_train_state(str(path), target, mesh, st_specs)
+    restore_s = time.perf_counter() - t0
+    pairs = list(zip(tts.tree_leaves_with_path(back.params), tts.tree_leaves_with_path(params)))
+    for name in ("mu", "nu", "acc"):
+        got, want = getattr(back.opt_state, name), getattr(state.opt_state, name)
+        pairs += [((p, got[p]), (p, want[p])) for p in want]
+    same = all(torch.equal(a, b) for (_, a), (_, b) in pairs) and (
+        back.opt_state.count, back.step) == (3, 3)
+    n_bytes = sum(x.numel() * x.element_size() for (_, x) in (b for _, b in pairs))
+    import torch.distributed as dist
+
+    dist.barrier()
+    if dist.get_rank() == 0:
+        shutil.rmtree(path, ignore_errors=True)
+    return dict(same=same, rank_bytes=n_bytes, save_s=save_s, restore_s=restore_s)
+
+
+def _tp2_rank1(port: int, seed: int, frames: int) -> None:
+    sys.path.insert(0, str(ROOT))
+    tp2_work(1, port, seed, frames, "")
+
+
+def _rel(a, b) -> float:
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    if a.shape != b.shape:
+        return float("inf")
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def tp_compare(got: dict, ref: dict) -> dict:
+    """max |diff| over the peak of h_pos and layers 0 and 27's caches of a
+    tp 2 run against the tp 1 reference (the held readings)."""
+    out = {"h_pos": _rel(got["h_pos"], ref["h_pos"].cpu())}
+    for li in ref["layers"]:
+        out[f"layer {li}"] = _rel(got["layers"][li], ref["layers"][li].cpu())
+    return out
+
+
+def tp_limits(readings: dict, step: dict) -> float:
+    """The largest reading over its limit: TP_TOL["bf16"] for the prefill's
+    (`readings`), TP_STEP_TOL for the decode step's (`step`)."""
+    return max([v / TP_TOL["bf16"] for v in readings.values()]
+               + [v / TP_STEP_TOL for v in step.values()])
+
+
+def tp_audio(got: dict, ref: dict) -> dict:
+    """The audio's readings (printed, not held: TP_TOL's comment); the
+    whole audio where the run was not stopped early."""
+    out = {"first window's audio": _rel(got["audio_window"], ref["audio_window"])}
+    if got["audio"].shape == ref["audio"].shape:
+        out["whole audio"] = _rel(got["audio"], ref["audio"])
+    return out
+
+
+def tp2_end_to_end(seed: int, frames: int, tp1: dict) -> dict:
+    """Phase 13 (c): tp2_work on two ranks on the one card (this process is
+    rank 0), held against (b)'s world of one: the engine's tokens equal on
+    both ranks and equal to tp 1's, the forced script's tokens equal and its
+    h_pos and caches within TP_TOL (its audio printed), the text windows'
+    state after the prefill within TP_TOL and after the last window within
+    TP_STEP_TOL; each planted fault reads at least TP_FAULT_FACTOR times its
+    limits (the decode step's, for the fault that acts there only)."""
+    import multiprocessing as mp
+
+    import torch
+
+    from vibevoice_tpu_torch.parallel.mesh import free_port
+
+    out_path = ROOT / "build" / "phase13" / "tp2.pt"
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    port = free_port()
+    proc = mp.get_context("spawn").Process(target=_tp2_rank1, args=(port, seed, frames),
+                                           daemon=True)
+    proc.start()
+    t0 = time.perf_counter()
+    try:
+        tp2_work(0, port, seed, frames, str(out_path))
+    finally:
+        proc.join(600)
+        if proc.is_alive():
+            proc.kill()
+    wall = time.perf_counter() - t0
+    if proc.exitcode != 0:
+        fail(f"tp 2 rank 1 exited with {proc.exitcode}")
+    res = torch.load(out_path, weights_only=False)
+    out_path.unlink()
+    import numpy as np
+
+    logs = res["engine_logs"]
+    if not (len(logs[0]) == len(logs[1]) > 0
+            and all(np.array_equal(a, b) for a, b in zip(*logs))):
+        fail("tp 2 engine: the two ranks chose different tokens")
+    engine = res["engine"]
+    ref_engine = tp1["meshed"]
+    engine_errs, engine_whole = [], []
+    window = 4 * CONFIG_HOP
+    for i, (a, b) in enumerate(zip(engine["audio"], ref_engine["audio"])):
+        if engine["tokens"][i] != ref_engine["tokens"][i]:
+            fail(f"tp 2 engine: request {i}'s tokens differ from tp 1's")
+        engine_errs.append(_rel(a[:window], b[:window]))
+        engine_whole.append(_rel(a, b))
+    missing = [k for k, v in engine["launches"].items() if v == 0]
+    if missing:
+        fail(f"tp 2 engine: kernels never launched: {missing}")
+    readings = {}
+    text = res["runs"].pop("text")
+    for length, r in res["runs"].items():
+        kv = "int8" if r["kv_int8"] else "bf16"
+        cmp = tp_compare(r, tp1["refs"][length])
+        if not np.array_equal(r["sequences"], tp1["refs"][length]["sequences"]):
+            fail(f"tp 2 generate at {length}: tokens differ from tp 1's")
+        audio = tp_audio(r, tp1["refs"][length])
+        readings[f"{length} {kv}"] = {**cmp, **audio}
+        print(f"  tp 2 (gloo, eager) against tp 1 at {length} slots ({kv} KV): "
+              + ", ".join(f"{k} {v:.3e}" for k, v in cmp.items())
+              + f" of the peak (limit {TP_TOL[kv]:g}); not held: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in audio.items())
+              + f"; tokens equal; {r['wall_s']:.2f} s, launches {r['launches']}", flush=True)
+        if not max(cmp.values()) <= TP_TOL[kv]:
+            fail(f"tp 2 at {length} slots differs from tp 1 beyond {TP_TOL[kv]:g}: {cmp}")
+    ref = tp1["refs"]["text"]
+    if not np.array_equal(text["sequences"], ref["sequences"]):
+        fail("tp 2 text windows: tokens differ from tp 1's")
+    cmp, step = tp_compare(text, ref), tp_compare(text["step"], ref["step"])
+    readings["text"] = {**cmp, **{"step " + k: v for k, v in step.items()}}
+    print(f"  tp 2 (gloo, eager) against tp 1 (graphed), {TP_TEXT_WINDOWS} windows forced to "
+          f"token {TP_TEXT_TOKEN} at 4096 slots: after the prefill "
+          + ", ".join(f"{k} {v:.3e}" for k, v in cmp.items())
+          + f" (limit {TP_TOL['bf16']:g}); after the last window "
+          + ", ".join(f"{k} {v:.3e}" for k, v in step.items())
+          + f" of the peak (limit {TP_STEP_TOL:g}; the layers' rows the windows wrote); "
+          f"{text['wall_s']:.2f} s", flush=True)
+    if not tp_limits(cmp, step) <= 1.0:
+        fail(f"tp 2 text windows differ from tp 1 beyond the limits: {readings['text']}")
+    fault_readings = {}
+    for name, r in res["faults"].items():
+        cmp, step = tp_compare(r, ref), tp_compare(r["step"], ref["step"])
+        fault_readings[name] = {**cmp, **{"step " + k: v for k, v in step.items()}}
+        print(f"  planted fault, {name}: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in fault_readings[name].items()), flush=True)
+        worst = tp_limits({}, step) if "decode step only" in name else tp_limits(cmp, step)
+        if not worst >= TP_FAULT_FACTOR:
+            fail(f"planted fault {name!r} reads {worst:.2f}x its limits, not {TP_FAULT_FACTOR}x")
+    print(f"  tp 2 engine (gloo, eager windows): {TP_ENGINE_BATCH} requests in "
+          f"{engine['wall_s']:.2f} s, tokens equal on both ranks and to tp 1's; not held: the "
+          f"first window's audio max |diff| {max(engine_errs):.3e} of the peak, the whole "
+          f"requests' {max(engine_whole):.3e}; rank 0's peak {res['peak_gib']:.2f} GiB; launches "
+          f"{engine['launches']}; the phase's two-rank part {wall:.1f} s", flush=True)
+    ckpt = res["checkpoint"]
+    print(f"  tp 2 train state through utils/checkpoint (the 7B's layer-0 attention shards and "
+          f"AdamW moments, {ckpt['rank_bytes']} bytes a rank): saved in {ckpt['save_s']:.2f} s, "
+          f"restored in {ckpt['restore_s']:.2f} s, "
+          f"{'the same bits' if ckpt['same'] else 'DIFFERENT'}", flush=True)
+    if not ckpt["same"]:
+        fail("tp 2 train state: the restored checkpoint differs from the saved one")
+    launches = dict(engine["launches"])
+    for r in list(res["runs"].values()) + [text]:
+        for k, v in r["launches"].items():
+            launches[k] += v
+    return dict(readings=readings, faults=fault_readings, engine_rel_err=engine_errs,
+                engine_whole_rel_err=engine_whole, engine_wall_s=engine["wall_s"], wall_s=wall,
+                peak_gib=res["peak_gib"], launches=launches, checkpoint=ckpt)
+
+
+def tp_trainer(seed: int) -> dict:
+    """Phase 13 (c), the trainer: the full-width 1.5B, --use_lora over the
+    dense f32 base, B2 T1024, 3 steps from the first update on (warmup 0),
+    on one rank, under --mesh_tp 2 and under --mesh_dp 2, both ranks on
+    the one card (so over gloo; this process is rank 0). Against one rank's
+    run: step 1's loss within TP_TRAIN_TOL, the losses of steps 2-3, which
+    the updates shaped, within TP_TRAIN_STEP_TOL, and the adapters after
+    step 3 within TP_TRAIN_ADAPTER_TOL of their change (the worst leaf);
+    s/step and each rank's peak memory."""
+    import torch
+
+    from vibevoice_tpu_torch.finetune import train
+    from vibevoice_tpu_torch.finetune.train_step import tree_leaves_with_path
+
+    common = ["--config", str(CONFIG_1P5B), "--seed", str(seed), "--no_save"] + TP_TRAIN_COMMON
+    runs = (("one rank", ["--per_device_batch_size", "2"]),
+            ("tp 2", ["--mesh_tp", "2", "--per_device_batch_size", "2"]),
+            ("dp 2", ["--mesh_dp", "2", "--per_device_batch_size", "1"]))
+    names = ("flash_train_attention_fwd", "flash_train_attention_bwd")
+    recs, adapters = {}, {}
+    for label, extra in runs:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(names)
+        t0 = time.perf_counter()
+        summary = train.main(common + extra)
+        wall = time.perf_counter() - t0
+        steps = summary["steps"]
+        if not all(math.isfinite(s["loss"]) for s in steps):
+            fail(f"trainer {label}: non-finite loss {[s['loss'] for s in steps]}")
+        init = dict(tree_leaves_with_path(summary["lora_init"]))
+        adapters[label] = {p: (x.float().cpu(), init[p].float().cpu())
+                           for p, x in tree_leaves_with_path(summary["lora"])}
+        sec = sum(s["seconds"] for s in steps[1:]) / len(steps[1:])
+        recs[label] = dict(losses=[s["loss"] for s in steps], seconds_per_step=sec,
+                           peak_gib_per_rank=[p / 2**30 for p in summary["peak_bytes_per_rank"]],
+                           wall_s=wall, launches=read_counts(names))
+        del summary
+        print(f"  trainer {label}: losses {[round(s['loss'], 5) for s in steps]}, "
+              f"{sec:.3f} s/step (steps 2-3), peak "
+              f"{', '.join(f'{p:.2f}' for p in recs[label]['peak_gib_per_rank'])} GiB a rank, "
+              f"wall {wall:.1f} s, launches {recs[label]['launches']}", flush=True)
+    one, ref = recs["one rank"]["losses"], adapters["one rank"]
+    changed = sum(int(not torch.equal(x, x0)) for x, x0 in ref.values())
+    if not changed > 0:
+        fail("trainer one rank: no adapter changed over three steps")
+    for label in ("tp 2", "dp 2"):
+        got = recs[label]["losses"]
+        errs = [abs(g - o) / abs(o) for g, o in zip(got, one)]
+        worst, worst_leaf = 0.0, None
+        for path, (x, _) in adapters[label].items():
+            y, y0 = ref[path]
+            moved = float((y - y0).norm())
+            if moved > 0:
+                r = float((x - y).norm()) / moved
+                if r > worst:
+                    worst, worst_leaf = r, path
+        recs[label].update(loss_rel_err=errs, adapter_rel_err=worst,
+                           adapter_worst_leaf=str(worst_leaf))
+        print(f"  trainer {label} against one rank: losses {errs[0]:.2e} (step 1, tol "
+              f"{TP_TRAIN_TOL:g}), {max(errs[1:]):.2e} (steps 2-3, tol {TP_TRAIN_STEP_TOL:g}) "
+              f"relative; the adapters after step 3 {worst:.2e} of their change (worst leaf "
+              f"{worst_leaf}, tol {TP_TRAIN_ADAPTER_TOL:g}; {changed} of {len(ref)} leaves moved)",
+              flush=True)
+        if not errs[0] <= TP_TRAIN_TOL:
+            fail(f"trainer {label}: step 1's loss is {errs[0]:.2e} off one rank's")
+        if not max(errs[1:]) <= TP_TRAIN_STEP_TOL:
+            fail(f"trainer {label}: the losses of steps 2-3 are {max(errs[1:]):.2e} off one rank's")
+        if not worst <= TP_TRAIN_ADAPTER_TOL:
+            fail(f"trainer {label}: the adapters after step 3 differ from one rank's by "
+                 f"{worst:.2e} of their change ({worst_leaf})")
+    if not recs["tp 2"]["launches"]["flash_train_attention_fwd"] > 0:
+        fail("trainer tp 2: the training attention never launched")
+    return dict(runs=recs)
+
+
+def multi_card_note() -> str:
+    """Phase 13 (d): what the machine's cards let run here."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n >= 2:
+        return (f"{n} cards: FSDP and GPipe over NCCL and the graphed TP engine at tp 2 (and 4 with "
+                f"four cards) run in tests/test_torch_cuda.py -m cuda -k multi_card")
+    return ("one card: FSDP and GPipe over NCCL and the graphed NCCL TP engine at tp 2 and 4 need "
+            "two or more cards and did not run here (tests/test_torch_cuda.py -m cuda -k "
+            "multi_card, on four cards)")
+
+
+def tensor_parallel(checks: Checks, seed: int, frames: int) -> dict:
+    """Phase 13: (a) check_tp_kernels ("<kernel>@tp" entries), (b)
+    tp1_end_to_end, (c) tp2_end_to_end and tp_trainer, (d) the note on
+    multi-card cases. The "@tp" entries count the launches of (c)'s tp 2
+    runs (B) and its tp 2 trainer (the training attention); C's, D's and
+    B's launches at the 7B's full heads in (b) go to their "@7b" entries."""
+    import torch
+
+    t0 = time.perf_counter()
+    walls = {}
+    checks.tag = "@tp"
+    try:
+        check_tp_kernels(checks, seed)
+    finally:
+        checks.tag = ""
+    walls["kernels"] = time.perf_counter() - t0
+    t = time.perf_counter()
+    tp1 = tp1_end_to_end(seed, frames)
+    for name, n in tp1["meshed"]["launches"].items():
+        checks.kernels[name + "@7b"]["launches"] += n
+    walls["tp1"] = time.perf_counter() - t
+    t = time.perf_counter()
+    tp2 = tp2_end_to_end(seed, frames, tp1)
+    for name in ("flash_cached_attention", "flash_cached_attention_prefill"):
+        checks.kernels[name + "@tp"]["launches"] += tp2["launches"][name]
+    walls["tp2"] = time.perf_counter() - t
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    trainer = tp_trainer(seed)
+    for name, n in trainer["runs"]["tp 2"]["launches"].items():
+        checks.kernels[name + "@tp"]["launches"] += n
+    walls["trainer"] = time.perf_counter() - t
+    note = multi_card_note()
+    walls["phase"] = time.perf_counter() - t0
+    print(f"  multi-card cases: {note}", flush=True)
+    print("  phase 13 walls: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()), flush=True)
+    tp1 = {k: v for k, v in tp1.items() if k != "refs"}
+    for r in (tp1["engine"], tp1["meshed"]):
+        r.pop("audio", None)
+        r.pop("token_log", None)
+    return dict(tp1=tp1, tp2=tp2, trainer=trainer, multi_card=note, walls=walls)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3869,8 +4682,14 @@ def main() -> None:
         "flash_ring_block": ("vibevoice_tpu_torch/csrc/flash_ring.cu",
                              "vibevoice_tpu/ops/flash_attention.py:311"),
     }
-    for tag in ("", "@7b"):  # the 1.5B's and 0.5B's shapes (phases 3-11), the 7B's (phase 12)
+    tp_entries = ("flash_cached_attention", "flash_cached_attention_prefill",
+                  "flash_train_attention_fwd", "flash_train_attention_bwd")
+    # the 1.5B's and 0.5B's shapes (phases 3-11), the 7B's (phase 12), the
+    # local heads of tensor-parallel ranks (phase 13)
+    for tag in ("", "@7b", "@tp"):
         for name, (src, rep) in sources.items():
+            if tag == "@tp" and name not in tp_entries:
+                continue
             checks.kernels[name + tag] = dict(name=name + tag, route="cuda", source=src,
                                               replaces=rep, launches=0, max_abs_err=0.0, ms=None,
                                               plain_ms=None, bound_ms=None, bound_by=None,
@@ -3971,6 +4790,14 @@ def main() -> None:
     print("the 7B (qwen2.5_7b_32k.json): kernels at its shapes, serving, long-form prefill, the "
           "serving engine, QLoRA, a checkpoint", flush=True)
     runs["7b"] = the_7b(checks, args.seed, args.frames)
+    inf._captures.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 13: tensor parallelism on one card
+    print("tensor parallelism (the 7B at tp 1 over NCCL and tp 2 over gloo on the one card, the "
+          "trainer at tp 2 and dp 2)", flush=True)
+    runs["tp"] = tensor_parallel(checks, args.seed, args.frames)
 
     unmeasured = [k["name"] for k in checks.kernels.values() if k["ms"] is None or k["launches"] == 0]
     if unmeasured:

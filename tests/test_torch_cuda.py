@@ -1413,3 +1413,162 @@ def test_safetensors_reader_maps_to_the_card(dev, tmp_path):
     for k, v in tensors.items():
         assert on_card[k].device.type == "cuda" and on_card[k].dtype == v.dtype, k
         assert torch.equal(on_card[k].cpu(), v), k
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: the kernels at ranks' local heads; across cards (NCCL)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("heads", [(14, 2), (7, 1)])
+@pytest.mark.parametrize("w,int8", [(1, False), (1, True), (300, False)])
+def test_cached_attention_at_tp_local_heads(dev, heads, w, int8):
+    """Kernel B at the 7B's local heads under tensor parallelism (28/4 over
+    tp 2: 14/2; over tp 4: 7/1; head_dim 128): a decode row over bf16 and
+    int8 caches and a prefill chunk of 300 rows, two samples at other
+    bases, against the plain version (1e-2 of the peak)."""
+    nh, kh = heads
+    g = torch.Generator(device=dev).manual_seed(3)
+    s, d = 2048, 128
+    q = torch.randn(2, w, nh, d, generator=g, device=dev).to(torch.bfloat16)
+    base = torch.tensor([s - w, 517], dtype=torch.int32, device=dev)
+    if int8:
+        kc, vc = (torch.randint(-127, 128, (2, kh, s, d), generator=g, device=dev).to(torch.int8)
+                  for _ in range(2))
+        kw = {n: torch.rand(2, kh, 1, s, generator=g, device=dev) / 127
+              for n in ("k_scale", "v_scale")}
+    else:
+        kc, vc = (torch.randn(2, kh, s, d, generator=g, device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        kw = {}
+    out = fa.flash_cached_attention(q, kc, vc, base, **kw)
+    ref = fa.flash_cached_attention_plain(q, kc, vc, base, **kw)
+    assert _rel(out, ref) < 1e-2
+
+
+def test_train_attention_at_tp_local_heads(dev):
+    """The training attention at the 1.5B's local heads under tp 2 (6 query
+    heads over 1 KV head of 128), f32, right-padded, its tensor-core route:
+    O within 1e-4 and dQ/dK/dV within 1e-3 of the plain version's peak."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    b, t, nh, kh, d = 2, 384, 6, 1, 128
+    q = torch.randn(b, t, nh, d, generator=g, device=dev)
+    k, v = (torch.randn(b, t, kh, d, generator=g, device=dev) for _ in range(2))
+    valid = torch.zeros(b, t, dtype=torch.bool, device=dev)
+    valid[0], valid[1, :250] = True, True
+    do = torch.randn(b, t, nh, d, generator=g, device=dev) * valid[:, :, None, None]
+    assert fa._train_plan(q.dtype, d) == "wgmma"
+
+    def run(fn):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = fn(*leaves, valid)
+        return (out.detach(), *torch.autograd.grad(out, leaves, do))
+
+    got, want = run(fa.flash_train_attention), run(fa.train_attention_plain)
+    rows = valid[:, :, None, None]
+    assert _rel(got[0] * rows, want[0] * rows) < 1e-4
+    for i in (1, 2, 3):
+        assert _rel(got[i], want[i]) < 1e-3
+
+
+def _tp_engine_rank(rank, world, port, seed, out):
+    import sys
+    from pathlib import Path
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as cs
+    from vibevoice_tpu_torch.parallel import make_mesh
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world, device_id=torch.device("cuda", rank))
+    try:
+        res = cs.tp_engine_run(cs.tp_model(seed, device=f"cuda:{rank}"), seed,
+                               mesh=make_mesh(dp=1, tp=world))
+        logs = [None] * world
+        dist.all_gather_object(logs, res["token_log"])
+        if rank == 0:
+            torch.save({**res, "logs": logs}, out)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_multi_card_tp_engine_nccl(dev, tmp_path, tp):
+    """ServingEngine(mesh=tp) on the full-width 7B over NCCL, one card a
+    rank, graphed (the windows' CUDA graphs capture the all-reduces): every
+    rank's window tokens equal, each request's tokens those of the engine
+    without a mesh on one card, its audio within chip_smoke.TP_TOL["bf16"]
+    of that engine's peak."""
+    import sys
+    from pathlib import Path
+
+    import torch.multiprocessing as mp
+
+    if torch.cuda.device_count() < tp:
+        pytest.skip(f"needs {tp} CUDA devices")
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as cs
+
+    from vibevoice_tpu_torch.models import inference as inf
+    from vibevoice_tpu_torch.parallel.mesh import free_port
+
+    _cuda.library()
+    ref = cs.tp_engine_run(cs.tp_model(0), 0)
+    inf._captures.clear()  # the captures hold the model's tensors
+    torch.cuda.empty_cache()
+    import time
+
+    out = tmp_path / "rank0.pt"
+    ctx = mp.start_processes(_tp_engine_rank, args=(tp, free_port(), 0, str(out)), nprocs=tp,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + 600
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            pytest.fail(f"the tp {tp} world did not finish in 600 s")
+    got = torch.load(out, weights_only=False)
+    assert got["replays"] > 0
+    assert all(len(log) == len(got["logs"][0]) > 0 for log in got["logs"])
+    for log in got["logs"][1:]:
+        assert all(np.array_equal(a, b) for a, b in zip(log, got["logs"][0]))
+    for a, b, ta, tb in zip(got["audio"], ref["audio"], got["tokens"], ref["tokens"]):
+        assert ta == tb and a.shape == b.shape
+        assert np.abs(a - b).max() <= cs.TP_TOL["bf16"] * np.abs(b).max()
+
+
+@pytest.mark.parametrize("mesh", [["--mesh_dp", "2", "--fsdp"], ["--mesh_pp", "2"]])
+def test_multi_card_fsdp_and_gpipe_steps(dev, tmp_path, mesh):
+    """The trainer on the full-width 1.5B (full fine-tuning, f32, B2 T512,
+    3 steps) with FSDP over 2 cards and with 2 GPipe stages, over NCCL:
+    each step's loss within 1e-4 (relative) of the one-card run's (the
+    warmup makes the first update 0, so step 3's loss reads the second)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    repo = Path(__file__).resolve().parents[1]
+    common = ["--config", str(repo / "vibevoice_tpu_torch" / "configs" / "qwen2.5_1.5b_64k.json"),
+              "--synthetic_data", "--synthetic_items", "4", "--synthetic_seconds", "40", "50",
+              "--max_length", "512", "--pad_to_multiple", "512", "--max_steps", "3",
+              "--log_steps", "1", "--no_save", "--warmup_steps", "1", "--train_connectors"]
+
+    def losses(extra, batch):
+        res = subprocess.run(
+            [sys.executable, "-m", "vibevoice_tpu_torch.finetune.train", *common,
+             "--per_device_batch_size", str(batch), *extra], cwd=repo, capture_output=True,
+            text=True, timeout=600, env={**os.environ, "PYTHONHASHSEED": "0"})
+        assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-2000:]
+        return [float(line.split("loss=")[1].split()[0]) for line in res.stdout.splitlines()
+                if line.startswith("step ")]
+
+    one = losses([], 2)
+    got = losses(mesh, 1 if "--mesh_dp" in mesh else 2)
+    assert len(one) == len(got) == 3 and one[2] != one[1]
+    assert all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(got, one)), (got, one)

@@ -278,10 +278,12 @@ def test_trainer_cli_qlora_smoke(tmp_path):
     assert "Resumed from step 2" in res.stdout and "step 3/3" in res.stdout
     from vibevoice_tpu_torch.finetune.train import parse_args
 
-    for flag in (["--mesh_dp", "2"], ["--fsdp"], ["--checkpoint_format", "orbax"],
-                 ["--report_to", "wandb"], ["--remat_policy", "dots"]):
+    for flag in (["--report_to", "wandb"], ["--remat_policy", "dots"]):
         with pytest.raises(SystemExit, match="slice"):
             parse_args(flag)
+    # the mesh flags and sharded checkpoints are ported (tests/test_torch_multihost.py)
+    args = parse_args(["--mesh_dp", "2", "--fsdp", "--checkpoint_format", "orbax"])
+    assert (args.mesh_dp, args.fsdp, args.checkpoint_format) == (2, True, "orbax")
     assert parse_args(["--model_path", "x"]).model_path == "x"  # tests/test_torch_cli.py loads one
 
 

@@ -77,6 +77,16 @@ def test_scan_covers_the_checkpoint_modules():
             "scripts/convert_checkpoint.py"} <= scanned
 
 
+def test_scan_covers_the_parallel_modules():
+    """The parallel slice's modules are scanned; so is the worker module of
+    the gloo tests (tests/torch_workers.py), whose spawned ranks must not
+    import JAX either."""
+    scanned = {str(p.relative_to(PORT)) for p in SOURCES if PORT in p.parents}
+    assert {"parallel/mesh.py", "parallel/pipeline.py", "parallel/collectives.py",
+            "utils/checkpoint.py"} <= scanned
+    assert _forbidden_imports(ROOT / "tests" / "torch_workers.py") == []
+
+
 def test_scan_catches_local_and_module_imports(tmp_path):
     """The scan itself: imports at module level, inside functions, relative
     to nothing, through importlib, and a read of the JAX package's config."""

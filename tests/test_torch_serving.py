@@ -30,6 +30,7 @@ from vibevoice_tpu.serving.engine import _join_slot as jax_join_slot
 from vibevoice_tpu_torch.configs import tiny_config
 from vibevoice_tpu_torch.models import inference as inf
 from vibevoice_tpu_torch.models import qwen2 as tq
+from vibevoice_tpu_torch.models import vibevoice as tvv
 from vibevoice_tpu_torch.serving import Request, ServingEngine
 from vibevoice_tpu_torch.serving.engine import join_slot
 from vibevoice_tpu_torch.utils.params import init
@@ -557,12 +558,14 @@ def test_priority_lane_express_slot(greedy):
 
 
 @pytest.mark.parametrize("kw, err", [({"reserved_slots": 2}, ValueError),
-                                     ({"mesh": object()}, NotImplementedError)])
+                                     ({"mesh": object()}, ValueError)])
 def test_engine_refuses(greedy, kw, err):
-    """reserved_slots must leave a bulk slot; tensor-parallel serving waits
-    for the port of parallel/ and says so."""
-    with pytest.raises(err, match="reserved_slots|parallel/"):
-        _engine(greedy, **kw)
+    """reserved_slots must leave a bulk slot; tensor-parallel serving shards
+    a dense LM and refuses an int8 one, as the JAX engine does (the mesh
+    itself is never reached)."""
+    params = tvv.quantize_for_inference(greedy) if "mesh" in kw else greedy
+    with pytest.raises(err, match="reserved_slots|TP serving shards dense"):
+        _engine(params, **kw)
 
 
 def test_request_seed_drives_prefill_noise(greedy):

@@ -6,6 +6,10 @@ with scaling alpha / r. Over a dense base the merged weight
 factors; over an int8 base (QLoRA) the pair attaches as a run-time "lora"
 branch of the linear (ops/quant.mm). The saved format is the JAX package's
 (a pickle of numpy arrays), so either package loads the other's adapters.
+Over a tensor-parallel LM (``tp_group``) each rank merges its shard of the
+adapters (``parallel.mesh.lora_param_shardings``) into its weight shard;
+the factor it holds whole passes through Megatron's f, so that its
+gradient is summed over the group.
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..parallel.collectives import copy_to_group
 
 
 @dataclass(frozen=True)
@@ -88,17 +94,22 @@ def _merge(w: torch.Tensor, pair: Dict, scaling: float) -> torch.Tensor:
     return (w.float() + delta).to(w.dtype)
 
 
-def _apply_entry(p: Dict, pair: Dict, scaling: float) -> Dict:
+def _apply_entry(p: Dict, pair: Dict, scaling: float, whole: Optional[str] = None,
+                 tp_group=None) -> Dict:
     """Dense base: the merged weight. int8 base (QLoRA): the pair as a
-    run-time branch beside the int8 matmul."""
+    run-time branch beside the int8 matmul. ``whole``: the factor a
+    tensor-parallel rank holds unsplit."""
+    if whole is not None and tp_group is not None:
+        pair = {**pair, whole: copy_to_group(pair[whole], tp_group)}
     if "w8" in p:
         return {**p, "lora": (pair["a"], pair["b"], scaling)}
     return {**p, "w": _merge(p["w"], pair, scaling)}
 
 
-def apply_lora(params: Dict, lora: Dict, cfg: LoraConfig) -> Dict:
+def apply_lora(params: Dict, lora: Dict, cfg: LoraConfig, tp_group=None) -> Dict:
     """Params with the adapters applied (merged over dense weights, attached
-    over int8 ones); the base tree is not modified."""
+    over int8 ones); the base tree is not modified. ``tp_group``: both trees
+    are this rank's tensor-parallel shards (module docstring)."""
     out = dict(params)
     out["lm"] = dict(params["lm"])
     layers = []
@@ -107,7 +118,9 @@ def apply_lora(params: Dict, lora: Dict, cfg: LoraConfig) -> Dict:
         for group, names in (("attn", ("q", "k", "v", "o")), ("mlp", ("gate", "up", "down"))):
             for name in names:
                 if name in entry:
-                    nl[group][name] = _apply_entry(layer[group][name], entry[name], cfg.scaling)
+                    whole = "b" if name in ("o", "down") else "a"
+                    nl[group][name] = _apply_entry(layer[group][name], entry[name], cfg.scaling,
+                                                   whole, tp_group)
         layers.append(nl)
     out["lm"]["layers"] = layers
 

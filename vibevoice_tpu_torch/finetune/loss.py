@@ -21,6 +21,17 @@ package, from an explicit ``Draws``.
 Unlike the JAX package the clips are encoded one at a time, which bounds the
 encoder's transient memory by one clip (an 18-minute clip at full width
 needs ~30 GB of intermediates on its own).
+
+Data parallelism (``dp_group``): each rank holds its samples of one global
+batch (``split_batch``). The speech statistics are summed over the group,
+and the losses are normalised by global counts, as the JAX package's step
+over a sharded global batch computes them: each rank's loss carries the
+value of the global loss and the gradient of its own share, so the
+gradients summed over the group are the global gradient. With a generator,
+every rank draws the global batch's random numbers and keeps its rows, so
+the step equals the one-device step on the global batch. ``lm_forward``
+swaps the LM stack (``parallel.pipeline.make_pp_lm_forward``); ``tp_group``
+runs the LM on this rank's tensor-parallel shards.
 """
 
 from __future__ import annotations
@@ -30,6 +41,7 @@ from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
@@ -120,12 +132,74 @@ def draw(generator: Optional[torch.Generator], *, n: int, frames: int, vae_dim: 
     return Draws(std, eps, noise, ts)
 
 
-def _masked_std_mean(x: torch.Tensor, mask: torch.Tensor):
-    """Std (unbiased, as torch.std) and mean of the masked latent elements."""
+def split_batch(batch: Batch, n: int, i: int) -> Batch:
+    """Rank i's part of a collated global batch over n data ranks: samples
+    [i B/n, (i + 1) B/n) with their speech clips, each clip wholly in the
+    sample whose latent positions take its frames (clips in sample order).
+    Sequence and frame padding stay the global batch's."""
+    arr = lambda x: np.asarray(x)
+    b = arr(batch.input_ids).shape[0]
+    if b % n:
+        raise ValueError(f"a global batch of {b} samples does not split over {n} data ranks")
+    m = b // n
+    per_sample = arr(batch.acoustic_input_mask).sum(axis=1)
+    per_clip = arr(batch.speech_masks).sum(axis=1)
+    bounds = np.concatenate([[0], np.cumsum(per_sample)])
+    clip_end = np.cumsum(per_clip)
+    c0 = int(np.searchsorted(clip_end, bounds[i * m], side="right"))
+    c1 = int(np.searchsorted(clip_end, bounds[(i + 1) * m], side="left")) + 1
+    c1 = min(c1, len(per_clip)) if bounds[(i + 1) * m] > bounds[i * m] else c0
+    rows, clips = slice(i * m, (i + 1) * m), slice(c0, c1)
+    return Batch(input_ids=arr(batch.input_ids)[rows],
+                 attention_mask=arr(batch.attention_mask)[rows],
+                 speech_tensors=arr(batch.speech_tensors)[clips],
+                 speech_masks=arr(batch.speech_masks)[clips],
+                 speech_semantic_tensors=arr(batch.speech_semantic_tensors)[clips],
+                 speeches_loss_input=arr(batch.speeches_loss_input)[clips],
+                 acoustic_input_mask=arr(batch.acoustic_input_mask)[rows],
+                 acoustic_loss_mask=arr(batch.acoustic_loss_mask)[rows])
+
+
+def _dp_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """x summed over the data group (a copy; no gradient flows through)."""
+    if group is None:
+        return x
+    y = x.detach().clone()
+    dist.all_reduce(y, group=group)
+    return y
+
+
+def _global(local: torch.Tensor, group) -> torch.Tensor:
+    """The global value (summed over the group) with the gradient of this
+    rank's share."""
+    if group is None:
+        return local
+    return local + (_dp_sum(local, group) - local.detach())
+
+
+def _dp_draws(generator, group, *, b: int, n: int, t: int, mul: int, **kw) -> Draws:
+    """This rank's rows of the global batch's draws: every rank of the data
+    group draws them all from its (identically seeded) generator."""
+    sizes = torch.tensor([b, n], dtype=torch.int64, device=kw["device"])
+    parts = [torch.empty_like(sizes) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, sizes, group=group)
+    sizes = torch.stack(parts).cpu()
+    me = dist.get_rank(group)
+    b0, n0 = (int(x) for x in sizes[:me].sum(0))
+    bg, ng = (int(x) for x in sizes.sum(0))
+    full = draw(generator, n=ng, rows=bg * t * mul, **kw)
+    rows = slice(b0 * t * mul, (b0 + b) * t * mul)
+    return Draws(None if full.vae_std is None else full.vae_std[n0:n0 + n],
+                 full.vae_eps[n0:n0 + n], full.noise[rows], full.timesteps[rows])
+
+
+def _masked_std_mean(x: torch.Tensor, mask: torch.Tensor, dp_group=None):
+    """Std (unbiased, as torch.std) and mean of the masked latent elements,
+    over the data group's samples too."""
     m = mask[..., None].float()
-    n = m.sum() * x.shape[-1]
-    s = (x * m).sum()
-    ss = (x.square() * m).sum()
+    n = _dp_sum(m.sum() * x.shape[-1], dp_group)
+    s = _dp_sum((x * m).sum(), dp_group)
+    ss = _dp_sum((x.square() * m).sum(), dp_group)
     mean = s / n.clamp_min(1.0)
     var = (ss - n * mean.square()) / (n - 1.0).clamp_min(1.0)
     return var.sqrt(), mean
@@ -152,9 +226,10 @@ def _ce_stats(params, hc, lc, mc):
 
 
 def _ce_chunked(params, hidden, labels, label_mask, chunk: int):
-    """CE statistics over sequence chunks, each under torch.utils.checkpoint:
-    the forward keeps per-chunk scalars only and the backward recomputes
-    each chunk's logits. Exact (same loss and gradients as the dense path)."""
+    """CE statistics (the sum, the count, the max and the hits) over
+    sequence chunks, each under torch.utils.checkpoint: the forward keeps
+    per-chunk scalars only and the backward recomputes each chunk's logits.
+    Exact (same loss and gradients as the dense path)."""
     tm1 = hidden.shape[1]
     n_chunks = -(-tm1 // chunk)
     pad = n_chunks * chunk - tm1
@@ -165,8 +240,7 @@ def _ce_chunked(params, hidden, labels, label_mask, chunk: int):
         cs, cn, cmx, chit = checkpoint(_ce_stats, params, hs[:, sl], ls[:, sl], ms[:, sl],
                                        use_reentrant=False)
         s, n, mx, hit = s + cs, n + cn, torch.maximum(mx, cmx), hit + chit
-    denom = n.clamp_min(1.0)
-    return s / denom, mx, hit / denom, n.to(torch.int32)
+    return s, n, mx, hit
 
 
 def train_forward(
@@ -177,9 +251,15 @@ def train_forward(
     opts: TrainOptions = TrainOptions(),
     noise_schedule: Optional[NoiseSchedule] = None,
     draws: Optional[Draws] = None,
+    lm_forward=None,
+    dp_group=None,
+    tp_group=None,
 ) -> TrainOut:
-    """Loss of one batch. Randomness from ``draws`` when given, else from
-    ``generator`` (a generator on the parameters' device)."""
+    """Loss of one batch. Randomness from ``draws`` when given (this rank's
+    rows under ``dp_group``), else from ``generator`` (a generator on the
+    parameters' device). ``lm_forward(cfg, lm_params, embeds, valid_mask,
+    remat, remat_policy) -> hidden`` replaces the LM forward; ``dp_group``
+    and ``tp_group`` as in the module docstring."""
     hcfg = cfg.diffusion_head_config
     acfg = cfg.acoustic_tokenizer_config
     if noise_schedule is None:
@@ -197,16 +277,19 @@ def train_forward(
         mean = torch.cat([tok.encode(acfg, params["acoustic_tokenizer"], wav[i:i + 1])[0]
                           for i in range(n)]).float()
         if draws is None:
-            draws = draw(generator, n=n, frames=mean.shape[1], vae_dim=mean.shape[2],
-                         rows=b * t * mul, latent=d, num_steps=hcfg.ddpm_num_steps,
-                         dist_type=acfg.std_dist_type, device=dev)
+            kw = dict(frames=mean.shape[1], vae_dim=mean.shape[2], latent=d,
+                      num_steps=hcfg.ddpm_num_steps, dist_type=acfg.std_dist_type, device=dev)
+            if dp_group is None:
+                draws = draw(generator, n=n, rows=b * t * mul, **kw)
+            else:
+                draws = _dp_draws(generator, dp_group, b=b, n=n, t=t, mul=mul, **kw)
         vae_std = draws.vae_std.to(dev) if draws.vae_std is not None else None
         latents = tok.sample_latents_from_noise(mean, acfg.fix_std, acfg.std_dist_type, vae_std,
                                                 draws.vae_eps.to(dev))
 
     scaling = torch.as_tensor(params["speech_scaling_factor"], dtype=torch.float32, device=dev)
     bias = torch.as_tensor(params["speech_bias_factor"], dtype=torch.float32, device=dev)
-    std, lat_mean = _masked_std_mean(latents, batch.speech_masks)
+    std, lat_mean = _masked_std_mean(latents, batch.speech_masks, dp_group)
     need_init = torch.isnan(scaling) | torch.isnan(bias)
     scaling = torch.where(need_init, 1.0 / std, scaling)
     bias = torch.where(need_init, -lat_mean, bias)
@@ -222,9 +305,13 @@ def train_forward(
 
     # ---- LM forward --------------------------------------------------------
     with record_function("vv.lm_forward"):
-        hidden, _ = qwen2.forward(cfg.decoder_config, params["lm"], embeds,
-                                  valid_mask=batch.attention_mask, remat=opts.remat,
-                                  remat_policy=opts.remat_policy)
+        if lm_forward is not None:
+            hidden = lm_forward(cfg.decoder_config, params["lm"], embeds, batch.attention_mask,
+                                opts.remat, opts.remat_policy)
+        else:
+            hidden, _ = qwen2.forward(cfg.decoder_config, params["lm"], embeds,
+                                      valid_mask=batch.attention_mask, remat=opts.remat,
+                                      remat_policy=opts.remat_policy, tp_group=tp_group)
 
     # ---- CE over text positions (pads and acoustic positions masked) -----
     labels = batch.input_ids[:, 1:]
@@ -232,12 +319,17 @@ def train_forward(
                   & ~batch.acoustic_input_mask[:, 1:])
     with record_function("vv.ce"):
         if opts.ce_chunk_size > 0:
-            ce, ce_max, ce_acc, n_ce = _ce_chunked(params, hidden[:, :-1], labels, label_mask,
-                                                   opts.ce_chunk_size)
+            s, cnt, ce_max, hit = _ce_chunked(params, hidden[:, :-1], labels, label_mask,
+                                              opts.ce_chunk_size)
         else:
             s, cnt, ce_max, hit = _ce_stats(params, hidden[:, :-1], labels, label_mask)
-            ce, ce_acc = s / cnt.clamp_min(1.0), hit / cnt.clamp_min(1.0)
-            n_ce = cnt.to(torch.int32)
+        cnt, hit = _dp_sum(cnt, dp_group), _dp_sum(hit, dp_group)
+        if dp_group is not None:
+            ce_max = ce_max.detach().clone()
+            dist.all_reduce(ce_max, op=dist.ReduceOp.MAX, group=dp_group)
+        ce = _global(s / cnt.clamp_min(1.0), dp_group)
+        ce_acc = hit / cnt.clamp_min(1.0)
+        n_ce = cnt.to(torch.int32)
 
     # ---- diffusion loss ----------------------------------------------------
     target_valid = batch.speech_masks & batch.speeches_loss_input[:, None]
@@ -283,8 +375,9 @@ def train_forward(
 
     per_elem = (pred - target).square()
     elem_mask = head_mask.reshape(-1).repeat_interleave(mul)[:, None].float()
-    speech_len = loss_mask.sum()
-    diffusion_loss = (per_elem * elem_mask).sum() / d / mul / speech_len.clamp_min(1)
+    speech_len = _dp_sum(loss_mask.sum(), dp_group)
+    diffusion_loss = _global((per_elem * elem_mask).sum() / d / mul / speech_len.clamp_min(1),
+                             dp_group)
 
     total = opts.ce_loss_weight * ce + opts.diffusion_loss_weight * diffusion_loss
     return TrainOut(

@@ -1,5 +1,5 @@
 """Fine-tuning CLI of the port: ``python -m vibevoice_tpu_torch.finetune.train``
-(port of vibevoice_tpu/finetune/train.py, single device).
+(port of vibevoice_tpu/finetune/train.py).
 
 LoRA (``--use_lora``), QLoRA (``--use_lora --int8_base``: the LM base is
 stored int8 and every LM linear runs kernel A forward and kernel E backward)
@@ -16,8 +16,25 @@ with neither, a tiny random-weight model (smoke mode). Data:
 clips). Batches are collated on the host
 between steps. It runs on the card (``--device cuda``, the default) and exits
 naming ``--device cpu`` where there is none; it never picks the CPU itself.
-The multi-device flags, orbax checkpoints and wandb belong to later
-slices of the port and exit with a message.
+
+Meshes, as in the JAX package: ``--mesh_dcn/--mesh_dp/--mesh_tp`` (data
+parallel across hosts, data and tensor parallel within one; ``--fsdp``
+shards parameters and AdamW moments over the data axis) or ``--mesh_pp``
+(GPipe stages, with ``--mesh_dp`` only), with the JAX package's refusals.
+One process per rank: under torchrun (``--multihost`` on several hosts:
+``torchrun --nnodes N --nproc_per_node P --rdzv_endpoint HOST:PORT -m
+vibevoice_tpu_torch.finetune.train --multihost ...``) each process takes
+its rank from torchrun's environment; otherwise this command starts the
+other ranks of the mesh on this host itself. Rank r uses
+``cuda:(LOCAL_RANK mod the cards)``. The ranks talk over NCCL when each
+has a card of its own, and over gloo on the CPU or when a host's ranks
+outnumber its cards (several ranks share a card; gloo takes no FSDP or
+GPipe there). Every rank collates the global batch of
+``per_device_batch_size`` times the data shards and keeps its samples;
+rank 0 logs and writes the gathered pickle checkpoint.
+``--checkpoint_format orbax`` writes sharded checkpoints in the
+``torch.distributed.checkpoint`` format instead (utils/checkpoint.py; not
+orbax's format), each rank its own shards. wandb is not ported (exits).
 """
 
 from __future__ import annotations
@@ -27,17 +44,13 @@ import json
 import math
 import os
 import pickle
+import sys
 import time
 from typing import Dict
 
 import numpy as np
 
 LATER = {
-    "mesh": "the mesh flags (--mesh_dcn/--mesh_dp/--mesh_tp/--mesh_pp) belong to the parallel "
-            "slice of the port (with kernel F)",
-    "fsdp": "--fsdp belongs to the parallel slice of the port",
-    "multihost": "--multihost belongs to the parallel slice of the port",
-    "orbax": "--checkpoint_format orbax belongs to the parallel slice of the port; use pickle",
     "wandb": "--report_to wandb waits for a later slice of the port; metrics go to stdout",
     "dots": "--remat_policy dots (keep the matmul outputs) waits for a later slice of the "
             "port; --remat recomputes whole layers",
@@ -54,7 +67,9 @@ def parse_args(argv=None):
                     "that model at full width with random weights from --seed")
     ap.add_argument("--device", type=str, default="cuda",
                     help="cuda (the default; there must be a card) or cpu (the kernels' plain "
-                         "versions, for small configs)")
+                         "versions, for small configs). A mesh's ranks talk over NCCL when each "
+                         "has a card, over gloo on the CPU or when a host's ranks outnumber its "
+                         "cards (then without --fsdp or --mesh_pp)")
     ap.add_argument("--output_dir", type=str, default="./finetune_out")
     ap.add_argument("--use_lora", action="store_true")
     ap.add_argument("--lora_r", type=int, default=16)
@@ -113,23 +128,49 @@ def parse_args(argv=None):
     ap.add_argument("--profile_dir", type=str, default=None,
                     help="run the last step under torch.profiler and write its table of "
                     "kernels by device time here")
-    # later slices of the port
-    for name in ("mesh_dcn", "mesh_dp", "mesh_tp", "mesh_pp", "pp_microbatches"):
-        ap.add_argument(f"--{name}", type=int, default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--fsdp", action="store_true", help=argparse.SUPPRESS)
-    ap.add_argument("--multihost", action="store_true", help=argparse.SUPPRESS)
-    ap.add_argument("--checkpoint_format", type=str, default="pickle", choices=["pickle", "orbax"])
+    # meshes
+    ap.add_argument("--mesh_dcn", type=int, default=1,
+                    help="data-parallel replicas across hosts (the slow axis)")
+    ap.add_argument("--mesh_dp", type=int, default=1, help="data parallelism within a host")
+    ap.add_argument("--mesh_tp", type=int, default=1, help="tensor parallelism within a host")
+    ap.add_argument("--mesh_pp", type=int, default=1,
+                    help="GPipe pipeline stages (parallel/pipeline.py); composes with "
+                         "--mesh_dp, exclusive with --mesh_tp/--mesh_dcn/--fsdp/--use_lora")
+    ap.add_argument("--pp_microbatches", type=int, default=2,
+                    help="micro-batches per step in the pipeline; per_device_batch_size must "
+                         "divide by this")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="ZeRO-3: shard parameters and AdamW moments over the data axis on top "
+                         "of the TP plan (parallel/mesh.py fsdp_param_shardings); each weight "
+                         "is all-gathered at its use, its gradient reduce-scattered")
+    ap.add_argument("--multihost", action="store_true",
+                    help="join the process group from torchrun's environment (one process "
+                         "per rank on every host)")
+    ap.add_argument("--checkpoint_format", type=str, default="pickle", choices=["pickle", "orbax"],
+                    help="orbax = sharded checkpoints, each rank writing its own shards, in "
+                         "torch.distributed.checkpoint's format (utils/checkpoint.py; orbax "
+                         "itself cannot read them)")
     ap.add_argument("--report_to", type=str, default=None, choices=[None, "wandb"])
     ap.add_argument("--run_name", type=str, default="vibevoice-torch-finetune")
     args = ap.parse_args(argv)
-    if any((getattr(args, n) or 1) > 1 for n in ("mesh_dcn", "mesh_dp", "mesh_tp", "mesh_pp")):
-        raise SystemExit(LATER["mesh"])
-    for flag, key in ((args.fsdp, "fsdp"), (args.multihost, "multihost"),
-                      (args.checkpoint_format == "orbax", "orbax"),
-                      (args.report_to == "wandb", "wandb"),
-                      (args.remat_policy == "dots", "dots")):
+    for flag, key in ((args.report_to == "wandb", "wandb"), (args.remat_policy == "dots", "dots")):
         if flag:
             raise SystemExit(LATER[key])
+    world = args.mesh_dcn * args.mesh_dp * args.mesh_tp * args.mesh_pp
+    if args.int8_base and world > 1:
+        # the TP/FSDP plans map dense 'w' leaves; int8 QLoRA is the one-device path
+        raise SystemExit("--int8_base is a single-chip path (no mesh flags)")
+    if args.fsdp and args.mesh_dcn * args.mesh_dp == 1:
+        raise SystemExit("--fsdp shards parameters/optimizer state over the data axis; it needs "
+                         "--mesh_dp (or --mesh_dcn) > 1 to do anything")
+    if args.mesh_pp > 1:
+        if args.mesh_tp > 1 or args.mesh_dcn > 1 or args.fsdp or args.use_lora:
+            raise SystemExit("--mesh_pp composes only with --mesh_dp (full fine-tune)")
+        if args.lm_layers_to_freeze:
+            raise SystemExit("--lm_layers_to_freeze is not supported with --mesh_pp")
+        if args.per_device_batch_size % args.pp_microbatches:
+            raise SystemExit(f"--per_device_batch_size {args.per_device_batch_size} must divide "
+                             f"by --pp_microbatches {args.pp_microbatches}")
     return args
 
 
@@ -210,11 +251,60 @@ def _write_profile(prof, out_dir: str, wall_s: float) -> None:
     print(head + table, flush=True)
 
 
+def _rank_main(argv, env) -> None:
+    os.environ.update(env)
+    main(argv)
+
+
+def _start_ranks(argv, world: int) -> list:
+    """Ranks 1..world-1 of a one-host mesh as processes running this CLI;
+    this process becomes rank 0 (torchrun's environment variables)."""
+    import multiprocessing as mp
+
+    from ..parallel.mesh import free_port
+
+    port = str(free_port())
+    base = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": port, "WORLD_SIZE": str(world),
+            "LOCAL_WORLD_SIZE": str(world)}
+    os.environ.update(base, RANK="0", LOCAL_RANK="0")  # main() removes them again
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_rank_main, daemon=True,
+                         args=(argv, {**base, "RANK": str(r), "LOCAL_RANK": str(r)}))
+             for r in range(1, world)]
+    for proc in procs:
+        proc.start()
+    return procs
+
+
 def main(argv=None) -> Dict:
     """Train; returns a summary (per-step losses and seconds, tokens, peak
     device memory)."""
     args = parse_args(argv)
+    world = args.mesh_dcn * args.mesh_dp * args.mesh_tp * args.mesh_pp
+    procs = []
+    if args.multihost and "RANK" not in os.environ:
+        raise SystemExit("--multihost takes its rank from torchrun's environment (RANK, "
+                         "WORLD_SIZE, MASTER_ADDR, MASTER_PORT): start it under torchrun")
+    if world > 1 and "RANK" not in os.environ:
+        procs = _start_ranks(list(sys.argv[1:] if argv is None else argv), world)
+    try:
+        summary = _train(args, world)
+    finally:
+        for proc in procs:
+            proc.join()
+        if procs:  # this process was rank 0 of the ranks it started
+            for name in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "LOCAL_WORLD_SIZE", "RANK",
+                         "LOCAL_RANK"):
+                os.environ.pop(name, None)
+    bad = [p.exitcode for p in procs if p.exitcode != 0]
+    if bad:
+        raise SystemExit(f"ranks of the mesh exited with {bad}")
+    return summary
+
+
+def _train(args, world: int) -> Dict:
     import torch
+    import torch.distributed as dist
 
     from ..ops.quant import quantize_lm
     from .data import VibeVoiceCollator, VibeVoiceDataset, make_semantic_encode_fn
@@ -238,6 +328,55 @@ def main(argv=None) -> Dict:
     if cuda and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device is available; pass --device cpu "
                          "to train on the CPU through the kernels' plain versions")
+    rank = 0
+    if world > 1 or args.multihost:
+        rank = int(os.environ["RANK"])
+        if int(os.environ["WORLD_SIZE"]) != world:
+            raise SystemExit(f"the mesh flags need {world} ranks; the launcher started "
+                             f"{os.environ['WORLD_SIZE']}")
+        if cuda:
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", rank))
+                                  % torch.cuda.device_count())
+            torch.cuda.set_device(device)
+        # NCCL cannot place two ranks on one card
+        shared = int(os.environ.get("LOCAL_WORLD_SIZE", world)) > torch.cuda.device_count()
+        backend = "nccl" if cuda and not shared else "gloo"
+        if cuda and shared and (args.fsdp or args.mesh_pp > 1):
+            raise SystemExit("--fsdp and --mesh_pp need a card a rank (NCCL): gloo, which ranks "
+                             "sharing a card use, takes no reduce-scatter or send of CUDA tensors")
+        dist.init_process_group(backend, init_method="env://", rank=rank, world_size=world,
+                                **({"device_id": device} if backend == "nccl" else {}))
+        if rank != 0:  # rank 0 logs
+            sys.stdout = open(os.devnull, "w")
+    try:
+        return _run(args, world, rank, device, cuda)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(args, world: int, rank: int, device, cuda: bool) -> Dict:
+    import torch
+    import torch.distributed as dist
+
+    from ..ops.quant import quantize_lm
+    from .data import VibeVoiceCollator, VibeVoiceDataset, make_semantic_encode_fn
+    from .ema import init_ema, swap_in_ema, update_ema
+    from .loss import TrainOptions, split_batch
+    from .lora import (LoraConfig, copy_tree, init_lora, merge_lora, save_lora_assets, to_numpy,
+                       to_torch)
+    from .train_step import (
+        OptState,
+        Parallel,
+        TrainState,
+        build_trainable_filter,
+        init_train_state,
+        make_eval_step,
+        make_lora_train_step,
+        make_optimizer,
+        make_train_step,
+        tree_leaves_with_path,
+    )
 
     def sync():
         if cuda:
@@ -314,42 +453,147 @@ def main(argv=None) -> Dict:
         trainable_filter=trainable,
     )
 
-    lora_cfg = None
-    if args.use_lora:
+    lora_cfg, lora = None, None
+    if args.use_lora:  # drawn from the whole tree, before a mesh cuts it
         lora_cfg = LoraConfig(r=args.lora_r, alpha=args.lora_alpha,
                               target_modules=tuple(args.lora_target_modules),
                               train_diffusion_head=args.train_diffusion_head,
                               train_connectors=args.train_connectors,
                               full_diffusion_head=args.lora_full_diffusion_head)
-        state = init_train_state(init_lora(args.seed + 1, params, lora_cfg), optimizer)
-        lora_step = make_lora_train_step(cfg, optimizer, lora_cfg, opts)
+        lora = init_lora(args.seed + 1, params, lora_cfg)
+    mesh, par, n_data, data_index = None, None, 1, 0
+    if world > 1:
+        from ..parallel import mesh as pmesh
+        from ..parallel import pipeline as pl
+
+        head_dim = cfg.decoder_config.head_dim
+        if args.mesh_pp > 1:
+            mesh = pl.make_pp_mesh(pp=args.mesh_pp, dp=args.mesh_dp)
+            params = dict(params)
+            params["lm"] = pl.stack_layers(params["lm"], args.mesh_pp)
+            shardings = pl.pp_model_param_shardings(params)
+            lm_forward = pl.make_pp_lm_forward(mesh, n_microbatches=args.pp_microbatches)
+            note = f", {args.pp_microbatches} micro-batches"
+        else:
+            mesh = (pmesh.make_hybrid_mesh(dcn=args.mesh_dcn, dp=args.mesh_dp, tp=args.mesh_tp)
+                    if args.mesh_dcn > 1 else pmesh.make_mesh(dp=args.mesh_dp, tp=args.mesh_tp))
+            shardings = (pmesh.fsdp_param_shardings(params, mesh, head_dim=head_dim) if args.fsdp
+                         else pmesh.model_param_shardings(params, mesh, head_dim))
+            lm_forward = None
+            note = ", fsdp" if args.fsdp else ""
+        axes = pmesh.data_axes(mesh)
+        n_data, data_index = pmesh.axis_size(mesh, axes), pmesh.axis_index(mesh, axes)
+        tp_shardings = (shardings if args.mesh_pp > 1
+                        else pmesh.model_param_shardings(params, mesh, head_dim))
+        params = pmesh.shard_params(params, shardings, mesh)
+        dims = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        print(f"mesh: {dims} ({n_data} data shards{note}; {dist.get_backend()})", flush=True)
+
+    bs = args.per_device_batch_size * n_data  # the global batch
+
+    lora_init = None
+    if args.use_lora:
+        if mesh is not None:
+            lora_shardings = pmesh.lora_param_shardings(lora)
+            lora = pmesh.shard_params(lora, lora_shardings, mesh)
+            par = Parallel(mesh, lora_shardings, base_shardings=shardings)
+        state = init_train_state(lora, optimizer)
+        lora_step = make_lora_train_step(cfg, optimizer, lora_cfg, opts, par)
         step_fn = lambda st, batch, rng: lora_step(st, params, batch, rng)
+        lora_init = copy_tree(state.params)
     else:
+        if mesh is not None:
+            par = Parallel(mesh, shardings, lm_forward=lm_forward)
         state = init_train_state(params, optimizer)
-        step_fn = make_train_step(cfg, optimizer, opts, trainable_filter=trainable)
-    eval_fn = make_eval_step(cfg, opts)
+        step_fn = make_train_step(cfg, optimizer, opts, trainable_filter=trainable, parallel=par)
+    # evaluation reads current_params: the LoRA merge is over the base with
+    # its data-axis splits gathered, so it keeps only the TP plan's
+    eval_par = None if par is None else Parallel(
+        mesh, tp_shardings if args.use_lora else par.shardings, lm_forward=par.lm_forward)
+    eval_fn = make_eval_step(cfg, opts, eval_par)
 
     def current_params(st):
-        return merge_lora(params, st.params, lora_cfg) if args.use_lora else st.params
+        if not args.use_lora:
+            return st.params
+        if par is None:
+            return merge_lora(params, st.params, lora_cfg)
+        from .train_step import gather_for_use
 
-    ema = init_ema(params["diffusion_head"])
+        with torch.no_grad():
+            base = gather_for_use(params, par.base_shardings, mesh)
+        return merge_lora(base, st.params, lora_cfg, par.groups()["tp_group"])
+
+    # the gathered trees of a checkpoint (collectives: every rank runs them);
+    # the EMA head keeps the layout of the head it tracks (a LoRA run's is whole)
+    param_specs = None if par is None else par.shardings
+    head_specs = None if par is None or args.use_lora else par.shardings["diffusion_head"]
+
+    def gathered(tree, specs):
+        return tree if specs is None else pmesh.gather_params(tree, specs, mesh)
+
+    def opt_specs(opt_state):
+        from .train_step import _spec_of
+
+        by_path = lambda d: {p: _spec_of(param_specs, p) for p in d}
+        return OptState(count=(), mu=by_path(opt_state.mu), nu=by_path(opt_state.nu),
+                        mini_step=(), acc=by_path(opt_state.acc))
+
+    def dcp_tree(st, ema_, step):
+        return ({"params": st.params, "opt_state": st.opt_state._asdict(), "step": st.step,
+                 "ema": ema_, "at": step},
+                None if mesh is None else
+                {"params": param_specs, "opt_state": opt_specs(st.opt_state)._asdict(),
+                 "step": (), "ema": head_specs, "at": ()})
+
+    ema = init_ema(state.params["diffusion_head"] if not args.use_lora
+                   else current_params(state)["diffusion_head"])
     start_step = 0
     if args.resume_from_checkpoint:
-        with open(os.path.join(args.resume_from_checkpoint, "train_state.pkl"), "rb") as f:
-            blob = pickle.load(f)
-        st = blob["state"]
-        state = TrainState(to_torch(st["params"], device),
-                           type(state.opt_state)(**to_torch(st["opt_state"], device)),
-                           int(st["step"]))
-        ema, start_step = to_torch(blob["ema"], device), int(blob["step"])
+        if args.checkpoint_format == "orbax":
+            from ..utils.checkpoint import restore_train_state
+
+            tree, specs = dcp_tree(state, ema, 0)
+            blob = restore_train_state(os.path.join(args.resume_from_checkpoint, "orbax"), tree,
+                                       mesh, specs)
+            state = TrainState(blob["params"], OptState(**blob["opt_state"]), int(blob["step"]))
+            ema, start_step = blob["ema"], int(blob["at"])
+        else:
+            with open(os.path.join(args.resume_from_checkpoint, "train_state.pkl"), "rb") as f:
+                blob = pickle.load(f)
+            st = blob["state"]
+            p_, o_, e_ = (to_torch(st["params"], device), to_torch(st["opt_state"], device),
+                          to_torch(blob["ema"], device))
+            if mesh is not None:  # the full trees, cut to this rank's layout
+                o_ = OptState(**o_)
+                specs = opt_specs(o_)
+                o_ = o_._replace(mu=pmesh.shard_params(o_.mu, specs.mu, mesh),
+                                 nu=pmesh.shard_params(o_.nu, specs.nu, mesh),
+                                 acc=pmesh.shard_params(o_.acc, specs.acc, mesh))._asdict()
+                p_ = pmesh.shard_params(p_, param_specs, mesh)
+                if head_specs is not None:
+                    e_ = pmesh.shard_params(e_, head_specs, mesh)
+            state = TrainState(p_, OptState(**o_), int(st["step"]))
+            ema, start_step = e_, int(blob["step"])
         print(f"Resumed from step {start_step}")
 
     rng = torch.Generator(device=device).manual_seed(args.seed + 2)
-    bs = args.per_device_batch_size
+
+    def local(batch):
+        return batch if n_data == 1 else split_batch(batch, n_data, data_index)
+
+    def collate(items):
+        """The collated global batch, on every rank as rank 0 made it (the
+        fallback tokenizer's ids depend on each process's str hash salt)."""
+        if mesh is None:
+            return collator(items)
+        box = [collator(items) if rank == 0 else None]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
 
     # startup CE smoke check: one collated batch must give a finite CE
-    probe = collator([dataset[i] for i in range(min(bs, len(dataset)))])
-    probe_out = eval_fn(current_params(state), probe,
+    probe = collate([dataset[i % len(dataset)] for i in range(bs if mesh is not None
+                                                              else min(bs, len(dataset)))])
+    probe_out = eval_fn(current_params(state), local(probe),
                         torch.Generator(device=device).manual_seed(0))
     ce0 = float(probe_out.ce_loss)
     if not math.isfinite(ce0):
@@ -357,29 +601,52 @@ def main(argv=None) -> Dict:
     print(f"startup smoke: ce={ce0:.4f} over {int(probe_out.ce_token_count)} tokens, "
           f"{int(probe_out.speech_frame_count)} diffusion frames")
 
-    lora_init = copy_tree(state.params) if args.use_lora else None
-
     def save(step):
         out = os.path.join(args.output_dir, f"checkpoint-{step}")
-        os.makedirs(out, exist_ok=True)
-        with open(os.path.join(out, "train_state.pkl"), "wb") as f:
-            pickle.dump({"state": {"params": to_numpy(state.params),
-                                   "opt_state": to_numpy(state.opt_state._asdict()),
-                                   "step": state.step},
-                         "ema": to_numpy(ema), "step": step}, f)
+        if rank == 0:
+            os.makedirs(out, exist_ok=True)
+        if args.checkpoint_format == "orbax":
+            from ..utils.checkpoint import save_train_state
+
+            if mesh is not None:
+                dist.barrier()
+            tree, specs = dcp_tree(state, ema, step)
+            save_train_state(os.path.join(out, "orbax"), tree, mesh, specs)
+        else:
+            opt = state.opt_state
+            if mesh is not None:
+                specs = opt_specs(opt)
+                opt = opt._replace(mu=gathered(opt.mu, specs.mu), nu=gathered(opt.nu, specs.nu),
+                                   acc=gathered(opt.acc, specs.acc))
+            st_params, ema_full = gathered(state.params, param_specs), gathered(ema, head_specs)
+            if rank == 0:
+                with open(os.path.join(out, "train_state.pkl"), "wb") as f:
+                    pickle.dump({"state": {"params": to_numpy(st_params),
+                                           "opt_state": to_numpy(opt._asdict()),
+                                           "step": state.step},
+                                 "ema": to_numpy(ema_full), "step": step}, f)
         if args.use_lora:
-            save_lora_assets(os.path.join(out, "lora"), state.params, lora_cfg)
-        else:  # the EMA head swapped in at export
-            with open(os.path.join(out, "params.pkl"), "wb") as f:
-                pickle.dump(to_numpy(swap_in_ema(state.params, ema)), f)
+            lora_full = gathered(state.params, param_specs)
+            if rank == 0:
+                save_lora_assets(os.path.join(out, "lora"), lora_full, lora_cfg)
+        else:  # the EMA head swapped in at export, the list layout of the layers
+            export = swap_in_ema(gathered(state.params, param_specs), gathered(ema, head_specs))
+            if args.mesh_pp > 1:
+                export = dict(export)
+                export["lm"] = pl.unstack_layers(export["lm"])
+            if rank == 0:
+                with open(os.path.join(out, "params.pkl"), "wb") as f:
+                    pickle.dump(to_numpy(export), f)
+        if mesh is not None:
+            dist.barrier()
         print(f"saved {out}")
 
     steps_per_epoch = max(1, len(dataset) // bs)
     order_cache: Dict[int, np.ndarray] = {}
 
     def build_batch(step):
-        """The batch of `step`: a per-epoch seeded permutation, so resuming
-        gives the same batches."""
+        """The global batch of `step`: a per-epoch seeded permutation, so
+        resuming gives the same batches."""
         epoch = step // steps_per_epoch
         if epoch not in order_cache:
             order_cache.clear()
@@ -388,7 +655,7 @@ def main(argv=None) -> Dict:
         idx = order[(step * bs) % len(order): (step * bs) % len(order) + bs]
         if len(idx) < bs:
             idx = order[:bs]
-        batch = collator([dataset[int(i)] for i in idx])
+        batch = collate([dataset[int(i)] for i in idx])
         if args.head_budget:
             per_sample = int(np.asarray(batch.acoustic_loss_mask).sum(axis=1).max())
             if per_sample > args.head_budget:
@@ -401,7 +668,8 @@ def main(argv=None) -> Dict:
     records = []
     for step in range(start_step, args.max_steps):
         t0 = time.perf_counter()
-        batch = build_batch(step)
+        global_batch = build_batch(step)
+        batch = local(global_batch)
         t1 = time.perf_counter()
         sync()
         prof = _profiler(cuda) if args.profile_dir and step == args.max_steps - 1 else None
@@ -416,17 +684,14 @@ def main(argv=None) -> Dict:
         sec = time.perf_counter() - t2
         if prof is not None:
             _write_profile(prof, args.profile_dir, sec)
-        if args.use_lora:
-            head = merge_lora(params, state.params, lora_cfg)["diffusion_head"]
-        else:
-            head = state.params["diffusion_head"]
+        head = current_params(state)["diffusion_head"]
         if (step + 1) % args.gradient_accumulation_steps == 0:
             ema = update_ema(ema, head, args.ema_decay)
-        b, t = batch.input_ids.shape
+        b, t = np.asarray(global_batch.input_ids).shape
         rec = dict(step=step + 1, loss=float(out.loss), ce_loss=float(out.ce_loss),
                    diffusion_loss=float(out.diffusion_loss), seconds=sec, data_seconds=t1 - t0,
                    batch=b, seq_len=t, tokens=b * t,
-                   valid_tokens=int(np.asarray(batch.attention_mask).sum()))
+                   valid_tokens=int(np.asarray(global_batch.attention_mask).sum()))
         records.append(rec)
 
         if args.use_lora and step == start_step and args.gradient_accumulation_steps == 1:
@@ -448,7 +713,7 @@ def main(argv=None) -> Dict:
             for e0 in range(0, len(eval_dataset), bs):
                 items = [eval_dataset[j] for j in range(e0, min(e0 + bs, len(eval_dataset)))]
                 items += [eval_dataset[0]] * (bs - len(items))
-                eo = eval_fn(eval_params, collator(items),
+                eo = eval_fn(eval_params, local(collate(items)),
                              torch.Generator(device=device).manual_seed(1234))
                 losses.append((float(eo.ce_loss), float(eo.diffusion_loss)))
             print(f"  eval step {step + 1}: ce={sum(x for x, _ in losses) / len(losses):.4f} "
@@ -463,13 +728,21 @@ def main(argv=None) -> Dict:
 
     if not args.no_save and (args.max_steps % args.save_steps != 0 or start_step >= args.max_steps):
         save(args.max_steps)
+    peaks = [torch.cuda.max_memory_allocated(device) if cuda else None]
+    if mesh is not None:  # every rank's, for rank 0's log
+        gathered_peaks = [None] * world
+        dist.all_gather_object(gathered_peaks, peaks[0])
+        peaks = gathered_peaks
     if cuda:
-        print(f"peak device memory {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB "
-              f"({torch.cuda.get_device_name(device)})")
+        print(f"peak device memory {peaks[0] / 2**30:.2f} GiB ({torch.cuda.get_device_name(device)})"
+              + ("" if mesh is None else
+                 "; per rank " + ", ".join(f"{p / 2**30:.2f}" for p in peaks) + " GiB"))
     print("done")
-    return dict(device=str(device), steps=records, lora=state.params if args.use_lora else None,
-                lora_init=lora_init,
-                peak_bytes=torch.cuda.max_memory_allocated(device) if cuda else None)
+    lora = None
+    if args.use_lora:  # the whole adapters (a collective under a mesh)
+        lora, lora_init = gathered(state.params, param_specs), gathered(lora_init, param_specs)
+    return dict(device=str(device), steps=records, lora=lora, lora_init=lora_init, rank=rank,
+                peak_bytes=peaks[0], peak_bytes_per_rank=peaks)
 
 
 if __name__ == "__main__":

@@ -13,6 +13,25 @@
 Parameters are trees of tensors (dicts and lists); a leaf's path is the
 tuple of its dict keys and list indices, as the JAX path filters see it.
 Updates are functional: a step returns new parameter tensors.
+
+Over a mesh (``Parallel``) every rank holds its shards of the tree by the
+shardings of ``parallel.mesh`` and its samples of the global batch, and a
+step is the JAX package's step over the sharded global batch:
+
+* leaves split over a data axis (FSDP) are all-gathered where they are
+  used by an autograd all-gather whose backward reduce-scatters (sums)
+  their gradient: an LM layer's inside its block (under remat the backward
+  gathers it again, so one layer's weights are whole at a time), the rest
+  at the step's start, and a LoRA step's base whole at its start (the
+  merge needs it); the AdamW moments are zeros_like the shards, so they
+  are stored split too;
+* every other gradient is summed over the data group (the loss carries
+  each rank's share of the global loss, ``loss.py``), so all data ranks
+  apply the same update;
+* the global norm that clipping reads is the full tree's: each leaf's
+  squares over its local shard, divided by the ranks that hold the same
+  shard, summed over the world;
+* ``lm_forward`` (GPipe) and the tensor-parallel group reach the loss.
 """
 
 from __future__ import annotations
@@ -21,10 +40,13 @@ import math
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from ..configs import VibeVoiceConfig
 
+from ..models import qwen2
+from ..parallel import mesh as pmesh
 from ..schedule.dpm_solver import NoiseSchedule
 from .loss import Batch, Draws, TrainOptions, TrainOut, train_forward
 
@@ -106,14 +128,16 @@ class Optimizer:
                         mini_step=0, acc={p: z.clone() for p, z in zeros.items()})
 
     def update(self, grads: Dict[Tuple, Optional[torch.Tensor]], state: OptState,
-               params) -> Tuple[Dict[Tuple, torch.Tensor], OptState]:
+               params, global_sq: Optional[Callable] = None
+               ) -> Tuple[Dict[Tuple, torch.Tensor], OptState]:
         """grads maps each trainable path to its gradient (None = zero).
         Returns (new leaf tensors by path, new state); frozen leaves keep
-        their tensors."""
+        their tensors. ``global_sq`` maps {path: squares summed over the
+        local leaf} to the full tree's squared norm (sharded trees)."""
         with record_function("vv.optimizer"):
-            return self._update(grads, state, params)
+            return self._update(grads, state, params, global_sq)
 
-    def _update(self, grads, state: OptState, params):
+    def _update(self, grads, state: OptState, params, global_sq=None):
         leaves = dict(_float_leaves(params))
         paths = list(state.mu)
         g = {p: (grads.get(p) if grads.get(p) is not None else torch.zeros_like(leaves[p]))
@@ -124,8 +148,11 @@ class Optimizer:
             if state.mini_step < k - 1:
                 return {}, state._replace(mini_step=state.mini_step + 1, acc=acc)
             g = acc
-        norm = torch.sqrt(sum((x.square().sum() for x in g.values()),
-                              torch.zeros((), device=next(iter(g.values())).device)))
+        if global_sq is not None:
+            norm = torch.sqrt(global_sq({p: x.square().sum() for p, x in g.items()}))
+        else:
+            norm = torch.sqrt(sum((x.square().sum() for x in g.values()),
+                                  torch.zeros((), device=next(iter(g.values())).device)))
         if not bool(norm < self.grad_clip):
             g = {p: x / norm * self.grad_clip for p, x in g.items()}
         b1, b2, count = self.b1, self.b2, state.count + 1
@@ -161,6 +188,107 @@ def init_train_state(params: Dict, optimizer: Optimizer) -> TrainState:
 
 
 # ---------------------------------------------------------------------------
+# Sharded steps
+# ---------------------------------------------------------------------------
+
+
+class Parallel(NamedTuple):
+    """A step's layout over a mesh: ``shardings`` of the trainable tree
+    (state.params), ``base_shardings`` of a LoRA step's frozen base, and
+    the LM hook of GPipe (``parallel.pipeline.make_pp_lm_forward``)."""
+
+    mesh: object
+    shardings: Dict
+    base_shardings: Optional[Dict] = None
+    lm_forward: Optional[Callable] = None
+
+    def layer_specs(self):
+        """The LM layers' shardings when FSDP splits them (and no other LM
+        forward is set): their gathers then run layer by layer."""
+        specs = self.shardings.get("lm", {}).get("layers")
+        axes = set(pmesh.data_axes(self.mesh))
+        if self.lm_forward is not None or not specs or not any(
+                pmesh.shard_axes(spec) & axes for _, spec in _spec_leaves(specs)):
+            return None
+        return specs
+
+    def groups(self) -> Dict:
+        """train_forward's parallel arguments."""
+        tp_group = pmesh.axis_group(self.mesh, "tp")
+        lm_forward, layer_specs, mesh = self.lm_forward, self.layer_specs(), self.mesh
+        if layer_specs is not None:
+            def lm_forward(cfg, lm, embeds, valid, remat, remat_policy=None):
+                gather = lambda i, lp: gather_for_use(lp, layer_specs[i], mesh)
+                return qwen2.forward(cfg, lm, embeds, valid_mask=valid, remat=remat,
+                                     remat_policy=remat_policy, tp_group=tp_group,
+                                     materialize=gather)[0]
+        return dict(dp_group=pmesh.axis_group(self.mesh, pmesh.data_axes(self.mesh)),
+                    tp_group=tp_group, lm_forward=lm_forward)
+
+
+def _spec_leaves(specs, path: Tuple = ()):
+    """(path, spec) of every leaf of a tree of shardings."""
+    if isinstance(specs, dict):
+        return [x for k in specs for x in _spec_leaves(specs[k], path + (k,))]
+    if isinstance(specs, list):
+        return [x for i, v in enumerate(specs) for x in _spec_leaves(v, path + (i,))]
+    return [(path, specs)]
+
+
+def _spec_of(shardings, path: Tuple):
+    for k in path:
+        shardings = shardings[k]
+    return shardings
+
+
+def gather_for_use(tree, shardings, mesh, skip: Optional[Tuple] = None):
+    """The tree with its data-axis (FSDP) splits all-gathered (autograd:
+    the gradients are reduce-scattered back onto the shards), but for the
+    leaves under the path prefix ``skip``."""
+    axes = pmesh.data_axes(mesh)
+    new = {}
+    for p, x in tree_leaves_with_path(tree):
+        if skip is not None and p[:len(skip)] == skip:
+            continue
+        spec = _spec_of(shardings, p)
+        if pmesh.shard_axes(spec) & set(axes):
+            new[p] = pmesh.gather_leaf(x, spec, mesh, axes)
+    return tree_replace(tree, new) if new else tree
+
+
+def reduce_grads(grads: Dict, params, shardings, mesh) -> Dict:
+    """Sum every gradient over the data group, except those of leaves
+    split over a data axis, whose all-gather's backward summed them."""
+    axes = pmesh.data_axes(mesh)
+    group = pmesh.axis_group(mesh, axes)
+    if group is None:
+        return grads
+    leaves = dict(_float_leaves(params))
+    out = {}
+    for p, g in grads.items():
+        if g is None:  # every rank reaches the same leaves: this one nowhere
+            g = torch.zeros_like(leaves[p], dtype=torch.float32)
+        if not pmesh.shard_axes(_spec_of(shardings, p)) & set(axes):
+            g = g.clone()
+            dist.all_reduce(g, group=group)
+        out[p] = g
+    return out
+
+
+def global_sq_fn(shardings, mesh) -> Callable:
+    """{path: local squares} -> the full tree's squared norm: each leaf's
+    share over the ranks holding the same shard, summed over the world."""
+
+    def global_sq(sq: Dict) -> torch.Tensor:
+        total = sum(x.float() / pmesh.replicas(_spec_of(shardings, p), mesh)
+                    for p, x in sq.items())
+        dist.all_reduce(total)
+        return total
+
+    return global_sq
+
+
+# ---------------------------------------------------------------------------
 # Steps
 # ---------------------------------------------------------------------------
 
@@ -186,23 +314,32 @@ def _detach_out(out: TrainOut) -> TrainOut:
 
 
 def make_train_step(cfg: VibeVoiceConfig, optimizer: Optimizer, opts: TrainOptions = TrainOptions(),
-                    trainable_filter=None):
+                    trainable_filter=None, parallel: Optional[Parallel] = None):
     """train_step(state, batch, rng) -> (state, TrainOut). Frozen leaves
-    (trainable_filter False) get no gradient and no update."""
+    (trainable_filter False) get no gradient and no update. ``parallel``:
+    state.params and batch are this rank's shards (module docstring)."""
     hcfg = cfg.diffusion_head_config
     noise_schedule = NoiseSchedule.create(hcfg.ddpm_num_steps, hcfg.ddpm_beta_schedule)
+    par = {} if parallel is None else parallel.groups()
+    layerwise = None if parallel is None or parallel.layer_specs() is None else ("lm", "layers")
 
     def train_step(state: TrainState, batch: Batch, rng) -> Tuple[TrainState, TrainOut]:
         paths = [p for p, _ in _float_leaves(state.params)
                  if trainable_filter is None or trainable_filter(p)]
 
         def loss_fn(params):
+            if parallel is not None:  # the LM layers' gathers run layer by layer
+                params = gather_for_use(params, parallel.shardings, parallel.mesh, layerwise)
             out = train_forward(cfg, params, batch, opts=opts, noise_schedule=noise_schedule,
-                                **_rng_kwargs(rng))
+                                **_rng_kwargs(rng), **par)
             return out.loss, out
 
         _, out, grads = value_and_grad(loss_fn, state.params, paths)
-        new, opt_state = optimizer.update(grads, state.opt_state, state.params)
+        global_sq = None
+        if parallel is not None:
+            grads = reduce_grads(grads, state.params, parallel.shardings, parallel.mesh)
+            global_sq = global_sq_fn(parallel.shardings, parallel.mesh)
+        new, opt_state = optimizer.update(grads, state.opt_state, state.params, global_sq)
         params = dict(tree_replace(state.params, new))
         # the first-batch speech statistics persist (buffer semantics)
         params["speech_scaling_factor"] = out.speech_scaling_factor
@@ -279,48 +416,67 @@ def make_component_train_step(cfg: VibeVoiceConfig, optimizer: Optimizer,
     return step
 
 
-def make_eval_step(cfg: VibeVoiceConfig, opts: TrainOptions = TrainOptions()):
-    """eval_step(params, batch, rng) -> TrainOut, without gradients."""
+def make_eval_step(cfg: VibeVoiceConfig, opts: TrainOptions = TrainOptions(),
+                   parallel: Optional[Parallel] = None):
+    """eval_step(params, batch, rng) -> TrainOut, without gradients
+    (``parallel``: params are this rank's shards of the full model, by
+    ``parallel.shardings``)."""
     hcfg = cfg.diffusion_head_config
     noise_schedule = NoiseSchedule.create(hcfg.ddpm_num_steps, hcfg.ddpm_beta_schedule)
+    par = {} if parallel is None else parallel.groups()
+    layerwise = None if parallel is None or parallel.layer_specs() is None else ("lm", "layers")
 
     def eval_step(params: Dict, batch: Batch, rng) -> TrainOut:
         with torch.no_grad():
+            if parallel is not None:
+                params = gather_for_use(params, parallel.shardings, parallel.mesh, layerwise)
             return train_forward(cfg, params, batch, opts=opts, noise_schedule=noise_schedule,
-                                 **_rng_kwargs(rng))
+                                 **_rng_kwargs(rng), **par)
 
     return eval_step
 
 
-def make_lora_grad_fn(cfg: VibeVoiceConfig, lora_cfg, opts: TrainOptions = TrainOptions()):
+def make_lora_grad_fn(cfg: VibeVoiceConfig, lora_cfg, opts: TrainOptions = TrainOptions(),
+                      parallel: Optional[Parallel] = None):
     """grad_fn(lora, base_params, batch, rng) -> (loss, TrainOut, {path: grad})
-    with the adapters applied to the frozen base inside the loss."""
+    with the adapters applied to the frozen base inside the loss. Under
+    ``parallel`` (shardings: the adapters', base_shardings: the base's) the
+    gradients are the global ones."""
     from .lora import apply_lora
 
     hcfg = cfg.diffusion_head_config
     noise_schedule = NoiseSchedule.create(hcfg.ddpm_num_steps, hcfg.ddpm_beta_schedule)
+    par = {} if parallel is None else parallel.groups()
 
     def grad_fn(lora: Dict, base_params: Dict, batch: Batch, rng):
         def loss_fn(lr):
-            out = train_forward(cfg, apply_lora(base_params, lr, lora_cfg), batch, opts=opts,
-                                noise_schedule=noise_schedule, **_rng_kwargs(rng))
+            base = base_params
+            if parallel is not None:
+                base = gather_for_use(base, parallel.base_shardings, parallel.mesh)
+                lr = gather_for_use(lr, parallel.shardings, parallel.mesh)
+            out = train_forward(cfg, apply_lora(base, lr, lora_cfg, par.get("tp_group")), batch,
+                                opts=opts, noise_schedule=noise_schedule, **_rng_kwargs(rng),
+                                **par)
             return out.loss, out
 
         loss, out, grads = value_and_grad(loss_fn, lora, [p for p, _ in _float_leaves(lora)])
+        if parallel is not None:
+            grads = reduce_grads(grads, lora, parallel.shardings, parallel.mesh)
         return loss, _detach_out(out), grads
 
     return grad_fn
 
 
 def make_lora_train_step(cfg: VibeVoiceConfig, optimizer: Optimizer, lora_cfg,
-                         opts: TrainOptions = TrainOptions()):
+                         opts: TrainOptions = TrainOptions(), parallel: Optional[Parallel] = None):
     """lora_step(state, base_params, batch, rng) -> (state, TrainOut):
     gradients reach only the adapter tree (state.params)."""
-    grad_fn = make_lora_grad_fn(cfg, lora_cfg, opts)
+    grad_fn = make_lora_grad_fn(cfg, lora_cfg, opts, parallel)
+    global_sq = None if parallel is None else global_sq_fn(parallel.shardings, parallel.mesh)
 
     def lora_step(state: TrainState, base_params: Dict, batch: Batch, rng):
         _, out, grads = grad_fn(state.params, base_params, batch, rng)
-        new, opt_state = optimizer.update(grads, state.opt_state, state.params)
+        new, opt_state = optimizer.update(grads, state.opt_state, state.params, global_sq)
         return TrainState(tree_replace(state.params, new), opt_state, state.step + 1), out
 
     return lora_step

@@ -25,6 +25,14 @@ a ``torch.Generator`` seeded with ``seed``, so eager and graphed runs, and
 runs of every K, consume the same numbers. The injection hooks
 (``noise_bank``, ``forced_tokens``) replay another implementation's draws
 in tests.
+
+Tensor-parallel serving: ``tp_group`` (prefill, step functions,
+``generate``) runs the LM on this rank's shards (``qwen2`` docstring); the
+cache holds the local KV heads, everything else is replicated and computed
+alike on every rank, so every rank chooses the same tokens. A capture under
+an NCCL group records its all-reduces (its first, eager frame warms the
+communicator up); a gloo collective cannot be captured, so a graphed call
+under a gloo group raises and the caller runs ``StepFn.eager``.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs import VibeVoiceConfig
 
@@ -145,17 +154,20 @@ def _prompt_embeds(cfg, params, ids, speech_args, speech_type):
     return embeds
 
 
-def _init_streams(cfg, params, b, max_len, tokens, kv_int8):
+def _init_streams(cfg, params, b, max_len, tokens, kv_int8, tp_group=None):
     """Empty positive cache, prefilled negative stream (a 1-token
     <speech_start> prompt) and zero conv states."""
     lm_cfg = cfg.decoder_config
     embed = params["lm"]["embed"]
     dtype, dev = embed.dtype, embed.device
-    pos_cache = qwen2.make_cache(lm_cfg, b, max_len, dtype, quantized=kv_int8, device=dev)
+    kh = qwen2.local_kv_heads(lm_cfg, tp_group)
+    pos_cache = qwen2.make_cache(lm_cfg, b, max_len, dtype, quantized=kv_int8, device=dev,
+                                 kv_heads=kh)
     neg_ids = torch.full((b, 1), tokens.speech_start, dtype=torch.long, device=dev)
-    neg_cache = qwen2.make_cache(lm_cfg, b, max_len, dtype, quantized=kv_int8, device=dev)
+    neg_cache = qwen2.make_cache(lm_cfg, b, max_len, dtype, quantized=kv_int8, device=dev,
+                                 kv_heads=kh)
     h_neg, neg_cache = qwen2.forward(lm_cfg, params["lm"], qwen2.embed_tokens(params["lm"], neg_ids),
-                                     cache=neg_cache)
+                                     cache=neg_cache, tp_group=tp_group)
     dec_state = tok.init_decoder_state(cfg.acoustic_tokenizer_config, b, dtype, dev)
     sem_state = tok.init_encoder_state(cfg.semantic_tokenizer_config, b, dtype, dev)
     return pos_cache, neg_cache, h_neg[:, 0], dec_state, sem_state
@@ -163,14 +175,15 @@ def _init_streams(cfg, params, b, max_len, tokens, kv_int8):
 
 def prefill_fn(cfg: VibeVoiceConfig, params, ids: torch.Tensor, max_len: int,
                valid_mask: torch.Tensor, speech_args, tokens: SpecialTokens,
-               speech_type: str = "audio", kv_int8: bool = False) -> DecodeCarry:
+               speech_type: str = "audio", kv_int8: bool = False,
+               tp_group=None) -> DecodeCarry:
     """Whole-prompt prefill of both streams; returns the first DecodeCarry."""
     b = ids.shape[0]
     embeds = _prompt_embeds(cfg, params, ids, speech_args, speech_type)
     pos_cache, neg_cache, h_neg, dec_state, sem_state = _init_streams(
-        cfg, params, b, max_len, tokens, kv_int8)
+        cfg, params, b, max_len, tokens, kv_int8, tp_group)
     h, pos_cache = qwen2.forward(cfg.decoder_config, params["lm"], embeds, valid_mask=valid_mask,
-                                 cache=pos_cache)
+                                 cache=pos_cache, tp_group=tp_group)
     last = (valid_mask.to(torch.int64).sum(1) - 1).clamp_min(0)
     h_pos = h[torch.arange(b, device=h.device), last]
     return DecodeCarry(_combine_caches(pos_cache, neg_cache), dec_state, sem_state, h_pos, h_neg,
@@ -180,14 +193,15 @@ def prefill_fn(cfg: VibeVoiceConfig, params, ids: torch.Tensor, max_len: int,
 
 def chunked_prefill(cfg: VibeVoiceConfig, params, ids: torch.Tensor, valid_mask: torch.Tensor,
                     max_len: int, tokens: SpecialTokens, speech_args=None, chunk: int = 1024,
-                    speech_type: str = "audio", kv_int8: bool = False) -> DecodeCarry:
+                    speech_type: str = "audio", kv_int8: bool = False,
+                    tp_group=None) -> DecodeCarry:
     """Long-prompt prefill in fixed-size chunks (bounds attention memory at
     O(chunk x S)); voice features are spliced into the whole prompt once."""
     b, t = ids.shape
     embeds = _prompt_embeds(cfg, params, ids, speech_args, speech_type)
     lengths = valid_mask.to(torch.int64).sum(1)
     pos_cache, neg_cache, h_neg, dec_state, sem_state = _init_streams(
-        cfg, params, b, max_len, tokens, kv_int8)
+        cfg, params, b, max_len, tokens, kv_int8, tp_group)
     h_pos = torch.zeros(b, cfg.decoder_config.hidden_size, dtype=embeds.dtype, device=embeds.device)
     rows = torch.arange(b, device=embeds.device)
     for c0 in range(0, t, chunk):
@@ -198,7 +212,7 @@ def chunked_prefill(cfg: VibeVoiceConfig, params, ids: torch.Tensor, valid_mask:
             valid = torch.nn.functional.pad(valid, (0, pad))
             emb = torch.nn.functional.pad(emb, (0, 0, 0, pad))
         h, pos_cache = qwen2.forward(cfg.decoder_config, params["lm"], emb, valid_mask=valid,
-                                     cache=pos_cache)
+                                     cache=pos_cache, tp_group=tp_group)
         last = lengths - 1
         in_chunk = (last >= c0) & (last < c0 + chunk)
         h_last = h[rows, (last - c0).clamp(0, chunk - 1)]
@@ -333,7 +347,8 @@ def _step_consts(tokens: SpecialTokens, coeffs: dpm.SolverCoeffs, device) -> _St
 
 def _frame(cfg: VibeVoiceConfig, params, carry: DecodeCarry, ext_finish: torch.Tensor,
            noise: FrameNoise, hooks: Optional[Dict], *, tokens: SpecialTokens,
-           opts: GenerateOptions, coeffs: dpm.SolverCoeffs, consts: _StepConsts):
+           opts: GenerateOptions, coeffs: dpm.SolverCoeffs, consts: _StepConsts,
+           tp_group=None):
     """The body of one frame over device tensors: it copies nothing from the
     host and draws nothing (``noise`` holds one frame's draws), so a CUDA
     graph can capture it."""
@@ -402,7 +417,8 @@ def _frame(cfg: VibeVoiceConfig, params, carry: DecodeCarry, ext_finish: torch.T
     both = torch.cat([next_embeds, next_embeds])[:, None, :]
     ones = torch.ones(b, dtype=torch.int32, device=dev)
     advance = torch.cat([ones, torch.zeros_like(ones) if opts.refresh_negative else ones])
-    h_both, cache = qwen2.forward(lm_cfg, params["lm"], both, cache=cache, advance=advance)
+    h_both, cache = qwen2.forward(lm_cfg, params["lm"], both, cache=cache, advance=advance,
+                                  tp_group=tp_group)
 
     new_carry = DecodeCarry(cache, dec_state, sem_state, h_both[:b, 0], h_both[b:, 0], finished,
                             carry.n_diff + diff_mask.to(torch.int64))
@@ -411,7 +427,7 @@ def _frame(cfg: VibeVoiceConfig, params, carry: DecodeCarry, ext_finish: torch.T
 
 def step(cfg: VibeVoiceConfig, params, carry: DecodeCarry, ext_finish: torch.Tensor, *,
          tokens: SpecialTokens, opts: GenerateOptions, coeffs: dpm.SolverCoeffs,
-         generator: torch.Generator, hooks: Optional[Dict] = None):
+         generator: torch.Generator, hooks: Optional[Dict] = None, tp_group=None):
     """One frame, run eagerly, with its draws taken from ``generator``.
     ``hooks`` (injection) holds "forced" (B,) tokens or -1, "init" (E, B, D)
     per-event initial latents and, for SDE, "sde" (E, S, B, D), indexed by
@@ -419,7 +435,7 @@ def step(cfg: VibeVoiceConfig, params, carry: DecodeCarry, ext_finish: torch.Ten
     noise = draw_noise(cfg, opts, carry.h_pos.shape[0], generator, inject=hooks is not None)
     consts = _step_consts(tokens, coeffs, carry.h_pos.device)
     return _frame(cfg, params, carry, ext_finish, noise, hooks, tokens=tokens, opts=opts,
-                  coeffs=coeffs, consts=consts)
+                  coeffs=coeffs, consts=consts, tp_group=tp_group)
 
 
 # ---------------------------------------------------------------------------
@@ -510,12 +526,14 @@ class StepFn:
     it ends; each call holds them too. On CPU tensors the same body runs
     eagerly. ``eager`` is the same call without the graph on any device,
     the reference that the graphed runs are held to. ``replays`` counts the
-    graph launches."""
+    graph launches. With ``tp_group`` the LM runs on this rank's shards; a
+    graphed call needs an NCCL group (a gloo group raises: call ``eager``)."""
 
     def __init__(self, cfg: VibeVoiceConfig, tokens: SpecialTokens, opts: GenerateOptions,
-                 frames: int, stacked: bool):
+                 frames: int, stacked: bool, tp_group=None):
         self.cfg, self.tokens, self.opts = cfg, tokens, opts
         self.frames, self.stacked = frames, stacked
+        self.tp_group = tp_group
         self.coeffs = make_solver(cfg, opts)
         self.replays = 0
         self._consts: Dict = {}
@@ -538,7 +556,7 @@ class StepFn:
             h = None if hooks is None else {**hooks, "forced": hooks["forced"][f]}
             carry, out = _frame(self.cfg, params, carry, ext_finish[f], _frame_of(noise, f), h,
                                 tokens=self.tokens, opts=self.opts, coeffs=self.coeffs,
-                                consts=consts)
+                                consts=consts, tp_group=self.tp_group)
             outs.append(out)
         return carry, StepOut(*(torch.stack(x) for x in zip(*outs)))
 
@@ -563,6 +581,11 @@ class StepFn:
                  hooks: Optional[Dict] = None):
         if carry.h_pos.device.type != "cuda":
             return self.eager(params, carry, noise, ext_finish, hooks)
+        if self.tp_group is not None and dist.get_backend(self.tp_group) != "nccl":
+            raise RuntimeError(
+                f"a CUDA graph cannot capture the tensor-parallel all-reduces of a "
+                f"{dist.get_backend(self.tp_group)!r} process group (only NCCL's); call the step "
+                "function's eager windows (StepFn.eager) instead")
         with self._owner:
             return self._replay(params, carry, noise, ext_finish, hooks)
 
@@ -633,24 +656,26 @@ def _trace_opts(opts: GenerateOptions) -> GenerateOptions:
 
 
 def make_step_fn(cfg: VibeVoiceConfig, tokens: SpecialTokens, opts: GenerateOptions,
-                 inject: bool = False) -> StepFn:
+                 inject: bool = False, tp_group=None) -> StepFn:
     """The compiled one-frame step (``StepFn`` without the K axis), memoized
-    on the options it reads, so every generate() with these options shares
-    its captures. ``inject`` is the JAX signature's: the step reads hooks
-    whenever they are given, and captures are keyed on their shapes."""
-    return _make_step_fn_cached(cfg, tokens, _trace_opts(opts), 1, False)
+    on the options it reads (and the tensor-parallel group), so every
+    generate() with these options shares its captures. ``inject`` is the JAX
+    signature's: the step reads hooks whenever they are given, and captures
+    are keyed on their shapes."""
+    return _make_step_fn_cached(cfg, tokens, _trace_opts(opts), 1, False, tp_group)
 
 
 def make_multi_step_fn(cfg: VibeVoiceConfig, tokens: SpecialTokens, opts: GenerateOptions,
-                       frames_per_dispatch: int, inject: bool = False) -> StepFn:
+                       frames_per_dispatch: int, inject: bool = False, tp_group=None) -> StepFn:
     """The compiled window of ``frames_per_dispatch`` frames, one graph
     replay a window on the card (``StepFn``); memoized as ``make_step_fn``."""
-    return _make_step_fn_cached(cfg, tokens, _trace_opts(opts), frames_per_dispatch, True)
+    return _make_step_fn_cached(cfg, tokens, _trace_opts(opts), frames_per_dispatch, True,
+                                tp_group)
 
 
 @functools.lru_cache(maxsize=16)
-def _make_step_fn_cached(cfg, tokens, opts, frames, stacked) -> StepFn:
-    return StepFn(cfg, tokens, opts, frames, stacked)
+def _make_step_fn_cached(cfg, tokens, opts, frames, stacked, tp_group=None) -> StepFn:
+    return StepFn(cfg, tokens, opts, frames, stacked, tp_group)
 
 
 # ---------------------------------------------------------------------------
@@ -691,7 +716,8 @@ def prefill_request(cfg: VibeVoiceConfig, params, input_ids: np.ndarray, valid_m
                     speech_input_mask: Optional[np.ndarray], max_length: int,
                     tokens: SpecialTokens, opts: GenerateOptions, generator: torch.Generator, *,
                     speech_type: str = "audio",
-                    noise_bank: Optional[Dict[str, np.ndarray]] = None) -> DecodeCarry:
+                    noise_bank: Optional[Dict[str, np.ndarray]] = None,
+                    tp_group=None) -> DecodeCarry:
     """The first DecodeCarry of a request given as host arrays, on the
     parameters' device: ``prefill_fn``, or ``chunked_prefill`` for prompts
     longer than opts.prefill_chunk, into ``max_length`` cache slots (int8
@@ -723,9 +749,9 @@ def prefill_request(cfg: VibeVoiceConfig, params, input_ids: np.ndarray, valid_m
     if t0 > opts.prefill_chunk:
         return chunked_prefill(cfg, params, ids, vmask, max_length, tokens, speech_args,
                                chunk=opts.prefill_chunk, speech_type=speech_type,
-                               kv_int8=bool(opts.kv_int8))
+                               kv_int8=bool(opts.kv_int8), tp_group=tp_group)
     return prefill_fn(cfg, params, ids, max_length, vmask, speech_args, tokens, speech_type,
-                      bool(opts.kv_int8))
+                      bool(opts.kv_int8), tp_group)
 
 
 def generate(
@@ -747,6 +773,7 @@ def generate(
     step_fn: Optional[Callable] = None,
     noise_bank: Optional[Dict[str, np.ndarray]] = None,
     forced_tokens: Optional[np.ndarray] = None,
+    tp_group=None,
 ) -> GenerationOutput:
     """Prefill once, then one compiled step a window of
     ``opts.frames_per_dispatch`` frames on the parameters' device.
@@ -761,6 +788,9 @@ def generate(
       noise_bank: {"init": (E, B, D), "sde": (E, S, B, D) [sde only],
                    "vae_std": (N,), "vae_eps": (N, F, D) [voice prompt only]}
       forced_tokens: (T, B) int token script; -1 falls through to the model.
+    ``tp_group``: ``params`` are this rank's tensor-parallel shards; every
+    rank of the group calls generate() with the same arguments (a gloo
+    group needs ``step_fn`` = a step function's ``eager``).
     """
     dev = params["lm"]["embed"].device
     b, t0 = input_ids.shape
@@ -777,13 +807,13 @@ def generate(
     as_dev = lambda a, dt=None: torch.as_tensor(np.asarray(a), device=dev, dtype=dt)
     carry = prefill_request(cfg, params, input_ids, valid_mask, speech_tensors, speech_frame_valid,
                             speech_input_mask, max_length, tokens, opts, generator,
-                            speech_type=speech_type, noise_bank=noise_bank)
+                            speech_type=speech_type, noise_bank=noise_bank, tp_group=tp_group)
 
     inject = noise_bank is not None or forced_tokens is not None
     k_frames = max(1, opts.frames_per_dispatch)
     if step_fn is None:
-        step_fn = (make_multi_step_fn(cfg, tokens, opts, k_frames, inject) if k_frames > 1
-                   else make_step_fn(cfg, tokens, opts, inject))
+        step_fn = (make_multi_step_fn(cfg, tokens, opts, k_frames, inject, tp_group) if k_frames > 1
+                   else make_step_fn(cfg, tokens, opts, inject, tp_group))
     hooks_base = None
     if inject:
         bank = noise_bank or {}

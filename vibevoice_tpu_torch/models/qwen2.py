@@ -21,6 +21,14 @@ over a right-padded chunk through ``ops.flash_attention.flash_train_attention``
 (the hand-written training kernels on CUDA at every T, the masked plain
 version on the CPU), optionally rematerialising each layer in the backward
 (``torch.utils.checkpoint``).
+
+Tensor parallelism (``tp_group``): each rank holds its shard of the LM by
+``parallel.mesh.qwen2_param_shardings`` (q/k/v/gate/up columns, o/down
+rows) and the KV cache of its own KV heads (``make_cache(kv_heads=)``).
+Head counts are read from the local weights, so the kernels run unchanged
+on the local heads. The partial sums after o and down are all-reduced over
+the group in f32 (``parallel.collectives``: Megatron's g, with f where a
+replicated activation enters the local part, for the backward).
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from ..configs import Qwen2Config
 from ..ops.flash_attention import flash_cached_attention, flash_train_attention
 from ..ops.norms import rms_norm
 from ..ops.quant import mm
+from ..parallel.collectives import copy_to_group, group_size, reduce_from_group
 
 Params = Dict
 
@@ -59,10 +68,18 @@ class KVCache(NamedTuple):
         return self.k_scale is not None
 
 
+def local_kv_heads(cfg: Qwen2Config, tp_group=None) -> int:
+    """The KV heads one rank of a tensor-parallel group holds."""
+    return cfg.num_key_value_heads // group_size(tp_group)
+
+
 def make_cache(cfg: Qwen2Config, batch: int, max_len: int, dtype=torch.bfloat16, *,
-               quantized: bool = False, device=None) -> KVCache:
-    shape = (batch, cfg.num_key_value_heads, max_len, cfg.head_dim)
-    scale_shape = (batch, cfg.num_key_value_heads, 1, max_len)
+               quantized: bool = False, device=None, kv_heads: Optional[int] = None) -> KVCache:
+    """Zero buffers of ``kv_heads`` KV heads (default: all of cfg's; a
+    tensor-parallel rank holds ``local_kv_heads``)."""
+    kh = cfg.num_key_value_heads if kv_heads is None else kv_heads
+    shape = (batch, kh, max_len, cfg.head_dim)
+    scale_shape = (batch, kh, 1, max_len)
     nl = cfg.num_hidden_layers
     buf_dtype = torch.int8 if quantized else dtype
 
@@ -112,26 +129,30 @@ def _write_rows(buf: torch.Tensor, new: torch.Tensor, idx: torch.Tensor) -> None
     buf[bi, :, idx] = new
 
 
-def project_qkv(ap: Params, hdn: torch.Tensor, cfg: Qwen2Config):
-    """q/k/v projections (B, T, heads, D)."""
+def project_qkv(ap: Params, hdn: torch.Tensor, cfg: Qwen2Config, tp_group=None):
+    """q/k/v projections (B, T, heads, D); the head counts are those of the
+    (local) weights."""
     b, t, _ = hdn.shape
-    nh, kh, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    d = cfg.head_dim
+    hdn = copy_to_group(hdn, tp_group)
     q, k, v = mm(hdn, ap["q"]), mm(hdn, ap["k"]), mm(hdn, ap["v"])
-    return q.reshape(b, t, nh, d), k.reshape(b, t, kh, d), v.reshape(b, t, kh, d)
+    return q.reshape(b, t, -1, d), k.reshape(b, t, -1, d), v.reshape(b, t, -1, d)
 
 
-def mlp_forward(m: Params, hdn: torch.Tensor) -> torch.Tensor:
-    """SwiGLU MLP."""
-    return mm(F.silu(mm(hdn, m["gate"])) * mm(hdn, m["up"]), m["down"])
+def mlp_forward(m: Params, hdn: torch.Tensor, tp_group=None) -> torch.Tensor:
+    """SwiGLU MLP (under TP: the local columns, the sum over the group)."""
+    hdn = copy_to_group(hdn, tp_group)
+    return reduce_from_group(mm(F.silu(mm(hdn, m["gate"])) * mm(hdn, m["up"]), m["down"]),
+                             tp_group)
 
 
-def _layer(cfg: Qwen2Config, lp, x, cos, sin, cache_kv, idx, base):
-    b, t, h = x.shape
+def _layer(cfg: Qwen2Config, lp, x, cos, sin, cache_kv, idx, base, tp_group=None):
+    b, t, _ = x.shape
     d = cfg.head_dim
     res = x
     hdn = rms_norm(x, lp["input_norm"]["w"], cfg.rms_norm_eps)
     a = lp["attn"]
-    q, k, v = project_qkv(a, hdn, cfg)
+    q, k, v = project_qkv(a, hdn, cfg, tp_group)
     q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
 
     ck, cv, cks, cvs = cache_kv
@@ -147,20 +168,41 @@ def _layer(cfg: Qwen2Config, lp, x, cos, sin, cache_kv, idx, base):
         _write_rows(ck, k.to(ck.dtype), idx)
         _write_rows(cv, v.to(cv.dtype), idx)
         attn = flash_cached_attention(q, ck.to(q.dtype), cv.to(q.dtype), base, scale=d ** -0.5)
-    x = res + mm(attn.reshape(b, t, h), a["o"])
+    x = res + reduce_from_group(mm(attn.reshape(b, t, -1), a["o"]), tp_group)
 
-    return x + mlp_forward(lp["mlp"], rms_norm(x, lp["post_norm"]["w"], cfg.rms_norm_eps))
+    return x + mlp_forward(lp["mlp"], rms_norm(x, lp["post_norm"]["w"], cfg.rms_norm_eps),
+                           tp_group)
 
 
-def _train_layer(cfg: Qwen2Config, lp, x, cos, sin, valid):
+def _train_layer(cfg: Qwen2Config, lp, x, cos, sin, valid, tp_group=None):
     """One block of the no-cache training forward."""
-    b, t, h = x.shape
+    b, t, _ = x.shape
     hdn = rms_norm(x, lp["input_norm"]["w"], cfg.rms_norm_eps)
-    q, k, v = project_qkv(lp["attn"], hdn, cfg)
+    q, k, v = project_qkv(lp["attn"], hdn, cfg, tp_group)
     q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
     attn = flash_train_attention(q, k, v, valid, scale=cfg.head_dim ** -0.5)
-    x = x + mm(attn.reshape(b, t, h), lp["attn"]["o"])
-    return x + mlp_forward(lp["mlp"], rms_norm(x, lp["post_norm"]["w"], cfg.rms_norm_eps))
+    x = x + reduce_from_group(mm(attn.reshape(b, t, -1), lp["attn"]["o"]), tp_group)
+    return x + mlp_forward(lp["mlp"], rms_norm(x, lp["post_norm"]["w"], cfg.rms_norm_eps),
+                           tp_group)
+
+
+def _train_layer_at(cfg: Qwen2Config, lp, x, cos, sin, valid, tp_group, materialize, i):
+    if materialize is not None:
+        lp = materialize(i, lp)
+    return _train_layer(cfg, lp, x, cos, sin, valid, tp_group)
+
+
+def train_layers(cfg: Qwen2Config, layers, x, cos, sin, valid, remat: bool = False,
+                 tp_group=None, materialize=None):
+    """The training forward's blocks over x, each recomputed in the
+    backward under ``remat``. ``materialize(i, layer params)`` gives the
+    tensors layer i runs on, inside the block (FSDP's all-gather of its
+    shards: under remat the backward gathers them again)."""
+    for i, lp in enumerate(layers):
+        args = (cfg, lp, x, cos, sin, valid, tp_group, materialize, i)
+        x = (checkpoint(_train_layer_at, *args, use_reentrant=False) if remat
+             else _train_layer_at(*args))
+    return x
 
 
 def train_attention_inputs(valid_mask: torch.Tensor) -> torch.Tensor:
@@ -184,6 +226,8 @@ def forward(
     skip_final_norm: bool = False,
     remat: bool = False,
     remat_policy: Optional[str] = None,
+    tp_group=None,
+    materialize=None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the LM over a chunk (B, T, H).
 
@@ -194,7 +238,9 @@ def forward(
     recomputes each layer in the backward so that only the residual stream
     is kept between layers. ``skip_final_norm`` leaves out the final RMSNorm
     (the streaming model's lower text LM). Returns (hidden (B, T, H), the
-    cache with the new lengths or None)."""
+    cache with the new lengths or None). ``tp_group``: the params and the
+    cache are this rank's tensor-parallel shards; ``materialize``: the
+    training path's per-layer hook (``train_layers``)."""
     b, t, _ = embeds.shape
     if valid_mask is None:
         valid_mask = torch.ones(b, t, dtype=torch.bool, device=embeds.device)
@@ -205,13 +251,8 @@ def forward(
     if cache is None:
         positions = train_attention_inputs(valid_mask)
         cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta, embeds.dtype)
-        x = embeds
-        for lp in params["layers"]:
-            if remat:
-                x = checkpoint(_train_layer, cfg, lp, x, cos, sin, valid_mask,
-                               use_reentrant=False)
-            else:
-                x = _train_layer(cfg, lp, x, cos, sin, valid_mask)
+        x = train_layers(cfg, params["layers"], embeds, cos, sin, valid_mask, remat, tp_group,
+                         materialize)
         return _final_norm(cfg, params, x, skip_final_norm), None
     if remat:
         raise ValueError("remat is a training-path option (cache must be None)")
@@ -229,7 +270,7 @@ def forward(
     for li, lp in enumerate(params["layers"]):
         cache_kv = (cache.k[li], cache.v[li],
                     cache.k_scale[li] if quant else None, cache.v_scale[li] if quant else None)
-        x = _layer(cfg, lp, x, cos, sin, cache_kv, idx, base)
+        x = _layer(cfg, lp, x, cos, sin, cache_kv, idx, base, tp_group)
     x = _final_norm(cfg, params, x, skip_final_norm)
     if advance is None:
         advance = valid_mask.to(torch.int32).sum(dim=1, dtype=torch.int32)

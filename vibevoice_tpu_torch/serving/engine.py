@@ -35,6 +35,22 @@ replay overwrites them.
 
 The decode thread owns the carry and the slots; the prefill thread touches
 only its own batch-1 carries. Submissions and consumers are thread-safe.
+
+Tensor-parallel serving (``mesh=``, a DeviceMesh with a "tp" dimension;
+dense LM weights only, as in the JAX package): one process per rank, each
+holding its shards of the LM (``parallel.mesh.model_param_shardings``) and
+the KV cache of its own KV heads; the rest is replicated. The engine is
+SPMD. Rank 0 of the group owns the queue and the slots: at each window
+boundary it broadcasts its decision (stop, the requests to join and their
+slots, the window's ext-finish rows) over a gloo side group, and every rank
+then prefills the same requests into the same slots and runs the same
+window, drawing the same frame noise from an identically seeded generator,
+so every rank chooses the same tokens (``token_log`` keeps each window's).
+Under TP the prefill runs in the decode loop, between windows, so the
+ranks issue their collectives in one order. The other ranks' engines take
+no submissions; their ``shutdown`` waits for rank 0's. A gloo "tp" group
+needs ``eager_windows=True`` (its collectives cannot be captured in a CUDA
+graph); an NCCL group's are captured with the window.
 """
 
 from __future__ import annotations
@@ -50,6 +66,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs import VibeVoiceConfig
 from ..models import inference as inf
@@ -207,8 +224,9 @@ class ServingEngine:
     of ``frames_per_dispatch`` frames (module docstring). ``pipeline`` keeps
     one window in flight: the card computes window N + 1 while the host
     delivers window N. ``reserved_slots`` express slots are taken only by
-    ``Request(priority=True)``. ``mesh`` (tensor-parallel serving) waits for
-    the port of ``parallel/``."""
+    ``Request(priority=True)``. ``mesh`` serves tensor-parallel (module
+    docstring); ``eager_windows`` runs each window launch by launch
+    instead of replaying its CUDA graph."""
 
     def __init__(
         self,
@@ -224,13 +242,16 @@ class ServingEngine:
         pipeline: bool = True,
         mesh=None,
         reserved_slots: int = 0,
+        eager_windows: bool = False,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "tensor-parallel serving (mesh=) needs the rest of parallel/ (ROADMAP Queue 1, "
-                "item 4: the TP/DP/FSDP rules); serve on one device")
         if not (0 <= reserved_slots < max_batch):
             raise ValueError(f"reserved_slots must be in [0, max_batch); got {reserved_slots}")
+        self.mesh = mesh
+        self.tp_group = None
+        self.leader = True
+        if mesh is not None:
+            params = self._shard(cfg, params, mesh)
+        self.eager_windows = eager_windows
         self.cfg = cfg
         self.params = params
         self.tokens = tokens
@@ -248,14 +269,21 @@ class ServingEngine:
         # the engine's own step function (not the memoized one generate()
         # takes): its capture's static carry is the engine's carry
         self.step_fn = inf.StepFn(cfg, tokens, inf._trace_opts(opts), frames_per_dispatch,
-                                  stacked=frames_per_dispatch > 1)
+                                  stacked=frames_per_dispatch > 1, tp_group=self.tp_group)
 
         embed = params["lm"]["embed"]
         dtype, self.device = embed.dtype, embed.device
+        if (self.tp_group is not None and self.device.type == "cuda" and not eager_windows
+                and dist.get_backend(self.tp_group) != "nccl"):
+            raise ValueError(
+                f"a {dist.get_backend(self.tp_group)!r} tensor-parallel group's collectives cannot "
+                "be captured in the windows' CUDA graphs (only NCCL's): pass eager_windows=True")
         b, hidden = max_batch, cfg.decoder_config.hidden_size
         self.carry = inf.DecodeCarry(
             cache=qwen2.make_cache(cfg.decoder_config, 2 * b, max_len, dtype,
-                                   quantized=bool(opts.kv_int8), device=self.device),
+                                   quantized=bool(opts.kv_int8), device=self.device,
+                                   kv_heads=qwen2.local_kv_heads(cfg.decoder_config,
+                                                                 self.tp_group)),
             dec_state=tok.init_decoder_state(cfg.acoustic_tokenizer_config, b, dtype, self.device),
             sem_state=tok.init_encoder_state(cfg.semantic_tokenizer_config, b, dtype, self.device),
             h_pos=torch.zeros(b, hidden, dtype=dtype, device=self.device),
@@ -263,9 +291,10 @@ class ServingEngine:
             finished=torch.ones(b, dtype=torch.bool, device=self.device),  # every slot idle
             n_diff=torch.zeros(b, dtype=torch.int64, device=self.device),
         )
-        # the prefill worker's stream (module docstring)
+        # the prefill worker's stream (module docstring); under TP the
+        # prefill runs in the decode loop, on its stream
         self._prefill_stream = (torch.cuda.Stream(self.device, priority=-1)
-                                if self.device.type == "cuda" else None)
+                                if self.device.type == "cuda" and mesh is None else None)
         # the frame noise of one window, redrawn in place before each
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(0)
@@ -306,10 +335,34 @@ class ServingEngine:
         # a graceful drain is idle when Queue.unfinished_tasks is 0: the
         # workers call task_done() only once an item is settled (finished,
         # staged or in a slot), so an item in a worker's hands keeps it busy
+        # each window's tokens (K, max_batch), kept under TP to compare ranks
+        self.token_log: "collections.deque" = collections.deque(maxlen=4096)
         self._thread = threading.Thread(target=self._loop, daemon=True)
-        self._prefill_thread = threading.Thread(target=self._prefill_loop, daemon=True)
+        self._prefill_thread = threading.Thread(
+            target=self._prefill_loop if mesh is None else lambda: None, daemon=True)
         self._thread.start()
         self._prefill_thread.start()
+
+    def _shard(self, cfg: VibeVoiceConfig, params, mesh):
+        """This rank's tree under TP, with the group and the control group."""
+        from ..parallel import mesh as pmesh
+
+        if any("w8" in lp["attn"]["q"] for lp in params["lm"]["layers"]):
+            raise ValueError(
+                "TP serving shards dense ('w') params; int8-quantized params are the "
+                "single-device memory configuration (int8 LM + int8 KV) - use one or the other")
+        if pmesh.axis_size(mesh, "dp") > 1 or "tp" not in mesh.mesh_dim_names:
+            raise ValueError(f"TP serving takes a mesh of one 'tp' dimension (dp 1); got "
+                             f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+        params = pmesh.shard_params(
+            params, pmesh.model_param_shardings(params, mesh, cfg.decoder_config.head_dim), mesh)
+        self.tp_group = mesh.get_group("tp")
+        ranks = dist.get_process_group_ranks(self.tp_group)
+        self._leader_rank = ranks[0]
+        self.leader = dist.get_rank() == ranks[0]
+        # the decisions travel on the host: a gloo group beside the tp group
+        self._ctl = dist.new_group(ranks, backend="gloo")
+        return params
 
     # ------------------------------------------------------------------
     # public API
@@ -326,6 +379,9 @@ class ServingEngine:
             return self.state_cv.wait_for(predicate, timeout)
 
     def submit(self, request: Request) -> RequestHandle:
+        if not self.leader:
+            raise RuntimeError("this rank follows rank 0 of the tensor-parallel group, which owns "
+                               "the queue: submit there")
         handle = RequestHandle(request)
         with self._recs_lock:
             self._recs.append(handle.rec)
@@ -421,7 +477,11 @@ class ServingEngine:
         """Stop the engine. With ``drain=True`` (a graceful rollout), first
         refuse new submissions ("engine is draining") and let accepted
         requests run to their end, up to `timeout` seconds; what is still
-        unfinished then is failed by the normal drain."""
+        unfinished then is failed by the normal drain. Under TP a following
+        rank waits (without a bound) for rank 0's shutdown."""
+        if not self.leader:
+            self._thread.join()
+            return
         if drain and not self._stop.is_set():
             self._draining.set()
             deadline = time.monotonic() + timeout
@@ -440,6 +500,8 @@ class ServingEngine:
 
     def _prefill_loop(self):
         try:
+            if self.device.type == "cuda":
+                torch.cuda.set_device(self.device)
             self._prefill_loop_inner()
         except BaseException as e:
             # a worker-level fault (a request's own error is finished in
@@ -512,7 +574,8 @@ class ServingEngine:
                     break
 
     def _prefill(self, r: Request):
-        """(batch-1 carry, frame cap) of one request, on the prefill thread."""
+        """(batch-1 carry, frame cap) of one request, on the prefill thread
+        (under TP, on the decode thread of every rank)."""
         generator = torch.Generator(device=self.device)
         generator.manual_seed(r.seed)
         stream = self._prefill_stream
@@ -520,13 +583,16 @@ class ServingEngine:
             single = inf.prefill_request(
                 self.cfg, self.params, np.asarray(r.input_ids), np.asarray(r.valid_mask),
                 r.speech_tensors, r.speech_frame_valid, r.speech_input_mask, self.max_len,
-                self.tokens, self.opts, generator)
+                self.tokens, self.opts, generator, tp_group=self.tp_group)
         if stream is not None:
             # the carry is complete before it is handed over: a join reads it
             # on the decode stream without waiting for this one
             stream.synchronize()
+        return single, self._frame_cap(r)
+
+    def _frame_cap(self, r: Request) -> int:
         n = int(np.asarray(r.valid_mask).sum())
-        return single, min(self.max_len - n, int(r.max_length_times * n))
+        return min(self.max_len - n, int(r.max_length_times * n))
 
     # ------------------------------------------------------------------
     # decode worker
@@ -586,10 +652,7 @@ class ServingEngine:
             if handle.cancelled.is_set():
                 handle._finish()
                 continue
-            if handle.request.priority:
-                slot = next((i for i in free if i < self.reserved_slots), free[0] if free else None)
-            else:
-                slot = next((i for i in free if i >= self.reserved_slots), None)
+            slot = self._place(free, handle.request.priority)
             if slot is None:
                 keep.append((handle, single, max_steps))
                 continue
@@ -604,6 +667,13 @@ class ServingEngine:
         self._ready_local = keep
         self._notify_state()
 
+    def _place(self, free: List[int], priority: bool) -> Optional[int]:
+        """The free slot a request takes, or None: a priority request an
+        express slot first, else any; a bulk request never an express slot."""
+        if priority:
+            return next((i for i in free if i < self.reserved_slots), free[0] if free else None)
+        return next((i for i in free if i >= self.reserved_slots), None)
+
     def _draw_noise(self) -> inf.FrameNoise:
         """The next window's frame noise (K frames x max_batch rows), drawn
         on the card from the engine's generator, frame by frame."""
@@ -611,7 +681,12 @@ class ServingEngine:
 
     def _loop(self):
         try:
-            self._loop_inner()
+            if self.device.type == "cuda":  # a new thread starts on device 0
+                torch.cuda.set_device(self.device)
+            if self.leader:
+                self._loop_inner()
+            else:
+                self._follow()
         except BaseException as e:  # a dead decode loop must not strand callers
             self._stop.set()
             self._drain(e)
@@ -647,12 +722,12 @@ class ServingEngine:
         outputs to pinned host memory; returns the copy's wait."""
         noise = self._draw_noise()
         ext_t = inf._to_device(ext, self.device)
+        step = self.step_fn.eager if self.eager_windows else self.step_fn
         if self.frames_per_dispatch == 1:  # make_step_fn's form: no K axis
-            self.carry, out = self.step_fn(self.params, self.carry, inf._frame_of(noise, 0),
-                                           ext_t[0])
+            self.carry, out = step(self.params, self.carry, inf._frame_of(noise, 0), ext_t[0])
             out = inf._tree_map(lambda t: t[None], out)
         else:
-            self.carry, out = self.step_fn(self.params, self.carry, noise, ext_t)
+            self.carry, out = step(self.params, self.carry, noise, ext_t)
         return inf._fetch(out)
 
     def _process(self, fetched, snap):
@@ -660,6 +735,8 @@ class ServingEngine:
         window's row i belongs to snap[i] even if that slot was freed and
         joined again since. Frames after a finish are masked on the card."""
         toks, amask, audio, fin = fetched()
+        if self.mesh is not None:
+            self.token_log.append(toks)
         for f in range(amask.shape[0]):
             for i, h in enumerate(snap):
                 if h is None:
@@ -683,25 +760,49 @@ class ServingEngine:
         # known to the host (the ext row forces them), so those slots are
         # freed at dispatch and can take a request in the very next window;
         # EOS finishes are found when the window is read, one window late.
+        # Under TP (rank 0), _take_joins stands in for _admit, and each
+        # boundary's decision goes to every rank before the joins' prefills
+        # and the window (_follow runs it there); an idle rank 0 still sends
+        # one every HEARTBEAT_S.
         inflight = None
         k = self.frames_per_dispatch
-        while not self._stop.is_set():
-            self._admit()
+        last = time.monotonic()
+        while True:
+            stop = self._stop.is_set()
+            joins = []
+            if self.mesh is None:
+                if stop:
+                    break
+                self._admit()
+            elif not stop:
+                joins = self._take_joins()
             active = [i for i, h in enumerate(self.slots) if h is not None]
-            if not active:
+            ext = None
+            if active and not stop:
+                for h in self.slots:  # deadlines finish through the cancel path
+                    if h is not None and not h.cancelled.is_set() and h._deadline_exceeded():
+                        h.deadline_expired = True
+                        h.cancel()
+                cancelled = np.array([h is not None and h.cancelled.is_set() for h in self.slots])
+                ext = ((self.slot_steps[None, :] + np.arange(k)[:, None] >= self.slot_max_steps)
+                       | cancelled[None, :])
+            if self.mesh is not None and (stop or joins or ext is not None
+                                          or time.monotonic() - last >= self.HEARTBEAT_S):
+                last = time.monotonic()
+                self._decide((stop, joins, ext))
+                if stop:
+                    break
+                for slot, e in self._join_all(joins):
+                    self.slots[slot]._finish(e)
+                    self.slots[slot] = None
+                self._notify_state()
+            if ext is None:
                 if inflight is not None:
                     self._process(*inflight)
                     inflight = None
                     continue
                 time.sleep(self.idle_sleep)
                 continue
-            for h in self.slots:  # deadlines finish through the cancel path
-                if h is not None and not h.cancelled.is_set() and h._deadline_exceeded():
-                    h.deadline_expired = True
-                    h.cancel()
-            cancelled = np.array([h is not None and h.cancelled.is_set() for h in self.slots])
-            ext = ((self.slot_steps[None, :] + np.arange(k)[:, None] >= self.slot_max_steps)
-                   | cancelled[None, :])
             fetched = self._dispatch(ext)
             snap = list(self.slots)
             for i in active:
@@ -725,3 +826,73 @@ class ServingEngine:
         if inflight is not None:  # deliver the last window before draining
             self._process(*inflight)
         self._drain()
+
+    # ------------------------------------------------------------------
+    # tensor parallelism: rank 0 decides, every rank runs (module docstring)
+    # ------------------------------------------------------------------
+
+    HEARTBEAT_S = 1.0  # an idle rank 0 still broadcasts this often (gloo timeouts)
+
+    def _decide(self, decision):
+        """Rank 0's decision for this window boundary, on every rank."""
+        box = [decision]
+        dist.broadcast_object_list(box, src=self._leader_rank, group=self._ctl)
+        return box[0]
+
+    def _join_all(self, joins) -> List[tuple]:
+        """Prefill and join (slot, request) entries, in order, on every rank;
+        returns (slot, error) for those whose prefill raised."""
+        failed = []
+        for slot, request in joins:
+            try:
+                single, _ = self._prefill(request)
+            except Exception as e:  # the same request fails alike on every rank
+                failed.append((slot, e))
+                continue
+            join_slot(self.carry, single, slot, self.max_batch)
+        return failed
+
+    def _take_joins(self) -> List[tuple]:
+        """Rank 0, in place of _admit: pending requests placed into free
+        slots (_place), as (slot, request) to broadcast and join; cancelled
+        or expired ones finish here. Each item is settled (in its slot,
+        finished, or back in the queue) before its task_done, so a graceful
+        drain never finds the engine idle while it holds one."""
+        joins, keep = [], []
+        free = [i for i, h in enumerate(self.slots) if h is None]
+        while free:
+            try:
+                item = self.pending.get_nowait()
+            except queue.Empty:
+                break
+            h = item[2]
+            if h._deadline_exceeded() and not h.cancelled.is_set():
+                h.deadline_expired = True
+                h.cancel()
+            if h.cancelled.is_set():
+                h._finish()
+            else:
+                slot = self._place(free, h.request.priority)
+                if slot is None:  # a bulk request waiting for a bulk slot
+                    keep.append(item)
+                    continue
+                free.remove(slot)
+                self.slot_steps[slot] = 0
+                self.slot_max_steps[slot] = self._frame_cap(h.request)
+                self.slots[slot] = h
+                joins.append((slot, h.request))
+            self.pending.task_done()
+        for item in keep:
+            self.pending.put(item)
+            self.pending.task_done()
+        return joins
+
+    def _follow(self):
+        """Another rank's decode loop: run what rank 0 decides."""
+        while True:
+            stop, joins, ext = self._decide(None)
+            if stop:
+                break
+            self._join_all(joins)
+            if ext is not None:
+                self.token_log.append(self._dispatch(ext)()[0])

@@ -44,6 +44,17 @@ D (and the streaming vocoder for D), as the random-weight models are served.
 ``--config 1.5b`` / ``--streaming_config 0.5b`` (or a config JSON) serve the
 full-width models with random weights from ``--seed``; ``--smoke`` the tiny
 ones.
+
+Tensor-parallel serving of the multi-speaker model (``--tp N``, as the JAX
+server's): the command starts N processes on this host, one a rank; rank 0
+serves HTTP on ``cuda:0`` and ranks 1..N-1 follow on ``cuda:1``..``cuda:N-1``
+(``--device cpu``: all on the CPU). Each builds the model (dense LM: the
+random-weight models keep theirs dense, and ``--int8`` is refused) and runs
+its shard in ``ServingEngine(mesh=)``: over NCCL on the card, whose windows
+replay CUDA graphs with their all-reduces, over gloo on the CPU::
+
+  python -m vibevoice_tpu_torch.serving.server --config <7B json> --tp 2 --warmup
+  python -m vibevoice_tpu_torch.serving.server --smoke --tp 2 --device cpu
 """
 
 from __future__ import annotations
@@ -146,6 +157,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="deliver each window before enqueuing the next")
     ap.add_argument("--kv_int8", action=argparse.BooleanOptionalAction, default=None,
                     help="int8 KV cache; default: on from --max_len 16384")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel ranks of the multi-speaker model (one process and one "
+                         "card each, started by this command); the LM must be dense")
     ap.add_argument("--voices_dir", default=str(VOICES_DIR))
     ap.add_argument("--streaming_max_len", type=int, default=8192)
     ap.add_argument("--streaming_ddpm_steps", type=int, default=5)
@@ -167,24 +181,36 @@ def _config(name: str) -> str:
     return str(CONFIG_ALIASES.get(name.lower(), name))
 
 
+def _build_tts(args, device):
+    """The multi-speaker model for the options (dense LM under --tp)."""
+    from ..models import vibevoice as vv
+    from ..tts import VibeVoiceTTS
+
+    if args.smoke:
+        return VibeVoiceTTS.smoke(device=device)
+    if args.model_path:
+        if args.int8 and args.tp > 1:
+            raise SystemExit("--tp shards a dense LM: drop --int8 (the int8 LM is the "
+                             "one-device memory configuration)")
+        tts = VibeVoiceTTS.from_pretrained(args.model_path, int8=args.int8, device=device)
+        if args.int8:
+            tts.params = vv.fuse_for_serving(tts.params, tts.cfg, quantize=True)
+        return tts
+    if args.config:
+        return VibeVoiceTTS.random(_config(args.config), seed=args.seed, device=device,
+                                   int8_lm=args.tp == 1)
+    raise SystemExit("give --model_path (a checkpoint), --config 1.5b (random full-width "
+                     "weights) or --smoke (the tiny models)")
+
+
 def _build_models(args):
     """(tts, rt) for the options: a VibeVoiceTTS and a StreamingTTS or None."""
     from ..models import streaming as st
-    from ..models import vibevoice as vv
-    from ..tts import StreamingTTS, VibeVoiceTTS
+    from ..tts import StreamingTTS
 
+    tts = _build_tts(args, args.device)
     if args.smoke:
-        return (VibeVoiceTTS.smoke(device=args.device),
-                StreamingTTS.smoke(max_len=args.streaming_max_len, device=args.device))
-    if args.model_path:
-        tts = VibeVoiceTTS.from_pretrained(args.model_path, int8=args.int8, device=args.device)
-        if args.int8:
-            tts.params = vv.fuse_for_serving(tts.params, tts.cfg, quantize=True)
-    elif args.config:
-        tts = VibeVoiceTTS.random(_config(args.config), seed=args.seed, device=args.device)
-    else:
-        raise SystemExit("give --model_path (a checkpoint), --config 1.5b (random full-width "
-                         "weights) or --smoke (the tiny models)")
+        return tts, StreamingTTS.smoke(max_len=args.streaming_max_len, device=args.device)
     rt = None
     if args.streaming_model_path:
         rt = StreamingTTS.from_pretrained(args.streaming_model_path, voice=args.streaming_voice,
@@ -197,28 +223,63 @@ def _build_models(args):
     return tts, rt
 
 
-def build_server(args, *, engine=None, processor=None, rt=None, rt_engine=None):
+def _engine(args, tts, mesh=None):
+    from ..models import inference as inf
+    from .engine import ServingEngine
+
+    return ServingEngine(
+        tts.cfg, tts.params, tokens=tts.tokens,
+        opts=inf.GenerateOptions(cfg_scale=args.cfg_scale, ddpm_steps=args.ddpm_steps,
+                                 max_length=args.max_len, kv_int8=args.kv_int8),
+        max_batch=args.max_batch, max_len=args.max_len,
+        frames_per_dispatch=args.frames_per_dispatch, pipeline=not args.no_pipeline,
+        reserved_slots=args.reserved_slots, mesh=mesh)
+
+
+def _join_tp(args, rank: int, port: int):
+    """This process as rank ``rank`` of --tp: its device, the process group
+    and the mesh."""
+    import torch
+    import torch.distributed as dist
+
+    from ..parallel.mesh import make_mesh
+
+    device = args.device
+    if device != "cpu":
+        device = f"cuda:{rank % torch.cuda.device_count()}"
+        torch.cuda.set_device(device)
+    dist.init_process_group("gloo" if device == "cpu" else "nccl",
+                            init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=args.tp)
+    return device, make_mesh(dp=1, tp=args.tp)
+
+
+def _follow(args, rank: int, port: int) -> None:
+    """Rank ``rank`` > 0 of --tp: its shard of the engine, until rank 0 stops."""
+    import torch.distributed as dist
+
+    device, mesh = _join_tp(args, rank, port)
+    engine = _engine(args, _build_tts(args, device), mesh)
+    engine.shutdown()  # waits for rank 0's
+    dist.destroy_process_group()
+
+
+def build_server(args, *, engine=None, processor=None, rt=None, rt_engine=None, mesh=None):
     """The HTTP server (not yet serving: call serve_forever) over engines
     built from ``args`` (``parse_args``), or over the ones given: a
     ServingEngine and the processor of its model, and for /tts/rt a
-    StreamingTTS (``rt``) or a StreamingSessionEngine (``rt_engine``)."""
+    StreamingTTS (``rt``) or a StreamingSessionEngine (``rt_engine``).
+    ``mesh``: rank 0's mesh under --tp (``main`` joins the ranks)."""
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
     from ..models import inference as inf
-    from .engine import Request, ServingEngine
+    from .engine import Request
     from .streaming_sessions import StreamingSessionEngine
 
     if engine is None:
         tts, built_rt = _build_models(args)
         processor = tts.processor
         rt = rt or built_rt
-        engine = ServingEngine(
-            tts.cfg, tts.params, tokens=tts.tokens,
-            opts=inf.GenerateOptions(cfg_scale=args.cfg_scale, ddpm_steps=args.ddpm_steps,
-                                     max_length=args.max_len, kv_int8=args.kv_int8),
-            max_batch=args.max_batch, max_len=args.max_len,
-            frames_per_dispatch=args.frames_per_dispatch, pipeline=not args.no_pipeline,
-            reserved_slots=args.reserved_slots)
+        engine = _engine(args, tts, mesh)
         if args.warmup:
             print(f"[serve] warmup: {engine.warmup(prompt_tokens=args.warmup_tokens):.1f} s")
         if rt is not None and args.rt_sessions > 1:
@@ -431,6 +492,8 @@ def build_server(args, *, engine=None, processor=None, rt=None, rt_engine=None):
                     import traceback
 
                     traceback.print_exc()
+            if sid is not None:  # unregistered before the client can see the end
+                live_rt.pop(sid, None)
             self.wfile.write(b"0\r\n\r\n")
             self.wfile.flush()
 
@@ -443,7 +506,25 @@ def build_server(args, *, engine=None, processor=None, rt=None, rt_engine=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    server = build_server(args)
+    followers, mesh = [], None
+    if args.tp > 1:
+        import multiprocessing as mp
+
+        from ..parallel.mesh import free_port
+
+        port = free_port()
+        ctx = mp.get_context("spawn")
+        followers = [ctx.Process(target=_follow, args=(args, r, port), daemon=True)
+                     for r in range(1, args.tp)]
+        for proc in followers:
+            proc.start()
+        args.device, mesh = _join_tp(args, 0, port)
+    try:
+        server = build_server(args, mesh=mesh)
+    except BaseException:
+        for proc in followers:
+            proc.kill()
+        raise
     host, port = server.server_address[:2]
     print(f"Serving on http://{host}:{port} (POST /tts, /tts/stream, /tts/rt, /v1/audio/speech; "
           "GET /health, /stats)", flush=True)
@@ -456,6 +537,12 @@ def main(argv=None):
         server.engine.shutdown()
         if server.rt_engine is not None:
             server.rt_engine.shutdown(drain=False)
+        for proc in followers:
+            proc.join(60)
+        if mesh is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -133,11 +133,13 @@ class VibeVoiceTTS:
         return cls(cfg, params, processor, tokens)
 
     @classmethod
-    def random(cls, config: str, *, seed: int = 0, device="cuda") -> "VibeVoiceTTS":
+    def random(cls, config: str, *, seed: int = 0, device="cuda",
+               int8_lm: bool = True) -> "VibeVoiceTTS":
         """A full-width configuration (a config JSON) with random bf16
         weights from ``seed``, set up for serving as the benchmarks serve
-        it: int8 LM and lm_head, ``fuse_for_serving(quantize=True)``; the
-        hash-bucket tokenizer with the Qwen special token ids."""
+        it: int8 LM and lm_head (dense with ``int8_lm=False``, as
+        tensor-parallel serving takes them), ``fuse_for_serving(quantize=True)``;
+        the hash-bucket tokenizer with the Qwen special token ids."""
         import torch
 
         from .configs import VibeVoiceConfig
@@ -148,8 +150,9 @@ class VibeVoiceTTS:
 
         cfg = VibeVoiceConfig.from_json_file(config)
         params = init(cfg, seed=seed, dtype=torch.bfloat16, device=device)
-        params = vv.fuse_for_serving(vv.quantize_for_inference(params, ("lm", "lm_head")), cfg,
-                                     quantize=True)
+        if int8_lm:
+            params = vv.quantize_for_inference(params, ("lm", "lm_head"))
+        params = vv.fuse_for_serving(params, cfg, quantize=True)
         tk = FallbackTextTokenizer(
             vocab_size=cfg.decoder_config.vocab_size,
             speech_start_id=QWEN_SPECIAL_IDS["speech_start"],
