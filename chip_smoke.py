@@ -210,13 +210,34 @@ Phases, each of which fails the run:
      saved and restored through utils/checkpoint must come back bit-equal;
      (d) it prints which
      multi-card cases (FSDP, GPipe, the graphed NCCL engine at tp 2 and 4,
-     in tests/test_torch_cuda.py) the machine's cards could not run.
+     in tests/test_torch_cuda.py) the machine's cards could not run;
+ 14. the rest of the JAX package's surface (the_surface): (a) kernel A at
+     the packed q|k|v and gate|up, int8-head and int8-tokenizer shapes of
+     the 1.5B and the 7B (SURFACE_KERNELS), each against its plain version,
+     timed with its bound and torch.mm, replayed from a CUDA graph against
+     its eager call (the same bits); (b) VibeVoiceTTS.random with LM_PACK=1
+     against phase 4's model: h_pos after the prefill the same bits, the
+     forced graphed run's tokens equal, ms a frame and a replayed window's
+     device time of both taken in turn; (c) the 512-wide int8 LM, head and
+     tokenizers on the card against the CPU (SMALL_CARD_TOL), and the
+     full-width 1.5B so (graphed against eager, the same bits; no C or D
+     launch) beside the fused path, then utils.profiling.trace around one
+     graphed window; (d) sample(thresholding=True) on the card against
+     the CPU; (e) QLoRA B2 T2048 with remat and with remat_policy dots (the
+     same losses; peak memory and s/step); (f) the merge script on phase
+     11's checkpoint with (e)'s adapters, and the QA harness on it (its
+     parity step skipped with its reason where the upstream reference does
+     not import). Phase 12 (g) runs the 7B packed with an int8 head.
 The next-to-last line is a JSON object of the kernels' results
-(twenty-four entries: the ten of phases 3-11, their "@7b" twins, and the
-four "@tp" entries of B's two routes and the training attention); the last
-line is the JSON device record. The script runs itself again with
+(thirty entries: the ten of phases 3-11, their "@7b" twins, the four "@tp"
+entries of B's two routes and the training attention, and kernel A's six
+surface entries, "@pack", "@head", "@tok" by route and the 7B's "@pack@7b"
+and "@head@7b"); the last line is the JSON device record. The script runs itself again with
 PYTHONHASHSEED=0: the prompts go through the hash-bucket fallback
-tokenizer, so every run of one --seed then feeds the model the same ids.
+tokenizer, so every run of one --seed then feeds the model the same ids;
+and with TEARDOWN_CUPTI=0 and DISABLE_CUPTI_LAZY_REINIT=1, so that its many
+profiles beside captured CUDA graphs keep recording device activity. A
+failed check prints its reason on stdout and on stderr and exits 1.
 """
 
 from __future__ import annotations
@@ -327,7 +348,10 @@ def ptxas_report(log: str, prefix: str) -> list:
 
 
 def fail(msg: str) -> None:
+    """Report on both streams (a caller that keeps only the end of stderr
+    still reads why) and exit 1."""
     print(f"FAIL: {msg}", flush=True)
+    print(f"chip_smoke.py FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -2093,7 +2117,8 @@ def finetune_end_to_end(seed: int, config: Path = CONFIG_1P5B, runs=FINETUNE_RUN
     """The port's trainer on a full-width config (the 1.5B's by default),
     QLoRA, synthetic clips sized to fill the sequence: phase 7's runs are 3
     steps at B 2, T 2048 (trainer defaults), 2 steps at B 1, T 8192 with
-    remat and chunked CE."""
+    remat and chunked CE. A run writes no checkpoint unless its arguments
+    name an --output_dir."""
     import torch
 
     from vibevoice_tpu_torch.finetune import train
@@ -2104,13 +2129,14 @@ def finetune_end_to_end(seed: int, config: Path = CONFIG_1P5B, runs=FINETUNE_RUN
     core_names = ("flash_train_attention_fwd_cores", "flash_train_attention_bwd_cores")
     common = ["--config", str(config),
               "--synthetic_data", "--synthetic_items", "4", "--use_lora", "--int8_base",
-              "--seed", str(seed), "--device", "cuda", "--no_save", "--log_steps", "1"]
+              "--seed", str(seed), "--device", "cuda", "--log_steps", "1"]
     recs = {}
     for label, extra in runs:
         torch.cuda.empty_cache()
         reset_counts(names + core_names)
         t0 = time.perf_counter()
-        summary = train.main(common + extra)
+        # a run given --output_dir writes its checkpoint (phase 14's merge reads it)
+        summary = train.main(common + ([] if "--output_dir" in extra else ["--no_save"]) + extra)
         wall = time.perf_counter() - t0
         counts = read_counts(names)
         cores = read_counts(core_names)
@@ -3750,8 +3776,10 @@ def the_7b(checks: Checks, seed: int, frames: int) -> dict:
     32,768-slot int8 cache (held together within SP_TOL), then 32 graphed
     frames at that fill; (d) the serving engine (serving_engine_7b); (e)
     QLoRA: the trainer at --config <7B> --use_lora --int8_base, B1 T2048, 3
-    steps; (f) a checkpoint (checkpoint_7b_end_to_end). Every kernel's
-    "@7b" entry must launch on these paths."""
+    steps; (f) a checkpoint (checkpoint_7b_end_to_end); (g) the 7B packed
+    with an int8 head (surface_7b, for phase 14's "@pack@7b" and
+    "@head@7b" entries). Every kernel's "@7b" entry must launch on these
+    paths."""
     import torch
 
     from vibevoice_tpu_torch.models import inference as inf
@@ -3777,6 +3805,11 @@ def the_7b(checks: Checks, seed: int, frames: int) -> dict:
     runs["serving"] = serving["runs"]
     runs["graphed_profile"] = graphed_profile(model, seed)
     walls["serving"] = time.perf_counter() - t
+    t = time.perf_counter()
+    runs["surface"] = surface_7b(model, seed)
+    for name in ("int8_matmul@pack@7b", "int8_matmul@head@7b"):
+        checks.kernels[name]["launches"] += runs["surface"]["launches"]["int8_matmul"]
+    walls["surface"] = time.perf_counter() - t
     inf._captures.clear()
     gc.collect()
     torch.cuda.empty_cache()
@@ -4614,6 +4647,627 @@ def tensor_parallel(checks: Checks, seed: int, frames: int) -> dict:
     return dict(tp1=tp1, tp2=tp2, trainer=trainer, multi_card=note, walls=walls)
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the rest of the JAX package's surface on one card
+# ---------------------------------------------------------------------------
+
+# Kernel A's shapes on the surface (name, IN, OUT, the rows of its cases,
+# the main case's rows), by kernels-line tag: the packed q|k|v and gate|up
+# of an int8 LM (LM_PACK=1), the int8 diffusion head (FFN ratio 3; AdaLN
+# at K x 2B = 20 rows at bs1, 10 steps; bs4's 80 rows take the GEMM, a card
+# test's case) and the int8 tokenizer FFNs (C, 4C) at C = 512, 1024, 2048:
+# 1 row a frame at the T = 1 stages, 45-90 rows in a 3 s voice prompt's
+# encode (the GEMM, "int8_matmul_gemm@tok"; 300 at C = 2048 for a 10 s one).
+SURFACE_KERNELS = {
+    "@pack": (("qkv", 1536, 2048, (2, 8), None), ("gate|up", 1536, 17920, (2, 8), 2)),
+    "@head": (("ffn gate/up", 1536, 4608, (2, 8), 2), ("ffn down", 4608, 1536, (2, 8), None),
+              ("adaln", 1536, 4608, (20,), None)),
+    "@tok": (("C 512 fc1", 512, 2048, (1, 4, 90), None), ("C 512 fc2", 2048, 512, (1, 90), None),
+             ("C 1024 fc1", 1024, 4096, (1, 45), None),
+             ("C 1024 fc2", 4096, 1024, (1, 45), None),
+             ("C 2048 fc1", 2048, 8192, (1, 4, 300), 1), ("C 2048 fc2", 8192, 2048, (1, 300), 300)),
+    "@pack@7b": (("qkv", 3584, 4608, (2, 8), None), ("gate|up", 3584, 37888, (2, 8), 2)),
+    "@head@7b": (("ffn gate/up", 3584, 10752, (2, 8), 2), ("ffn down", 10752, 3584, (2,), None),
+                 ("adaln", 3584, 10752, (20,), None)),
+}
+SURFACE_ENTRIES = ("int8_matmul@pack", "int8_matmul@head", "int8_matmul@tok",
+                   "int8_matmul_gemm@tok", "int8_matmul@pack@7b", "int8_matmul@head@7b")
+ALL_COMPONENTS = ("lm", "lm_head", "diffusion_head", "tokenizers")
+SURFACE_REPEATS = 3  # alternated timings of two variants, medians printed
+# LM_PACK=1 against unpacked, h_pos after the prefill: kernel A's GEMM
+# never splits K and computes each column alone, so the packed weights give
+# the same bits (H100, --seed 0: 0.0). The decode GEMV's K split follows
+# OUT, so the packed frames round otherwise and the random-weight audio
+# drifts (0.935 of the peak after 32 frames): printed, not held.
+PACK_HPOS_TOL = 0.0
+# The 512-wide int8 model on the card against the CPU, audio over its peak:
+# the CPU's own plain version with f64 sums in place of f32 moves this
+# audio by 1.14e-3 of the peak (3.2e-4 with only the LM int8), so summation
+# order alone spreads it that far; the card read 1.28e-3 (H100, --seed 0).
+SMALL_CARD_TOL = 5e-3
+THRESHOLD_TOL = 1e-5
+DOTS_LOSS_TOL = 1e-6  # "dots" against full remat, relative, each step
+SURFACE_ROOT = ROOT / "build" / "phase14"
+FINETUNE_RUNS_DOTS = (
+    ("B2 T2048 remat", ["--per_device_batch_size", "2", "--max_length", "2048",
+                        "--pad_to_multiple", "2048", "--synthetic_seconds", "220", "250",
+                        "--max_steps", "3", "--remat"]),
+    ("B2 T2048 remat dots", ["--per_device_batch_size", "2", "--max_length", "2048",
+                             "--pad_to_multiple", "2048", "--synthetic_seconds", "220", "250",
+                             "--max_steps", "3", "--remat", "--remat_policy", "dots",
+                             "--output_dir", str(SURFACE_ROOT / "trained")]))
+
+
+def check_surface_kernels(checks: Checks, seed: int) -> None:
+    """Phase 14 (a): kernel A at every shape of SURFACE_KERNELS against its
+    plain version (tol 1e-2, bf16 x), timed with its bound and torch.mm on a
+    bf16 copy (check_int8_matmul), each case replayed from one CUDA-graph
+    capture with new x against its eager call (the same bits), the GEMV's
+    2-row or 1-row case also against the plain version (gemv_graph_check).
+    The main case of each entry fills its ms."""
+    import torch
+
+    from vibevoice_tpu_torch.ops import quant
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 14)
+    randn = lambda *s, dt=torch.bfloat16: torch.randn(s, generator=g, device=dev).to(dt)
+    print("kernel A int8_matmul at the surface's shapes: packed q|k|v and gate|up, the int8 "
+          "head, the int8 tokenizer FFNs (bf16 x, int8 w, f32 scale; tol 1e-2; library: "
+          "torch.mm on a bf16 copy of the weight)", flush=True)
+    try:
+        for tag, shapes in SURFACE_KERNELS.items():
+            checks.tag = tag
+            for name, k, n, rows_list, main_rows in shapes:
+                ws = rotating(lambda: quant.quantize_weight(randn(k, n, dt=torch.float32) * 0.02),
+                              k * n)
+                for rows in rows_list:
+                    x = randn(rows, k)
+                    label = f"{name} {k}x{n} rows={rows}"
+                    check_int8_matmul(checks, label, x, ws, 1e-2, main=rows == main_rows)
+                    if rows == rows_list[0] and quant._plan(rows, k, n).route == "gemv":
+                        gemv_graph_check(checks, label, x, ws[0])
+                    graph_vs_eager(checks, "int8_matmul" if quant._plan(rows, k, n).route ==
+                                   "gemv" else "int8_matmul_gemm", label,
+                                   lambda: quant.int8_matmul(x, ws[0]["w8"], ws[0]["scale"]), (x,))
+                del ws
+                torch.cuda.empty_cache()
+    finally:
+        checks.tag = ""
+
+
+def _timed_generate(cfg, params, proc, toks, seed, opts, script, step_fn=None):
+    import numpy as np
+    import torch
+
+    from vibevoice_tpu_torch.models import inference as inf
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = inf.generate(cfg, params, input_ids=proc.input_ids, valid_mask=proc.attention_mask,
+                       speech_tensors=proc.speech_tensors, speech_frame_valid=proc.speech_masks,
+                       speech_input_mask=proc.speech_input_mask, tokens=toks, seed=seed,
+                       opts=opts, step_fn=step_fn,
+                       forced_tokens=np.asarray(script, np.int64)[:, None])
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def alternated_frames(model: dict, seed: int, frames: int, variants: dict) -> dict:
+    """Graphed (K = 4, 4,096 bf16 slots) forced runs of each params variant
+    of the one model, taken in turn SURFACE_REPEATS times (A, B, A, B, ...)
+    after one capturing run each: ms a frame from the `frames`- and 3-frame
+    runs' walls, the median and every reading; the last run's outputs (a
+    copy) and launches of SURFACE_ENTRIES' wrappers."""
+    import numpy as np
+
+    from vibevoice_tpu_torch.models import inference as inf
+
+    cfg, toks = model["cfg"], model["toks"]
+    proc = model["processor"](text=model["script"], voice_samples=[model["voices"]])
+    forced, short = forced_scripts(toks, frames)
+    opts = inf.GenerateOptions(ddpm_steps=10, cfg_scale=1.3, max_length=4096,
+                               frames_per_dispatch=4)
+    names = ("int8_matmul", "int8_matmul_gemm", "flash_cached_attention",
+             "flash_cached_attention_prefill", "fused_head_ffn_stack", "fused_stage_step")
+    for params in variants.values():
+        _timed_generate(cfg, params, proc, toks, seed, opts, short)  # captures
+    rec = {name: dict(per_frame_ms=[]) for name in variants}
+    for _ in range(SURFACE_REPEATS):
+        for name, params in variants.items():
+            reset_counts(names)
+            out, wall = _timed_generate(cfg, params, proc, toks, seed, opts, forced)
+            counts = read_counts(names)
+            short_wall = _timed_generate(cfg, params, proc, toks, seed, opts, short)[1]
+            rec[name]["per_frame_ms"].append((wall - short_wall) / (len(forced) - len(short)) * 1e3)
+            audio = out.speech_outputs[0]
+            if audio is None or not np.isfinite(audio).all() or not np.abs(audio).max() > 0:
+                fail(f"{name}: no, non-finite or silent audio")
+            rec[name].update(sequences=np.array(out.sequences), audio=np.array(audio),
+                             launches=counts)
+    for name, r in rec.items():
+        r["median_ms"] = float(np.median(r["per_frame_ms"]))
+    return rec
+
+
+def replay_frame_ms(model: dict, seed: int, variants: dict, frames: int = 17) -> dict:
+    """Device time a frame of one replayed window of `frames` forced speech
+    frames (make_multi_step_fn at 4,096 slots, CUDA events, as
+    graphed_profile times it) for each params variant of the one model:
+    each variant prefilled and captured, then the replays taken in turn
+    SURFACE_REPEATS times; the median and every reading."""
+    import numpy as np
+    import torch
+
+    from vibevoice_tpu_torch.models import inference as inf
+
+    cfg, toks = model["cfg"], model["toks"]
+    proc = model["processor"](text=model["script"], voice_samples=[model["voices"]])
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    b = proc.input_ids.shape[0]
+    opts = inf.GenerateOptions(ddpm_steps=10, cfg_scale=1.3, max_length=4096)
+    fn = inf.make_multi_step_fn(cfg, toks, opts, frames, inject=True)
+    hooks = {"init": torch.randn(1, b, cfg.acoustic_vae_dim, generator=g, device=dev),
+             "forced": torch.full((frames, b), toks.speech_diffusion, device=dev)}
+    noise = inf.draw_noise(cfg, opts, b, g, frames=frames, inject=True)
+    ext = torch.zeros(frames, b, dtype=torch.bool, device=dev)
+    carries = {}
+    for name, params in variants.items():
+        speech_args = (torch.as_tensor(proc.speech_tensors, device=dev, dtype=torch.float32),
+                       torch.as_tensor(proc.speech_masks, device=dev),
+                       torch.as_tensor(proc.speech_input_mask, device=dev), g, None)
+        carry = inf.prefill_fn(cfg, params, torch.as_tensor(proc.input_ids, device=dev), 4096,
+                               torch.as_tensor(proc.attention_mask, device=dev), speech_args,
+                               toks)
+        carries[name] = fn(params, carry, noise, ext, hooks)[0]  # the capture and a replay
+    ms = {name: [] for name in variants}
+    for _ in range(SURFACE_REPEATS):
+        for name, params in variants.items():
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            carries[name], _ = fn(params, carries[name], noise, ext, hooks)
+            end.record()
+            torch.cuda.synchronize()
+            ms[name].append(start.elapsed_time(end) / frames)
+    return {name: dict(per_frame_ms=v, median_ms=float(np.median(v))) for name, v in ms.items()}
+
+
+def lm_pack_end_to_end(model: dict, seed: int, frames: int) -> dict:
+    """Phase 14 (b): VibeVoiceTTS.random built again with LM_PACK=1 in the
+    environment (fuse_for_serving packs the int8 LM's q|k|v and gate|up,
+    ops/quant.pack_lm_projections) against phase 4's model: h_pos after the
+    prefill of the two-speaker prompt (A's GEMM on the packed weights)
+    within PACK_HPOS_TOL of the peak (the same bits), and the forced
+    `frames`-frame graphed
+    generate() (K = 4, 4,096 slots): the same tokens, audio compared (the
+    bits and max |diff|; the GEMV's K split depends on OUT, so packed sums
+    may be ordered otherwise), ms a frame of both taken in turn."""
+    import numpy as np
+    import torch
+
+    from vibevoice_tpu_torch.models import inference as inf
+    from vibevoice_tpu_torch.tts import VibeVoiceTTS
+
+    os.environ["LM_PACK"] = "1"
+    try:
+        packed = VibeVoiceTTS.random(str(CONFIG_1P5B), seed=seed).params
+    finally:
+        os.environ.pop("LM_PACK")
+    layer = packed["lm"]["layers"][0]
+    if "qkv" not in layer["attn"] or "gateup" not in layer["mlp"] or "q" in layer["attn"]:
+        fail(f"LM_PACK=1: the LM is not packed: {sorted(layer['attn'])}, {sorted(layer['mlp'])}")
+    cfg, toks = model["cfg"], model["toks"]
+    proc = model["processor"](text=model["script"], voice_samples=[model["voices"]])
+    dev = torch.device("cuda")
+    ids = torch.from_numpy(proc.input_ids).to(dev)
+    mask = torch.from_numpy(proc.attention_mask).to(dev)
+    with torch.no_grad():
+        hs = [inf.prefill_fn(cfg, p, ids, 4096, mask, None, toks).h_pos.float()
+              for p in (model["params"], packed)]
+    hpos = float((hs[1] - hs[0]).abs().max() / hs[0].abs().max())
+    variants = {"unpacked": model["params"], "packed": packed}
+    rec = alternated_frames(model, seed, frames, variants)
+    device = replay_frame_ms(model, seed, variants)
+    u, p = rec["unpacked"], rec["packed"]
+    same_tokens = np.array_equal(u["sequences"], p["sequences"])
+    same_bits = same_tokens and np.array_equal(u["audio"], p["audio"])
+    audio_err = float(np.abs(u["audio"] - p["audio"]).max() / np.abs(u["audio"]).max())
+    print(f"  LM_PACK=1 against unpacked: h_pos after the {proc.input_ids.shape[1]}-token "
+          f"prefill {hpos:.3e} of the peak (tol {PACK_HPOS_TOL:g}); forced {frames}-frame "
+          f"graphed runs: tokens {'equal' if same_tokens else 'DIFFER'}, audio bits "
+          f"{'equal' if same_bits else 'differ'} (max |diff| {audio_err:.3e} of the peak); ms a "
+          f"frame unpacked {u['median_ms']:.3f} (median of {u['per_frame_ms']}), packed "
+          f"{p['median_ms']:.3f} (median of {p['per_frame_ms']}); device time a frame of a "
+          f"replayed 17-frame window unpacked {device['unpacked']['median_ms']:.3f} (median of "
+          f"{device['unpacked']['per_frame_ms']}), packed {device['packed']['median_ms']:.3f} "
+          f"(median of {device['packed']['per_frame_ms']}); launches unpacked "
+          f"{u['launches']}, packed {p['launches']}", flush=True)
+    if not same_tokens:
+        fail("LM_PACK=1: tokens differ from the unpacked run")
+    if not hpos <= PACK_HPOS_TOL:
+        fail(f"LM_PACK=1: h_pos after the prefill {hpos:.3e} of the peak from the unpacked one")
+    del packed
+    inf._captures.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    for r in rec.values():
+        r.pop("audio")
+        r.pop("sequences")
+    return dict(hpos_rel_err=hpos, audio_rel_err=audio_err, same_audio_bits=same_bits,
+                runs=rec, device=device, launches=p["launches"])
+
+
+def small_int8_card_vs_cpu(seed: int) -> dict:
+    """Phase 14 (c1): the 512-wide, 2-layer config (tiny_config(hidden_size=
+    512, n_filters=128): a 512-1536-512 head and 512-2048-512 tokenizer
+    stages, which the 512 rule quantizes) with the LM, lm_head, head and
+    tokenizers int8, the forced generate() on the card (graphed) against
+    the same on the CPU (the plain versions): the same tokens, audio within
+    SMALL_CARD_TOL of the peak."""
+    import numpy as np
+    import torch
+
+    from vibevoice_tpu_torch.configs import tiny_config
+    from vibevoice_tpu_torch.models import inference as inf
+    from vibevoice_tpu_torch.models import vibevoice as vv
+    from vibevoice_tpu_torch.utils.params import init
+
+    cfg = tiny_config(hidden_size=512, n_filters=128)
+    hop = cfg.acoustic_tokenizer_config.hop_length
+    toks = inf.SpecialTokens(speech_start=5, speech_end=6, speech_diffusion=7, eos=2)
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(10, 100, (1, 12)).astype(np.int64)
+    ids[0, 2:6], ids[0, -1] = 7, 5
+    mask = np.zeros((1, 12), bool)
+    mask[0, 2:6] = True
+    kw = dict(input_ids=ids, speech_tensors=rng.randn(1, 4 * hop).astype(np.float32),
+              speech_frame_valid=np.ones((1, 4), bool), speech_input_mask=mask, tokens=toks,
+              noise_bank={"init": rng.randn(16, 1, cfg.acoustic_vae_dim).astype(np.float32),
+                          "vae_std": rng.randn(1).astype(np.float32),
+                          "vae_eps": rng.randn(1, 4, cfg.acoustic_vae_dim).astype(np.float32)},
+              forced_tokens=np.array([7, 7, 7, 6, 5, 7, 7, 7, 2])[:, None],
+              opts=inf.GenerateOptions(ddpm_steps=4, max_length=64, frames_per_dispatch=4))
+    p = init(cfg, seed=seed, device="cpu")
+    for part in (p["acoustic_tokenizer"]["decoder"], p["semantic_tokenizer"]["encoder"]):
+        for blk in (b for stage in part["stages"] for b in stage):  # make the blocks work
+            blk["gamma"].fill_(0.3)
+            blk["ffn_gamma"].fill_(0.3)
+    p = vv.quantize_for_inference(p, ALL_COMPONENTS)
+    names = ("int8_matmul",)
+    reset_counts(names)
+    card = inf.generate(cfg, _to(p, "cuda"), **kw)
+    counts = read_counts(names)
+    cpu = inf.generate(cfg, p, **kw)
+    a, b = card.speech_outputs[0], cpu.speech_outputs[0]
+    err = float(np.abs(a - b).max() / np.abs(b).max())
+    same = np.array_equal(card.sequences, cpu.sequences)
+    print(f"  512-wide int8 LM, head and tokenizers, card (graphed) against the CPU: tokens "
+          f"{'equal' if same else 'DIFFER'}, {len(a)} samples, audio max |diff| {err:.3e} of the "
+          f"peak (tol {SMALL_CARD_TOL:g}), A's launches {counts}", flush=True)
+    if not same or not err <= SMALL_CARD_TOL or not counts["int8_matmul"] > 0:
+        fail("512-wide int8 model: the card's run disagrees with the CPU's")
+    inf._captures.clear()
+    return dict(rel_err=err, launches=counts)
+
+
+def int8_head_end_to_end(model: dict, seed: int, frames: int) -> dict:
+    """Phase 14 (c2): the full-width 1.5B with quantize_for_inference of
+    all four components (the int8 LM and lm_head as phase 4's; the head's
+    AdaLN and FFN linears and the tokenizers' 512-, 1024- and 2048-wide
+    ConvNeXt FFNs int8, unfused: kernel A where the serving packs run C
+    and D): the forced generate() graphed (K = 4) against its eager step
+    (the same tokens, audio within GRAPH_TOL; expected the same bits), then
+    ms a frame beside phase 4's fused model, taken in turn; fuse_for_serving
+    must refuse the int8 head. Then utils.profiling.trace around one
+    graphed window of the int8 model, whose named phases must be found
+    among the profile's events and in its Chrome trace."""
+    import json as json_
+
+    import numpy as np
+    import torch
+
+    from vibevoice_tpu_torch.configs import VibeVoiceConfig
+    from vibevoice_tpu_torch.models import inference as inf
+    from vibevoice_tpu_torch.models import vibevoice as vv
+    from vibevoice_tpu_torch.utils import profiling
+    from vibevoice_tpu_torch.utils.params import init
+
+    cfg, toks = model["cfg"], model["toks"]
+    t0 = time.perf_counter()
+    dense = init(VibeVoiceConfig.from_json_file(str(CONFIG_1P5B)), seed=seed,
+                 dtype=torch.bfloat16)
+    q8 = vv.quantize_for_inference(dense, ALL_COMPONENTS)
+    del dense
+    try:
+        vv.fuse_for_serving(q8, cfg)
+        fail("fuse_for_serving took an int8 diffusion head")
+    except ValueError as e:
+        if "int8 head" not in str(e):
+            raise
+    n_int8 = sum(1 for part in ("acoustic_tokenizer", "semantic_tokenizer")
+                 for sub in q8[part].values() for stage in sub["stages"] for blk in stage
+                 for lin in blk["ffn"].values() if "w8" in lin)
+    print(f"  int8 LM, lm_head, head and tokenizers built in {time.perf_counter() - t0:.1f} s; "
+          f"{n_int8} int8 tokenizer FFN linears", flush=True)
+    proc = model["processor"](text=model["script"], voice_samples=[model["voices"]])
+    forced, short = forced_scripts(toks, frames)
+    opts = inf.GenerateOptions(ddpm_steps=10, cfg_scale=1.3, max_length=4096,
+                               frames_per_dispatch=4)
+    fn = inf.make_multi_step_fn(cfg, toks, opts, 4, inject=True)
+    variants = {"fused": model["params"], "int8 head": q8}
+    rec = alternated_frames(model, seed, frames, variants)
+    device = replay_frame_ms(model, seed, variants)
+    graphed = rec["int8 head"]
+    eager, _ = _timed_generate(cfg, q8, proc, toks, seed, opts, forced, fn.eager)
+    same_tokens = np.array_equal(eager.sequences, graphed["sequences"])
+    err = float(np.abs(eager.speech_outputs[0] - graphed["audio"]).max()
+                / np.abs(graphed["audio"]).max())
+    f, i = rec["fused"], rec["int8 head"]
+    print(f"  int8 head and tokenizers: graphed against eager tokens "
+          f"{'equal' if same_tokens else 'DIFFER'}, audio max |diff| {err:.3e} of the peak "
+          f"({'the same bits' if err == 0 else 'not the same bits'}; tol {GRAPH_TOL:g}); ms a "
+          f"frame fused {f['median_ms']:.3f} (median of {f['per_frame_ms']}), int8 head "
+          f"{i['median_ms']:.3f} (median of {i['per_frame_ms']}); device time a frame of a "
+          f"replayed 17-frame window fused {device['fused']['median_ms']:.3f} (median of "
+          f"{device['fused']['per_frame_ms']}), int8 head {device['int8 head']['median_ms']:.3f} "
+          f"(median of {device['int8 head']['per_frame_ms']}); launches fused "
+          f"{f['launches']}, int8 head {i['launches']}", flush=True)
+    if not same_tokens or not err <= GRAPH_TOL:
+        fail("int8 head: the graphed run differs from the eager one")
+    if i["launches"]["fused_head_ffn_stack"] or i["launches"]["fused_stage_step"]:
+        fail(f"int8 head: C or D launched on the unfused path: {i['launches']}")
+
+    # the profile of one graphed window
+    out_dir = SURFACE_ROOT / "trace"
+    names = ("vv.prompt", "vv.window")
+    with profiling.trace(str(out_dir)) as prof:
+        with profiling.phase(names[0]):
+            p = model["processor"](text=model["script"], voice_samples=[model["voices"]])
+        with profiling.phase(names[1]):
+            _timed_generate(cfg, q8, p, toks, seed, opts, short)
+    events = prof.events()
+    found = {n for n in names if any(e.name == n for e in events)}
+    trace_text = (out_dir / "trace.json").read_text()
+    in_trace = {n for n in names if json_.dumps(n) in trace_text}
+    device_us = sum(e.self_device_time_total for e in prof.key_averages())
+    print(f"  profiling.trace around one graphed window: phases {sorted(found)} among the "
+          f"events, {sorted(in_trace)} in {out_dir.relative_to(ROOT)}/trace.json "
+          f"({len(trace_text)} bytes), device time {device_us / 1e3:.3f} ms", flush=True)
+    if found != set(names) or in_trace != set(names):
+        fail(f"profiling: phases {names} not all found ({found}, {in_trace})")
+    del q8, fn
+    inf._captures.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    for r in rec.values():
+        r.pop("audio")
+        r.pop("sequences")
+    return dict(graphed_vs_eager=err, runs=rec, device=device, launches=i["launches"],
+                trace_bytes=len(trace_text), trace_device_ms=device_us / 1e3)
+
+
+def thresholding_card_vs_cpu(seed: int) -> dict:
+    """Phase 14 (d): dpm_solver.sample with dynamic thresholding (ratio 0.9,
+    cap 2.5) over a toy model whose x0 estimates pass 1, for dpmsolver++
+    and sde-dpmsolver++ (injected noise), 10 steps, a (4, 64) f32 state:
+    the card against the CPU on the same inputs within THRESHOLD_TOL."""
+    import numpy as np
+    import torch
+
+    from vibevoice_tpu_torch.schedule import dpm_solver as dpm
+
+    rng = np.random.RandomState(seed + 14)
+    w = torch.from_numpy(rng.randn(64, 64).astype(np.float32))
+    x0 = torch.from_numpy(rng.randn(4, 64).astype(np.float32))
+    noise = torch.from_numpy(rng.randn(10, 4, 64).astype(np.float32))
+    errs = {}
+    for algo in ("dpmsolver++", "sde-dpmsolver++"):
+        coeffs = dpm.make_solver(10, algorithm_type=algo)
+        outs = []
+        for dev in ("cuda", "cpu"):
+            wd = w.to(dev)
+            head = lambda x, t: 3.0 * torch.tanh(x @ wd) * (t[:, None] / 1000 + 0.5)
+            outs.append(dpm.sample(coeffs, head, x0.to(dev), noise=noise.to(dev),
+                                   thresholding=True, dynamic_thresholding_ratio=0.9,
+                                   sample_max_value=2.5).cpu())
+        errs[algo] = float((outs[0] - outs[1]).abs().max() / outs[1].abs().max())
+    print(f"  sample(thresholding=True) card against CPU: {errs} of the peak "
+          f"(tol {THRESHOLD_TOL:g})", flush=True)
+    if not all(e <= THRESHOLD_TOL for e in errs.values()):
+        fail("sample(thresholding=True): the card disagrees with the CPU")
+    return errs
+
+
+def dots_end_to_end(seed: int) -> dict:
+    """Phase 14 (e): the 1.5B QLoRA trainer, B2 T2048, 3 steps, with
+    --remat and with --remat --remat_policy dots (which writes its
+    checkpoint under build/phase14/trained for (f)): each step's loss
+    within DOTS_LOSS_TOL of the other run's, peak GiB and s/step of both."""
+    recs = finetune_end_to_end(seed, CONFIG_1P5B, FINETUNE_RUNS_DOTS)
+    (la, a), (lb, b) = recs.items()
+    rel = max(abs(x["loss"] - y["loss"]) / abs(x["loss"]) for x, y in zip(a["steps"], b["steps"]))
+    print(f"  {lb} against {la}: losses {[s['loss'] for s in b['steps']]} against "
+          f"{[s['loss'] for s in a['steps']]} (max relative difference {rel:.3e}, tol "
+          f"{DOTS_LOSS_TOL:g}); peak {b['peak_gib']:.2f} against {a['peak_gib']:.2f} GiB, "
+          f"{b['seconds_per_step']:.3f} against {a['seconds_per_step']:.3f} s/step", flush=True)
+    if not rel <= DOTS_LOSS_TOL:
+        fail(f"remat_policy dots: losses {rel:.3e} from full remat's")
+    return dict(runs=recs, loss_rel_diff=rel)
+
+
+def scripts_end_to_end(ckpt: Path) -> dict:
+    """Phase 14 (f): scripts/merge_vibevoice_models on phase 11's 1.5B
+    checkpoint (bf16 shards without tokenizer files, read at f32 with the
+    fallback tokenizer) with the adapters of (e)'s dots
+    run (lora_adapters.pkl; r 16 on the seven LM targets and the head):
+    the verification (merged = base + scaling * A @ B, changed, the
+    parameter count) passes on the card and the native f32 tree is
+    written; then scripts/qa_real_checkpoint on the same checkpoint at f32
+    (convert, parity, a short generate, the forced rtf bench through the
+    graphed 8-frame step): exit 0 and a report with the JAX harness's keys.
+    The card's machine has transformers but not the upstream vibevoice
+    package, so parity is skipped with its reason: the report says so, and
+    that is not a pass."""
+    import json as json_
+
+    import torch
+
+    from vibevoice_tpu_torch.models import inference as inf
+    from vibevoice_tpu_torch.scripts import merge_vibevoice_models as merge
+    from vibevoice_tpu_torch.scripts import qa_real_checkpoint as qa
+
+    rec = {}
+    os.environ["VIBEVOICE_ALLOW_FALLBACK_TOKENIZER"] = "1"  # random weights, no tokenizer
+    trained = sorted((SURFACE_ROOT / "trained").glob("checkpoint-*"))
+    if not trained:
+        fail("no trainer checkpoint under build/phase14/trained")
+    out = SURFACE_ROOT / "merged"
+    t0 = time.perf_counter()
+    report = merge.main(["--base_model", str(ckpt), "--trained_checkpoint", str(trained[-1]),
+                         "--output_dir", str(out)])
+    rec["merge"] = dict(report, wall_s=time.perf_counter() - t0,
+                        bytes=(out / "params.pkl").stat().st_size)
+    print(f"  merge_vibevoice_models: {report}, params.pkl {rec['merge']['bytes']} bytes, "
+          f"{rec['merge']['wall_s']:.1f} s", flush=True)
+    if (report["lm_changed"] + report["lm_unchanged"] != 28 * 7 or not report["lm_changed"]
+            or report["head_changed"] + report["head_unchanged"] != 4 * 3):
+        fail(f"merge: {report}")
+    torch.cuda.empty_cache()
+    path = SURFACE_ROOT / "qa_report.json"
+    t0 = time.perf_counter()
+    rc = qa.main([str(ckpt), "--allow_fallback_tokenizer", "--report", str(path)])
+    rep = json_.loads(path.read_text())
+    rec["qa"] = dict(rep, wall_s=time.perf_counter() - t0)
+    keys = {"checkpoint", "dtype", "convert_seconds", "parity", "generate", "rtf", "ok"}
+    note = rep["parity"]["skipped"] if isinstance(rep["parity"], dict) else None
+    print(f"  qa_real_checkpoint: exit {rc}, keys {sorted(rep)}, convert "
+          f"{rep['convert_seconds']} s, generate {rep['generate']}, rtf {rep['rtf']}; parity: "
+          + (f"skipped (not a pass): {note}" if note else f"{rep['parity']}"), flush=True)
+    if rc != 0 or set(rep) != keys or rep["rtf"]["frames"] != 32 or not rep["rtf"]["audio_seconds"]:
+        fail(f"qa_real_checkpoint: exit {rc}, report {rep}")
+    inf._captures.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def surface_7b(model: dict, seed: int, frames: int = 8) -> dict:
+    """Phase 12 (g): the 7B's surface shapes on a main path: phase 12's
+    model with its int8 LM packed (pack_lm_projections) and an int8 head
+    (the 7B's 3584-10752-3584 head drawn alone from --seed and quantized by
+    quantize_diffusion_head, unfused) beside the fused vocoder: one forced
+    `frames`-frame generate() through the eager step at 4,096 slots, whose
+    kernel A launches the "@pack@7b" and "@head@7b" entries count."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from vibevoice_tpu_torch.configs import tiny_config
+    from vibevoice_tpu_torch.models import inference as inf
+    from vibevoice_tpu_torch.ops import quant
+    from vibevoice_tpu_torch.utils.params import init
+
+    cfg, toks = model["cfg"], model["toks"]
+    head_cfg = dataclasses.replace(tiny_config(), diffusion_head_config=cfg.diffusion_head_config)
+    head = init(head_cfg, seed=seed, dtype=torch.bfloat16)["diffusion_head"]
+    params = {**model["params"], "lm": quant.pack_lm_projections(model["params"]["lm"]),
+              "diffusion_head": quant.quantize_diffusion_head(head)}
+    proc = model["processor"](text=model["script"], voice_samples=[model["voices"]])
+    forced, _ = forced_scripts(toks, frames)
+    opts = inf.GenerateOptions(ddpm_steps=10, cfg_scale=1.3, max_length=4096,
+                               frames_per_dispatch=4)
+    fn = inf.make_multi_step_fn(cfg, toks, opts, 4, inject=True)
+    reset_counts(("int8_matmul",))
+    out, wall = _timed_generate(cfg, params, proc, toks, seed, opts, forced, fn.eager)
+    counts = read_counts(("int8_matmul",))
+    audio = out.speech_outputs[0]
+    print(f"  the 7B packed with an int8 head: a forced {frames}-frame eager generate() in "
+          f"{wall:.3f} s, A's GEMV launches {counts}", flush=True)
+    if audio is None or not np.isfinite(audio).all() or not counts["int8_matmul"] > 0:
+        fail("the 7B packed with an int8 head: no audio or no launches")
+    del params, head
+    inf._captures.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(wall_s=wall, launches=counts)
+
+
+def surface_checkpoint(seed: int) -> Path:
+    """Phase 11's 1.5B checkpoint written again by phase 11's code (the
+    dense bf16 weights of utils.params.init at --seed as reference-layout
+    safetensors shards, no tokenizer files: the same bytes), under
+    build/phase14, for (f)'s scripts."""
+    import torch
+
+    from vibevoice_tpu_torch.configs import VibeVoiceConfig
+    from vibevoice_tpu_torch.utils.params import init
+
+    path = SURFACE_ROOT / "vibevoice-1.5b"
+    t0 = time.perf_counter()
+    dense = init(VibeVoiceConfig.from_json_file(str(CONFIG_1P5B)), seed=seed,
+                 dtype=torch.bfloat16)
+    nbytes = write_checkpoint(path, reference_state_dict(dense), CONFIG_1P5B)
+    del dense
+    torch.cuda.empty_cache()
+    print(f"  phase 11's 1.5B checkpoint written again: {nbytes} bytes in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return path
+
+
+def the_surface(checks: Checks, seed: int, frames: int) -> dict:
+    """Phase 14: (a) check_surface_kernels, (b) lm_pack_end_to_end, (c)
+    small_int8_card_vs_cpu and int8_head_end_to_end (with the profiling
+    trace), (d) thresholding_card_vs_cpu, (e) dots_end_to_end, (f)
+    scripts_end_to_end on surface_checkpoint's. The "@pack", "@head" and
+    "@tok" entries count kernel A's launches in (b)'s packed runs and (c)'s
+    int8-head runs (all of A's launches there, the LM's among them)."""
+    import shutil
+
+    import torch
+
+    t0 = time.perf_counter()
+    walls, runs = {}, {}
+    check_surface_kernels(checks, seed)
+    walls["kernels"] = time.perf_counter() - t0
+    t = time.perf_counter()
+    model = serving_model(seed)
+    runs["lm_pack"] = lm_pack_end_to_end(model, seed, frames)
+    checks.kernels["int8_matmul@pack"]["launches"] += runs["lm_pack"]["launches"]["int8_matmul"]
+    walls["lm_pack"] = time.perf_counter() - t
+    t = time.perf_counter()
+    runs["small_int8"] = small_int8_card_vs_cpu(seed)
+    runs["int8_head"] = int8_head_end_to_end(model, seed, frames)
+    launches = runs["int8_head"]["launches"]
+    for name in ("int8_matmul@head", "int8_matmul@tok"):
+        checks.kernels[name]["launches"] += launches["int8_matmul"]
+    checks.kernels["int8_matmul_gemm@tok"]["launches"] += launches["int8_matmul_gemm"]
+    walls["int8_head"] = time.perf_counter() - t
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs["thresholding"] = thresholding_card_vs_cpu(seed)
+    t = time.perf_counter()
+    try:
+        runs["dots"] = dots_end_to_end(seed)
+        for rec in runs["dots"]["runs"].values():
+            for name, n in rec["launches"].items():
+                checks.kernels[name]["launches"] += n
+        walls["dots"] = time.perf_counter() - t
+        t = time.perf_counter()
+        runs["scripts"] = scripts_end_to_end(surface_checkpoint(seed))
+        walls["scripts"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(SURFACE_ROOT, ignore_errors=True)
+    walls["phase"] = time.perf_counter() - t0
+    print("  phase 14 walls: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()),
+          flush=True)
+    return dict(runs=runs, walls=walls)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4623,8 +5277,15 @@ def main() -> None:
 
     if not (ROOT / "vibevoice_tpu_torch" / "csrc").is_dir():
         fail(f"no vibevoice_tpu_torch/csrc beside {Path(__file__).name}: run from a checkout")
-    if os.environ.get("PYTHONHASHSEED") != "0":  # Python salts str hashes per process
-        os.environ["PYTHONHASHSEED"] = "0"
+    # Kineto tears CUPTI down after each profile and sets it up again at the
+    # next; with CUDA graphs alive that re-init now and then records no
+    # device activity for the rest of the process (torch.profiler sets these
+    # two itself only for torch.compile's graphs). This script profiles tens
+    # of times beside captured graphs, so CUPTI stays set up.
+    cupti_env = {"TEARDOWN_CUPTI": "0", "DISABLE_CUPTI_LAZY_REINIT": "1"}
+    if (os.environ.get("PYTHONHASHSEED") != "0"  # Python salts str hashes per process
+            or any(os.environ.get(k) != v for k, v in cupti_env.items())):
+        os.environ.update(PYTHONHASHSEED="0", **cupti_env)
         os.execv(sys.executable, [sys.executable, *sys.orig_argv[1:]])
     t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT))
@@ -4686,14 +5347,14 @@ def main() -> None:
                   "flash_train_attention_fwd", "flash_train_attention_bwd")
     # the 1.5B's and 0.5B's shapes (phases 3-11), the 7B's (phase 12), the
     # local heads of tensor-parallel ranks (phase 13)
-    for tag in ("", "@7b", "@tp"):
-        for name, (src, rep) in sources.items():
-            if tag == "@tp" and name not in tp_entries:
-                continue
-            checks.kernels[name + tag] = dict(name=name + tag, route="cuda", source=src,
-                                              replaces=rep, launches=0, max_abs_err=0.0, ms=None,
-                                              plain_ms=None, bound_ms=None, bound_by=None,
-                                              library_ms=None)
+    # kernel A at the surface's shapes (phase 14 and, "@7b", phase 12)
+    entries = [n + tag for tag in ("", "@7b", "@tp") for n in sources
+               if tag != "@tp" or n in tp_entries] + list(SURFACE_ENTRIES)
+    for entry in entries:
+        src, rep = sources[entry.split("@")[0]]
+        checks.kernels[entry] = dict(name=entry, route="cuda", source=src, replaces=rep,
+                                     launches=0, max_abs_err=0.0, ms=None, plain_ms=None,
+                                     bound_ms=None, bound_by=None, library_ms=None)
     check_kernels(checks, args.seed)
     check_streaming_attention(checks, args.seed)
     check_batched_kernels(checks, args.seed)
@@ -4798,6 +5459,15 @@ def main() -> None:
     print("tensor parallelism (the 7B at tp 1 over NCCL and tp 2 over gloo on the one card, the "
           "trainer at tp 2 and dp 2)", flush=True)
     runs["tp"] = tensor_parallel(checks, args.seed, args.frames)
+    inf._captures.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 14: the rest of the JAX package's surface
+    print("the surface: kernel A at the packed, int8-head and int8-tokenizer shapes, LM_PACK=1, "
+          "the int8 head and tokenizers, thresholding, remat_policy dots, the merge and QA "
+          "scripts, profiling", flush=True)
+    runs["surface"] = the_surface(checks, args.seed, args.frames)
 
     unmeasured = [k["name"] for k in checks.kernels.values() if k["ms"] is None or k["launches"] == 0]
     if unmeasured:

@@ -1195,25 +1195,29 @@ def test_flash_decode_eight_mixed_rows(dev, heads, s, int8, bases):
     _graph_equals_eager(lambda: fa.flash_cached_attention(q, kc, vc, base, **kw), (q, base))
 
 
-def _tiny_speaking(device):
+def _tiny_speaking(device, pack=False):
     """_tiny_serving's model made to speak (utils.params.speaking: greedy
-    decoding diffuses at every frame), and its special tokens."""
+    decoding diffuses at every frame), and its special tokens; with
+    ``pack`` its int8 q|k|v and gate|up packed (LM_PACK=1's layout)."""
     from vibevoice_tpu_torch.models import inference as inf
     from vibevoice_tpu_torch.utils.params import speaking
 
     tokens = inf.SpecialTokens(speech_start=5, speech_end=6, speech_diffusion=7, eos=2)
     cfg, params = _tiny_serving(device)
-    return cfg, speaking(params, tokens), tokens
+    params = speaking(params, tokens)
+    if pack:
+        params = {**params, "lm": quant.pack_lm_projections(params["lm"])}
+    return cfg, params, tokens
 
 
-def _tiny_engine(device, frames=2):
+def _tiny_engine(device, frames=2, pack=False):
     """A 2-slot engine over _tiny_speaking whose frame noise is each
     request's own draws (a CPU generator seeded with the request's seed),
     so the card and the CPU decode the same numbers."""
     from vibevoice_tpu_torch.models import inference as inf
     from vibevoice_tpu_torch.serving import ServingEngine
 
-    cfg, params, tokens = _tiny_speaking(device)
+    cfg, params, tokens = _tiny_speaking(device, pack)
     eng = ServingEngine(cfg, params, tokens=tokens, max_batch=2, max_len=96,
                         opts=inf.GenerateOptions(ddpm_steps=2, max_length=96),
                         frames_per_dispatch=frames)
@@ -1258,6 +1262,23 @@ def test_serving_engine_card_matches_cpu(dev):
     hop = 8
     for i, ((a, ta), (b, tb)) in enumerate(zip(*runs)):
         assert ta == tb and len(a) == len(b) == min(96 - (6 + 3 * i), 2 * (6 + 3 * i)) * hop
+        assert np.isfinite(a).all() and np.abs(a - b).max() <= 1e-3 * np.abs(b).max()
+
+
+def test_serving_engine_packed_card_matches_cpu(dev):
+    """The engine over a packed int8 LM (LM_PACK=1's qkv / gateup): its
+    capture takes the packed tree, and two requests on the card give the
+    CPU's tokens and audio within 1e-3 of its peak."""
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        eng = _tiny_engine(device, pack=True)
+        try:
+            handles = [eng.submit(_tiny_request(70 + i, 6 + 3 * i)) for i in range(2)]
+            runs.append([(h.result(timeout=300), list(h.tokens)) for h in handles])
+        finally:
+            eng.shutdown()
+    for (a, ta), (b, tb) in zip(*runs):
+        assert ta == tb and len(a) == len(b) > 0
         assert np.isfinite(a).all() and np.abs(a - b).max() <= 1e-3 * np.abs(b).max()
 
 
@@ -1572,3 +1593,149 @@ def test_multi_card_fsdp_and_gpipe_steps(dev, tmp_path, mesh):
     got = losses(mesh, 1 if "--mesh_dp" in mesh else 2)
     assert len(one) == len(got) == 3 and one[2] != one[1]
     assert all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(got, one)), (got, one)
+
+
+# ---------------------------------------------------------------------------
+# The rest of the JAX package's surface: kernel A at the packed, int8-head
+# and int8-tokenizer shapes, LM_PACK, the int8 head and tokenizers,
+# thresholding, remat_policy="dots", profiling
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k,n,rows", [(1536, 2048, 2), (1536, 17920, 2), (1536, 4608, 20),
+                                      (1536, 4608, 80), (3584, 10752, 80), (4608, 1536, 2),
+                                      (512, 2048, 1), (8192, 2048, 1), (2048, 8192, 4),
+                                      (1024, 4096, 45), (2048, 8192, 300)])
+def test_int8_matmul_at_surface_shapes(dev, k, n, rows, dtype):
+    """Kernel A at the packed q|k|v and gate|up, the int8 head's FFN and
+    AdaLN and the tokenizer FFNs, by both routes: within 1e-2 (bf16) /
+    1e-5 (f32) of the plain version, one launch of the route's counter."""
+    g = torch.Generator(device=dev).manual_seed(30)
+    q = quant.quantize_weight(torch.randn(k, n, generator=g, device=dev) * 0.02)
+    x = torch.randn(rows, k, generator=g, device=dev).to(dtype)
+    attr = "launches" if rows < quant.GEMM_MIN_ROWS else "launches_tc"
+    before = getattr(quant.int8_matmul, attr)
+    out = quant.int8_matmul(x, q["w8"], q["scale"])
+    assert getattr(quant.int8_matmul, attr) == before + 1
+    assert _rel(out, quant.int8_matmul_plain(x, q["w8"], q["scale"])) < (
+        1e-2 if dtype == torch.bfloat16 else 1e-5)
+
+
+def _wide_int8(device, seed=0, pack=False):
+    """tiny_config widened to 512 (hidden size, 128 tokenizer filters) on
+    ``device``: the int8 LM, lm_head, head and tokenizers (pack=False), or
+    the serving packs with the int8 LM's q|k|v and gate|up packed
+    (pack=True), f32."""
+    from vibevoice_tpu_torch.configs import tiny_config
+    from vibevoice_tpu_torch.models import vibevoice as vv
+    from vibevoice_tpu_torch.utils.params import init
+
+    cfg = tiny_config(hidden_size=512, n_filters=128)
+    p = init(cfg, seed=seed, device="cpu")
+    for part in (p["acoustic_tokenizer"]["decoder"], p["semantic_tokenizer"]["encoder"]):
+        for blk in (b for stage in part["stages"] for b in stage):
+            blk["gamma"].fill_(0.3)
+            blk["ffn_gamma"].fill_(0.3)
+    p = _to(p, device)
+    if pack:
+        p = vv.quantize_for_inference(p)
+        p = {**vv.fuse_for_serving(p, cfg), "lm": quant.pack_lm_projections(p["lm"])}
+    else:
+        p = vv.quantize_for_inference(p, ("lm", "lm_head", "diffusion_head", "tokenizers"))
+    return cfg, p
+
+
+@pytest.mark.parametrize("pack", [False, True])
+def test_surface_card_matches_cpu(dev, pack):
+    """The forced generate() (inject mode, K = 4) of the 512-wide config,
+    int8 head and tokenizers unfused (A's GEMV at the T = 1 stages) or the
+    LM packed: on the card (graphed) against the CPU's plain versions, the
+    same tokens and audio within 5e-3 of the peak (chip_smoke.py's
+    SMALL_CARD_TOL: summation order alone moves this model's audio ~1e-3 of
+    its peak); the card's eager step gives the graphed run's bits."""
+    from vibevoice_tpu_torch.models import inference as inf
+
+    cfg, p = _wide_int8(torch.device("cpu"), pack=pack)
+    kw = _step_case(cfg, "inject", 4)
+    cpu = inf.generate(cfg, p, **kw)
+    _, pd = _wide_int8(dev, pack=pack)
+    before = quant.int8_matmul.launches
+    card = inf.generate(cfg, pd, **kw)
+    assert quant.int8_matmul.launches > before
+    _assert_same_run(card, cpu, tol=5e-3)
+    eager = inf.generate(cfg, pd, **kw, step_fn=_default_step_fn(cfg, kw).eager)
+    _assert_same_run(eager, card, tol=0.0)
+
+
+def test_sample_thresholding_card_matches_cpu(dev):
+    """dpm_solver.sample with dynamic thresholding, every algorithm type
+    (SDE noise injected): the card's solve within 1e-5 of the CPU's."""
+    from vibevoice_tpu_torch.schedule import dpm_solver as dpm
+
+    g = torch.Generator().manual_seed(3)
+    w, x0 = torch.randn(32, 32, generator=g), torch.randn(3, 32, generator=g)
+    noise = torch.randn(8, 3, 32, generator=g)
+    for algo in ("dpmsolver++", "sde-dpmsolver++", "dpmsolver", "sde-dpmsolver"):
+        coeffs = dpm.make_solver(8, algorithm_type=algo, final_sigmas_type="zero"
+                                 if algo.endswith("++") else "sigma_min")
+        outs = []
+        for d in (dev, torch.device("cpu")):
+            wd = w.to(d)
+            outs.append(dpm.sample(coeffs, lambda x, t: 3.0 * torch.tanh(x @ wd) * (
+                t[:, None] / 1000 + 0.5), x0.to(d), noise=noise.to(d), thresholding=True,
+                dynamic_thresholding_ratio=0.9, sample_max_value=2.5,
+                eps_space=not algo.endswith("++")).cpu())
+        assert _rel(outs[0], outs[1]) < (5e-4 if algo == "dpmsolver" else 1e-5), algo
+
+
+def test_dots_qlora_grads_on_the_card(dev):
+    """A QLoRA gradient of the tiny config on the card (kernels A, E and the
+    training attention) with remat and "dots" against remat alone and no
+    remat: the same loss and gradients (1e-6 of each peak)."""
+    from vibevoice_tpu_torch.configs import tiny_config
+    from vibevoice_tpu_torch.finetune import loss as tloss
+    from vibevoice_tpu_torch.finetune import lora as tlora
+    from vibevoice_tpu_torch.finetune import train_step as tts
+    from vibevoice_tpu_torch.utils.params import init
+
+    cfg = tiny_config()
+    p = init(cfg, seed=0, device=dev)
+    p = {**p, "lm": quant.quantize_lm(p["lm"])}
+    lcfg = tlora.LoraConfig(r=4)
+    lora = tlora.init_lora(1, p, lcfg)
+    lora = {**lora, "lm_layers": [{k: {"a": v["a"], "b": v["a"].new_full(v["b"].shape, 0.01)}
+                                   for k, v in e.items()} for e in lora["lm_layers"]]}
+    rng = np.random.RandomState(0)
+    b, t, f = 2, 32, 4
+    am = np.zeros((b, t), bool)
+    am[:, 8:8 + f] = True
+    batch = tloss.Batch(rng.randint(10, 100, (b, t)), np.ones((b, t), bool),
+                        rng.randn(b, 8 * f).astype(np.float32), np.ones((b, f), bool),
+                        rng.randn(b, f, cfg.semantic_vae_dim).astype(np.float32),
+                        np.ones((b,), bool), am, am)
+    outs = []
+    for opts in (dict(remat=True, remat_policy="dots"), dict(remat=True), {}):
+        grad_fn = tts.make_lora_grad_fn(cfg, lcfg, tloss.TrainOptions(**opts))
+        loss, _, grads = grad_fn(lora, p, batch, torch.Generator(device=dev).manual_seed(5))
+        outs.append((float(loss), grads))
+    for loss, grads in outs[1:]:
+        assert abs(outs[0][0] - loss) <= 1e-6 * abs(loss)
+        for path, g_ in grads.items():
+            assert _rel(outs[0][1][path], g_) <= 1e-6, path
+
+
+def test_profiling_trace_records_the_card(dev, tmp_path):
+    """utils.profiling.trace on the card: kernel A's launches inside a
+    phase show device time, and the phase's name is in the Chrome trace."""
+    from vibevoice_tpu_torch.utils import profiling
+
+    q = quant.quantize_weight(torch.randn(1536, 8960, device=dev) * 0.02)
+    x = torch.randn(2, 1536, device=dev, dtype=torch.bfloat16)
+    with profiling.trace(str(tmp_path)) as prof:
+        with profiling.phase("vv.decode"):
+            for _ in range(4):
+                quant.int8_matmul(x, q["w8"], q["scale"])
+    assert sum(e.self_device_time_total for e in prof.key_averages()) > 0
+    assert any(e.name == "vv.decode" for e in prof.events())
+    assert '"vv.decode"' in (tmp_path / "trace.json").read_text()

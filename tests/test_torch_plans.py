@@ -447,3 +447,37 @@ def test_segment_bounds_brute_force(t):
         for i in range(t):
             same = np.flatnonzero(seg[b] == seg[b, i])
             assert first[b, i] == same.min() and last[b, i] == same.max()
+
+
+# Kernel A's shapes on the rest of the JAX package's surface: the packed
+# q|k|v and gate|up of an int8 LM (LM_PACK=1), the int8 diffusion head
+# (FFN and AdaLN, ratio 3) and the int8 tokenizer FFNs (C, 4C) at C = 512,
+# 1024 and 2048, at the 1.5B's and the 7B's widths.
+SURFACE_SHAPES = [(1536, 2048), (1536, 17920), (3584, 4608), (3584, 37888),  # qkv, gateup
+                  (1536, 4608), (4608, 1536), (3584, 10752), (10752, 3584),  # head
+                  (512, 2048), (2048, 512), (1024, 4096), (4096, 1024), (2048, 8192),
+                  (8192, 2048)]  # tokenizer FFNs
+
+
+@pytest.mark.parametrize("rows", [1, 2, 4, 8, 20, quant.GEMM_MIN_ROWS - 1])
+@pytest.mark.parametrize("k,n", SURFACE_SHAPES)
+def test_gemv_plan_reads_every_weight_once_surface(rows, k, n):
+    """The streaming GEMV at the surface's shapes and decode rows (a frame's
+    T = 1 tokenizer stages at 1-4 rows, the head's FFN at 2 and 8, its
+    AdaLN at K x 2B = 20): every weight byte read once, as at the LM's."""
+    _gemv_plan_covers_once(rows, k, n)
+
+
+@pytest.mark.parametrize("k,n", SURFACE_SHAPES)
+def test_int8_plan_at_surface_shapes(k, n):
+    """The route by rows alone at the surface's shapes: the GEMV below
+    GEMM_MIN_ROWS (decode, the AdaLN at 20 rows), the GEMM from there (the
+    AdaLN at bs4's 80 rows, a voice prompt's 75-300 tokenizer rows), which
+    covers every output once without splitting K; the GEMV's split fills
+    the card as test_gemv_plan_fills_the_card holds it."""
+    for rows in (1, 2, 8, 20, 39, 40, 80, 300):
+        test_int8_plan_covers_every_output_and_k_once(rows, k, n)
+    for rows in (1, 2, 4, 8):
+        rt, splits, kps = quant._gemv_plan(rows, k, n)
+        blocks = math.ceil(n / quant.GEMV_COLS) * math.ceil(rows / rt) * splits
+        assert blocks >= quant.SMS or kps == quant.GEMV_MIN_KPS

@@ -125,7 +125,7 @@ def tp_train_forward(mesh, cfg, lm, x, valid, w):
 
 
 def train_steps(mesh, cfg, params, batch, draws, n_steps, fsdp_min, lora_cfg=None, lora=None,
-                pp=None, remat=False):
+                pp=None, remat=False, remat_policy=None):
     """``n_steps`` train steps of the global batch (this rank's samples and
     draws over the data axes), full fine-tuning or LoRA: each step's loss
     and the gathered trainable tree after them. The optimizer's warmup of
@@ -177,7 +177,8 @@ def train_steps(mesh, cfg, params, batch, draws, n_steps, fsdp_min, lora_cfg=Non
         if shard is not None:
             params = pmesh.shard_params(params, shard, mesh)
         state = tts.init_train_state(params, optimizer)
-        step = tts.make_train_step(cfg, optimizer, tloss.TrainOptions(remat=remat),
+        step = tts.make_train_step(cfg, optimizer,
+                                   tloss.TrainOptions(remat=remat, remat_policy=remat_policy),
                                    parallel=None if mesh is None else
                                    tts.Parallel(mesh, shard, lm_forward=lm_forward))
         run = lambda st: step(st, local, d)
@@ -298,11 +299,12 @@ def mesh_axes(mesh):
     return tuple(mesh.mesh_dim_names), pmesh.data_axes(mesh)
 
 
-def pp_forward(mesh, cfg, lm, x, valid, w, m):
+def pp_forward(mesh, cfg, lm, x, valid, w, m, remat=False, remat_policy=None):
     """The GPipe forward of this rank's stage over ``m`` micro-batches (mesh
-    None: the dense qwen2.forward) and the gradients of sum(h * w) w.r.t. x
-    and the layer leaves (this stage's (1, L/pp, ...), or the whole stack's
-    (1, L, ...) for the dense run)."""
+    None: the dense qwen2.forward), each layer recomputed in the backward
+    under ``remat`` (``remat_policy``), and the gradients of sum(h * w)
+    w.r.t. x and the layer leaves (this stage's (1, L/pp, ...), or the
+    whole stack's (1, L, ...) for the dense run)."""
     from vibevoice_tpu_torch.models import qwen2
 
     pp = 1 if mesh is None else pmesh.axis_size(mesh, "pp")
@@ -316,9 +318,11 @@ def pp_forward(mesh, cfg, lm, x, valid, w, m):
     tree = {**stacked, "layers_stacked": layers}
     xx = t(x).requires_grad_(True)
     if mesh is None:
-        h, _ = qwen2.forward(cfg, pl.unstack_layers(tree), xx, valid_mask=t(valid))
+        h, _ = qwen2.forward(cfg, pl.unstack_layers(tree), xx, valid_mask=t(valid), remat=remat,
+                             remat_policy=remat_policy)
     else:
-        h = pl.pipelined_forward(cfg, tree, xx, mesh, valid_mask=t(valid), n_microbatches=m)
+        h = pl.pipelined_forward(cfg, tree, xx, mesh, valid_mask=t(valid), n_microbatches=m,
+                                 remat=remat, remat_policy=remat_policy)
     grads = torch.autograd.grad((h * t(w)).sum(), [xx] + live)
     return dict(h=h.detach().numpy(), dx=grads[0].numpy(),
                 grads={n: g.numpy() for n, g in zip(names, grads[1:])})

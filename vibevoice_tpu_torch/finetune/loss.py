@@ -64,7 +64,9 @@ class TrainOptions:
     # sequence chunks
     remat: bool = False
     ce_chunk_size: int = 0
-    remat_policy: Optional[str] = None  # "dots" is not ported yet (raises)
+    # with remat, "dots" keeps the matmul outputs (faster backward, more
+    # memory); None recomputes everything
+    remat_policy: Optional[str] = None
     # K > 0: the diffusion head runs on the first K speech positions of each
     # sample (exact when K covers every sample's target frames)
     head_position_budget: int = 0
@@ -262,6 +264,7 @@ def train_forward(
     and ``tp_group`` as in the module docstring."""
     hcfg = cfg.diffusion_head_config
     acfg = cfg.acoustic_tokenizer_config
+    qwen2.check_remat_policy(opts.remat_policy)
     if noise_schedule is None:
         noise_schedule = NoiseSchedule.create(hcfg.ddpm_num_steps, hcfg.ddpm_beta_schedule)
     embed = params["lm"]["embed"]
@@ -362,7 +365,7 @@ def train_forward(
                  cond.to(dtype))
     with record_function("vv.diffusion_head"):
         if opts.remat:
-            pred = checkpoint(dh.apply, *head_args, use_reentrant=False)
+            pred = qwen2.checkpointed(dh.apply, *head_args, policy=opts.remat_policy)
         else:
             pred = dh.apply(*head_args)
     pred = pred.float()

@@ -34,7 +34,8 @@ GPipe there). Every rank collates the global batch of
 rank 0 logs and writes the gathered pickle checkpoint.
 ``--checkpoint_format orbax`` writes sharded checkpoints in the
 ``torch.distributed.checkpoint`` format instead (utils/checkpoint.py; not
-orbax's format), each rank its own shards. wandb is not ported (exits).
+orbax's format), each rank its own shards. ``--report_to wandb`` is refused
+(the port does not depend on wandb).
 """
 
 from __future__ import annotations
@@ -50,11 +51,8 @@ from typing import Dict
 
 import numpy as np
 
-LATER = {
-    "wandb": "--report_to wandb waits for a later slice of the port; metrics go to stdout",
-    "dots": "--remat_policy dots (keep the matmul outputs) waits for a later slice of the "
-            "port; --remat recomputes whole layers",
-}
+NO_WANDB = ("--report_to wandb is refused: the port does not depend on wandb (the package "
+            "is not part of its environment); metrics go to stdout")
 
 
 def parse_args(argv=None):
@@ -120,7 +118,9 @@ def parse_args(argv=None):
                     help="recompute each LM layer and the diffusion head in the backward")
     ap.add_argument("--ce_chunk_size", type=int, default=0,
                     help="CE in sequence chunks of this many tokens (0 = dense)")
-    ap.add_argument("--remat_policy", type=str, default=None, choices=[None, "dots"])
+    ap.add_argument("--remat_policy", type=str, default=None, choices=[None, "dots"],
+                    help="with --remat: 'dots' keeps the matmul outputs and recomputes the "
+                         "rest (a faster backward for more memory)")
     ap.add_argument("--head_budget", type=int, default=0,
                     help="diffusion-head position budget K (0 = every position)")
     ap.add_argument("--seed", type=int, default=42)
@@ -153,9 +153,8 @@ def parse_args(argv=None):
     ap.add_argument("--report_to", type=str, default=None, choices=[None, "wandb"])
     ap.add_argument("--run_name", type=str, default="vibevoice-torch-finetune")
     args = ap.parse_args(argv)
-    for flag, key in ((args.report_to == "wandb", "wandb"), (args.remat_policy == "dots", "dots")):
-        if flag:
-            raise SystemExit(LATER[key])
+    if args.report_to == "wandb":
+        raise SystemExit(NO_WANDB)
     world = args.mesh_dcn * args.mesh_dp * args.mesh_tp * args.mesh_pp
     if args.int8_base and world > 1:
         # the TP/FSDP plans map dense 'w' leaves; int8 QLoRA is the one-device path

@@ -107,7 +107,14 @@ def apply_with_mods(params: Params, cfg: DiffusionHeadConfig, noisy: torch.Tenso
 
 def fuse_head(head_params: Params, cfg: DiffusionHeadConfig, quantize: bool = True) -> Params:
     """Serving prep: pack the AdaLN-FFN stack for kernel C. The AdaLN and
-    norm weights stay; the dense FFN weights move into the pack."""
+    norm weights stay; the dense FFN weights move into the pack. An int8
+    head (``quantize_for_inference(components=("diffusion_head",))``) is
+    refused: the pack reads dense weights (and quantizes them itself), and
+    the JAX package's ``fuse_head`` cannot take one either."""
+    if any("w" not in p for lp in head_params["layers"] for p in lp["ffn"].values()):
+        raise ValueError("fuse_head takes the dense diffusion head: an int8 head (quantized "
+                         "by quantize_for_inference's 'diffusion_head') runs its FFNs through "
+                         "kernel A unfused; fuse the dense head with quantize=True instead")
     out = dict(head_params)
     out["ffn_packed"] = pack_head_ffns(head_params["layers"], cfg.rms_norm_eps, quantize)
     out["layers"] = [{"norm": lp["norm"], "adaln": lp["adaln"]} for lp in head_params["layers"]]

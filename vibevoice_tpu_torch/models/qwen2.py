@@ -37,7 +37,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs import Qwen2Config
 
@@ -131,19 +132,32 @@ def _write_rows(buf: torch.Tensor, new: torch.Tensor, idx: torch.Tensor) -> None
 
 def project_qkv(ap: Params, hdn: torch.Tensor, cfg: Qwen2Config, tp_group=None):
     """q/k/v projections (B, T, heads, D); the head counts are those of the
-    (local) weights."""
+    (local) weights. A packed "qkv" entry (ops/quant.pack_lm_projections)
+    runs one int8 matmul, split by the heads of its scale: q, k and v are
+    then views of its output, which no kernel reads as such (RoPE makes new
+    q and k, the cache writes copy v, and the training attention takes
+    contiguous copies)."""
     b, t, _ = hdn.shape
     d = cfg.head_dim
     hdn = copy_to_group(hdn, tp_group)
-    q, k, v = mm(hdn, ap["q"]), mm(hdn, ap["k"]), mm(hdn, ap["v"])
+    if "qkv" in ap:
+        nh = cfg.num_attention_heads // group_size(tp_group)
+        kh = (ap["qkv"]["scale"].shape[0] // d - nh) // 2
+        q, k, v = mm(hdn, ap["qkv"]).split([nh * d, kh * d, kh * d], dim=-1)
+    else:
+        q, k, v = mm(hdn, ap["q"]), mm(hdn, ap["k"]), mm(hdn, ap["v"])
     return q.reshape(b, t, -1, d), k.reshape(b, t, -1, d), v.reshape(b, t, -1, d)
 
 
 def mlp_forward(m: Params, hdn: torch.Tensor, tp_group=None) -> torch.Tensor:
-    """SwiGLU MLP (under TP: the local columns, the sum over the group)."""
+    """SwiGLU MLP (under TP: the local columns, the sum over the group); a
+    packed "gateup" entry runs both input projections as one int8 matmul."""
     hdn = copy_to_group(hdn, tp_group)
-    return reduce_from_group(mm(F.silu(mm(hdn, m["gate"])) * mm(hdn, m["up"]), m["down"]),
-                             tp_group)
+    if "gateup" in m:
+        g, u = mm(hdn, m["gateup"]).chunk(2, dim=-1)
+    else:
+        g, u = mm(hdn, m["gate"]), mm(hdn, m["up"])
+    return reduce_from_group(mm(F.silu(g) * u, m["down"]), tp_group)
 
 
 def _layer(cfg: Qwen2Config, lp, x, cos, sin, cache_kv, idx, base, tp_group=None):
@@ -192,15 +206,53 @@ def _train_layer_at(cfg: Qwen2Config, lp, x, cos, sin, valid, tp_group, material
     return _train_layer(cfg, lp, x, cos, sin, valid, tp_group)
 
 
+# remat_policy="dots" is the JAX package's dots_with_no_batch_dims_saveable:
+# the outputs of products without batch dimensions are kept, everything else
+# is recomputed in the backward. The policy sees the ATen ops that run under
+# the block: torch.matmul of an activation by a 2-D weight (the dense
+# linears, the LoRA branches) reaches aten.mm or aten.addmm, which it keeps;
+# aten.bmm (batched, the attention's plain version) and every other op are
+# recomputed. The port's kernels run through ctypes into buffers that
+# aten.empty makes, so kernel A's and E's outputs and the training
+# attention's are recomputed, as JAX recomputes its Pallas calls; on a CPU
+# tensor kernel A's plain version is itself an aten.mm and is kept. The
+# collectives inside a block (FSDP's all-gather, the f32 all-reduces under
+# tp_group) are recomputed, as under remat=True: they write into fresh
+# buffers, never into a kept output.
+_SAVED_UNDER_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_UNDER_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def check_remat_policy(policy: Optional[str]) -> None:
+    if policy not in (None, "dots"):
+        raise ValueError(f"unknown remat_policy {policy!r} (None | 'dots')")
+
+
+def checkpointed(fn, *args, policy: Optional[str] = None):
+    """fn(*args) recomputed in the backward (``torch.utils.checkpoint``,
+    non-reentrant): all of it (policy None) or all but the matmul outputs
+    ("dots")."""
+    check_remat_policy(policy)
+    if policy is None:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: create_selective_checkpoint_contexts(_dots_policy))
+
+
 def train_layers(cfg: Qwen2Config, layers, x, cos, sin, valid, remat: bool = False,
-                 tp_group=None, materialize=None):
+                 tp_group=None, materialize=None, remat_policy: Optional[str] = None):
     """The training forward's blocks over x, each recomputed in the
-    backward under ``remat``. ``materialize(i, layer params)`` gives the
+    backward under ``remat`` (all but its matmul outputs with
+    ``remat_policy="dots"``). ``materialize(i, layer params)`` gives the
     tensors layer i runs on, inside the block (FSDP's all-gather of its
     shards: under remat the backward gathers them again)."""
     for i, lp in enumerate(layers):
         args = (cfg, lp, x, cos, sin, valid, tp_group, materialize, i)
-        x = (checkpoint(_train_layer_at, *args, use_reentrant=False) if remat
+        x = (checkpointed(_train_layer_at, *args, policy=remat_policy) if remat
              else _train_layer_at(*args))
     return x
 
@@ -236,7 +288,8 @@ def forward(
     tokens); zeros evaluate speculatively. Without a cache it is the
     training path: causal self-attention within the chunk, and ``remat``
     recomputes each layer in the backward so that only the residual stream
-    is kept between layers. ``skip_final_norm`` leaves out the final RMSNorm
+    is kept between layers (``remat_policy="dots"``: the matmul outputs are
+    kept too, ``checkpointed``). ``skip_final_norm`` leaves out the final RMSNorm
     (the streaming model's lower text LM). Returns (hidden (B, T, H), the
     cache with the new lengths or None). ``tp_group``: the params and the
     cache are this rank's tensor-parallel shards; ``materialize``: the
@@ -244,15 +297,12 @@ def forward(
     b, t, _ = embeds.shape
     if valid_mask is None:
         valid_mask = torch.ones(b, t, dtype=torch.bool, device=embeds.device)
-    if remat_policy is not None:
-        raise NotImplementedError(
-            f"remat_policy={remat_policy!r} (save the matmul outputs) is not ported yet; "
-            "remat=True recomputes whole layers")
+    check_remat_policy(remat_policy)
     if cache is None:
         positions = train_attention_inputs(valid_mask)
         cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta, embeds.dtype)
         x = train_layers(cfg, params["layers"], embeds, cos, sin, valid_mask, remat, tp_group,
-                         materialize)
+                         materialize, remat_policy)
         return _final_norm(cfg, params, x, skip_final_norm), None
     if remat:
         raise ValueError("remat is a training-path option (cache must be None)")
@@ -279,3 +329,11 @@ def forward(
 
 def embed_tokens(params: Params, ids: torch.Tensor) -> torch.Tensor:
     return params["embed"][ids]
+
+
+def lm_head_logits(params: Params, hidden: torch.Tensor,
+                   lm_head: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Logits over the vocabulary; with tied embeddings ``lm_head`` is the
+    embedding matrix (V, H)."""
+    w = params["embed"] if lm_head is None else lm_head
+    return torch.matmul(hidden, w.T.to(hidden.dtype))

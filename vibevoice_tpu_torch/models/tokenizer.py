@@ -257,3 +257,9 @@ def sample_latents_from_noise(mean: torch.Tensor, fix_std: float, dist_type: str
             fix_std / 0.8)
         return mean + std * eps.to(mean.dtype)
     raise ValueError(f"unknown dist_type {dist_type}")
+
+
+def kl_loss(mean: torch.Tensor) -> torch.Tensor:
+    """Per-element "KL" of the σ-VAE posterior: the reference takes the
+    plain square of the mean (its encoder output's ``kl``)."""
+    return mean.square()

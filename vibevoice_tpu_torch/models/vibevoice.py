@@ -11,6 +11,7 @@ Parameters are one nested dict of tensors with the JAX pytree's keys
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -66,7 +67,14 @@ def lm_logits_cand(params: Params, hidden: torch.Tensor, cand: torch.Tensor) -> 
 
 def quantize_for_inference(params: Params,
                            components: Tuple[str, ...] = ("lm", "lm_head")) -> Params:
-    """Weight-only per-column int8 of the LM linears and the logits projection."""
+    """Weight-only per-column int8 for serving: the LM linears ("lm"), the
+    logits projection ("lm_head"), the diffusion head's AdaLN and FFN
+    linears ("diffusion_head") and the tokenizers' ConvNeXt FFNs
+    ("tokenizers"); the last two only where both dims are multiples of 512
+    (ops/quant._quant_entry). Every int8 linear runs through kernel A."""
+    unknown = set(components) - {"lm", "lm_head", "diffusion_head", "tokenizers"}
+    if unknown:
+        raise ValueError(f"unknown quantize_for_inference components {sorted(unknown)}")
     out = dict(params)
     if "lm" in components:
         out["lm"] = quant.quantize_lm(params["lm"])
@@ -77,9 +85,12 @@ def quantize_for_inference(params: Params,
         else:
             out.pop("lm_head", None)
         out["lm_head_q"] = quant.quantize_weight(head_w.T)
-    unknown = set(components) - {"lm", "lm_head"}
-    if unknown:
-        raise NotImplementedError(f"quantize_for_inference components {sorted(unknown)}")
+    if "diffusion_head" in components:
+        out["diffusion_head"] = quant.quantize_diffusion_head(params["diffusion_head"])
+    if "tokenizers" in components:
+        out["acoustic_tokenizer"] = quant.quantize_tokenizer(params["acoustic_tokenizer"])
+        if "semantic_tokenizer" in params:
+            out["semantic_tokenizer"] = quant.quantize_tokenizer(params["semantic_tokenizer"])
     return out
 
 
@@ -101,10 +112,16 @@ def fuse_vocoder(params: Params, cfg: VibeVoiceConfig, quantize: bool = True) ->
 
 def fuse_for_serving(params: Params, cfg: VibeVoiceConfig, quantize: bool = True) -> Params:
     """All serving packs: fused vocoder stages (kernel D) and the fused
-    diffusion-head FFN stack (kernel C)."""
+    diffusion-head FFN stack (kernel C). With ``LM_PACK=1`` in the
+    environment and an int8 LM, each layer's q|k|v and gate|up are also
+    packed into one int8 linear each (ops/quant.pack_lm_projections)."""
     out = fuse_vocoder(params, cfg, quantize)
     out["diffusion_head"] = dh.fuse_head(params["diffusion_head"], cfg.diffusion_head_config,
                                          quantize)
+    layers = out["lm"]["layers"]
+    if (quantize and os.environ.get("LM_PACK") == "1" and layers
+            and "w8" in layers[0]["attn"].get("q", {})):
+        out["lm"] = quant.pack_lm_projections(out["lm"])
     return out
 
 

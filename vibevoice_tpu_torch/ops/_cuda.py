@@ -8,11 +8,14 @@ C interface, loaded with ``ctypes``:
          -Xcompiler -fPIC -o build/kernels/<hash>/<name>.o csrc/<name>.cu   # each
     nvcc -shared -o build/kernels/<hash>/libvibevoice_kernels.so *.o
 
-The build happens at first use, into ``build/kernels/<hash>/`` under the
-checkout, keyed on a hash of the sources and flags, so a fresh checkout
-builds everything on the first call. Nothing here runs at import time: this
-module is imported on hosts with no CUDA toolkit, where only the plain
-PyTorch versions of the kernels run.
+The build happens at first use, keyed on a hash of the sources and flags,
+so a fresh checkout builds everything on the first call: into
+``build/kernels/<hash>/`` under a checkout, and for an installed copy (the
+package inside ``site-packages``, built from ``vibevoice_tpu_torch/
+pyproject.toml``, which ships the sources) into a per-user cache,
+``$XDG_CACHE_HOME/vibevoice_tpu_torch/kernels`` (``~/.cache`` without it).
+Nothing here runs at import time: this module is imported on hosts with no
+CUDA toolkit, where only the plain PyTorch versions of the kernels run.
 """
 
 from __future__ import annotations
@@ -29,7 +32,18 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
+INSTALL_DIRS = ("site-packages", "dist-packages")
+
+
+def build_root(package_dir: Path = CSRC.parent) -> Path:
+    """Where the kernels are built: ``build/kernels`` beside the package in
+    a checkout; a per-user cache for an installed copy, whose directory may
+    not be writable."""
+    if package_dir.parent.name in INSTALL_DIRS:
+        cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(Path.home(), ".cache")
+        return Path(cache) / "vibevoice_tpu_torch" / "kernels"
+    return package_dir.parent / "build" / "kernels"
+
 LIB_NAME = "libvibevoice_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -125,7 +139,7 @@ def _build() -> KernelLibrary:
     for p in cu + cuh:
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    out_dir = BUILD_ROOT / h.hexdigest()[:16]
+    out_dir = build_root() / h.hexdigest()[:16]
     so = out_dir / LIB_NAME
     seconds, log = 0.0, ""
     if not so.exists():

@@ -293,6 +293,75 @@ class Int8MatmulDx(torch.autograd.Function):
         return int8_matmul_t(g, w8, scale), None, None
 
 
+def _quant_entry(p: Dict) -> Dict:
+    """A linear entry with its weight quantized, when both its dims are
+    multiples of 512 (the JAX package's rule, kept so that the two packages
+    quantize the same layers); smaller or odd layers stay dense."""
+    w = p["w"]
+    if w.shape[0] % 512 or w.shape[1] % 512:
+        return p
+    q = dict(p)
+    q.update(quantize_weight(q.pop("w")))
+    return q
+
+
+def quantize_diffusion_head(head: Dict) -> Dict:
+    """The diffusion head's AdaLN projections and FFN linears int8 (through
+    ``_quant_entry``); the embedders, projections and norms stay dense."""
+    out = dict(head)
+    out["layers"] = [{**layer, "ffn": {k: _quant_entry(v) for k, v in layer["ffn"].items()},
+                      "adaln": _quant_entry(layer["adaln"])} for layer in head["layers"]]
+    return out
+
+
+def quantize_tokenizer(tok_params: Dict) -> Dict:
+    """The ConvNeXt blocks' FFN linears (fc1, fc2) int8 in every stage of
+    the encoder and decoder present; convolutions and norms stay dense."""
+    out = dict(tok_params)
+    for part in ("encoder", "decoder"):
+        if part in tok_params:
+            sub = dict(tok_params[part])
+            sub["stages"] = [[{**block, "ffn": {name: _quant_entry(block["ffn"][name])
+                                                for name in ("fc1", "fc2")}}
+                              for block in stage] for stage in sub["stages"]]
+            out[part] = sub
+    return out
+
+
+def pack_lm_projections(lm_params: Dict) -> Dict:
+    """Each int8 layer's q|k|v as one "qkv" entry and gate|up as one
+    "gateup" (w8, scale and the bias concatenated along the output axis;
+    a layer without a bias of its own gets zeros there); the originals go,
+    so one int8 copy stays on the device. Scales are per column, so the
+    packed product equals the separate ones column for column (kernel A's
+    GEMV splits K from the shapes, so its sums may be ordered otherwise).
+    Dense (bf16) layers are left as they are. ``qwen2.project_qkv`` and
+    ``mlp_forward`` consume the packed entries."""
+
+    def cat(parts, with_bias: bool) -> Dict:
+        p = {"w8": torch.cat([x["w8"] for x in parts], dim=1).contiguous(),
+             "scale": torch.cat([x["scale"] for x in parts])}
+        if with_bias:
+            p["b"] = torch.cat([x["b"] if "b" in x else torch.zeros(
+                x["w8"].shape[1], dtype=torch.bfloat16, device=x["w8"].device) for x in parts])
+        return p
+
+    out = dict(lm_params)
+    layers = []
+    for layer in lm_params["layers"]:
+        a, m = layer["attn"], layer["mlp"]
+        if "w8" not in a["q"]:
+            layers.append(layer)
+            continue
+        attn = {k: v for k, v in a.items() if k not in ("q", "k", "v")}
+        attn["qkv"] = cat([a["q"], a["k"], a["v"]], with_bias="b" in a["q"])
+        mlp = {k: v for k, v in m.items() if k not in ("gate", "up")}
+        mlp["gateup"] = cat([m["gate"], m["up"]], with_bias=False)
+        layers.append({**layer, "attn": attn, "mlp": mlp})
+    out["layers"] = layers
+    return out
+
+
 def quantize_lm(lm_params: Dict) -> Dict:
     """Quantize the Qwen2 linears in place of their 'w' entries; biases,
     norms and embeddings stay as they are."""

@@ -100,19 +100,22 @@ def pp_model_param_shardings(params: Dict) -> Dict:
     return out
 
 
-def _stage_forward(cfg: Qwen2Config, layers, x, valid, remat: bool):
+def _stage_forward(cfg: Qwen2Config, layers, x, valid, remat: bool,
+                   remat_policy: Optional[str] = None):
     """One micro-batch through this stage's layers (qwen2.forward's
     training path, without the final norm)."""
     positions = qwen2.train_attention_inputs(valid)
     cos, sin = qwen2.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta, x.dtype)
-    return qwen2.train_layers(cfg, layers, x, cos, sin, valid, remat)
+    return qwen2.train_layers(cfg, layers, x, cos, sin, valid, remat,
+                              remat_policy=remat_policy)
 
 
 class _Plan:
     """What the pipe's Function needs besides tensors."""
 
-    def __init__(self, cfg, stacked, valid, m, remat, mesh):
+    def __init__(self, cfg, stacked, valid, m, remat, mesh, remat_policy=None):
         self.cfg, self.valid, self.m, self.remat = cfg, valid, m, remat
+        self.remat_policy = remat_policy
         self.group = mesh.get_group("pp")
         self.ranks = dist.get_process_group_ranks(self.group)
         self.pp = len(self.ranks)
@@ -153,7 +156,7 @@ class _GPipe(torch.autograd.Function):
                 dist.recv(inp, src=plan.peer(-1), group=plan.group)
             inp.requires_grad_(True)
             with torch.enable_grad():
-                y = _stage_forward(plan.cfg, layers, inp, vs[mb], plan.remat)
+                y = _stage_forward(plan.cfg, layers, inp, vs[mb], plan.remat, plan.remat_policy)
             graphs[mb] = (inp, y)
             if stage < pp - 1:
                 out = y.detach()
@@ -215,14 +218,11 @@ def pipelined_forward(cfg: Qwen2Config, pp_lm_params: Dict, embeds: torch.Tensor
     m = n_microbatches
     if b % m != 0:
         raise ValueError(f"batch {b} not divisible by n_microbatches={m}")
-    if remat_policy is not None:
-        raise NotImplementedError(
-            f"remat_policy={remat_policy!r} (save the matmul outputs) is not ported yet; "
-            "remat=True recomputes whole layers")
+    qwen2.check_remat_policy(remat_policy)
     if valid_mask is None:
         valid_mask = torch.ones(embeds.shape[:2], dtype=torch.bool, device=embeds.device)
     stacked = pp_lm_params["layers_stacked"]
-    plan = _Plan(cfg, stacked, valid_mask, m, remat, mesh)
+    plan = _Plan(cfg, stacked, valid_mask, m, remat, mesh, remat_policy)
     hidden = _GPipe.apply(plan, embeds, *_leaves(stacked))
     return rms_norm(hidden, pp_lm_params["final_norm"]["w"], cfg.rms_norm_eps)
 

@@ -8,8 +8,10 @@ rule
     m0 = a_conv * x + b_conv * raw_model_output
     x' = c_x * x + c_m0 * m0 + c_m1 * m1 + c_m2 * m2 + c_noise * z
 
-in float32. ``NoiseSchedule`` is the train-time VP schedule (add_noise,
-get_velocity). Dynamic thresholding is not ported yet.
+in float32, with the reference's dynamic thresholding of m0 on request
+(``_threshold_x0``; in x0 space, or through the epsilon <-> x0 round trip
+for the dpmsolver / sde-dpmsolver tables). ``NoiseSchedule`` is the
+train-time VP schedule (add_noise, get_velocity).
 """
 
 from __future__ import annotations
@@ -443,6 +445,17 @@ def make_solver(
     )
 
 
+def _threshold_x0(x0: torch.Tensor, ratio: float, max_value: float) -> torch.Tensor:
+    """Dynamic thresholding (the reference's ``_threshold_sample``): each
+    sample clamped to +/- its ``ratio`` quantile of |x0|, floored at 1 and
+    capped at ``max_value``, then divided by it. torch.quantile's linear
+    interpolation is jnp.quantile's default."""
+    b = x0.shape[0]
+    s = torch.quantile(x0.reshape(b, -1).abs(), ratio, dim=1).clamp(1.0, max_value)
+    s = s.reshape((b,) + (1,) * (x0.ndim - 1))
+    return torch.maximum(torch.minimum(x0, s), -s) / s
+
+
 def sample(
     coeffs: SolverCoeffs,
     denoise_fn: Callable,
@@ -450,6 +463,10 @@ def sample(
     *,
     generator: Optional[torch.Generator] = None,
     noise: Optional[torch.Tensor] = None,
+    thresholding: bool = False,
+    dynamic_thresholding_ratio: float = 0.995,
+    sample_max_value: float = 1.0,
+    eps_space: bool = False,
     extras=None,
 ) -> torch.Tensor:
     """Run the multistep solve in float32.
@@ -457,7 +474,10 @@ def sample(
     denoise_fn(x, t) -> raw model output for a batch x, where t is the (B,)
     timestep; with ``extras`` (a list of per-step values) it is called as
     denoise_fn(x, t, extras[i]). ``noise`` (N, *x.shape) is the per-step SDE
-    variance noise; without it, SDE tables draw from ``generator``."""
+    variance noise; without it, SDE tables draw from ``generator``.
+    ``thresholding`` applies the reference's dynamic thresholding to each
+    step's x0 estimate; ``eps_space=True`` for tables built for dpmsolver /
+    sde-dpmsolver, whose m0 is an epsilon (converted to x0 and back)."""
     n = coeffs.num_steps
     if noise is None and generator is None and bool(np.any(coeffs.c_noise != 0.0)):
         raise ValueError("sde-dpmsolver(++) coefficients require `generator` or `noise`")
@@ -468,6 +488,14 @@ def sample(
         t = torch.full((x.shape[0],), float(coeffs.timesteps[i]), device=x.device)
         raw = (denoise_fn(x, t) if extras is None else denoise_fn(x, t, extras[i])).float()
         m0 = float(coeffs.a_conv[i]) * x + float(coeffs.b_conv[i]) * raw
+        if thresholding:
+            alpha, sigma = float(coeffs.alpha_s[i]), float(coeffs.sigma_s[i])
+            if eps_space:
+                x0 = _threshold_x0((x - sigma * m0) / alpha, dynamic_thresholding_ratio,
+                                   sample_max_value)
+                m0 = (x - alpha * x0) / sigma
+            else:
+                m0 = _threshold_x0(m0, dynamic_thresholding_ratio, sample_max_value)
         x_new = (float(coeffs.c_x[i]) * x + float(coeffs.c_m0[i]) * m0
                  + float(coeffs.c_m1[i]) * m1 + float(coeffs.c_m2[i]) * m2)
         if coeffs.c_noise[i] != 0.0:

@@ -347,7 +347,8 @@ class ServingEngine:
         """This rank's tree under TP, with the group and the control group."""
         from ..parallel import mesh as pmesh
 
-        if any("w8" in lp["attn"]["q"] for lp in params["lm"]["layers"]):
+        if any("w8" in lp["attn"].get("q", {}) or "qkv" in lp["attn"]
+               for lp in params["lm"]["layers"]):
             raise ValueError(
                 "TP serving shards dense ('w') params; int8-quantized params are the "
                 "single-device memory configuration (int8 LM + int8 KV) - use one or the other")
