@@ -2,9 +2,17 @@
 """Repeat chip_smoke.py's serving phase in one process, to compare the
 per-frame time of two checkouts on one card.
 
-    python3 chip_serving.py [--checkout DIR]
+    python3 chip_serving.py [--checkout DIR] [--what serving|engine|kernels]
 
-Imports chip_smoke.py from DIR (default: this checkout), builds its
+Imports chip_smoke.py from DIR (default: this checkout). With --what
+engine it builds the serving engine of chip_smoke.py's phase 8
+(max_batch 4, 4,096 slots, K 4, the speaking 1.5B), warms it up and
+prints the device time a frame (CUDA events) of three replays of one
+window with every slot active; with --what kernels, the device time
+(chip_smoke.bench_ms, the weights rotating) of the streaming core's
+kernels at the 1.5B's and the 7B's shapes: kernel A's GEMV at 2 rows
+(1 row for a tokenizer fc1), C (4 layers, 2 rows, int8) and D (8 blocks,
+1 row, int8). By default it builds the
 full-width 1.5B serving model once (seed 0) and runs its end_to_end()
 three times, printing each run's ms per frame as a JSON line. Each
 end_to_end() alternates, at max_length 4096 and 65536 and for K = 1 and 4
@@ -28,9 +36,77 @@ from pathlib import Path
 REPEATS = 3
 
 
+def engine_window(chip_smoke) -> list:
+    """Device ms a frame of REPEATS replays of phase 8's engine window (every
+    slot active, the carry warmup() left)."""
+    import torch
+
+    from vibevoice_tpu_torch.models import inference as inf
+    from vibevoice_tpu_torch.serving.engine import ServingEngine
+    from vibevoice_tpu_torch.utils.params import speaking
+
+    model = chip_smoke.serving_model(0)
+    cfg, toks, k, b = model["cfg"], model["toks"], 4, chip_smoke.ENGINE_BATCH
+    params = speaking(model["params"], toks, c=64.0)
+    eng = ServingEngine(cfg, params, tokens=toks, frames_per_dispatch=k, max_batch=b,
+                        max_len=4096,
+                        opts=inf.GenerateOptions(ddpm_steps=10, cfg_scale=1.3, max_length=4096))
+    eng.warmup()
+    try:
+        eng.carry.finished.zero_()
+        noise, ext = eng._draw_noise(), torch.zeros(k, b, dtype=torch.bool, device="cuda")
+        eng.step_fn(params, eng.carry, noise, ext)
+        times = []
+        for _ in range(REPEATS):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            eng.step_fn(params, eng.carry, noise, ext)
+            ev[1].record()
+            torch.cuda.synchronize()
+            times.append(ev[0].elapsed_time(ev[1]) / k)
+        eng.carry.finished.fill_(True)
+    finally:
+        eng.shutdown()
+    return times
+
+
+def stream_kernels(chip_smoke) -> dict:
+    """Device ms of one call of each kernel on the streaming core."""
+    import torch
+
+    from vibevoice_tpu_torch.ops import head_fused as hf
+    from vibevoice_tpu_torch.ops import quant
+    from vibevoice_tpu_torch.ops import vocoder_fused as vf
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    randn = lambda *s, dt=torch.bfloat16: torch.randn(s, generator=g, device="cuda").to(dt)
+    ms = {}
+    for name, k, n, rows in (("gate/up", 1536, 8960, 2), ("q/o", 1536, 1536, 2),
+                             ("down", 8960, 1536, 2), ("7B gate/up", 3584, 18944, 2),
+                             ("tokenizer fc1", 2048, 8192, 1)):
+        ws = chip_smoke.rotating(
+            lambda: quant.quantize_weight(randn(k, n, dt=torch.float32) * 0.02), k * n)
+        x = randn(rows, k)
+        ms[f"A {name} {rows} rows"] = chip_smoke.bench_ms(
+            lambda w: quant.int8_matmul(x, w["w8"], w["scale"]), ws)
+    layers = chip_smoke.head_layers(randn, 1536, 4608, 4)
+    packs = chip_smoke.rotating(lambda: hf.pack_head_ffns(layers, 1e-5, True),
+                                3 * 4 * 1536 * 4608, budget=120 << 20)
+    x, mods = randn(2, 1536, dt=torch.float32), randn(4, 2, 3 * 1536, dt=torch.float32) * 0.5
+    ms["C 2 rows"] = chip_smoke.bench_ms(lambda pk: hf.fused_head_ffn_stack(pk, x, mods), packs)
+    blocks = chip_smoke.stage_blocks(randn, 2048, 8)
+    packs = chip_smoke.rotating(lambda: vf.pack_stage(blocks, 1e-5, True), 8 * 8 * 2048 * 2048,
+                                budget=120 << 20)
+    x, st = randn(1, 1, 2048), randn(8, 1, 6, 2048)
+    ms["D 1 row"] = chip_smoke.bench_ms(lambda pk: vf.fused_stage_step(pk, x, st), packs)
+    return ms
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--checkout", default=str(Path(__file__).resolve().parent))
+    ap.add_argument("--what", choices=("serving", "engine", "kernels"), default="serving")
     args = ap.parse_args()
     if os.environ.get("PYTHONHASHSEED") != "0":  # the prompt's ids, as in chip_smoke.py
         os.environ["PYTHONHASHSEED"] = "0"
@@ -48,6 +124,11 @@ def main() -> None:
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
+    if args.what != "serving":
+        ms = (engine_window if args.what == "engine" else stream_kernels)(chip_smoke)
+        print(json.dumps({"checkout": root.name, "what": args.what, "card": card,
+                          "device": torch.cuda.get_device_name(0), "ms": ms}), flush=True)
+        return
     model = chip_smoke.serving_model(0)
     for i in range(REPEATS):
         runs = chip_smoke.end_to_end(model, 0, 32)["runs"]

@@ -8,12 +8,15 @@ toolkit (nvcc), and exits non-zero without a result otherwise.
 
 Phases, each of which fails the run:
   1. device: CUDA present; prints the card's name and power limit;
-  2. build: compiles the kernels from the nine sources in
-     vibevoice_tpu_torch/csrc/ (one nvcc per source, all at once), ten
+  2. build: compiles the kernels from the ten sources in
+     vibevoice_tpu_torch/csrc/ (one nvcc per source, all at once), eleven
      entries of the kernels line (and their "@7b" twins, phase 12): A
-     int8_matmul by its two routes (the one-launch streaming GEMV below
-     quant.GEMM_MIN_ROWS rows, the tensor-core GEMM int8_matmul_gemm from
-     there up), B flash_cached_attention by its two routes (flash-decoding at
+     int8_matmul by its three routes (the one-launch streaming GEMV up to
+     quant.GEMV_MAX_ROWS rows, the split-K tensor-core GEMM
+     int8_matmul_splitk from there to below quant.GEMM_MIN_ROWS, the 256-row
+     tensor-core GEMM int8_matmul_gemm from there up; ptxas' registers and
+     spills of the split-K GEMM's row tiles are printed), B
+     flash_cached_attention by its two routes (flash-decoding at
      W = 1 and for f32 q, the tensor-core flash_cached_attention_prefill for
      bf16 chunks), C fused_head_ffn_stack, D fused_stage_step, E
      int8_matmul_t, F flash_ring_block, and the training attention's forward
@@ -29,10 +32,11 @@ Phases, each of which fails the run:
      Kernel F runs the four hops of rank 2 of a 4-way ring over a
      16,384-token prompt (the last block wholly in the future, which must
      leave the state bit-identical) and the one hop of a world of one;
-     kernel A runs at 1, 2, 4, 8, GEMM_MIN_ROWS - 1, 512, 4,096 (f32) and
-     32,768 rows at the four LM shapes (the GEMV rows twice, bit-identical,
-     and one CUDA-graph capture of the 2-row call replayed with new x), and
-     both of its routes from 4 to 256 rows (the crossover);
+     kernel A runs at A_ROWS (1, 2, 3, 4, 8, 20, 39, 80, 105, 300 and 512),
+     4,096 (f32) and 32,768 rows at the four LM shapes (the split routes'
+     rows twice, bit-identical; one CUDA-graph capture of the 2- and the
+     8-row call replayed with new x against the plain version, the 8-row one
+     also against eager calls);
      kernel B at the decode over 4,096-, 65,536- and 32,768-slot caches,
      full and at a low fill (the serving run's, and 300 of 65,536), as
      replays of one CUDA-graph capture with three other bases written in
@@ -57,8 +61,7 @@ Phases, each of which fails the run:
      route at 8 rows of mixed bases with an idle row past the cache (the
      1.5B at 4,096 bf16 and 65,536 int8 slots, the 0.5B at 8,192 for each
      of its two caches), each also captured in a CUDA graph and replayed on
-     new inputs against its eager call (the same bits), as is A's GEMV at 8
-     rows;
+     new inputs against its eager call (the same bits), as is A at 8 rows;
   4. end to end, serving: the full-width 1.5B model (random weights from
      --seed, bf16, int8 LM + lm_head, fuse_for_serving) runs generate() on a
      two-speaker script with two 3 s voice prompts and a forced script of
@@ -67,7 +70,8 @@ Phases, each of which fails the run:
      step of K frames in a CUDA graph once and replays it, then the same
      runs through that step function's eager call. Graphed and eager must
      give identical tokens, audio within GRAPH_TOL of the peak and equal
-     launch counts; every serving kernel must have launched, the graphed
+     launch counts; every serving kernel must have launched (kernel A by
+     the routes of the rows the path gives it: a_entries), the graphed
      runs must have replayed a graph, and the audio must be finite and
      non-silent; per-frame ms and RTF are printed for each. Then the
      default generate() with nothing injected (do_sample, top_p 0.9, SDE;
@@ -86,12 +90,13 @@ Phases, each of which fails the run:
      the two voice prompts spliced in) with parallel.ring_prefill_carry, at
      max_length 32768 (bf16 KV) and 65536 (int8 KV); each carry is held
      against inference.chunked_prefill (kernel B's prefill route on chunks
-     of 2048, kernel A's GEMM) on the same prompt (cache lengths, h_pos, the
+     of 2048, kernel A's split-K GEMM) on the same prompt (cache lengths, h_pos, the
      valid cache of layers 0 and 27, limits in SP_TOL) and decodes 8 forced
      frames through the graphed make_step_fn (8 replays), which must be
      finite and non-silent;
-     kernels F, A (both routes), B (decode), C and D must all have launched
-     in the ring run, and A's GEMM and B's prefill route in chunked_prefill;
+     kernels F, A (all three routes), B (decode), C and D must all have
+     launched in the ring run, and A's split-K GEMM and B's prefill route in
+     chunked_prefill;
   6. end to end, the streaming 0.5B model: the full-width config from
      vibevoice_tpu_torch/configs/qwen2.5_0.5b_streaming.json (24 layers
      split 4 + 20, hidden 896, 14/2 heads of 64, FFN 4864, vocab 151936,
@@ -116,7 +121,7 @@ Phases, each of which fails the run:
      targets and the diffusion head, f32 activations, random weights from
      --seed, synthetic clips): 3 steps at B 2, T 2048, then 2 steps at B 1,
      T 8192 with remat and CE chunks of 1024. Losses finite, adapters moved
-     after step 2, kernels A (its GEMM), E and the training attention's
+     after step 2, kernels A (its split-K GEMM), E and the training attention's
      tensor-core route launched, its CUDA-core route never (the tiny
      config's head_dim 16 takes that one);
   8. end to end, the serving engine: serving.ServingEngine(max_batch=4,
@@ -162,8 +167,9 @@ Phases, each of which fails the run:
      full width, random weights from --seed (the_7b): (a) every kernel at its
      shapes against its plain version (phase 3's tolerances), timed with its
      bound and library call and replayed from a CUDA graph against its eager
-     call (the same bits): A's GEMV at 2 and 8 rows (the LM linears and the
-     lm_head) and A's GEMM at 16,384 rows, B's decode at 4,096 bf16 and
+     call (the same bits): A at 2 and 8 rows (the LM linears and the
+     lm_head; the GEMV, the split-K GEMM), at 20 and 105 (the LM linears)
+     and A's GEMM at 16,384 rows, B's decode at 4,096 bf16 and
      32,768 int8 slots and its prefill route on a 2,048-row chunk, C, D, E
      at 2,048 f32 rows, F over 16,384 tokens, the training attention at B1
      T2048; (b) VibeVoiceTTS.random on the 7B JSON: phase 4's forced script
@@ -215,10 +221,12 @@ Phases, each of which fails the run:
      the packed q|k|v and gate|up, int8-head and int8-tokenizer shapes of
      the 1.5B and the 7B (SURFACE_KERNELS), each against its plain version,
      timed with its bound and torch.mm, replayed from a CUDA graph against
-     its eager call (the same bits); (b) VibeVoiceTTS.random with LM_PACK=1
-     against phase 4's model: h_pos after the prefill the same bits, the
-     forced graphed run's tokens equal, ms a frame and a replayed window's
-     device time of both taken in turn; (c) the 512-wide int8 LM, head and
+     its eager call (the same bits), the packed shapes with their segments
+     against one call a segment (the same bits); (b) VibeVoiceTTS.random
+     with LM_PACK=1 against phase 4's model: h_pos after the prefill the
+     same bits, the forced graphed run's tokens equal and its audio the
+     same bits, ms a frame and a replayed window's device time of both
+     taken in turn; (c) the 512-wide int8 LM, head and
      tokenizers on the card against the CPU (SMALL_CARD_TOL), and the
      full-width 1.5B so (graphed against eager, the same bits; no C or D
      launch) beside the fused path, then utils.profiling.trace around one
@@ -227,12 +235,20 @@ Phases, each of which fails the run:
      same losses; peak memory and s/step); (f) the merge script on phase
      11's checkpoint with (e)'s adapters, and the QA harness on it (its
      parity step skipped with its reason where the upstream reference does
-     not import). Phase 12 (g) runs the 7B packed with an int8 head.
+     not import). Phase 12 (g) runs the 7B packed with an int8 head;
+ 15. kernel A's three routes side by side from 2 to 4,096 rows over a
+     layer's seven linears of the 1.5B and the 7B (route_sweep, which
+     places quant.GEMV_MAX_ROWS and GEMM_MIN_ROWS), last: its CUDA-graph
+     timings come after every profile of the script.
+Phases 12, 13 and 14-15 each run in a fresh process of the script
+(run_later_phases: a new CUDA context and profiler), whose results this
+one merges.
 The next-to-last line is a JSON object of the kernels' results
-(thirty entries: the ten of phases 3-11, their "@7b" twins, the four "@tp"
-entries of B's two routes and the training attention, and kernel A's six
-surface entries, "@pack", "@head", "@tok" by route and the 7B's "@pack@7b"
-and "@head@7b"); the last line is the JSON device record. The script runs itself again with
+(thirty-six entries: the eleven of phases 3-11, their "@7b" twins, the
+four "@tp" entries of B's two routes and the training attention, and
+kernel A's ten surface entries, "@pack", "@head", "@tok", "@pack@7b" and
+"@head@7b" for the GEMV and the split-K GEMM); the last line is the JSON
+device record. The script runs itself again with
 PYTHONHASHSEED=0: the prompts go through the hash-bucket fallback
 tokenizer, so every run of one --seed then feeds the model the same ids;
 and with TEARDOWN_CUPTI=0 and DISABLE_CUPTI_LAZY_REINIT=1, so that its many
@@ -347,6 +363,26 @@ def ptxas_report(log: str, prefix: str) -> list:
     return out
 
 
+def sk_ptxas_report(log: str) -> list:
+    """One line per row tile of the split-K GEMM (int8_gemm_sk_kernel<BM>):
+    registers and spill stores from ptxas -v, and ptxas' warnings about it
+    (C7512: a wgmma chain serialized)."""
+    out, bm, spill = [], None, "?"
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*int8_gemm_sk_kernelILi(\d+)E", ln)
+        if m:
+            bm = m.group(1)
+        elif "int8_gemm_sk_kernel" in ln and ("C7512" in ln or "warning" in ln):
+            out.append(ln.strip())
+        elif bm and "bytes spill stores" in ln:
+            spill = re.search(r"(\d+) bytes spill stores", ln).group(1)
+        elif bm and "Used" in ln:
+            regs = re.search(r"Used (\d+) registers", ln).group(1)
+            out.append(f"int8_gemm_sk_kernel<{bm}>: {regs} registers, {spill} bytes spilled")
+            bm = None
+    return out
+
+
 def fail(msg: str) -> None:
     """Report on both streams (a caller that keeps only the end of stderr
     still reads why) and exit 1."""
@@ -401,9 +437,11 @@ class Checks:
         self.tag = ""
 
     def case(self, kernel: str, label: str, out, ref, tol_rel: float, ms=None, plain_ms=None,
-             main: bool = False, bound=None, library_ms=None) -> None:
+             main: bool = False, bound=None, library_ms=None, pre_ms=None) -> None:
         """`bound` is (ms, "bytes" or "operations") from bound(); library_ms
-        the time of one PyTorch call computing the same function, if any."""
+        the time of one PyTorch call computing the same function, if any;
+        pre_ms the time of the route the parent commit took there, if it
+        was another."""
         import torch
 
         kernel += self.tag
@@ -415,6 +453,8 @@ class Checks:
             timing += f"  bound {bound[0]:.4g} ms ({bound[1]}, {bound[0] / ms:.1%} of it)"
         if ms is not None and library_ms is not None:
             timing += f"  library {library_ms:.4f} ms"
+        if pre_ms is not None:
+            timing += f"  pre {pre_ms:.4f} ms"
         print(f"  {kernel:<24s} {label:<40s} max_abs_err {err:.3e}  rel {rel:.3e} "
               f"(tol {tol_rel:.0e}){timing}", flush=True)
         k = self.kernels[kernel]
@@ -422,8 +462,8 @@ class Checks:
         if ms is not None:
             self.cases.append(dict(kernel=kernel, case=label, ms=ms, plain_ms=plain_ms,
                                    bound_ms=bound and bound[0], bound_by=bound and bound[1],
-                                   library_ms=library_ms, max_abs_err=err, rel_err=rel,
-                                   main=main))
+                                   library_ms=library_ms, pre_ms=pre_ms, max_abs_err=err,
+                                   rel_err=rel, main=main))
         if main:
             k["ms"], k["plain_ms"] = ms, plain_ms
             k["bound_ms"], k["bound_by"] = bound
@@ -441,12 +481,38 @@ def rotating(make, nbytes: int, budget: int = 160 << 20):
 
 LM_SHAPES = (("q/o", 1536, 1536), ("k/v", 1536, 256), ("gate/up", 1536, 8960),
              ("down", 8960, 1536))  # (name, IN, OUT) of the 1.5B decoder's int8 linears
+LM_SHAPES_7B = (("q/o", 3584, 3584), ("k/v", 3584, 512), ("gate/up", 3584, 18944),
+                ("down", 18944, 3584))  # (name, IN, OUT) of the 7B decoder's int8 linears
+# kernel A's entry of the kernels line by route (ops/quant.py _plan)
+A_ENTRY = {"gemv": "int8_matmul", "splitk": "int8_matmul_splitk", "gemm": "int8_matmul_gemm"}
+# phase 3's rows of kernel A at the LM shapes: decode (1, 2 at bs1 with both
+# CFG streams, 4 after the ring prefill, 8 at bs4), the split-K route's
+# middle rows (3; 20 and 80, the int8 AdaLN's; 105, phase 4's prompt; 300,
+# a voice prompt's tokenizer rows), 39 and 512
+A_ROWS = (1, 2, 3, 4, 8, 20, 39, 80, 105, 300, 512)
+# the rows of each route's main-path case: bs1 decode with both CFG streams
+# for the GEMV, the serving engine's bs4 for the split-K GEMM
+A_MAIN_ROWS = {"gemv": 2, "splitk": 8}
+# the parent commit's kernel A had two routes: the GEMV below 40 rows, the
+# 256-row GEMM from 40 (both unchanged since); a split-K case times that
+# route too, as its "pre"
+PARENT_GEMM_MIN_ROWS = 40
+
+
+def a_entries(*rows) -> tuple:
+    """Kernel A's entries that calls of these rows launch (ops/quant.py
+    routes by row count alone): the ones a path that gives kernel A those
+    rows must launch."""
+    from vibevoice_tpu_torch.ops import quant
+
+    return tuple(dict.fromkeys(A_ENTRY[quant._route(r)] for r in rows))
 
 
 def check_int8_matmul(checks: Checks, label: str, x, ws: list, tol: float, main: bool = False,
                       iters: int = 20, timer=None) -> None:
     """Kernel A on x against its plain version, both timed with the weights
-    in `ws` rotating, beside torch.mm on bf16 copies of the same weights."""
+    in `ws` rotating, beside torch.mm on bf16 copies of the same weights
+    and, on the split-K route, the parent commit's route (pre)."""
     import torch
 
     from vibevoice_tpu_torch.ops import quant
@@ -459,26 +525,31 @@ def check_int8_matmul(checks: Checks, label: str, x, ws: list, tol: float, main:
     ref = quant.int8_matmul_plain(x, w["w8"], w["scale"])
     ms = timer(lambda w: quant.int8_matmul(x, w["w8"], w["scale"]), ws)
     pms = timer(lambda w: quant.int8_matmul_plain(x, w["w8"], w["scale"]), ws)
+    route = quant._plan(rows, k, n).route
+    pre_ms = None
+    if route == "splitk":
+        parent = quant._gemv if rows < PARENT_GEMM_MIN_ROWS else quant._gemm
+        pre_ms = timer(lambda w: parent(x, w["w8"], w["scale"]), ws)
     wbs = [(w["w8"].float() * w["scale"]).to(torch.bfloat16) for w in ws]
     xb = x.to(torch.bfloat16)
     lms = timer(lambda wb: torch.mm(xb, wb), wbs)
     del wbs
-    route = quant._plan(rows, k, n).route
-    if route == "gemv" and not torch.equal(quant.int8_matmul(x, w["w8"], w["scale"]), out):
-        fail(f"int8_matmul {label}: two calls on the same inputs differ")
+    if route != "gemm" and not torch.equal(quant.int8_matmul(x, w["w8"], w["scale"]), out):
+        fail(f"{A_ENTRY[route]} {label}: two calls on the same inputs differ")
     byt = nbytes(x, w["w8"], w["scale"]) + rows * n * x.element_size()
-    checks.case("int8_matmul_gemm" if route == "gemm" else "int8_matmul", label, out, ref, tol, ms,
-                pms, main=main, bound=bound(2 * rows * k * n, byt), library_ms=lms)
+    checks.case(A_ENTRY[route], label, out, ref, tol, ms, pms, main=main,
+                bound=bound(2 * rows * k * n, byt), library_ms=lms, pre_ms=pre_ms)
 
 
 def gemv_graph_check(checks: Checks, label: str, x, w: dict) -> None:
-    """Kernel A's GEMV call captured once in a CUDA graph, then replayed
-    with new x written in place into the captured tensor; each replay
-    against the plain version (tol 1e-2)."""
+    """Kernel A's call (the GEMV or the split-K GEMM, by rows) captured once
+    in a CUDA graph, then replayed with new x written in place into the
+    captured tensor; each replay against the plain version (tol 1e-2)."""
     import torch
 
     from vibevoice_tpu_torch.ops import quant
 
+    entry = A_ENTRY[quant._plan(x.shape[0], *w["w8"].shape).route]
     quant.int8_matmul(x, w["w8"], w["scale"])  # the workspace outside the capture
     torch.cuda.synchronize()
     before = x.clone()
@@ -489,7 +560,7 @@ def gemv_graph_check(checks: Checks, label: str, x, w: dict) -> None:
         x.copy_(torch.roll(before, i + 1, dims=1) * (i + 2))
         graph.replay()
         torch.cuda.synchronize()
-        checks.case("int8_matmul", f"{label} CUDA-graph replay {i + 1}", out,
+        checks.case(entry, f"{label} CUDA-graph replay {i + 1}", out,
                     quant.int8_matmul_plain(x, w["w8"], w["scale"]), 1e-2)
     x.copy_(before)
     del graph
@@ -617,50 +688,21 @@ def check_kernels(checks: Checks, seed: int) -> None:
     g.manual_seed(seed)
     randn = lambda *s, dt=torch.bfloat16: torch.randn(s, generator=g, device=dev).to(dt)
 
-    # A: every int8 LM linear shape of the 1.5B decoder, decode rows (2 at bs1
-    # with both CFG streams, 4 after the ring prefill, 8 at bs4) and prefill rows
+    # A: every int8 LM linear shape of the 1.5B decoder at A_ROWS
     print("kernel A int8_matmul (bf16 x, int8 w, f32 scale; bf16 out: tol 1e-2 of the peak; "
           "library: torch.mm on a bf16 copy of the weight)")
     for name, k, n in LM_SHAPES:
         ws = rotating(lambda: quant.quantize_weight(randn(k, n, dt=torch.float32) * 0.02), k * n)
-        for rows in (1, 2, 4, 8, quant.GEMM_MIN_ROWS - 1, 512):
+        for rows in A_ROWS:
             x = randn(rows, k)
             check_int8_matmul(checks, f"{name} {k}x{n} rows={rows}", x, ws, 1e-2,
-                              main=(name == "gate/up" and rows == 2))
+                              main=(name == "gate/up" and rows in A_MAIN_ROWS.values()))
             if rows in (2, 8):
                 gemv_graph_check(checks, f"{name} {k}x{n} rows={rows}", x, ws[0])
             if rows == 8:
-                graph_vs_eager(checks, "int8_matmul", f"{name} {k}x{n} rows=8",
+                graph_vs_eager(checks, A_ENTRY[quant._plan(rows, k, n).route],
+                               f"{name} {k}x{n} rows=8",
                                lambda: quant.int8_matmul(x, ws[0]["w8"], ws[0]["scale"]), (x,))
-
-    # A's two routes side by side, to place the row threshold of quant._plan
-    print(f"kernel A routes by rows (bf16 x; ms of the GEMV / the GEMM; quant.GEMM_MIN_ROWS = "
-          f"{quant.GEMM_MIN_ROWS})")
-    sweep = (4, 8, 12, 16, 24, 32, 36, 40, 48, 64, 128, 256)
-    crossover, layer = {}, {r: [0.0, 0.0] for r in sweep}
-    for name, k, n in LM_SHAPES:
-        ws = rotating(lambda: quant.quantize_weight(randn(k, n, dt=torch.float32) * 0.02), k * n)
-        times = []
-        for rows in sweep:
-            x = randn(rows, k)
-            times.append((rows, bench_ms(lambda w: quant._gemv(x, w["w8"], w["scale"]), ws),
-                          bench_ms(lambda w: quant._gemm(x, w["w8"], w["scale"]), ws)))
-            per_layer = 1 if name == "down" else 2  # q, k, v, o, gate, up, down
-            layer[rows][0] += per_layer * times[-1][1]
-            layer[rows][1] += per_layer * times[-1][2]
-        wins = [r for r, tv, tg in times if all(g <= v for rr, v, g in times if rr >= r)]
-        crossover[f"{name} {k}x{n}"] = dict(rows_gemm_wins_from=wins[0] if wins else None,
-                                             times=times)
-        print(f"  {name:<8s} " + "  ".join(f"{r}: {tv:.4f}/{tg:.4f}" for r, tv, tg in times)
-              + f"  -> GEMM from {wins[0] if wins else 'never'}", flush=True)
-        del ws
-    wins = [r for r in sweep if all(layer[rr][1] <= layer[rr][0] for rr in sweep if rr >= r)]
-    crossover["layer (2 q/o + 2 k/v + 2 gate/up + down)"] = dict(
-        rows_gemm_wins_from=wins[0] if wins else None,
-        times=[(r, *layer[r]) for r in sweep])
-    print("  layer    " + "  ".join(f"{r}: {v:.4f}/{g:.4f}" for r, (v, g) in layer.items())
-          + f"  -> GEMM from {wins[0] if wins else 'never'}", flush=True)
-    checks.extra["int8_matmul_route_crossover"] = crossover
 
     # B: the decoder's GQA layout (12 q heads, 2 KV heads, D=128), one row
     # per sample and CFG stream (2B); the S=32768 case is the decode after the
@@ -729,6 +771,68 @@ def check_kernels(checks: Checks, seed: int) -> None:
         checks.case("fused_stage_step", f"{nb} blocks {w} weights: new state", ns, rs, 2e-2)
         fused_call_checks(checks, "fused_stage_step", f"{nb} blocks {w} weights", call,
                           lambda: vf.fused_stage_step_plain(packs[0], x, st), (x, st), 2e-2)
+
+
+# Kernel A's route sweep (phase 15): each route timed at each row count over
+# a layer's seven int8 linears (2 q/o, 2 k/v, 2 gate/up, 1 down) of the 1.5B
+# and of the 7B; the GEMV, which reads the weight again for every 4-row tile,
+# only up to SWEEP_GEMV_TO rows. It places quant.GEMV_MAX_ROWS and
+# GEMM_MIN_ROWS. It runs last: its ~300 CUDA-graph timings come after every
+# profile of the script.
+SWEEP_ROWS = (2, 3, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384)
+SWEEP_GEMV_TO = 16
+
+
+def route_sweep(checks: Checks, seed: int) -> dict:
+    """Kernel A's three routes side by side (bf16 x, the weights rotating):
+    a layer's time by route at every SWEEP_ROWS count for both models, and
+    the row counts where the GEMV stops winning and the 256-row GEMM starts
+    to. Printed beside the thresholds of ops/quant.py."""
+    import torch
+
+    from vibevoice_tpu_torch.ops import quant
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 15)
+    randn = lambda *s, dt=torch.bfloat16: torch.randn(s, generator=g, device="cuda").to(dt)
+    launch = {"gemv": quant._gemv, "splitk": quant._gemm_splitk, "gemm": quant._gemm}
+    print(f"kernel A routes by rows (bf16 x; ms of the GEMV / the split-K GEMM / the 256-row "
+          f"GEMM; quant.GEMV_MAX_ROWS = {quant.GEMV_MAX_ROWS}, quant.GEMM_MIN_ROWS = "
+          f"{quant.GEMM_MIN_ROWS})")
+    sweep = {}
+    for model, shapes in (("1.5B", LM_SHAPES), ("7B", LM_SHAPES_7B)):
+        layer = {r: dict.fromkeys(launch, 0.0) for r in SWEEP_ROWS}
+        for name, k, n in shapes:
+            ws = rotating(lambda: quant.quantize_weight(randn(k, n, dt=torch.float32) * 0.02),
+                          k * n)
+            times = {}
+            for rows in SWEEP_ROWS:
+                x = randn(rows, k)
+                times[rows] = {route: bench_ms(lambda w: fn(x, w["w8"], w["scale"]), ws, iters=10)
+                               for route, fn in launch.items()
+                               if route != "gemv" or rows <= SWEEP_GEMV_TO}
+                for route in launch:
+                    layer[rows][route] += (1 if name == "down" else 2) * times[rows].get(
+                        route, math.inf)
+            sweep[f"{model} {name} {k}x{n}"] = times
+            print(f"  {model} {name:<8s} " + "  ".join(
+                f"{r}: " + "/".join(f"{t[rt]:.4f}" if rt in t else "-" for rt in launch)
+                for r, t in times.items()), flush=True)
+            del ws
+        # the GEMV wins up to gemv_to, the GEMM from gemm_from on (a layer's sum)
+        gemv_to = max([0] + [r for r in SWEEP_ROWS if all(
+            layer[rr]["gemv"] < layer[rr]["splitk"] for rr in SWEEP_ROWS if rr <= r)])
+        gemm_from = min([r for r in SWEEP_ROWS if all(
+            layer[rr]["gemm"] <= layer[rr]["splitk"] for rr in SWEEP_ROWS if rr >= r)] or [None])
+        sweep[f"{model} layer"] = dict(times=layer, gemv_wins_to=gemv_to or None,
+                                       gemm_wins_from=gemm_from)
+        print(f"  {model} layer    " + "  ".join(
+            f"{r}: " + "/".join(f"{t[rt]:.4f}" if t[rt] < math.inf else "-" for rt in launch)
+            for r, t in layer.items())
+            + f"  -> the GEMV wins up to {gemv_to or 'none'} rows, the 256-row GEMM from "
+            f"{gemm_from or 'never'}", flush=True)
+    checks.extra["int8_matmul_route_sweep"] = sweep
+    return sweep
 
 
 def graph_vs_eager(checks: Checks, kernel: str, label: str, call, inputs, tweak=None,
@@ -920,6 +1024,28 @@ def profiler_first_activity() -> None:
     torch.cuda.synchronize()
 
 
+def release_for_profile() -> None:
+    """Hand the caching allocator's free blocks back to the card before a
+    profile: CUPTI keeps kernel records in device buffers it allocates as
+    they fill, and late in the run (phase 12, after the 7B's weights and
+    the plain versions' f32 copies) the allocator holds most of the card,
+    where profiles came back empty or short of records."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def note_empty_profile(attempt: int) -> None:
+    """Print that a profile recorded no device activity, with the card's
+    free memory then (the condition release_for_profile acts on)."""
+    import torch
+
+    free, total = torch.cuda.mem_get_info()
+    print(f"  (a profile recorded no device activity, attempt {attempt + 1}; the card had "
+          f"{free / 2**30:.1f} of {total / 2**30:.1f} GiB free)", flush=True)
+
+
 def device_kernels(fn, attempts: int = 3) -> list:
     """(name, microseconds) of each device activity (kernel, copy, fill) of
     one fn() call after a warm-up, in order, as torch.profiler records them.
@@ -931,7 +1057,8 @@ def device_kernels(fn, attempts: int = 3) -> list:
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(attempts):
+    for attempt in range(attempts):
+        release_for_profile()
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             profiler_first_activity()
             fn()
@@ -941,6 +1068,7 @@ def device_kernels(fn, attempts: int = 3) -> list:
                         key=lambda e: e.time_range.start)
         if events:
             break
+        note_empty_profile(attempt)
     return [(e.name, e.time_range.elapsed_us()) for e in events]
 
 
@@ -1020,7 +1148,7 @@ def check_training_kernels(checks: Checks, seed: int, heads=(12, 2, 128), e_case
                            a_f32_tol: float = 1e-5) -> None:
     """Kernel E and the training attention at a fine-tuning path's shapes
     (the 1.5B's by default: 12 query heads over 2 KV heads of 128), and
-    kernel A's GEMM on the same f32 rows (tol `a_f32_tol`). With `graphs`,
+    kernel A on the same f32 rows (tol `a_f32_tol`). With `graphs`,
     E's and the attention's main-path calls are also replayed from a CUDA
     graph against eager calls (the same bits)."""
     import torch
@@ -1079,7 +1207,7 @@ def check_training_kernels(checks: Checks, seed: int, heads=(12, 2, 128), e_case
                   f"bytes), GEMM {gemm_ms:.4f} ms (bound {rec['gemm_bound_ms']:.4f}); together "
                   f"{ms:.4f} ms = {ms / lms:.2f}x torch.mm", flush=True)
             del gs
-            if rows == e_cases[0][0]:  # kernel A at the same training rows (f32 x): its GEMM route
+            if rows == e_cases[0][0]:  # kernel A at the same training rows (f32 x)
                 check_int8_matmul(checks, f"{name} {k}x{n} rows={rows} f32 (training)",
                                   randn(rows, k), ws, a_f32_tol, iters=5)
             del ws
@@ -1443,7 +1571,8 @@ def end_to_end(model: dict, seed: int, frames: int, lengths=(4096, None),
     the peak and equal, non-zero launch counts of every serving kernel, and
     the graphed run must replay a graph. The graphed forced run at 4096
     and K = 4 (its tokens and audio) is returned as ``reference``, which
-    phase 11 repeats on the weights loaded from a checkpoint."""
+    phase 11 repeats on the weights loaded from a checkpoint. First the
+    prompt's prefill alone is timed (prefill_walls)."""
     import numpy as np
     import torch
 
@@ -1457,10 +1586,18 @@ def end_to_end(model: dict, seed: int, frames: int, lengths=(4096, None),
           f"{proc.speech_tensors.shape} ({proc.speech_masks.sum()} latent frames); forced script "
           f"{len(forced)} frames ({n_diff} speech frames, one speech_end -> speech_start)",
           flush=True)
+    prefill_ms = prefill_walls(model, seed, proc)
+    print(f"  the prompt's prefill (inference.prefill_fn at 4096 slots: the voices encoded, both "
+          f"streams): {float(np.median(prefill_ms)):.3f} ms (host wall ending in a synchronize; "
+          f"median of {', '.join(f'{t:.3f}' for t in prefill_ms)})", flush=True)
 
-    # the prompt's prefill (105 tokens) takes A's GEMM and B's prefill route
-    names = ("int8_matmul", "int8_matmul_gemm", "flash_cached_attention",
-             "flash_cached_attention_prefill", "fused_head_ffn_stack", "fused_stage_step")
+    # kernel A at the prompt's prefill (B x its tokens), the negative
+    # stream's one-token prefill (B rows) and decode (2B: both CFG streams);
+    # B's prefill route at the prompt
+    b = proc.input_ids.shape[0]
+    names = a_entries(b, 2 * b, b * proc.input_ids.shape[1]) + (
+        "flash_cached_attention", "flash_cached_attention_prefill", "fused_head_ffn_stack",
+        "fused_stage_step")
 
     def run(opts, script_tokens, step_fn):
         kw = dict(input_ids=proc.input_ids, valid_mask=proc.attention_mask,
@@ -1558,7 +1695,36 @@ def end_to_end(model: dict, seed: int, frames: int, lengths=(4096, None),
                       + f"{retries} allocator retries, "
                       f"decode fill at the last frame {fill} (SERVING_FILL {SERVING_FILL}), "
                       f"launches {counts}", flush=True)
+    runs["prefill_ms"] = prefill_ms
     return dict(runs=runs, launches=total_launches, reference=reference)
+
+
+def prefill_walls(model: dict, seed: int, proc, repeats: int = 5) -> list:
+    """Walls in ms (host clock ending in a synchronize) of the prefill of
+    `proc`'s prompt (inference.prefill_fn at 4,096 slots: the voice prompts
+    encoded, both streams) after one warm-up call."""
+    import torch
+
+    from vibevoice_tpu_torch.models import inference as inf
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    ids = torch.as_tensor(proc.input_ids, device=dev)
+    mask = torch.as_tensor(proc.attention_mask, device=dev)
+    speech_args = (torch.as_tensor(proc.speech_tensors, device=dev, dtype=torch.float32),
+                   torch.as_tensor(proc.speech_masks, device=dev),
+                   torch.as_tensor(proc.speech_input_mask, device=dev), g, None)
+    walls = []
+    with torch.no_grad():
+        for _ in range(repeats + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            inf.prefill_fn(model["cfg"], model["params"], ids, 4096, mask, speech_args,
+                           model["toks"])
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+    return walls[1:]
 
 
 def unforced_end_to_end(model: dict, seed: int, k: int = 4, windows: int = 3,
@@ -1591,7 +1757,9 @@ def unforced_end_to_end(model: dict, seed: int, k: int = 4, windows: int = 3,
     opts = inf.GenerateOptions(ddpm_steps=10, cfg_scale=1.3, max_length=4096, do_sample=True,
                                top_p=0.9, sde=True, frames_per_dispatch=k)
     fn = inf.make_multi_step_fn(cfg, toks, opts, k)
-    names = ("int8_matmul", "flash_cached_attention", "fused_head_ffn_stack", "fused_stage_step")
+    # kernel A at decode (2B rows: both CFG streams); prefills not counted
+    names = a_entries(2 * batch) + ("flash_cached_attention", "fused_head_ffn_stack",
+                                    "fused_stage_step")
 
     def run(s, step_fn, n_windows=windows):
         calls = itertools.count()
@@ -1680,6 +1848,7 @@ def unforced_end_to_end(model: dict, seed: int, k: int = 4, windows: int = 3,
 # name; D's blocks also run a prologue.
 PORT_DEVICE_KERNELS = (("flash_decode", "flash_cached_attention"),
                        ("flash_prefill", "flash_cached_attention_prefill"),
+                       ("int8_gemm_sk_kernel", "int8_matmul_splitk"),
                        ("int8_gemm_kernel", "int8_matmul_gemm"),
                        ("cast_bf16_kernel", "int8_matmul_gemm"),
                        ("stage_prologue", "fused_stage_step"),
@@ -1711,7 +1880,8 @@ def profiled_acts(fn, cpu: bool = False, attempts: int = 3):
     kinds = [torch.profiler.ProfilerActivity.CUDA]
     if cpu:
         kinds.append(torch.profiler.ProfilerActivity.CPU)
-    for _ in range(attempts):
+    for attempt in range(attempts):
+        release_for_profile()
         with torch.profiler.profile(activities=kinds) as prof:
             profiler_first_activity()
             t0 = time.perf_counter()
@@ -1723,6 +1893,7 @@ def profiled_acts(fn, cpu: bool = False, attempts: int = 3):
                        and PROFILE_START_KERNEL not in e.name), key=lambda a: a[0])
         if acts:
             break
+        note_empty_profile(attempt)
     return acts, wall_ms
 
 
@@ -1867,6 +2038,7 @@ def long_prompts(model: dict, lengths=(16384, 12000)):
 
 # Phase 5's caches: (max_length, int8 KV, limit against chunked_prefill)
 SP_CASES = ((32768, False, SP_TOL["bf16"]), (65536, True, SP_TOL["int8"]))
+SP_CHUNK = 2048  # the chunked_prefill reference's chunk
 
 
 def sp_prefill_end_to_end(model: dict, seed: int, frames: int = 8, lengths=(16384, 12000),
@@ -1902,12 +2074,14 @@ def sp_prefill_end_to_end(model: dict, seed: int, frames: int = 8, lengths=(1638
     print(f"  prompts {lengths} tokens (right-padded to {ids.shape[1]}), voice prompts "
           f"{tuple(proc.speech_tensors.shape)} ({int(proc.speech_masks.sum())} latent frames)",
           flush=True)
-    # the ring (kernel F, A's GEMM on 32,768 rows) and the decode frames after
-    # it (A's GEMV, B's decode route, C, D); the chunked_prefill reference
-    # (A's GEMM on 4,096 rows, B's prefill route on 2,048-row chunks)
-    ring_names = ("flash_ring_block", "int8_matmul_gemm", "int8_matmul", "flash_cached_attention",
-                  "fused_head_ffn_stack", "fused_stage_step")
-    chunked_names = ("int8_matmul_gemm", "flash_cached_attention_prefill")
+    # the ring (kernel F, A on the B x T prompt rows) beside the negative
+    # stream's prefill (B rows), and the decode frames after it (A on 2B
+    # rows, B's decode route, C, D); the chunked_prefill reference (A on
+    # B x 2,048 rows a chunk, B's prefill route on 2,048-row chunks)
+    b = ids.shape[0]
+    ring_names = ("flash_ring_block",) + a_entries(b * ids.shape[1], b, 2 * b) + (
+        "flash_cached_attention", "fused_head_ffn_stack", "fused_stage_step")
+    chunked_names = a_entries(b * SP_CHUNK) + ("flash_cached_attention_prefill",)
     nl = cfg.decoder_config.num_hidden_layers
 
     def cache_prefix(carry, li, kv_int8):
@@ -1936,7 +2110,7 @@ def sp_prefill_end_to_end(model: dict, seed: int, frames: int = 8, lengths=(1638
             reset_counts(chunked_names)
             t0 = time.perf_counter()
             ref = inf.chunked_prefill(cfg, params, ids, valid, max_len, toks, speech_args,
-                                      chunk=2048, kv_int8=kv_int8)
+                                      chunk=SP_CHUNK, kv_int8=kv_int8)
             torch.cuda.synchronize()
             ref_wall = time.perf_counter() - t0
             ref_counts = read_counts(chunked_names)
@@ -2061,10 +2235,10 @@ def tiny_qlora_card_vs_cpu(seed: int) -> None:
         return {k: v.float().cpu() - init[k] for k, v in TS.tree_leaves_with_path(state.params)}
 
     res = {}
-    # A on B*T = 192 rows: its GEMM; the tiny config's head_dim 16: the
-    # training attention's CUDA-core route
-    names = ("int8_matmul_gemm", "int8_matmul_t", "flash_train_attention_fwd_cores",
-             "flash_train_attention_bwd_cores")
+    # A on B*T = 192 rows; the tiny config's head_dim 16: the training
+    # attention's CUDA-core route
+    names = a_entries(192) + ("int8_matmul_t", "flash_train_attention_fwd_cores",
+                              "flash_train_attention_bwd_cores")
     for dev in ("cuda", "cpu"):
         reset_counts(names)
         loss, out, grads = grad_fn(_to(lora, dev), _to(p, dev), batch, draws)
@@ -2124,8 +2298,8 @@ def finetune_end_to_end(seed: int, config: Path = CONFIG_1P5B, runs=FINETUNE_RUN
     from vibevoice_tpu_torch.finetune import train
     from vibevoice_tpu_torch.finetune.train_step import tree_leaves_with_path
 
-    names = ("int8_matmul_gemm", "int8_matmul_t", "flash_train_attention_fwd",
-             "flash_train_attention_bwd")  # A on B*T = 4,096 or 8,192 f32 rows: its GEMM
+    # kernel A on the run's B x T f32 rows (4,096 or 8,192), E, the training attention
+    train_names = ("int8_matmul_t", "flash_train_attention_fwd", "flash_train_attention_bwd")
     core_names = ("flash_train_attention_fwd_cores", "flash_train_attention_bwd_cores")
     common = ["--config", str(config),
               "--synthetic_data", "--synthetic_items", "4", "--use_lora", "--int8_base",
@@ -2133,6 +2307,8 @@ def finetune_end_to_end(seed: int, config: Path = CONFIG_1P5B, runs=FINETUNE_RUN
     recs = {}
     for label, extra in runs:
         torch.cuda.empty_cache()
+        arg = lambda flag: int(extra[extra.index(flag) + 1])
+        names = a_entries(arg("--per_device_batch_size") * arg("--max_length")) + train_names
         reset_counts(names + core_names)
         t0 = time.perf_counter()
         # a run given --output_dir writes its checkpoint (phase 14's merge reads it)
@@ -2415,8 +2591,17 @@ ENGINE_BATCH = 4
 ENGINE_FRAMES = 40
 ENGINE_SOLO_FIRST_TOL = 5e-2
 ENGINE_SOLO_TOL = 0.4
-ENGINE_NAMES = ("int8_matmul", "int8_matmul_gemm", "flash_cached_attention",
-                "flash_cached_attention_prefill", "fused_head_ffn_stack", "fused_stage_step")
+# kernel A in the engine: a request's prefill (its 105 prompt rows, 1 of
+# the negative stream) and the batched decode (2 x ENGINE_BATCH rows)
+ENGINE_A_ROWS = (105, 1, 2 * ENGINE_BATCH)
+ENGINE_NAMES = ("flash_cached_attention", "flash_cached_attention_prefill",
+                "fused_head_ffn_stack", "fused_stage_step")
+
+
+def engine_names() -> tuple:
+    """The serving engine's kernel entries: kernel A's at its rows, then
+    ENGINE_NAMES."""
+    return a_entries(*ENGINE_A_ROWS) + ENGINE_NAMES
 # Phase 9: the session engine on the full-width 0.5B. An inject-mode
 # session batched with three others is held to itself alone in the same
 # engine (GRAPH_TOL) and to its solo streaming.generate() at batch 1, where
@@ -2515,6 +2700,7 @@ def serving_engine_end_to_end(model: dict, seed: int) -> dict:
             fail(f"{label}: {audio.size} samples (not {frames} frames of {hop}), or not finite, "
                  "or silent")
 
+    names = engine_names()
     eng, warm_s, _ = engine(max_batch=ENGINE_BATCH, max_len=4096, reserved_slots=1)
     print(f"  engine at max_batch {ENGINE_BATCH}, 4096 slots, K {k}, reserved_slots 1: warmup() "
           f"{warm_s:.3f} s (builds, captures the window); prompt {n} tokens, "
@@ -2531,7 +2717,7 @@ def serving_engine_end_to_end(model: dict, seed: int) -> dict:
 
     eng._prefill = timed_prefill
     frames0, replays0 = eng.stats().frames_emitted, eng.step_fn.replays
-    reset_counts(ENGINE_NAMES)
+    reset_counts(names)
     t0 = time.perf_counter()
     # the burst is staged behind the step function's lock until two of its
     # prefills wait in `ready`: one prefill takes longer than a request's
@@ -2555,7 +2741,7 @@ def serving_engine_end_to_end(model: dict, seed: int) -> dict:
             h5.cancel()
     audio = [h.result(timeout=600) for h in handles]
     traffic_s = time.perf_counter() - t0
-    traffic_counts = read_counts(ENGINE_NAMES)
+    traffic_counts = read_counts(names)
     for s, (h, a) in enumerate(zip(handles, audio)):
         want = "cancelled" if s == 5 else "completed"
         if h.rec["outcome"] != want:
@@ -2642,13 +2828,13 @@ def serving_engine_end_to_end(model: dict, seed: int) -> dict:
     start.finished.zero_()
     noise = clone(draw())
     ext = torch.zeros(k, b, dtype=torch.bool, device="cuda")
-    reset_counts(ENGINE_NAMES)
+    reset_counts(names)
     _, out_e = fn.eager(params, clone(start), noise, ext)
-    e_counts = read_counts(ENGINE_NAMES)
+    e_counts = read_counts(names)
     out_e = clone(out_e)
-    reset_counts(ENGINE_NAMES)
+    reset_counts(names)
     _, out_g = fn(params, clone(start), noise, ext)
-    g_counts = read_counts(ENGINE_NAMES)
+    g_counts = read_counts(names)
     torch.cuda.synchronize()
     same = (torch.equal(out_g.tokens, out_e.tokens) and torch.equal(out_g.audio, out_e.audio)
             and torch.equal(out_g.finished, out_e.finished))
@@ -2672,7 +2858,7 @@ def serving_engine_end_to_end(model: dict, seed: int) -> dict:
     # throughput: eight requests at once (priority: any of the 4 slots), then
     # the same at max_batch=1
     def burst(e, label):
-        reset_counts(ENGINE_NAMES)
+        reset_counts(names)
         t = time.perf_counter()
         hs = [e.submit(request(10 + i, priority=True)) for i in range(8)]
         out = [h.result(timeout=900) for h in hs]
@@ -2682,7 +2868,7 @@ def serving_engine_end_to_end(model: dict, seed: int) -> dict:
         secs = sum(a.size for a in out) / sr
         ttfa = sorted(h.rec["ttfa_ms"] for h in hs)
         return dict(wall_s=wall, audio_s=secs, rtf=secs / wall, ttfa_ms=ttfa,
-                    launches=read_counts(ENGINE_NAMES))
+                    launches=read_counts(names))
 
     bs4 = burst(eng, "bs4")
     for name, v in traffic_counts.items():
@@ -3088,8 +3274,8 @@ def write_checkpoint(path, sd: dict, config, shards: int = CKPT_SHARDS) -> int:
 
 CKPT_ROOT = ROOT / "build" / "phase11"
 CLI_TIMEOUT = 300  # s, each CLI subprocess: start, build or load the kernels, load, run
-PHASE11_NAMES = ("int8_matmul", "int8_matmul_gemm", "flash_cached_attention",
-                 "flash_cached_attention_prefill", "fused_head_ffn_stack", "fused_stage_step")
+PHASE11_NAMES = ("flash_cached_attention", "flash_cached_attention_prefill",
+                 "fused_head_ffn_stack", "fused_stage_step")
 
 
 class PeakRss:
@@ -3371,9 +3557,11 @@ def checkpoint_end_to_end(seed: int, frames: int, phase4_reference) -> dict:
             return out, time.perf_counter() - t
 
         run(short)  # captures the graph
-        reset_counts(PHASE11_NAMES)
+        # kernel A as in phase 4: the prefill, the negative stream's, decode
+        names = a_entries(1, 2, proc.input_ids.shape[1]) + PHASE11_NAMES
+        reset_counts(names)
         out, wall = run(forced)
-        counts = read_counts(PHASE11_NAMES)
+        counts = read_counts(names)
         audio = out.speech_outputs[0]
         missing = [n for n, v in counts.items() if v == 0]
         if missing:
@@ -3486,8 +3674,6 @@ def checkpoint_end_to_end(seed: int, frames: int, phase4_reference) -> dict:
 # 7), FFN 18944, an untied lm_head of 152,064 columns, a 3584-10752-3584
 # diffusion head, 32,768 positions; the tokenizers, so kernel D, are the
 # 1.5B's. Its kernels' entries in the kernels line are "<kernel>@7b".
-LM_SHAPES_7B = (("q/o", 3584, 3584), ("k/v", 3584, 512), ("gate/up", 3584, 18944),
-                ("down", 18944, 3584))  # (name, IN, OUT) of the 7B decoder's int8 linears
 LM_HEAD_7B = ("lm_head", 3584, 152064)  # its untied int8 lm_head (kernel A's GEMV at decode)
 HEADS_7B = (28, 4, 128)
 # The long-form run: a 16,384-token prompt into a 32,768-slot int8 cache
@@ -3509,8 +3695,9 @@ def check_7b_kernels(checks: Checks, seed: int) -> None:
     """Phase 12 (a): every kernel at the 7B's shapes against its plain
     version (the tolerances of phase 3), timed with its bound and library
     call, and replayed from a CUDA graph against its eager call (the same
-    bits): A's GEMV at 2 and 8 rows over the four LM shapes and the lm_head
-    (the 2-row call also replayed on new x against the plain version), B's
+    bits): A at 2 and 8 rows over the four LM shapes and the lm_head (the
+    GEMV at 2, the split-K GEMM at 8; the 2-row call also replayed on new x
+    against the plain version) and at 20 and 105 rows over the LM shapes, B's
     decode at 4,096 bf16 slots (also replayed at three other bases) and at
     32,768 int8 slots, B's prefill route on the long-form run's last chunk
     (2,048 rows from base 14,336 of 32,768, int8 and bf16), C at 4 layers
@@ -3533,14 +3720,16 @@ def check_7b_kernels(checks: Checks, seed: int) -> None:
           "library: torch.mm on a bf16 copy of the weight)")
     for name, k, n in LM_SHAPES_7B + (LM_HEAD_7B,):
         ws = rotating(lambda: quant.quantize_weight(randn(k, n, dt=torch.float32) * 0.02), k * n)
-        for rows in (2, 8):
+        for rows in (2, 8) if name == "lm_head" else (2, 8, 20, 105):
             x = randn(rows, k)
             label = f"{name} {k}x{n} rows={rows}"
-            check_int8_matmul(checks, label, x, ws, 1e-2, main=(name == "gate/up" and rows == 2))
+            check_int8_matmul(checks, label, x, ws, 1e-2,
+                              main=(name == "gate/up" and rows in A_MAIN_ROWS.values()))
             if rows == 2:
                 gemv_graph_check(checks, label, x, ws[0])
-            graph_vs_eager(checks, "int8_matmul", label,
-                           lambda: quant.int8_matmul(x, ws[0]["w8"], ws[0]["scale"]), (x,))
+            if rows <= 8:
+                graph_vs_eager(checks, A_ENTRY[quant._plan(rows, k, n).route], label,
+                               lambda: quant.int8_matmul(x, ws[0]["w8"], ws[0]["scale"]), (x,))
         del ws
 
     print("kernel B flash_cached_attention at the 7B's layout (28 q heads, 4 KV heads, head_dim "
@@ -3602,7 +3791,7 @@ def check_7b_kernels(checks: Checks, seed: int) -> None:
     check_ring_kernel(checks, seed + 12, heads=HEADS_7B, k_lens=(LONG_7B,), lm_shapes=LM_SHAPES_7B,
                       four_ring=False, graphs=True)
     torch.cuda.empty_cache()
-    # A's GEMM on f32 training rows is held to E's tolerance (1e-4), the
+    # A on f32 training rows is held to E's tolerance (1e-4), the
     # phase's bound for the same arithmetic (bf16 operands, f32 sums on the
     # tensor cores, f32 out) over the 7B's reductions: the tensor cores'
     # f32 accumulation drifts from the plain version's FFMA sums with K (on
@@ -3651,7 +3840,8 @@ def serving_engine_7b(model: dict, seed: int) -> dict:
                        max_length_times=(ENGINE_FRAMES + 0.5) / n)
 
     rows, draw = record_noise_rows(eng)
-    reset_counts(ENGINE_NAMES)
+    names = engine_names()
+    reset_counts(names)
     t0 = time.perf_counter()
     with eng.step_fn.request():  # staged until two prefills wait, as phase 8's burst
         handles = [eng.submit(request(s)) for s in range(8)]
@@ -3659,7 +3849,7 @@ def serving_engine_7b(model: dict, seed: int) -> dict:
             fail("7B serving engine: the burst's prefills were not staged in 300 s")
     audio = [h.result(timeout=900) for h in handles]
     wall = time.perf_counter() - t0
-    counts = read_counts(ENGINE_NAMES)
+    counts = read_counts(names)
     for s, (h, a) in enumerate(zip(handles, audio)):
         if h.rec["outcome"] != "completed" or a.size != ENGINE_FRAMES * hop \
                 or not np.isfinite(a).all() or not np.abs(a).max() > 0:
@@ -3807,8 +3997,9 @@ def the_7b(checks: Checks, seed: int, frames: int) -> dict:
     walls["serving"] = time.perf_counter() - t
     t = time.perf_counter()
     runs["surface"] = surface_7b(model, seed)
-    for name in ("int8_matmul@pack@7b", "int8_matmul@head@7b"):
-        checks.kernels[name]["launches"] += runs["surface"]["launches"]["int8_matmul"]
+    for entry, n in runs["surface"]["launches"].items():
+        for tag in ("@pack@7b", "@head@7b"):
+            checks.kernels[entry + tag]["launches"] += n
     walls["surface"] = time.perf_counter() - t
     inf._captures.clear()
     gc.collect()
@@ -4659,26 +4850,32 @@ def tensor_parallel(checks: Checks, seed: int, frames: int) -> dict:
 # 1 row a frame at the T = 1 stages, 45-90 rows in a 3 s voice prompt's
 # encode (the GEMM, "int8_matmul_gemm@tok"; 300 at C = 2048 for a 10 s one).
 SURFACE_KERNELS = {
-    "@pack": (("qkv", 1536, 2048, (2, 8), None), ("gate|up", 1536, 17920, (2, 8), 2)),
-    "@head": (("ffn gate/up", 1536, 4608, (2, 8), 2), ("ffn down", 4608, 1536, (2, 8), None),
-              ("adaln", 1536, 4608, (20,), None)),
-    "@tok": (("C 512 fc1", 512, 2048, (1, 4, 90), None), ("C 512 fc2", 2048, 512, (1, 90), None),
-             ("C 1024 fc1", 1024, 4096, (1, 45), None),
-             ("C 1024 fc2", 4096, 1024, (1, 45), None),
-             ("C 2048 fc1", 2048, 8192, (1, 4, 300), 1), ("C 2048 fc2", 8192, 2048, (1, 300), 300)),
-    "@pack@7b": (("qkv", 3584, 4608, (2, 8), None), ("gate|up", 3584, 37888, (2, 8), 2)),
-    "@head@7b": (("ffn gate/up", 3584, 10752, (2, 8), 2), ("ffn down", 10752, 3584, (2,), None),
-                 ("adaln", 3584, 10752, (20,), None)),
+    "@pack": (("qkv", 1536, 2048, (2, 8, 105), (), (1536, 256, 256)),
+              ("gate|up", 1536, 17920, (2, 8, 105), (2, 105), (8960, 8960))),
+    "@head": (("ffn gate/up", 1536, 4608, (2, 8), (2,), None),
+              ("ffn down", 4608, 1536, (2, 8), (), None),
+              ("adaln", 1536, 4608, (20, 80), (20,), None)),
+    "@tok": (("C 512 fc1", 512, 2048, (1, 4, 90), (), None),
+             ("C 512 fc2", 2048, 512, (1, 90), (), None),
+             ("C 1024 fc1", 1024, 4096, (1, 45), (), None),
+             ("C 1024 fc2", 4096, 1024, (1, 45), (), None),
+             ("C 2048 fc1", 2048, 8192, (1, 4, 300), (1,), None),
+             ("C 2048 fc2", 8192, 2048, (1, 300), (300,), None)),
+    "@pack@7b": (("qkv", 3584, 4608, (2, 8, 105), (), (3584, 512, 512)),
+                 ("gate|up", 3584, 37888, (2, 8, 105), (2, 105), (18944, 18944))),
+    "@head@7b": (("ffn gate/up", 3584, 10752, (2, 8), (2,), None),
+                 ("ffn down", 10752, 3584, (2,), (), None),
+                 ("adaln", 3584, 10752, (20, 80), (20,), None)),
 }
-SURFACE_ENTRIES = ("int8_matmul@pack", "int8_matmul@head", "int8_matmul@tok",
-                   "int8_matmul_gemm@tok", "int8_matmul@pack@7b", "int8_matmul@head@7b")
+# kernel A's entries at the surface's shapes: the GEMV's and the split-K
+# GEMM's of each (the 256-row GEMM runs at none of these rows)
+SURFACE_ENTRIES = tuple(f"{entry}{tag}" for tag in SURFACE_KERNELS
+                        for entry in ("int8_matmul", "int8_matmul_splitk"))
 ALL_COMPONENTS = ("lm", "lm_head", "diffusion_head", "tokenizers")
 SURFACE_REPEATS = 3  # alternated timings of two variants, medians printed
-# LM_PACK=1 against unpacked, h_pos after the prefill: kernel A's GEMM
-# never splits K and computes each column alone, so the packed weights give
-# the same bits (H100, --seed 0: 0.0). The decode GEMV's K split follows
-# OUT, so the packed frames round otherwise and the random-weight audio
-# drifts (0.935 of the peak after 32 frames): printed, not held.
+# LM_PACK=1 against unpacked, h_pos after the prefill: kernel A sums each
+# packed column as its own call would (its segments), so the packed weights
+# give the same bits (H100, --seed 0: 0.0), and so does the audio.
 PACK_HPOS_TOL = 0.0
 # The 512-wide int8 model on the card against the CPU, audio over its peak:
 # the CPU's own plain version with f64 sums in place of f32 moves this
@@ -4704,7 +4901,9 @@ def check_surface_kernels(checks: Checks, seed: int) -> None:
     bf16 copy (check_int8_matmul), each case replayed from one CUDA-graph
     capture with new x against its eager call (the same bits), the GEMV's
     2-row or 1-row case also against the plain version (gemv_graph_check).
-    The main case of each entry fills its ms."""
+    The main cases (each shape's main rows) fill the entries' ms. A packed
+    shape's call also passes its segments (the unpacked widths) and must
+    give the bits of the unpacked calls, one per segment."""
     import torch
 
     from vibevoice_tpu_torch.ops import quant
@@ -4719,22 +4918,45 @@ def check_surface_kernels(checks: Checks, seed: int) -> None:
     try:
         for tag, shapes in SURFACE_KERNELS.items():
             checks.tag = tag
-            for name, k, n, rows_list, main_rows in shapes:
+            for name, k, n, rows_list, main_rows, segments in shapes:
                 ws = rotating(lambda: quant.quantize_weight(randn(k, n, dt=torch.float32) * 0.02),
                               k * n)
                 for rows in rows_list:
                     x = randn(rows, k)
                     label = f"{name} {k}x{n} rows={rows}"
-                    check_int8_matmul(checks, label, x, ws, 1e-2, main=rows == main_rows)
-                    if rows == rows_list[0] and quant._plan(rows, k, n).route == "gemv":
+                    check_int8_matmul(checks, label, x, ws, 1e-2, main=rows in main_rows)
+                    route = quant._plan(rows, k, n).route
+                    if rows == rows_list[0] and route == "gemv":
                         gemv_graph_check(checks, label, x, ws[0])
-                    graph_vs_eager(checks, "int8_matmul" if quant._plan(rows, k, n).route ==
-                                   "gemv" else "int8_matmul_gemm", label,
+                    graph_vs_eager(checks, A_ENTRY[route], label,
                                    lambda: quant.int8_matmul(x, ws[0]["w8"], ws[0]["scale"]), (x,))
+                    if segments:
+                        packed_bits_check(label, x, ws[0], segments)
                 del ws
                 torch.cuda.empty_cache()
     finally:
         checks.tag = ""
+
+
+def packed_bits_check(label: str, x, w: dict, segments) -> None:
+    """Kernel A on a packed weight with its segments against one call per
+    segment on that segment's columns (contiguous copies): the same bits."""
+    import torch
+
+    from vibevoice_tpu_torch.ops import quant
+
+    out = quant.int8_matmul(x, w["w8"], w["scale"], segments)
+    c0, same = 0, True
+    for width in segments:
+        part = quant.int8_matmul(x, w["w8"][:, c0:c0 + width].contiguous(),
+                                 w["scale"][c0:c0 + width].contiguous())
+        same &= torch.equal(out[:, c0:c0 + width], part)
+        c0 += width
+    entry = A_ENTRY[quant._plan(x.shape[0], *w["w8"].shape).route]
+    print(f"  {entry:<24s} {label:<40s} with segments {tuple(segments)} against one call a "
+          f"segment: {'the same bits' if same else 'DIFFER'}", flush=True)
+    if not same:
+        fail(f"int8_matmul {label}: a packed call's columns differ from their own calls'")
 
 
 def _timed_generate(cfg, params, proc, toks, seed, opts, script, step_fn=None):
@@ -4769,8 +4991,8 @@ def alternated_frames(model: dict, seed: int, frames: int, variants: dict) -> di
     forced, short = forced_scripts(toks, frames)
     opts = inf.GenerateOptions(ddpm_steps=10, cfg_scale=1.3, max_length=4096,
                                frames_per_dispatch=4)
-    names = ("int8_matmul", "int8_matmul_gemm", "flash_cached_attention",
-             "flash_cached_attention_prefill", "fused_head_ffn_stack", "fused_stage_step")
+    names = tuple(A_ENTRY.values()) + ("flash_cached_attention", "flash_cached_attention_prefill",
+                                       "fused_head_ffn_stack", "fused_stage_step")
     for params in variants.values():
         _timed_generate(cfg, params, proc, toks, seed, opts, short)  # captures
     rec = {name: dict(per_frame_ms=[]) for name in variants}
@@ -4839,12 +5061,12 @@ def lm_pack_end_to_end(model: dict, seed: int, frames: int) -> dict:
     """Phase 14 (b): VibeVoiceTTS.random built again with LM_PACK=1 in the
     environment (fuse_for_serving packs the int8 LM's q|k|v and gate|up,
     ops/quant.pack_lm_projections) against phase 4's model: h_pos after the
-    prefill of the two-speaker prompt (A's GEMM on the packed weights)
+    prefill of the two-speaker prompt (kernel A on the packed weights)
     within PACK_HPOS_TOL of the peak (the same bits), and the forced
-    `frames`-frame graphed
-    generate() (K = 4, 4,096 slots): the same tokens, audio compared (the
-    bits and max |diff|; the GEMV's K split depends on OUT, so packed sums
-    may be ordered otherwise), ms a frame of both taken in turn."""
+    `frames`-frame graphed generate() (K = 4, 4,096 slots): the same tokens
+    and the same audio bits (kernel A sums every packed column as its own
+    call would: qwen2 passes the unpacked widths as segments), ms a frame of
+    both taken in turn."""
     import numpy as np
     import torch
 
@@ -4887,6 +5109,9 @@ def lm_pack_end_to_end(model: dict, seed: int, frames: int) -> dict:
           f"{u['launches']}, packed {p['launches']}", flush=True)
     if not same_tokens:
         fail("LM_PACK=1: tokens differ from the unpacked run")
+    if not same_bits:
+        fail(f"LM_PACK=1: the packed run's audio differs from the unpacked run's by "
+             f"{audio_err:.3e} of the peak (the same bits expected)")
     if not hpos <= PACK_HPOS_TOL:
         fail(f"LM_PACK=1: h_pos after the prefill {hpos:.3e} of the peak from the unpacked one")
     del packed
@@ -5181,13 +5406,15 @@ def surface_7b(model: dict, seed: int, frames: int = 8) -> dict:
     opts = inf.GenerateOptions(ddpm_steps=10, cfg_scale=1.3, max_length=4096,
                                frames_per_dispatch=4)
     fn = inf.make_multi_step_fn(cfg, toks, opts, 4, inject=True)
-    reset_counts(("int8_matmul",))
+    # kernel A at decode (2 rows), the prompt's prefill and the AdaLN (20)
+    names = a_entries(2, proc.input_ids.shape[1], 20)
+    reset_counts(names)
     out, wall = _timed_generate(cfg, params, proc, toks, seed, opts, forced, fn.eager)
-    counts = read_counts(("int8_matmul",))
+    counts = read_counts(names)
     audio = out.speech_outputs[0]
     print(f"  the 7B packed with an int8 head: a forced {frames}-frame eager generate() in "
-          f"{wall:.3f} s, A's GEMV launches {counts}", flush=True)
-    if audio is None or not np.isfinite(audio).all() or not counts["int8_matmul"] > 0:
+          f"{wall:.3f} s, kernel A's launches {counts}", flush=True)
+    if audio is None or not np.isfinite(audio).all() or not min(counts.values()) > 0:
         fail("the 7B packed with an int8 head: no audio or no launches")
     del params, head
     inf._captures.clear()
@@ -5223,8 +5450,9 @@ def the_surface(checks: Checks, seed: int, frames: int) -> dict:
     small_int8_card_vs_cpu and int8_head_end_to_end (with the profiling
     trace), (d) thresholding_card_vs_cpu, (e) dots_end_to_end, (f)
     scripts_end_to_end on surface_checkpoint's. The "@pack", "@head" and
-    "@tok" entries count kernel A's launches in (b)'s packed runs and (c)'s
-    int8-head runs (all of A's launches there, the LM's among them)."""
+    "@tok" entries count kernel A's launches by route in (b)'s packed runs
+    and (c)'s int8-head runs (all of A's launches there, the LM's among
+    them)."""
     import shutil
 
     import torch
@@ -5236,15 +5464,16 @@ def the_surface(checks: Checks, seed: int, frames: int) -> dict:
     t = time.perf_counter()
     model = serving_model(seed)
     runs["lm_pack"] = lm_pack_end_to_end(model, seed, frames)
-    checks.kernels["int8_matmul@pack"]["launches"] += runs["lm_pack"]["launches"]["int8_matmul"]
+    for entry in ("int8_matmul", "int8_matmul_splitk"):
+        checks.kernels[entry + "@pack"]["launches"] += runs["lm_pack"]["launches"][entry]
     walls["lm_pack"] = time.perf_counter() - t
     t = time.perf_counter()
     runs["small_int8"] = small_int8_card_vs_cpu(seed)
     runs["int8_head"] = int8_head_end_to_end(model, seed, frames)
     launches = runs["int8_head"]["launches"]
-    for name in ("int8_matmul@head", "int8_matmul@tok"):
-        checks.kernels[name]["launches"] += launches["int8_matmul"]
-    checks.kernels["int8_matmul_gemm@tok"]["launches"] += launches["int8_matmul_gemm"]
+    for entry in ("int8_matmul", "int8_matmul_splitk"):
+        for tag in ("@head", "@tok"):
+            checks.kernels[entry + tag]["launches"] += launches[entry]
     walls["int8_head"] = time.perf_counter() - t
     del model
     gc.collect()
@@ -5268,11 +5497,74 @@ def the_surface(checks: Checks, seed: int, frames: int) -> dict:
     return dict(runs=runs, walls=walls)
 
 
+def later_phases(checks: Checks, seed: int, frames: int, phases: set) -> dict:
+    """The given ones of phases 12-15 (the 7B, tensor parallelism, the
+    surface, kernel A's route sweep), run by a fresh process that
+    run_later_phases starts; their end-to-end records by phase."""
+    runs = {}
+    if 12 in phases:  # the 7B at full width
+        print("the 7B (qwen2.5_7b_32k.json): kernels at its shapes, serving, long-form prefill, "
+              "the serving engine, QLoRA, a checkpoint", flush=True)
+        runs["7b"] = the_7b(checks, seed, frames)
+    if 13 in phases:  # tensor parallelism on one card
+        print("tensor parallelism (the 7B at tp 1 over NCCL and tp 2 over gloo on the one card, "
+              "the trainer at tp 2 and dp 2)", flush=True)
+        runs["tp"] = tensor_parallel(checks, seed, frames)
+    if 14 in phases:  # the rest of the JAX package's surface
+        print("the surface: kernel A at the packed, int8-head and int8-tokenizer shapes, "
+              "LM_PACK=1, the int8 head and tokenizers, thresholding, remat_policy dots, the "
+              "merge and QA scripts, profiling", flush=True)
+        runs["surface"] = the_surface(checks, seed, frames)
+    if 15 in phases:  # kernel A's three routes side by side
+        route_sweep(checks, seed)
+    return runs
+
+
+# Phases 12, 13 and 14-15 each run in a fresh process of this script
+# (--later): every profile that came back empty or short of records did so
+# late in a process that had done much before it, after hundreds of
+# CUDA-graph captures and tens of profiles beside live graphs (once with 76
+# of the card's 79 GiB free, so not for want of memory; once in phase 13
+# after phase 12 in one fresh process), while the same checks passed in
+# processes that had done less. A new process starts with a new CUDA
+# context and profiler; the kernels are loaded, not built, again.
+LATER_PHASES = ((12,), (13,), (14, 15))
+LATER_TIMEOUT = 600  # seconds, each process
+
+
+def run_later_phases(checks: Checks, seed: int, frames: int, phases: tuple) -> dict:
+    """`phases` in a fresh process of this script, waited for; its kernel
+    entries, cases and records merged into this process's (launches added,
+    the largest error kept, its main cases' times taken)."""
+    out = ROOT / "build" / "later_phases.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.unlink(missing_ok=True)
+    res = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--seed", str(seed),
+                          "--frames", str(frames), "--later", str(out),
+                          "--phases", ",".join(map(str, phases))], timeout=LATER_TIMEOUT)
+    if res.returncode != 0 or not out.exists():
+        fail(f"phases {phases} (a fresh process of this script) exited {res.returncode}")
+    sub = json.loads(out.read_text())
+    out.unlink()
+    for name, k in sub["kernels"].items():
+        mine = checks.kernels[name]
+        mine["launches"] += k["launches"]
+        mine["max_abs_err"] = max(mine["max_abs_err"], k["max_abs_err"])
+        if k["ms"] is not None:
+            for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
+                mine[key] = k[key]
+    checks.cases += sub["cases"]
+    checks.extra.update(sub["extra"])
+    return sub["runs"]
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--frames", type=int, default=32, help="forced frames per generate() run")
     ap.add_argument("--out", default=None, help="also write the results as JSON here")
+    ap.add_argument("--later", default=None, help=argparse.SUPPRESS)  # LATER_PHASES -> JSON
+    ap.add_argument("--phases", default="", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     if not (ROOT / "vibevoice_tpu_torch" / "csrc").is_dir():
@@ -5310,18 +5602,24 @@ def main() -> None:
 
     t0 = time.perf_counter()
     lib = _cuda.library()
-    print(f"build: {lib.path.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s "
-          f"(parallel nvcc {lib.build_seconds:.1f} s)", flush=True)
-    spills = [ln.strip() for ln in lib.build_log.splitlines()
-              if re.search(r"[1-9][0-9]* bytes spill", ln)]
-    print(f"  ptxas: {len(spills)} kernel(s) spill registers" + "".join(f"\n    {ln}" for ln in spills))
-    print("  ptxas, the training attention's tensor-core kernels:"
-          + "".join(f"\n    {ln}" for ln in ptxas_report(lib.build_log, "flash_train_")))
+    if not args.later:
+        print(f"build: {lib.path.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s "
+              f"(parallel nvcc {lib.build_seconds:.1f} s)", flush=True)
+        spills = [ln.strip() for ln in lib.build_log.splitlines()
+                  if re.search(r"[1-9][0-9]* bytes spill", ln)]
+        print(f"  ptxas: {len(spills)} kernel(s) spill registers"
+              + "".join(f"\n    {ln}" for ln in spills))
+        print("  ptxas, the training attention's tensor-core kernels:"
+              + "".join(f"\n    {ln}" for ln in ptxas_report(lib.build_log, "flash_train_")))
+        print("  ptxas, kernel A's split-K GEMM by row tile:"
+              + "".join(f"\n    {ln}" for ln in sk_ptxas_report(lib.build_log)))
 
     # phase 3: kernels against their plain versions
     checks = Checks()
     sources = {
         "int8_matmul": ("vibevoice_tpu_torch/csrc/int8_matmul.cu", "vibevoice_tpu/ops/quant.py:129"),
+        "int8_matmul_splitk": ("vibevoice_tpu_torch/csrc/int8_gemm_splitk.cu",
+                               "vibevoice_tpu/ops/quant.py:129"),
         "int8_matmul_gemm": ("vibevoice_tpu_torch/csrc/int8_gemm.cu",
                              "vibevoice_tpu/ops/quant.py:129"),
         "flash_cached_attention": ("vibevoice_tpu_torch/csrc/flash_decode.cu",
@@ -5355,6 +5653,12 @@ def main() -> None:
         checks.kernels[entry] = dict(name=entry, route="cuda", source=src, replaces=rep,
                                      launches=0, max_abs_err=0.0, ms=None, plain_ms=None,
                                      bound_ms=None, bound_by=None, library_ms=None)
+    if args.later:  # a fresh process of some of phases 12-15 (later_phases)
+        runs = later_phases(checks, args.seed, args.frames,
+                            {int(p) for p in args.phases.split(",")})
+        Path(args.later).write_text(json.dumps(dict(kernels=checks.kernels, cases=checks.cases,
+                                                    extra=checks.extra, runs=runs), default=str))
+        return
     check_kernels(checks, args.seed)
     check_streaming_attention(checks, args.seed)
     check_batched_kernels(checks, args.seed)
@@ -5447,27 +5751,9 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # phase 12: the 7B at full width
-    print("the 7B (qwen2.5_7b_32k.json): kernels at its shapes, serving, long-form prefill, the "
-          "serving engine, QLoRA, a checkpoint", flush=True)
-    runs["7b"] = the_7b(checks, args.seed, args.frames)
-    inf._captures.clear()
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    # phase 13: tensor parallelism on one card
-    print("tensor parallelism (the 7B at tp 1 over NCCL and tp 2 over gloo on the one card, the "
-          "trainer at tp 2 and dp 2)", flush=True)
-    runs["tp"] = tensor_parallel(checks, args.seed, args.frames)
-    inf._captures.clear()
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    # phase 14: the rest of the JAX package's surface
-    print("the surface: kernel A at the packed, int8-head and int8-tokenizer shapes, LM_PACK=1, "
-          "the int8 head and tokenizers, thresholding, remat_policy dots, the merge and QA "
-          "scripts, profiling", flush=True)
-    runs["surface"] = the_surface(checks, args.seed, args.frames)
+    # phases 12-15, each group in a fresh process of this script
+    for phases in LATER_PHASES:
+        runs.update(run_later_phases(checks, args.seed, args.frames, phases))
 
     unmeasured = [k["name"] for k in checks.kernels.values() if k["ms"] is None or k["launches"] == 0]
     if unmeasured:

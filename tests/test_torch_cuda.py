@@ -46,6 +46,16 @@ def test_int8_matmul(dev, rows, k, n, dtype):
     assert _rel(out, ref) < (1e-2 if dtype == torch.bfloat16 else 1e-5)
 
 
+A_ATTR = {"gemv": "launches", "splitk": "launches_sk", "gemm": "launches_tc"}
+
+
+def _launches_of(call, attr):
+    """call() and the launches it added to int8_matmul's counter attr."""
+    before = getattr(quant.int8_matmul, attr)
+    out = call()
+    return out, getattr(quant.int8_matmul, attr) - before
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("k,n", [(1536, 8960), (8960, 1536), (1536, 256), (200, 208), (1000, 1040)])
 @pytest.mark.parametrize("rows", [1, 2, 3, 4, 7, 8, 11, 39])
@@ -56,19 +66,25 @@ def test_int8_matmul_gemv_route(dev, rows, k, n, dtype):
     the 128-column tile) and K that is not a multiple of the split: within
     1e-2 (bf16 out) / 1e-5 (f32: the same products in another order) of the
     peak of the plain version, one launch a call, and a second call gives
-    the same bits."""
-    assert rows < quant.GEMM_MIN_ROWS
+    the same bits. int8_matmul takes the route of these rows (ops/quant.py
+    _plan: the GEMV up to GEMV_MAX_ROWS, the split-K GEMM above) with one
+    launch of that route's counter; the GEMV itself runs at every one of
+    these rows (kernels C and D run it at any rows)."""
     g = torch.Generator(device=dev).manual_seed(20)
     q = quant.quantize_weight(torch.randn(k, n, generator=g, device=dev) * 0.02)
     x = torch.randn(rows, k, generator=g, device=dev).to(dtype)
-    before = quant.int8_matmul.launches
-    out = quant.int8_matmul(x, q["w8"], q["scale"])
-    assert quant.int8_matmul.launches == before + 1
+    ref = quant.int8_matmul_plain(x, q["w8"], q["scale"])
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    route = quant._plan(rows, k, n).route
+    assert route == ("gemv" if rows <= quant.GEMV_MAX_ROWS else "splitk")
+    out, launched = _launches_of(lambda: quant.int8_matmul(x, q["w8"], q["scale"]), A_ATTR[route])
+    assert launched == 1 and _rel(out, ref) < tol
+    out, launched = _launches_of(lambda: quant._gemv(x, q["w8"], q["scale"]), "launches")
+    assert launched == 1
     assert out.dtype == dtype and out.shape == (rows, n)
-    assert _rel(out, quant.int8_matmul_plain(x, q["w8"], q["scale"])) < (
-        1e-2 if dtype == torch.bfloat16 else 1e-5)
+    assert _rel(out, ref) < tol
     for _ in range(3):
-        assert torch.equal(quant.int8_matmul(x, q["w8"], q["scale"]), out)
+        assert torch.equal(quant._gemv(x, q["w8"], q["scale"]), out)
 
 
 @pytest.mark.parametrize("k,n", [(1536, 8960), (8960, 1536)])
@@ -93,6 +109,119 @@ def test_int8_matmul_gemv_graph_replay(dev, k, n):
         torch.cuda.synchronize()
         assert _rel(out, quant.int8_matmul_plain(x, q["w8"], q["scale"])) < 1e-2
     assert int(ws[1].abs().max()) == 0
+
+
+# the split-K route's shapes: the 1.5B's gate/up and down, the 7B's gate/up
+# and k/v, the int8 head's AdaLN (1.5B, 7B), a tokenizer's fc2 and fc1, and a
+# ragged N and K (N not a multiple of the 128-column block, K of the 64-k step)
+SK_SHAPES = [(1536, 8960), (8960, 1536), (3584, 18944), (3584, 512), (1536, 4608),
+             (3584, 10752), (8192, 2048), (2048, 8192), (200, 208), (1000, 1040)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k,n", SK_SHAPES)
+@pytest.mark.parametrize("rows", [3, 8, 20, 80, 105, 300])
+def test_int8_matmul_splitk_route(dev, rows, k, n, dtype):
+    """Kernel A's split-K tensor-core GEMM (csrc/int8_gemm_splitk.cu) at the
+    middle rows: within 1e-2 (bf16 out) / 1e-5 (f32) of the peak of the
+    plain version, one launch of launches_sk a call, and repeats give the
+    same bits (the splits meet in a fixed order)."""
+    g = torch.Generator(device=dev).manual_seed(22)
+    q = quant.quantize_weight(torch.randn(k, n, generator=g, device=dev) * 0.02)
+    x = torch.randn(rows, k, generator=g, device=dev).to(dtype)
+    out, launched = _launches_of(lambda: quant._gemm_splitk(x, q["w8"], q["scale"]),
+                                 "launches_sk")
+    assert launched == 1
+    assert out.dtype == dtype and out.shape == (rows, n)
+    assert _rel(out, quant.int8_matmul_plain(x, q["w8"], q["scale"])) < (
+        1e-2 if dtype == torch.bfloat16 else 1e-5)
+    for _ in range(2):
+        assert torch.equal(quant._gemm_splitk(x, q["w8"], q["scale"]), out)
+
+
+@pytest.mark.parametrize("k,n", [(1536, 8960), (8960, 1536), (3584, 18944)])
+def test_int8_matmul_splitk_graph_replay(dev, k, n):
+    """One capture of the split-K call at the serving engine's 8 rows in a
+    CUDA graph, replayed with new x written in place: the plan comes from
+    the shapes, the workspace and counters persist (and the counters reset
+    themselves), so every replay gives the bits of an eager call, and
+    nothing is allocated but the output."""
+    g = torch.Generator(device=dev).manual_seed(23)
+    q = quant.quantize_weight(torch.randn(k, n, generator=g, device=dev) * 0.02)
+    x = torch.randn(8, k, generator=g, device=dev).to(torch.bfloat16)
+    assert quant._plan(8, k, n).route == "splitk"
+    quant.int8_matmul(x, q["w8"], q["scale"])  # the workspace, outside the capture
+    torch.cuda.synchronize()
+    ws = quant._gemv_scratch[x.device]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = quant.int8_matmul(x, q["w8"], q["scale"])
+    assert quant._gemv_scratch[x.device] is ws
+    for _ in range(3):
+        x.copy_(torch.randn(8, k, generator=g, device=dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, quant.int8_matmul(x, q["w8"], q["scale"]))
+        assert _rel(out, quant.int8_matmul_plain(x, q["w8"], q["scale"])) < 1e-2
+    assert int(ws[1].abs().max()) == 0
+
+
+def test_int8_matmul_splitk_raises_on_unsupported_input(dev):
+    """K not a multiple of 8 (TMA's 16-byte rows), OUT not of 16, segments
+    off the 128-column blocks or not summing to OUT: the split-K route
+    raises."""
+    x = torch.randn(8, 100, device=dev)
+    q = quant.quantize_weight(torch.randn(100, 64, device=dev))
+    with pytest.raises(ValueError):
+        quant.int8_matmul(x, q["w8"], q["scale"])
+    x = torch.randn(8, 64, device=dev)
+    q = quant.quantize_weight(torch.randn(64, 40, device=dev))
+    with pytest.raises(ValueError):
+        quant.int8_matmul(x, q["w8"], q["scale"])
+    q = quant.quantize_weight(torch.randn(64, 512, device=dev))
+    for segments in ((200, 312), (256, 128), (128, 128, 128, 128)):
+        with pytest.raises(ValueError):
+            quant.int8_matmul(x, q["w8"], q["scale"], segments)
+
+
+def _lm_layer(dev, cfg, seed):
+    """One int8 Qwen2 layer at cfg's widths (q/k/v biases), unpacked and
+    packed (ops/quant.pack_lm_projections)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h, f, d = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
+    nh, kh = cfg.num_attention_heads, cfg.num_key_value_heads
+
+    def lin(k, n, bias=False):
+        e = quant.quantize_weight(torch.randn(k, n, generator=g, device=dev) * 0.02)
+        if bias:
+            e["b"] = (torch.randn(n, generator=g, device=dev) * 0.1).to(torch.bfloat16)
+        return e
+
+    layer = {"attn": {"q": lin(h, nh * d, True), "k": lin(h, kh * d, True),
+                      "v": lin(h, kh * d, True), "o": lin(nh * d, h)},
+             "mlp": {"gate": lin(h, f), "up": lin(h, f), "down": lin(f, h)}}
+    return layer, quant.pack_lm_projections({"layers": [layer]})["layers"][0]
+
+
+@pytest.mark.parametrize("model", ["1.5B", "7B"])
+@pytest.mark.parametrize("rows", [1, 2, 8, 20, 80, 300])
+def test_packed_projections_same_bits(dev, model, rows):
+    """LM_PACK: qwen2.project_qkv and mlp_forward over a packed layer give
+    the bits of the unpacked layer (torch.equal) at the 1.5B's and the 7B's
+    widths, on every route these rows take: each packed column is summed in
+    its own call's order (segments)."""
+    from vibevoice_tpu_torch.configs import Qwen2Config
+    from vibevoice_tpu_torch.models import qwen2
+
+    cfg = Qwen2Config() if model == "1.5B" else Qwen2Config(
+        hidden_size=3584, intermediate_size=18944, num_attention_heads=28, num_key_value_heads=4)
+    layer, packed = _lm_layer(dev, cfg, 24)
+    g = torch.Generator(device=dev).manual_seed(25)
+    hdn = torch.randn(1, rows, cfg.hidden_size, generator=g, device=dev).to(torch.bfloat16)
+    for a, b in zip(qwen2.project_qkv(layer["attn"], hdn, cfg),
+                    qwen2.project_qkv(packed["attn"], hdn, cfg)):
+        assert torch.equal(a, b)
+    assert torch.equal(qwen2.mlp_forward(layer["mlp"], hdn), qwen2.mlp_forward(packed["mlp"], hdn))
 
 
 def test_int8_matmul_gemv_raises_on_unsupported_input(dev):
@@ -300,22 +429,28 @@ def test_fused_head_and_stage_raise_on_ragged_widths(dev):
 @pytest.mark.parametrize("n", [256, 1536, 8960])
 @pytest.mark.parametrize("rows", [65, 129, 1000])
 def test_int8_matmul_gemm_route(dev, rows, n, dtype):
-    """Kernel A's tensor-core route at ragged rows (not a multiple of its
-    256-row tile) and the 1.5B's column counts, against the plain version:
-    one bf16 rounding of the output (1e-2 of the peak), or for f32 x the same
-    bf16 products summed in another order (1e-5)."""
+    """Kernel A's 256-row tensor-core route (csrc/int8_gemm.cu) at ragged
+    rows (not a multiple of its 256-row tile) and the 1.5B's column counts,
+    against the plain version: one bf16 rounding of the output (1e-2 of the
+    peak), or for f32 x the same bf16 products summed in another order
+    (1e-5). int8_matmul takes these rows' route (ops/quant.py _plan: the
+    split-K GEMM below GEMM_MIN_ROWS) with one launch of its counter."""
     g = torch.Generator(device=dev).manual_seed(10)
     k = 8960 if n == 1536 else 1536
     q = quant.quantize_weight(torch.randn(k, n, generator=g, device=dev) * 0.02)
     x = torch.randn(rows, k, generator=g, device=dev).to(dtype)
-    before = quant.int8_matmul.launches_tc
-    out = quant.int8_matmul(x, q["w8"], q["scale"])
-    assert quant.int8_matmul.launches_tc == before + 1
+    ref = quant.int8_matmul_plain(x, q["w8"], q["scale"])
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    route = quant._plan(rows, k, n).route
+    assert route == ("gemm" if rows >= quant.GEMM_MIN_ROWS else "splitk")
+    out, launched = _launches_of(lambda: quant.int8_matmul(x, q["w8"], q["scale"]), A_ATTR[route])
+    assert launched == 1 and _rel(out, ref) < tol
+    out, launched = _launches_of(lambda: quant._gemm(x, q["w8"], q["scale"]), "launches_tc")
+    assert launched == 1
     assert out.dtype == dtype and out.shape == (rows, n)
-    assert _rel(out, quant.int8_matmul_plain(x, q["w8"], q["scale"])) < (
-        1e-2 if dtype == torch.bfloat16 else 1e-5)
+    assert _rel(out, ref) < tol
     # a row's result does not depend on how many rows the call has
-    assert torch.equal(quant.int8_matmul(x[:64], q["w8"], q["scale"]), out[:64])
+    assert torch.equal(quant._gemm(x[:64], q["w8"], q["scale"]), out[:64])
 
 
 @pytest.mark.parametrize("d", [64, 128])
@@ -749,15 +884,15 @@ def test_ring_over_nccl(dev, tmp_path):
 # ---------------------------------------------------------------------------
 
 
-def _tiny_serving(dev, seed=0):
-    """Tiny config with the serving packs (int8 LM and lm_head, kernels C
-    and D), f32 activations, on the card; the tokenizer blocks' layer scales
-    at 0.3 so that every block does work."""
+def _tiny_serving(dev, seed=0, hidden_size=64):
+    """Tiny config (at ``hidden_size``) with the serving packs (int8 LM and
+    lm_head, kernels C and D), f32 activations, on the card; the tokenizer
+    blocks' layer scales at 0.3 so that every block does work."""
     from vibevoice_tpu_torch.configs import tiny_config
     from vibevoice_tpu_torch.models import vibevoice as vv
     from vibevoice_tpu_torch.utils.params import init
 
-    cfg = tiny_config()
+    cfg = tiny_config(hidden_size=hidden_size)
     p = init(cfg, seed=seed, device="cpu")
     for part in (p["acoustic_tokenizer"]["decoder"], p["semantic_tokenizer"]["encoder"]):
         for blk in (b for stage in part["stages"] for b in stage):
@@ -1198,12 +1333,14 @@ def test_flash_decode_eight_mixed_rows(dev, heads, s, int8, bases):
 def _tiny_speaking(device, pack=False):
     """_tiny_serving's model made to speak (utils.params.speaking: greedy
     decoding diffuses at every frame), and its special tokens; with
-    ``pack`` its int8 q|k|v and gate|up packed (LM_PACK=1's layout)."""
+    ``pack`` its int8 q|k|v and gate|up packed (LM_PACK=1's layout), at
+    hidden 512 (heads of 128), where every packed boundary falls on one of
+    kernel A's 128-column blocks, as at the 1.5B's and the 7B's widths."""
     from vibevoice_tpu_torch.models import inference as inf
     from vibevoice_tpu_torch.utils.params import speaking
 
     tokens = inf.SpecialTokens(speech_start=5, speech_end=6, speech_diffusion=7, eos=2)
-    cfg, params = _tiny_serving(device)
+    cfg, params = _tiny_serving(device, hidden_size=512 if pack else 64)
     params = speaking(params, tokens)
     if pack:
         params = {**params, "lm": quant.pack_lm_projections(params["lm"])}
@@ -1609,12 +1746,13 @@ def test_multi_card_fsdp_and_gpipe_steps(dev, tmp_path, mesh):
                                       (1024, 4096, 45), (2048, 8192, 300)])
 def test_int8_matmul_at_surface_shapes(dev, k, n, rows, dtype):
     """Kernel A at the packed q|k|v and gate|up, the int8 head's FFN and
-    AdaLN and the tokenizer FFNs, by both routes: within 1e-2 (bf16) /
-    1e-5 (f32) of the plain version, one launch of the route's counter."""
+    AdaLN and the tokenizer FFNs, by the route of their rows: within 1e-2
+    (bf16) / 1e-5 (f32) of the plain version, one launch of the route's
+    counter."""
     g = torch.Generator(device=dev).manual_seed(30)
     q = quant.quantize_weight(torch.randn(k, n, generator=g, device=dev) * 0.02)
     x = torch.randn(rows, k, generator=g, device=dev).to(dtype)
-    attr = "launches" if rows < quant.GEMM_MIN_ROWS else "launches_tc"
+    attr = A_ATTR[quant._plan(rows, k, n).route]
     before = getattr(quant.int8_matmul, attr)
     out = quant.int8_matmul(x, q["w8"], q["scale"])
     assert getattr(quant.int8_matmul, attr) == before + 1

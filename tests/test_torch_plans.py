@@ -1,7 +1,10 @@
 """The launch plans of kernels A, B, C, D and F, which the wrappers compute in
 plain Python before they launch: kernel A's route and tiling by row count
 (ops/quant._plan; the streaming GEMV's ops/quant._gemv_plan, whose thread
-mapping csrc/weight_stream.cuh repeats on the card), the two streaming passes
+mapping csrc/weight_stream.cuh repeats on the card; the split-K GEMM's
+ops/quant._sk_plan, csrc/int8_gemm_splitk.cu's grid; the column segments of
+a packed call, ops/quant._segment_plans, as csrc/common.cuh ColSegs reads
+them), the two streaming passes
 a layer of kernels C and D (ops/head_fused._plan, ops/vocoder_fused._plan),
 kernel F's row tiles and key horizons (ops/flash_attention._ring_plan,
 _ring_tile, as csrc/flash_ring.cu computes them), kernel B's decode tiles
@@ -28,11 +31,18 @@ from vibevoice_tpu_torch.ops import vocoder_fused as vf
 LM_SHAPES = [(1536, 1536), (1536, 256), (1536, 8960), (8960, 1536), (64, 64), (64, 256)]
 
 
+def _route_of(rows):
+    """Kernel A's route at ``rows`` by the thresholds of ops/quant.py."""
+    if rows >= quant.GEMM_MIN_ROWS:
+        return "gemm"
+    return "splitk" if rows > quant.GEMV_MAX_ROWS else "gemv"
+
+
 @pytest.mark.parametrize("rows", [1, 2, 63, 64, 65, 512, 4096, 32768])
 @pytest.mark.parametrize("k,n", LM_SHAPES)
 def test_int8_plan_covers_every_output_and_k_once(rows, k, n):
     plan = quant._plan(rows, k, n)
-    assert plan.route == ("gemm" if rows >= quant.GEMM_MIN_ROWS else "gemv")
+    assert plan.route == _route_of(rows)
     for extent, tile in ((rows, plan.row_tile), (n, plan.col_tile)):
         cover = np.zeros(extent, int)
         for start in range(0, extent, tile):
@@ -45,12 +55,18 @@ def test_int8_plan_covers_every_output_and_k_once(rows, k, n):
     assert all(b == a2 for (_, b), (a2, _) in zip(ranges, ranges[1:]))
     if plan.route == "gemm":  # no split-K: a row's sum never depends on the call's rows
         assert plan.splits == 1 and plan.k_per_split == k
+    if plan.route == "splitk":  # whole 64-k steps a split
+        assert plan.k_per_split % quant.SK_KSTEP == 0
 
 
 def test_int8_route_switches_at_the_threshold():
-    t = quant.GEMM_MIN_ROWS
+    """The three routes meet at the two row thresholds, at every shape."""
+    t, v = quant.GEMM_MIN_ROWS, quant.GEMV_MAX_ROWS
+    assert 1 <= v < t
     for k, n in LM_SHAPES:
-        assert quant._plan(t - 1, k, n).route == "gemv"
+        assert quant._plan(v, k, n).route == "gemv"
+        assert quant._plan(v + 1, k, n).route == "splitk"
+        assert quant._plan(t - 1, k, n).route == "splitk"
         assert quant._plan(t, k, n).route == "gemm"
     # the GEMM's plan is the same at every row count: tiles and one K pass
     assert {quant._plan(r, 1536, 8960)[1:] for r in (t, 1000, 32768)} == {
@@ -185,18 +201,20 @@ DECODE_SHAPES = [(1536, 1536), (1536, 256), (1536, 8960), (8960, 1536)]  # chip_
 DECODE_SHAPES_7B = [(3584, 3584), (3584, 512), (3584, 18944), (18944, 3584), (3584, 152064)]
 
 
-@pytest.mark.parametrize("rows", range(1, quant.GEMM_MIN_ROWS))
+@pytest.mark.parametrize("rows", range(1, 40))
 @pytest.mark.parametrize("k,n", DECODE_SHAPES + [(64, 64), (320, 1008), (1536, 151936)])
 def test_gemv_plan_reads_every_weight_once(rows, k, n):
     """The streaming GEMV's grid and thread mapping (csrc/weight_stream.cuh:
     128 threads = 16 k lanes x 8 groups of 16 columns, 8 loads a round) under
     the plan: every output column and row is owned by one block, every k by
     one (split, k lane, round, slot), and the x slice fits the shared memory
-    a block may take without asking. The plan depends on the shapes alone."""
+    a block may take without asking. The plan depends on the shapes alone.
+    Kernel A takes the GEMV up to GEMV_MAX_ROWS rows; C and D run the same
+    plan at any rows."""
     _gemv_plan_covers_once(rows, k, n)
 
 
-@pytest.mark.parametrize("rows", [1, 2, 4, 8, quant.GEMM_MIN_ROWS - 1])
+@pytest.mark.parametrize("rows", [1, 2, 4, 8, 39])
 @pytest.mark.parametrize("k,n", DECODE_SHAPES_7B)
 def test_gemv_plan_reads_every_weight_once_7b(rows, k, n):
     """The same at the 7B's decode shapes, where the plans take more blocks
@@ -208,7 +226,8 @@ def test_gemv_plan_reads_every_weight_once_7b(rows, k, n):
 def _gemv_plan_covers_once(rows, k, n):
     assert list(inspect.signature(quant._gemv_plan).parameters) == ["rows", "k", "n", "wbytes"]
     rt, splits, kps = quant._gemv_plan(rows, k, n)
-    assert quant._plan(rows, k, n) == ("gemv", rt, quant.GEMV_COLS, splits, kps)
+    assert quant._route_plan("gemv", rows, k, n) == ("gemv", rt, quant.GEMV_COLS, splits, kps)
+    assert quant._plan(rows, k, n).route == _route_of(rows)
     assert rt in quant.GEMV_ROW_TILES and (rt == 1) == (rows == 1)
     assert (rt == 4) == (rows > 2 and rows * k * n >= quant.GEMV_WIDE_TILE_MACS)
     assert kps % 16 == 0 and 16 <= kps <= quant.GEMV_MAX_KPS and splits == math.ceil(k / kps)
@@ -459,7 +478,7 @@ SURFACE_SHAPES = [(1536, 2048), (1536, 17920), (3584, 4608), (3584, 37888),  # q
                   (8192, 2048)]  # tokenizer FFNs
 
 
-@pytest.mark.parametrize("rows", [1, 2, 4, 8, 20, quant.GEMM_MIN_ROWS - 1])
+@pytest.mark.parametrize("rows", [1, 2, 4, 8, 20, 39])
 @pytest.mark.parametrize("k,n", SURFACE_SHAPES)
 def test_gemv_plan_reads_every_weight_once_surface(rows, k, n):
     """The streaming GEMV at the surface's shapes and decode rows (a frame's
@@ -470,14 +489,226 @@ def test_gemv_plan_reads_every_weight_once_surface(rows, k, n):
 
 @pytest.mark.parametrize("k,n", SURFACE_SHAPES)
 def test_int8_plan_at_surface_shapes(k, n):
-    """The route by rows alone at the surface's shapes: the GEMV below
-    GEMM_MIN_ROWS (decode, the AdaLN at 20 rows), the GEMM from there (the
-    AdaLN at bs4's 80 rows, a voice prompt's 75-300 tokenizer rows), which
-    covers every output once without splitting K; the GEMV's split fills
-    the card as test_gemv_plan_fills_the_card holds it."""
+    """The route by rows alone at the surface's shapes (decode, the AdaLN
+    at 20 and at bs4's 80 rows, a voice prompt's 75-300 tokenizer rows):
+    every output and k covered once; the GEMV's split fills the card as
+    test_gemv_plan_fills_the_card holds it."""
     for rows in (1, 2, 8, 20, 39, 40, 80, 300):
         test_int8_plan_covers_every_output_and_k_once(rows, k, n)
     for rows in (1, 2, 4, 8):
         rt, splits, kps = quant._gemv_plan(rows, k, n)
         blocks = math.ceil(n / quant.GEMV_COLS) * math.ceil(rows / rt) * splits
         assert blocks >= quant.SMS or kps == quant.GEMV_MIN_KPS
+
+
+# ---------------------------------------------------------------------------
+# Kernel A's split-K tensor-core route (csrc/int8_gemm_splitk.cu) and the
+# column segments of a packed call (LM_PACK)
+# ---------------------------------------------------------------------------
+
+SK_ROWS = [3, 4, 5, 7, 8, 12, 16, 20, 33, 40, 64, 80, 97, 105, 128, 200, 256, 257, 300, 512,
+           1000, 2048, 4096]
+SK_SHAPES = DECODE_SHAPES + DECODE_SHAPES_7B + SURFACE_SHAPES
+
+
+def _sk_blocks(rows, k, n):
+    """(row tile, splits, k per split, (row tiles x column tiles), blocks an
+    SM) of the split-K GEMM at these shapes."""
+    bm, splits, kps = quant._sk_plan(rows, k, n)
+    tiles = math.ceil(rows / bm) * math.ceil(n / quant.SK_COLS)
+    return bm, splits, kps, tiles, 2 if bm <= quant.SK_TWO_BLOCKS_TO else 1
+
+
+@pytest.mark.parametrize("k,n", SK_SHAPES)
+def test_splitk_plan_covers_every_output_and_k_once(k, n):
+    """The grid of csrc/int8_gemm_splitk.cu (row tiles, column tiles of 128,
+    K splits of whole 64-k steps) under _sk_plan, at rows 3 to 4,096: every
+    row, column and k owned by exactly one block, no split empty, the row
+    tile one of the kernel's wgmma widths, and one row tile (the weight read
+    once) wherever the rows fit 256."""
+    for rows in SK_ROWS:
+        _splitk_covers_once(rows, k, n)
+
+
+def _splitk_covers_once(rows, k, n):
+    bm, splits, kps = quant._sk_plan(rows, k, n)
+    assert bm in quant.SK_ROW_TILES and bm % 8 == 0 and bm <= 256
+    assert (math.ceil(rows / bm) == 1) == (rows <= 256)
+    seen_r = np.zeros(rows, int)
+    for t in range(math.ceil(rows / bm)):
+        seen_r[t * bm:(t + 1) * bm] += 1
+    assert (seen_r == 1).all()
+    seen_n = np.zeros(n, int)
+    for t in range(math.ceil(n / quant.SK_COLS)):
+        seen_n[t * quant.SK_COLS:(t + 1) * quant.SK_COLS] += 1
+    assert (seen_n == 1).all()
+    assert kps % quant.SK_KSTEP == 0 and splits == math.ceil(k / kps)
+    seen_k = np.zeros(k, int)
+    for sp in range(splits):
+        kb, ke = sp * kps, min(k, (sp + 1) * kps)
+        assert kb < ke
+        seen_k[kb:ke] += 1
+    assert (seen_k == 1).all()
+
+
+@pytest.mark.parametrize("k,n", SK_SHAPES)
+def test_splitk_plan_fills_one_wave(k, n):
+    """K is split until the grid fills one wave of the 132 SMs (two blocks
+    an SM at row tiles up to SK_TWO_BLOCKS_TO), at rows 3 to 4,096: the
+    blocks fit the wave unless K is not split at all, and one more split
+    would not, unless the split is at its minimum (one 64-k step a split,
+    or the step count already as many splits), at the workspace cap, or at
+    the cap that keeps a tile's partials cheap to add (the bytes of its S
+    partial tiles, S x row tile x 128 x 4 each, within each split's bytes of
+    x and w8)."""
+    for rows in SK_ROWS:
+        bm, splits, kps, tiles, per_sm = _sk_blocks(rows, k, n)
+        wave = quant.SMS * per_sm
+        assert splits == 1 or tiles * splits <= wave
+        steps = math.ceil(k / quant.SK_KSTEP)
+        at_cap = (splits + 1) * rows * n > quant.SK_MAX_PART_FLOATS
+        slice_bytes = steps * quant.SK_KSTEP * (quant.SK_COLS + 2 * bm)
+        at_sum_cap = (splits + 1) ** 2 * bm * quant.SK_COLS * 4 > slice_bytes
+        assert splits == 1 or splits ** 2 * bm * quant.SK_COLS * 4 <= slice_bytes
+        assert tiles * (splits + 1) > wave or kps == quant.SK_KSTEP or at_cap or at_sum_cap or (
+            math.ceil(steps / math.ceil(steps / (splits + 1))) == splits)
+
+
+@pytest.mark.parametrize("k,n", SK_SHAPES)
+def test_splitk_workspace_fits(k, n):
+    """A split launch's f32 partials (splits x rows x width) stay within
+    SK_MAX_PART_FLOATS, and its arrival counters (one per row tile and
+    column tile) within what _gemv_workspace keeps at least (4,096), at
+    rows 3 to 4,096."""
+    for rows in SK_ROWS:
+        bm, splits, kps, tiles, _ = _sk_blocks(rows, k, n)
+        plans = quant._segment_plans(rows, k, n, route="splitk")
+        assert quant._part_floats(rows, plans) == (splits * rows * n if splits > 1 else 0)
+        assert splits == 1 or splits * rows * n <= quant.SK_MAX_PART_FLOATS
+        assert tiles <= 4096 or splits == 1
+
+
+@pytest.mark.parametrize("k,n", SK_SHAPES)
+def test_int8_route_depends_on_rows_alone(k, n):
+    """At every row count the route is the same at every shape (so a packed
+    call and its unpacked parts take one route), and the split-K route runs
+    exactly between the GEMV's rows and the GEMM's."""
+    for rows in [1, 2] + SK_ROWS + [quant.GEMM_MIN_ROWS, 32768]:
+        route = quant._plan(rows, k, n).route
+        assert route == quant._plan(rows, 64, 64).route == quant._route(rows) == _route_of(rows)
+
+
+def _kernel_segments(plans, rows, k, n, cols):
+    """The column segments as the kernels read them (csrc/common.cuh
+    col_segs and ColSegs::find) from the triples the wrapper passes: for
+    each column, (splits, k per split, first float of its partials)."""
+    trip = quant._triples(plans, cols)
+    assert len(trip) == 3 * quant.MAX_SEGMENTS
+    segs, part = [], 0
+    for i in range(quant.MAX_SEGMENTS):
+        t0, splits, kps = trip[3 * i:3 * i + 3]
+        if splits == 0:
+            break
+        assert (t0 == 0) if i == 0 else (t0 > segs[-1][0])
+        assert splits == math.ceil(k / kps)
+        segs.append([t0, splits, kps, 0])
+    tiles = math.ceil(n / cols)
+    starts = [s[0] for s in segs] + [tiles]
+    for i, s in enumerate(segs):
+        width = min(n, starts[i + 1] * cols) - s[0] * cols
+        s[3] = part
+        if s[1] > 1:
+            part += s[1] * rows * width
+    assert part == quant._part_floats(rows, plans)
+    cols_of = []
+    for c in range(n):
+        tile = c // cols
+        i = max(j for j in range(len(segs)) if segs[j][0] <= tile)
+        cols_of.append((segs[i][1], segs[i][2], segs[i][3] + c - segs[i][0] * cols))
+    return cols_of
+
+
+# the packed widths of the 1.5B and the 7B: q|k|v (heads of 128) and gate|up
+PACKED = [("1.5B q|k|v", 1536, (1536, 256, 256)), ("1.5B gate|up", 1536, (8960, 8960)),
+          ("7B q|k|v", 3584, (3584, 512, 512)), ("7B gate|up", 3584, (18944, 18944))]
+
+
+@pytest.mark.parametrize("rows", [1, 2, 3, 8, 20, 80, 105, 300, 2048])
+@pytest.mark.parametrize("name,k,widths", PACKED)
+def test_packed_columns_sum_as_unpacked(name, k, widths, rows):
+    """LM_PACK: in the packed call's plan, as the kernel reads it from the
+    triples, every column takes the route and K partition (splits, k per
+    split) of the same column in its own unpacked call, so its sum is taken
+    in the same order and gives the same bits; the segments' partials do
+    not overlap. The call's total width decides nothing: at 2 rows the GEMV
+    would split the 1.5B's packed gate|up otherwise (3 splits of 512, not 7
+    of 224)."""
+    n = sum(widths)
+    plans = quant._segment_plans(rows, k, n, widths)
+    route = quant._plan(rows, k, n).route
+    assert [p.route for _, _, p in plans] == [route] * len(widths)
+    if route == "gemm":
+        assert all((p.splits, p.k_per_split) == (1, k) for _, _, p in plans)
+        return
+    cols = quant.GEMV_COLS if route == "gemv" else quant.SK_COLS
+    got = _kernel_segments(plans, rows, k, n, cols)
+    want, c0 = [], 0
+    for w in widths:
+        own = quant._plan(rows, k, w)
+        want += [(own.splits, own.k_per_split)] * w
+        c0 += w
+    assert [g[:2] for g in got] == want
+    firsts = [g[2] for g in got if g[0] > 1]
+    assert len(set(firsts)) == len(firsts)  # one partial slot per column and split
+    if rows == 2 and name == "1.5B gate|up":
+        assert quant._gemv_plan(rows, k, n)[1:] != quant._gemv_plan(rows, k, widths[0])[1:]
+
+
+@pytest.mark.parametrize("segments", [(1536, 250, 262), (1500, 268, 280), (1536, 500),
+                                      (1536, 256, 256, 0), (512, 512, 512, 512), (1000, 1048)])
+def test_segments_refused_off_the_column_blocks(segments):
+    """Widths that do not sum to OUT, more than three, or a boundary off a
+    128-column block: the plan raises (a packed column could not be summed
+    as its own call)."""
+    with pytest.raises(ValueError):
+        quant._segment_plans(8, 1536, 2048, segments)
+
+
+def test_project_qkv_and_mlp_pass_segments():
+    """qwen2.project_qkv and mlp_forward hand kernel A the unpacked widths
+    of a packed entry: (q, k, v) heads x head_dim and the two equal halves
+    of gate|up; the unpacked entries pass none. Recorded on the tiny
+    config's int8 LM on CPU tensors."""
+    from vibevoice_tpu_torch.configs import tiny_config
+    from vibevoice_tpu_torch.models import qwen2
+    from vibevoice_tpu_torch.utils.params import init
+
+    cfg = tiny_config()
+    lm = quant.quantize_lm(init(cfg, seed=0, device="cpu")["lm"])
+    packed = quant.pack_lm_projections(lm)
+    dcfg = cfg.decoder_config
+    d = dcfg.head_dim
+    hdn = torch.randn(1, 3, dcfg.hidden_size)
+    calls = []
+    real = quant.int8_matmul
+
+    def record(x, w8, scale, segments=None):
+        calls.append((w8.shape[1], None if segments is None else tuple(segments)))
+        return real(x, w8, scale, segments)
+
+    quant.int8_matmul = record
+    try:
+        outs = {}
+        for name, tree in (("unpacked", lm), ("packed", packed)):
+            layer = tree["layers"][0]
+            q, k, v = qwen2.project_qkv(layer["attn"], hdn, dcfg)
+            outs[name] = (q, k, v, qwen2.mlp_forward(layer["mlp"], hdn))
+    finally:
+        quant.int8_matmul = real
+    nh, kh, f = dcfg.num_attention_heads, dcfg.num_key_value_heads, dcfg.intermediate_size
+    assert calls[:6] == [(nh * d, None), (kh * d, None), (kh * d, None), (f, None), (f, None),
+                         (dcfg.hidden_size, None)]
+    assert calls[6:] == [(nh * d + 2 * kh * d, (nh * d, kh * d, kh * d)), (2 * f, (f, f)),
+                         (dcfg.hidden_size, None)]
+    for a, b in zip(outs["unpacked"], outs["packed"]):
+        assert torch.equal(a, b)

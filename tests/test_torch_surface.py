@@ -207,10 +207,10 @@ def test_generate_int8_head_and_tokenizers_matches_jax(monkeypatch):
     rows = {}
     plain = tquant.int8_matmul
 
-    def counted(x, w8, scale):
+    def counted(x, w8, scale, segments=None):
         key = tuple(w8.shape)
         rows.setdefault(key, set()).add(x.reshape(-1, w8.shape[0]).shape[0])
-        return plain(x, w8, scale)
+        return plain(x, w8, scale, segments)
 
     monkeypatch.setattr(tquant, "int8_matmul", counted)
     _generate_both(cfg, jcfg, jq8, tq8)

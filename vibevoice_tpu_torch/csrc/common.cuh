@@ -70,6 +70,85 @@ static __device__ __forceinline__ void load4(const float* p, float o[4]) {
   o[3] = f.w;
 }
 
+// The column segments of one launch of kernel A: the unpacked projections
+// that a packed weight joins (q|k|v, gate|up; ops/quant.py
+// _segment_plans), so that each segment's columns sum K as the segment's own
+// call would. Segment i starts at column tile tile0[i] (tile0[n] is the
+// launch's column tiles), sums K in splits[i] slices of kps[i] and keeps its
+// split-K partials at part + part0[i] as (split, row, column - its first
+// column). A plain call is one segment.
+constexpr int VV_MAX_SEGS = 3;
+struct ColSegs {
+  int n;
+  int tile0[VV_MAX_SEGS + 1];
+  int splits[VV_MAX_SEGS];
+  int kps[VV_MAX_SEGS];
+  long long part0[VV_MAX_SEGS];
+  int max_splits, max_kps;
+
+  // Fields are picked by selects, not by a run-time index: indexing a
+  // kernel parameter's array at run time makes the compiler copy the whole
+  // struct to local memory first.
+  template <typename T>
+  static __host__ __device__ __forceinline__ T pick(const T (&a)[VV_MAX_SEGS], int s) {
+    return s == 0 ? a[0] : s == 1 ? a[1] : a[2];
+  }
+  __host__ __device__ __forceinline__ int find(int tile) const {
+    return (n > 1 && tile >= tile0[1]) + (n > 2 && tile >= tile0[2]);
+  }
+  // first column and width of segment s, with `cols` columns a tile
+  __host__ __device__ __forceinline__ int col0(int s, int cols) const {
+    return (s == 0 ? 0 : s == 1 ? tile0[1] : tile0[2]) * cols;
+  }
+  __host__ __device__ __forceinline__ int width(int s, int cols, int N) const {
+    const int end = s + 1 < n ? (s == 0 ? tile0[1] : tile0[2]) * cols : N;
+    return end - col0(s, cols);
+  }
+};
+
+// ColSegs from up to VV_MAX_SEGS (first column tile, splits, k per split)
+// triples (a triple of splits 0 ends the list) over a (K, N) weight with
+// `cols` columns a tile and R rows: the first segment starts at tile 0, the
+// others at increasing tiles inside N; each kps a multiple of kstep in
+// [kstep, max_kps] with splits = ceil(K / kps). Partials are laid out for
+// the segments that split. False where the triples break a rule.
+static inline bool col_segs(ColSegs* sg, const int* trip, int R, int K, int N, int cols,
+                            int kstep, int max_kps) {
+  const int tiles = (N + cols - 1) / cols;
+  sg->n = 0;
+  sg->max_splits = sg->max_kps = 0;
+  long long part = 0;
+  for (int i = 0; i < VV_MAX_SEGS && trip[3 * i + 1] > 0; ++i) {
+    const int t0 = trip[3 * i], splits = trip[3 * i + 1], kps = trip[3 * i + 2];
+    if ((i == 0 ? t0 != 0 : t0 <= sg->tile0[i - 1]) || t0 >= tiles || kps < kstep ||
+        kps % kstep || kps > max_kps || splits != (K + kps - 1) / kps)
+      return false;
+    sg->tile0[i] = t0;
+    sg->splits[i] = splits;
+    sg->kps[i] = kps;
+    sg->n = i + 1;
+    sg->max_splits = splits > sg->max_splits ? splits : sg->max_splits;
+    sg->max_kps = kps > sg->max_kps ? kps : sg->max_kps;
+  }
+  if (sg->n == 0) return false;
+  sg->tile0[sg->n] = tiles;
+  for (int i = 0; i < sg->n; ++i) {
+    sg->part0[i] = part;
+    if (sg->splits[i] > 1) part += (long long)sg->splits[i] * R * sg->width(i, cols, N);
+  }
+  return true;
+}
+
+// One segment over the whole call.
+static inline ColSegs one_seg(int N, int cols, int splits, int kps) {
+  ColSegs sg{};
+  sg.n = 1;
+  sg.tile0[1] = (N + cols - 1) / cols;
+  sg.splits[0] = sg.max_splits = splits;
+  sg.kps[0] = sg.max_kps = kps;
+  return sg;
+}
+
 // Sum over a block of blockDim.x threads (a multiple of 32, at most 1024).
 static __device__ __forceinline__ float block_sum(float v, float* scratch /* >= 32 floats */) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

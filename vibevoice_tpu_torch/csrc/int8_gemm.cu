@@ -1,9 +1,12 @@
 // Kernel A at many rows: y = x @ (w8 * scale) as a tensor-core GEMM, the
-// int8 weight-only linear of the Qwen2 LM in prefill and fine-tuning.
+// int8 weight-only linear of the Qwen2 LM in the ring prefill of a long
+// prompt.
 //
 // Replaces the Pallas TPU kernel vibevoice_tpu/ops/quant.py:129 int8_matmul
 // (body `_kernel`, :111) wherever a call has many rows (ops/quant.py `_plan`
-// routes by row count; fewer rows keep the split-K GEMV of int8_matmul.cu).
+// routes by row count: from quant.GEMM_MIN_ROWS; fewer rows take the split-K
+// tensor-core GEMM of int8_gemm_splitk.cu, and up to quant.GEMV_MAX_ROWS
+// the GEMV of int8_matmul.cu).
 // Semantics kept: x is rounded to bf16, w8 is converted to bf16 (exact), the
 // sum is f32 and the per-column f32 scale is applied after the sum; the
 // output has x's dtype.
@@ -58,36 +61,6 @@ constexpr int G_X_BYTES = G_BM * G_BK * 2;  // one bf16 x tile, 128-byte swizzle
 constexpr int G_W_BYTES = G_BK * G_BN;      // one int8 w8 tile, 128-byte swizzled rows
 constexpr int G_SMEM = G_STAGES * (G_X_BYTES + G_W_BYTES) + 2 * G_STAGES * 8 + 1024;
 
-// The A fragments of one 64-k step for this warp's 16 output columns (the
-// 16-byte chunk `chunk` of each 128-byte int8 row): two ldmatrix.x4.trans
-// of 32 k rows each. Lane l gives the address of k row 32h + l; matrix m of
-// x4 h covers k 32h + 8m .. +7 and hands thread (g, c) the bytes (k 2c, col
-// 2g), (2c, 2g+1), (2c+1, 2g), (2c+1, 2g+1): the bf16 pairs (k 2c, 2c+1) of
-// columns 2g (fragment row g) and 2g + 1 (row g + 8).
-__device__ __forceinline__ void load_a(uint32_t wtile, int chunk, int lane, uint32_t a[16]) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    uint32_t r[4];
-    const int k = 32 * h + lane;
-    ldmatrix_x4_trans(r, wtile + k * 128 + ((chunk ^ (k & 7)) << 4));
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      float f[4];
-      i8x4_to_f32(r[m], f);
-      const int i = (2 * h + (m >> 1)) * 4 + 2 * (m & 1);
-      a[i] = bf16x2_exact(f[0], f[2]);
-      a[i + 1] = bf16x2_exact(f[1], f[3]);
-    }
-  }
-}
-
-__device__ __forceinline__ void store2(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-
 template <typename OT>
 __global__ void __launch_bounds__(G_THREADS, 1)
     int8_gemm_kernel(const __grid_constant__ CUtensorMap xmap,
@@ -136,7 +109,7 @@ __global__ void __launch_bounds__(G_THREADS, 1)
     auto step = [&](int kt, uint32_t a[16]) {
       const int s = kt % G_STAGES;
       mbar_wait(full + 8 * s, (kt / G_STAGES) & 1);
-      load_a(ws + s * G_W_BYTES, chunk, lane, a);
+      load_w8_frag(ws + s * G_W_BYTES, chunk, lane, a);
       wgmma_fence();
       const uint32_t b = xs + s * G_X_BYTES;
 #pragma unroll
@@ -166,15 +139,6 @@ __global__ void __launch_bounds__(G_THREADS, 1)
           store2(out + (size_t)(r + 1) * N + c, acc[4 * i + 1] * s0, acc[4 * i + 3] * s1);
       }
     }
-  }
-}
-
-// y[i] = bf16(x[i]) for n elements, n a multiple of 4.
-__global__ void cast_bf16_kernel(const float4* __restrict__ x, uint2* __restrict__ y, size_t n4) {
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n4;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const float4 v = x[i];
-    y[i] = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
   }
 }
 

@@ -29,7 +29,11 @@
 //     tile, the last block of a column tile to arrive (one counter per tile,
 //     which that block resets, so a CUDA graph replays right) adds the
 //     partials in a fixed order and runs the epilogue. No float atomics: two
-//     calls on the same inputs give the same bits.
+//     calls on the same inputs give the same bits;
+//   - a launch may cover column segments (ColSegs, common.cuh: kernel A's
+//     packed q|k|v and gate|up), each split as its own call would be, so a
+//     column's sum never depends on the launch's width. The row tile does
+//     not enter that order: each row is summed alone, in the same lanes.
 // The plan (row tile, splits, k per split) comes from the shapes alone and is
 // computed by the host (ops/quant.py _gemv_plan).
 #pragma once
@@ -95,30 +99,46 @@ static __device__ __forceinline__ float col_scale(const float* s, int n) {
   return s ? s[n] : 1.f;
 }
 
-// grid (ceil(N / (8 * VC)), splits, ceil(R / RT)). w (K, N) row-major
-// with N a multiple of 16 and 16-byte aligned; part (splits, R, N) f32 and
-// counters (one zero per (row tile, column tile), left zero) are read only
-// when splits > 1. epi(row, n, sum) stores the result. The loader: with
-// XLoad::kRowSum false, xl(row, k) gives x as f32; with it true, the block
-// first sums xl.row_term(row, i) over i < xl.row_len for each of its rows
-// and xl(row, k, sum) gives x (an RMSNorm fused into the loader).
-// Dynamic shared memory: RT * sg_kpad(kps) floats. RT is 1, 2 or 4: at 8 rows a
+// grid (ceil(N / (8 * VC)), splits, ceil(R / RT)): one K split of kps a
+// block; with SEGS, the column segments' most splits, each segment's kps
+// its own, and a block past its segment's splits exits (one segment runs
+// without SEGS: its block pays nothing for them). w (K, N) row-major with N a
+// multiple of 16 and 16-byte aligned; part (each split segment's (splits, R,
+// width) f32 at its part0) and counters (one zero per (row tile, column
+// tile), left zero) are read only where a segment splits. epi(row, n, sum)
+// stores the result. The loader: with XLoad::kRowSum false, xl(row, k)
+// gives x as f32; with it true, the block first sums xl.row_term(row, i)
+// over i < xl.row_len for each of its rows and xl(row, k, sum) gives x (an
+// RMSNorm fused into the loader). Dynamic shared memory: RT *
+// sg_kpad(the segments' largest kps) floats. RT is 1, 2 or 4: at 8 rows a
 // block the 128 accumulators leave two blocks an SM, and two tiles of 4 rows
 // that share the weight through L2 are as fast or faster.
-template <int RT, typename WT, class XLoad, class Epi>
+template <int RT, typename WT, class XLoad, class Epi, bool SEGS>
 __global__ void __launch_bounds__(SG_THREADS)
     stream_gemv_kernel(XLoad xl, const WT* __restrict__ w, float* __restrict__ part,
-                       unsigned* __restrict__ counters, int R, int K, int N, int kps, Epi epi) {
+                       unsigned* __restrict__ counters, int R, int K, int N, int kps_one,
+                       const ColSegs segs, Epi epi) {
   constexpr int U = SG_U, VC = StreamW<WT>::VC, COLS = SG_CG * VC;  // columns a block owns
   extern __shared__ float sg_xs[];                 // [RT][kpad]
   __shared__ float4 red[SG_WARPS][RT][COLS / 4];   // row sums, warp sums, then split sums
   __shared__ bool last;
   float* redf = reinterpret_cast<float*>(red);
 
+  const int split = blockIdx.y;
+  int splits = gridDim.y, kps = kps_one, c0 = 0, nseg = N;
+  float* spart = part;  // (splits, R, nseg)
+  if constexpr (SEGS) {
+    const int seg = segs.find(blockIdx.x);
+    splits = ColSegs::pick(segs.splits, seg);
+    if (split >= splits) return;  // the segment takes fewer splits than the launch's most
+    kps = ColSegs::pick(segs.kps, seg);
+    c0 = segs.col0(seg, COLS);
+    nseg = segs.width(seg, COLS, N);
+    spart = part + ColSegs::pick(segs.part0, seg);
+  }
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int cg = tid & (SG_CG - 1), kl = tid / SG_CG;
   const int nb0 = blockIdx.x * COLS, n0 = nb0 + cg * VC;
-  const int split = blockIdx.y, splits = gridDim.y;
   const int r0 = blockIdx.z * RT, nr = min(RT, R - r0);
   const int kb = split * kps, ke = min(K, kb + kps);
   const int kpad = sg_kpad(kps);
@@ -255,7 +275,7 @@ __global__ void __launch_bounds__(SG_THREADS)
   if (own) {
 #pragma unroll
     for (int r = 0; r < RT; ++r)
-      if (r < nr) part[((size_t)split * R + r0 + r) * N + n] = sum[r];
+      if (r < nr) spart[((size_t)split * R + r0 + r) * nseg + n - c0] = sum[r];
   }
   const int tile = blockIdx.z * gridDim.x + blockIdx.x;
   __threadfence();
@@ -275,8 +295,8 @@ __global__ void __launch_bounds__(SG_THREADS)
     float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
     if (lane_ok && r < nr && n4 < N) {
       for (int sp = warp; sp < splits; sp += SG_WARPS) {
-        const float4 p =
-            __ldcg(reinterpret_cast<const float4*>(part + ((size_t)sp * R + r0 + r) * N + n4));
+        const float4 p = __ldcg(reinterpret_cast<const float4*>(
+            spart + ((size_t)sp * R + r0 + r) * nseg + n4 - c0));
         s.x += p.x;
         s.y += p.y;
         s.z += p.z;
@@ -299,28 +319,47 @@ __global__ void __launch_bounds__(SG_THREADS)
   if (tid == 0) counters[tile] = 0;  // ready for the next launch (or graph replay)
 }
 
-template <int RT, typename WT, class XLoad, class Epi>
+template <int RT, bool SEGS, typename WT, class XLoad, class Epi>
 cudaError_t launch_stream_gemv(XLoad xl, const WT* w, float* part, unsigned* counters, int R,
-                               int K, int N, int splits, int kps, Epi epi, cudaStream_t stream) {
-  constexpr int COLS = SG_CG * StreamW<WT>::VC;
-  const dim3 grid((N + COLS - 1) / COLS, splits, (R + RT - 1) / RT);
-  const size_t smem = (size_t)RT * sg_kpad(kps) * sizeof(float);
-  stream_gemv_kernel<RT, WT, XLoad, Epi>
-      <<<grid, SG_THREADS, smem, stream>>>(xl, w, part, counters, R, K, N, kps, epi);
+                               int K, int N, const ColSegs& segs, Epi epi, cudaStream_t stream) {
+  const dim3 grid(segs.tile0[segs.n], segs.max_splits, (R + RT - 1) / RT);
+  const size_t smem = (size_t)RT * sg_kpad(segs.max_kps) * sizeof(float);
+  stream_gemv_kernel<RT, WT, XLoad, Epi, SEGS><<<grid, SG_THREADS, smem, stream>>>(
+      xl, w, part, counters, R, K, N, segs.kps[0], segs, epi);
   return cudaGetLastError();
 }
 
 // The same, with the row tile rt (1, 2 or 4, from the plan) chosen at run time.
+template <bool SEGS, typename WT, class XLoad, class Epi>
+cudaError_t launch_stream_gemv_rt(int rt, XLoad xl, const WT* w, float* part, unsigned* counters,
+                                  int R, int K, int N, const ColSegs& segs, Epi epi,
+                                  cudaStream_t stream) {
+  switch (rt) {
+    case 1: return launch_stream_gemv<1, SEGS>(xl, w, part, counters, R, K, N, segs, epi, stream);
+    case 2: return launch_stream_gemv<2, SEGS>(xl, w, part, counters, R, K, N, segs, epi, stream);
+    case 4: return launch_stream_gemv<4, SEGS>(xl, w, part, counters, R, K, N, segs, epi, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// One segment: the whole (K, N) weight in `splits` slices of kps.
 template <typename WT, class XLoad, class Epi>
 cudaError_t launch_stream_gemv_rt(int rt, XLoad xl, const WT* w, float* part, unsigned* counters,
                                   int R, int K, int N, int splits, int kps, Epi epi,
                                   cudaStream_t stream) {
-  switch (rt) {
-    case 1: return launch_stream_gemv<1>(xl, w, part, counters, R, K, N, splits, kps, epi, stream);
-    case 2: return launch_stream_gemv<2>(xl, w, part, counters, R, K, N, splits, kps, epi, stream);
-    case 4: return launch_stream_gemv<4>(xl, w, part, counters, R, K, N, splits, kps, epi, stream);
-  }
-  return cudaErrorInvalidValue;
+  return launch_stream_gemv_rt<false>(rt, xl, w, part, counters, R, K, N,
+                                      one_seg(N, SG_CG * StreamW<WT>::VC, splits, kps), epi,
+                                      stream);
+}
+
+// Kernel A's launch: several segments, or one as the plain launch.
+template <typename WT, class XLoad, class Epi>
+cudaError_t launch_stream_gemv_segs(int rt, XLoad xl, const WT* w, float* part,
+                                    unsigned* counters, int R, int K, int N, const ColSegs& segs,
+                                    Epi epi, cudaStream_t stream) {
+  if (segs.n == 1)
+    return launch_stream_gemv_rt<false>(rt, xl, w, part, counters, R, K, N, segs, epi, stream);
+  return launch_stream_gemv_rt<true>(rt, xl, w, part, counters, R, K, N, segs, epi, stream);
 }
 
 // Whether a (K, N) weight of the plan can be streamed: N a multiple of 16
@@ -329,6 +368,14 @@ cudaError_t launch_stream_gemv_rt(int rt, XLoad xl, const WT* w, float* part, un
 static inline bool stream_plan_ok(int rows, int K, int N, int rt, int splits, int kps) {
   return rows >= 1 && N % 16 == 0 && kps % 16 == 0 && kps >= 16 && kps <= 512 &&
          splits == (K + kps - 1) / kps && (rt == 1 || rt == 2 || rt == 4);
+}
+
+// The same for segments given as (first column tile, splits, kps) triples
+// over int8 columns (128 a tile); fills `segs`.
+static inline bool stream_segs_ok(ColSegs* segs, const int* trip, int rows, int K, int N,
+                                  int rt) {
+  return rows >= 1 && N % 16 == 0 && (rt == 1 || rt == 2 || rt == 4) &&
+         col_segs(segs, trip, rows, K, N, SG_CG * StreamW<int8_t>::VC, 16, 512);
 }
 
 }  // namespace vv

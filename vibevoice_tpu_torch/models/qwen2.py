@@ -133,7 +133,8 @@ def _write_rows(buf: torch.Tensor, new: torch.Tensor, idx: torch.Tensor) -> None
 def project_qkv(ap: Params, hdn: torch.Tensor, cfg: Qwen2Config, tp_group=None):
     """q/k/v projections (B, T, heads, D); the head counts are those of the
     (local) weights. A packed "qkv" entry (ops/quant.pack_lm_projections)
-    runs one int8 matmul, split by the heads of its scale: q, k and v are
+    runs one int8 matmul, split by the heads of its scale (kernel A sums
+    each of the three as its own call would: ``segments``): q, k and v are
     then views of its output, which no kernel reads as such (RoPE makes new
     q and k, the cache writes copy v, and the training attention takes
     contiguous copies)."""
@@ -143,7 +144,8 @@ def project_qkv(ap: Params, hdn: torch.Tensor, cfg: Qwen2Config, tp_group=None):
     if "qkv" in ap:
         nh = cfg.num_attention_heads // group_size(tp_group)
         kh = (ap["qkv"]["scale"].shape[0] // d - nh) // 2
-        q, k, v = mm(hdn, ap["qkv"]).split([nh * d, kh * d, kh * d], dim=-1)
+        widths = [nh * d, kh * d, kh * d]
+        q, k, v = mm(hdn, ap["qkv"], widths).split(widths, dim=-1)
     else:
         q, k, v = mm(hdn, ap["q"]), mm(hdn, ap["k"]), mm(hdn, ap["v"])
     return q.reshape(b, t, -1, d), k.reshape(b, t, -1, d), v.reshape(b, t, -1, d)
@@ -151,10 +153,12 @@ def project_qkv(ap: Params, hdn: torch.Tensor, cfg: Qwen2Config, tp_group=None):
 
 def mlp_forward(m: Params, hdn: torch.Tensor, tp_group=None) -> torch.Tensor:
     """SwiGLU MLP (under TP: the local columns, the sum over the group); a
-    packed "gateup" entry runs both input projections as one int8 matmul."""
+    packed "gateup" entry runs both input projections as one int8 matmul,
+    each half summed as its own call would be."""
     hdn = copy_to_group(hdn, tp_group)
     if "gateup" in m:
-        g, u = mm(hdn, m["gateup"]).chunk(2, dim=-1)
+        half = m["gateup"]["scale"].shape[0] // 2
+        g, u = mm(hdn, m["gateup"], (half, half)).chunk(2, dim=-1)
     else:
         g, u = mm(hdn, m["gate"]), mm(hdn, m["up"])
     return reduce_from_group(mm(F.silu(g) * u, m["down"]), tp_group)

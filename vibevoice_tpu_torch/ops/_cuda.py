@@ -57,8 +57,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "vv_int8_matmul": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "vv_int8_matmul": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I] + [_I] * 9 + [_P],
     "vv_int8_gemm": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P],
+    "vv_int8_gemm_splitk": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I] + [_I] * 9 + [_P],
     "vv_flash_prefill": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "vv_flash_decode": [
         _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P,
@@ -106,9 +107,9 @@ _lib: KernelLibrary | None = None
 
 # Every kernel's launch counter, (wrapper, attribute) by the name that
 # chip_smoke.py reports it under. A wrapper adds one to its attribute where
-# it launches its kernel, and nowhere else; kernels A and B count their
-# second route, the training attention its CUDA-core route, in a second
-# attribute. A graph replay runs no wrapper: the step function that
+# it launches its kernel, and nowhere else; kernel A counts its second and
+# third routes, B its second, the training attention its CUDA-core route, in
+# further attributes. A graph replay runs no wrapper: the step function that
 # replays it adds the counts it recorded at capture (models/inference.py).
 LAUNCH_COUNTERS: dict = {}
 

@@ -7,16 +7,25 @@ scales (OUT,); w = w8 * scale. ``quantize_weight`` does the same f32
 int8 tensors and scales are bit-equal.
 
 ``int8_matmul`` on a CUDA tensor launches a hand-written kernel that
-replaces the Pallas TPU kernel vibevoice_tpu/ops/quant.py:129, chosen by row
-count alone (``_plan``): below ``GEMM_MIN_ROWS`` rows (decode) the
-one-launch weight-streaming GEMV of csrc/int8_matmul.cu (core:
-csrc/weight_stream.cuh; its plan, ``_gemv_plan``, comes from the shapes alone,
-its split-K workspace and counters persist per device, so the launch can be
-captured in a CUDA graph); at and above it (prefill, training) the
-tensor-core GEMM of csrc/int8_gemm.cu (TMA and wgmma, 256 rows x 128 columns a block, no
-split-K, so a row's result does not depend on the call's row count). On a CPU tensor it runs
-``int8_matmul_plain``, the same function in plain PyTorch. Unlike the TPU
-port, every shape takes a kernel (no 512-divisibility gate).
+replaces the Pallas TPU kernel vibevoice_tpu/ops/quant.py:129, by one of
+three routes chosen by row count alone (``_plan``): up to ``GEMV_MAX_ROWS``
+rows the one-launch weight-streaming GEMV of csrc/int8_matmul.cu (core:
+csrc/weight_stream.cuh; plan ``_gemv_plan``); from there to below
+``GEMM_MIN_ROWS`` (batched decode, the int8 head's AdaLN, the tokenizers
+over a voice prompt, prefills of prompts and chunks, training) the split-K
+tensor-core GEMM of csrc/int8_gemm_splitk.cu (TMA and wgmma, a row tile
+sized to the call, K split to fill the card; plan ``_sk_plan``); from
+``GEMM_MIN_ROWS`` up (the ring prefill of a long prompt) the tensor-core
+GEMM of csrc/int8_gemm.cu (256 rows x 128 columns a block, no split-K).
+Every plan comes from the shapes alone, and the split-K routes' workspace
+and counters persist per device and stream, so a launch can be captured in
+a CUDA graph. ``segments`` names
+the output widths of the unpacked projections that a packed weight joins
+(``pack_lm_projections``): each segment is then split as its own call
+would be, so every column is summed in the same order, and gives the same
+bits, packed or not. On a CPU tensor it runs ``int8_matmul_plain``, the
+same function in plain PyTorch. Unlike the TPU port, every shape takes a
+kernel (no 512-divisibility gate).
 
 ``int8_matmul_t`` is the backward w.r.t. x, dx = bf16(g * scale) @ w8^T: on
 a CUDA tensor kernel E (csrc/int8_matmul_t.cu, replacing the Pallas TPU
@@ -31,6 +40,7 @@ int8 weights and scales are frozen and get no gradient.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, NamedTuple
 
 import torch
@@ -54,15 +64,33 @@ def int8_matmul_plain(x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) ->
     return y.to(x.dtype)
 
 
-# Rows at and above take the tensor-core GEMM (csrc/int8_gemm.cu). Measured
-# on an H100 over a layer's seven 1.5B linears (chip_smoke.py's route sweep,
-# 4 to 256 rows): the streaming GEMV is faster up to 32 rows (0.213 against
-# 0.229 ms), the two tie at 36 (0.230 against 0.231) and the GEMM wins from
-# 40 (0.232 against 0.250). The GEMM's time hardly moves below 256 rows (it
-# never splits K, so down is 12 blocks of work), which is why the GEMV holds
-# on so long; gate/up alone would switch at 12.
-GEMM_MIN_ROWS = 40
+# The routes' row thresholds, from chip_smoke.py's route sweep (phase 15:
+# rows 2 to 16,384 over a layer's seven linears of the 1.5B and of the 7B,
+# each route timed at every row count; an H100 SXM at 700 W): up to
+# GEMV_MAX_ROWS rows the streaming GEMV (csrc/int8_matmul.cu), from
+# GEMM_MIN_ROWS the 256-row GEMM (csrc/int8_gemm.cu), between them the
+# split-K GEMM (csrc/int8_gemm_splitk.cu). A layer of the 1.5B / the 7B,
+# GEMV against split-K: 0.068 / 0.068 ms and 0.152 / 0.158 at 2 rows, 0.073
+# / 0.070 and 0.179 / 0.156 at 3, 0.102 / 0.070 and 0.294 / 0.155 at 8. At
+# 2 rows the two lie within 1-7% of each other, either way from run to run.
+# Split-K against the 256-row GEMM: 0.236 / 0.282 and 0.529 / 0.684 at 512
+# rows, 0.692 / 0.738 and 2.867 / 3.291 at 4,096, 1.265 / 1.337 and 6.334 /
+# 6.646 at 8,192, 3.765 / 2.689 and 19.53 / 13.58 at 16,384 (whose grid,
+# row tiles first, then reads x once a column tile, past what L2 holds).
+GEMV_MAX_ROWS = 2
+GEMM_MIN_ROWS = 16384
 GEMM_TILE = (256, 128)  # its output tile (rows, columns) per block
+# The split-K GEMM: its row tiles (the wgmma N, a template parameter of the
+# kernel), columns a block, k a step, the row tile up to which two blocks
+# share an SM (their accumulators fit in 128 registers a thread), and the
+# most f32 partials a segment may write (the workspace stays within the 50
+# MB L2).
+SK_ROW_TILES = (8, 16, 24, 32, 48, 64, 80, 96, 112, 128, 160, 192, 224, 256)
+SK_COLS = 128
+SK_KSTEP = 64
+SK_TWO_BLOCKS_TO = 128
+SK_MAX_PART_FLOATS = 8 << 20
+MAX_SEGMENTS = 3
 # The streaming GEMV (csrc/weight_stream.cuh), which kernels C and D run on
 # too: rows per block (a template parameter there) with the blocks per SM its
 # K split aims at, columns per block for int8 weights (8 16-byte vectors: 64
@@ -85,7 +113,7 @@ SMS = 132
 class Int8Plan(NamedTuple):
     """How kernel A covers a (rows, k) @ (k, n) call: its route, the output
     tile of one block, and the K splits (the GEMM never splits K)."""
-    route: str  # "gemm" (csrc/int8_gemm.cu) or "gemv" (csrc/int8_matmul.cu)
+    route: str  # "gemv" (int8_matmul.cu), "splitk" (int8_gemm_splitk.cu), "gemm" (int8_gemm.cu)
     row_tile: int
     col_tile: int
     splits: int
@@ -113,26 +141,107 @@ def _gemv_tiles(rows: int, n: int, rt: int, wbytes: int = 1) -> int:
     return -(-rows // rt) * -(-n // (GEMV_COLS // wbytes))
 
 
-def _plan(rows: int, k: int, n: int) -> Int8Plan:
-    """Kernel A's route by row count alone: the GEMV streams the weight once
-    for a few rows (decode); from GEMM_MIN_ROWS up the tensor cores win."""
-    if rows >= GEMM_MIN_ROWS:
+def _sk_plan(rows: int, k: int, n: int) -> tuple[int, int, int]:
+    """(row tile, K splits, k per split) of the split-K GEMM over a (k, n)
+    int8 weight, from the shapes alone: the fewest row tiles of at most 256
+    rows, each the least of SK_ROW_TILES that holds its share (so the weight
+    is read once up to 256 rows), and the K axis split into as many slices
+    of whole 64-k steps as keep the grid within one wave of blocks (two an
+    SM at row tiles up to SK_TWO_BLOCKS_TO), a segment's f32 partials within
+    SK_MAX_PART_FLOATS, and the partials of a tile cheap to add: the one
+    block that adds a tile's S partial tiles reads no more bytes than each
+    split reads of x and w8 (S^2 x rows x 128 x 4 <= steps x (64 x 128 +
+    rows x 64 x 2); with more, 24 splits of one step at 256 rows ran three
+    times slower than none)."""
+    share = -(-rows // -(-rows // SK_ROW_TILES[-1]))
+    bm = next(t for t in SK_ROW_TILES if t >= share)
+    tiles = -(-n // SK_COLS) * -(-rows // bm)
+    steps = -(-k // SK_KSTEP)
+    per_sm = 2 if bm <= SK_TWO_BLOCKS_TO else 1
+    sum_cap = math.isqrt(steps * SK_KSTEP * (SK_COLS + 2 * bm) // (bm * SK_COLS * 4))
+    splits = max(1, min(SMS * per_sm // tiles, SK_MAX_PART_FLOATS // (rows * n), steps,
+                        sum_cap))
+    per = -(-steps // splits)
+    return bm, -(-steps // per), per * SK_KSTEP
+
+
+def _route_plan(route: str, rows: int, k: int, n: int) -> Int8Plan:
+    """The plan ``route`` takes for a (rows, k) @ (k, n) call."""
+    if route == "gemm":
         return Int8Plan("gemm", *GEMM_TILE, 1, k)
-    rt, splits, kps = _gemv_plan(rows, k, n)
-    return Int8Plan("gemv", rt, GEMV_COLS, splits, kps)
+    tile, splits, kps = (_gemv_plan if route == "gemv" else _sk_plan)(rows, k, n)
+    return Int8Plan(route, tile, GEMV_COLS if route == "gemv" else SK_COLS, splits, kps)
 
 
-def int8_matmul(x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def _route(rows: int) -> str:
+    """Kernel A's route by row count alone: the GEMV streams the weight once
+    on CUDA cores for the fewest rows, the split-K GEMM reads it once on the
+    tensor cores for the middle rows, and from GEMM_MIN_ROWS up the 256-row
+    GEMM, which never splits K."""
+    return "gemm" if rows >= GEMM_MIN_ROWS else "splitk" if rows > GEMV_MAX_ROWS else "gemv"
+
+
+def _plan(rows: int, k: int, n: int) -> Int8Plan:
+    """Kernel A's plan of a (rows, k) @ (k, n) call: its route's."""
+    return _route_plan(_route(rows), rows, k, n)
+
+
+def _segment_plans(rows: int, k: int, n: int, segments=None, route: str | None = None) -> list:
+    """(first column, width, plan) of each segment of a (rows, k) @ (k, n)
+    call: every segment gets the plan of its own call (``_plan(rows, k,
+    width)``, or the plan of ``route`` where one is named), so its columns
+    sum K in the order they would unpacked. ``segments`` (the output widths,
+    summing to n; None: one) may hold at most MAX_SEGMENTS widths, each but
+    the last a multiple of the 128 columns of a block, so that a boundary
+    falls between blocks."""
+    widths = (n,) if segments is None else tuple(int(w) for w in segments)
+    if not 1 <= len(widths) <= MAX_SEGMENTS or sum(widths) != n or min(widths) <= 0:
+        raise ValueError(f"segments {segments} must be 1 to {MAX_SEGMENTS} positive widths "
+                         f"summing to OUT={n}")
+    if any(w % SK_COLS for w in widths[:-1]):
+        raise ValueError(f"segments {segments}: every boundary must fall on a {SK_COLS}-column "
+                         "block")
+    route = route or _route(rows)
+    out, c0 = [], 0
+    for w in widths:
+        out.append((c0, w, _route_plan(route, rows, k, w)))
+        c0 += w
+    return out
+
+
+def _triples(plans: list, cols: int) -> list:
+    """The kernels' segment arguments: (first column tile, splits, k per
+    split) of each segment, padded with zeros to MAX_SEGMENTS triples."""
+    trip = [v for c0, _, p in plans for v in (c0 // cols, p.splits, p.k_per_split)]
+    return trip + [0] * (3 * MAX_SEGMENTS - len(trip))
+
+
+def _part_floats(rows: int, plans: list) -> int:
+    """f32 partials of one launch: each segment that splits K writes its
+    (splits, rows, width), one segment after another."""
+    return sum(p.splits * rows * w for _, w, p in plans if p.splits > 1)
+
+
+def int8_matmul(x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor,
+                segments=None) -> torch.Tensor:
     """y = x @ (w8 * scale) for x (..., IN); the output has x's dtype.
+    ``segments``: the output widths of the projections a packed w8 joins
+    (``_segment_plans``), each summed as its own call would be.
 
-    Launch counts per route: ``int8_matmul.launches`` (GEMV) and
-    ``int8_matmul.launches_tc`` (tensor-core GEMM)."""
-    if x.device.type == "cpu":
+    Launch counts per route: ``int8_matmul.launches`` (GEMV),
+    ``int8_matmul.launches_sk`` (split-K GEMM) and
+    ``int8_matmul.launches_tc`` (256-row GEMM)."""
+    if x.device.type == "cpu":  # the plain version's sums know no segments
         return int8_matmul_plain(x, w8, scale)
     cin, cout = w8.shape
     x2 = x.reshape(-1, cin).contiguous()
-    launch = _gemm if _plan(x2.shape[0], cin, cout).route == "gemm" else _gemv
-    return launch(x2, w8, scale).reshape(*x.shape[:-1], cout)
+    route = _route(x2.shape[0])
+    if route == "gemm":  # no split-K: a column's sum never depends on the others
+        _segment_plans(x2.shape[0], cin, cout, segments)
+        out = _gemm(x2, w8, scale)
+    else:
+        out = (_gemv if route == "gemv" else _gemm_splitk)(x2, w8, scale, segments)
+    return out.reshape(*x.shape[:-1], cout)
 
 
 def _check(x2: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -147,12 +256,10 @@ def _check(x2: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) -> torch.Ten
     return torch.empty(x2.shape[0], cout, dtype=x2.dtype, device=x2.device)
 
 
-def _gemm(x2: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """Kernel A's tensor-core route (csrc/int8_gemm.cu) on (rows, IN) x."""
-    out = _check(x2, w8, scale)
+def _tma_operands(x2: torch.Tensor, w8: torch.Tensor):
+    """x as the tensor-core routes read it by TMA (a 16-byte aligned copy of
+    an offset view) and, for f32 x, the bf16 scratch of its cast pass."""
     (rows, cin), cout = x2.shape, w8.shape[1]
-    if rows == 0:
-        return out
     if cin % 8 or cout % 16 or w8.data_ptr() % 16:
         raise ValueError(f"the GEMM's TMA rows must be multiples of 16 bytes: IN={cin} must "
                          f"be a multiple of 8, OUT={cout} of 16, and w8 16-byte aligned")
@@ -160,6 +267,16 @@ def _gemm(x2: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) -> torch.Tens
         x2 = x2.clone()
     xb = torch.empty(rows, cin, dtype=torch.bfloat16, device=x2.device) \
         if x2.dtype == torch.float32 else None
+    return x2, xb
+
+
+def _gemm(x2: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Kernel A's 256-row tensor-core route (csrc/int8_gemm.cu) on (rows, IN) x."""
+    out = _check(x2, w8, scale)
+    (rows, cin), cout = x2.shape, w8.shape[1]
+    if rows == 0:
+        return out
+    x2, xb = _tma_operands(x2, w8)
     _cuda.library().call(
         "vv_int8_gemm", x2.data_ptr(), _cuda.dtype_code(x2), _cuda.ptr(xb), w8.data_ptr(),
         scale.data_ptr(), out.data_ptr(), rows, cin, cout, _cuda.stream_ptr(x2.device),
@@ -192,9 +309,12 @@ def _gemv_workspace(device: torch.device, n_floats: int, n_tiles: int):
     return ws
 
 
-def _gemv(x2: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def _gemv(x2: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor,
+          segments=None) -> torch.Tensor:
     """Kernel A's streaming GEMV route (csrc/int8_matmul.cu) on (rows, IN) x:
-    one launch, no allocation but the output."""
+    one launch, no allocation but the output. Its row tile is the first
+    segment's: a row's sum never depends on it (each row is summed alone,
+    in the same lanes), only on its segment's K split."""
     out = _check(x2, w8, scale)
     (rows, cin), cout = x2.shape, w8.shape[1]
     if rows == 0:
@@ -202,19 +322,45 @@ def _gemv(x2: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) -> torch.Tens
     if cout % 16 or w8.data_ptr() % 16:
         raise ValueError(f"the kernel reads 16 int8 columns at once: OUT={cout} must be a "
                          "multiple of 16 and w8 16-byte aligned")
-    rt, splits, kps = _gemv_plan(rows, cin, cout)
-    part, counters = (None, None) if splits == 1 else _gemv_workspace(
-        x2.device, splits * rows * cout, _gemv_tiles(rows, cout, rt))
+    plans = _segment_plans(rows, cin, cout, segments, "gemv")
+    rt, floats = plans[0][2].row_tile, _part_floats(rows, plans)
+    part, counters = (None, None) if floats == 0 else _gemv_workspace(
+        x2.device, floats, _gemv_tiles(rows, cout, rt))
     _cuda.library().call(
         "vv_int8_matmul", x2.data_ptr(), _cuda.dtype_code(x2), w8.data_ptr(), scale.data_ptr(),
-        out.data_ptr(), _cuda.ptr(part), _cuda.ptr(counters), rows, cin, cout, rt, splits, kps,
-        _cuda.stream_ptr(x2.device),
+        out.data_ptr(), _cuda.ptr(part), _cuda.ptr(counters), rows, cin, cout, rt,
+        *_triples(plans, GEMV_COLS), _cuda.stream_ptr(x2.device),
     )
     int8_matmul.launches += 1
     return out
 
 
+def _gemm_splitk(x2: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor,
+                 segments=None) -> torch.Tensor:
+    """Kernel A's split-K tensor-core route (csrc/int8_gemm_splitk.cu) on
+    (rows, IN) x: one launch (after a cast pass for f32 x), no allocation
+    but the output (and f32 x's bf16 copy); its partials and counters are
+    the streaming core's (``_gemv_workspace``)."""
+    out = _check(x2, w8, scale)
+    (rows, cin), cout = x2.shape, w8.shape[1]
+    if rows == 0:
+        return out
+    x2, xb = _tma_operands(x2, w8)
+    plans = _segment_plans(rows, cin, cout, segments, "splitk")
+    bm, floats = plans[0][2].row_tile, _part_floats(rows, plans)
+    part, counters = (None, None) if floats == 0 else _gemv_workspace(
+        x2.device, floats, -(-rows // bm) * -(-cout // SK_COLS))
+    _cuda.library().call(
+        "vv_int8_gemm_splitk", x2.data_ptr(), _cuda.dtype_code(x2), _cuda.ptr(xb),
+        w8.data_ptr(), scale.data_ptr(), out.data_ptr(), _cuda.ptr(part), _cuda.ptr(counters),
+        rows, cin, cout, bm, *_triples(plans, SK_COLS), _cuda.stream_ptr(x2.device),
+    )
+    int8_matmul.launches_sk += 1
+    return out
+
+
 _cuda.count_launches("int8_matmul", int8_matmul)
+_cuda.count_launches("int8_matmul_splitk", int8_matmul, "launches_sk")
 _cuda.count_launches("int8_matmul_gemm", int8_matmul, "launches_tc")
 
 
@@ -278,19 +424,19 @@ _cuda.count_launches("int8_matmul_t", int8_matmul_t)
 
 
 class Int8MatmulDx(torch.autograd.Function):
-    """y = int8_matmul(x, w8, scale) with the gradient w.r.t. x only:
-    kernel A forward, kernel E backward. w8 and scale are frozen (QLoRA):
-    they get no gradient, and asking for one is not an error."""
+    """y = int8_matmul(x, w8, scale, segments) with the gradient w.r.t. x
+    only: kernel A forward, kernel E backward. w8 and scale are frozen
+    (QLoRA): they get no gradient, and asking for one is not an error."""
 
     @staticmethod
-    def forward(ctx, x, w8, scale):
+    def forward(ctx, x, w8, scale, segments=None):
         ctx.save_for_backward(w8, scale)
-        return int8_matmul(x, w8, scale)
+        return int8_matmul(x, w8, scale, segments)
 
     @staticmethod
     def backward(ctx, g):
         w8, scale = ctx.saved_tensors
-        return int8_matmul_t(g, w8, scale), None, None
+        return int8_matmul_t(g, w8, scale), None, None, None
 
 
 def _quant_entry(p: Dict) -> Dict:
@@ -332,11 +478,11 @@ def pack_lm_projections(lm_params: Dict) -> Dict:
     """Each int8 layer's q|k|v as one "qkv" entry and gate|up as one
     "gateup" (w8, scale and the bias concatenated along the output axis;
     a layer without a bias of its own gets zeros there); the originals go,
-    so one int8 copy stays on the device. Scales are per column, so the
-    packed product equals the separate ones column for column (kernel A's
-    GEMV splits K from the shapes, so its sums may be ordered otherwise).
-    Dense (bf16) layers are left as they are. ``qwen2.project_qkv`` and
-    ``mlp_forward`` consume the packed entries."""
+    so one int8 copy stays on the device. Scales are per column, and
+    ``qwen2.project_qkv`` and ``mlp_forward``, which consume the packed
+    entries, pass kernel A the unpacked widths as ``segments``, so the
+    packed product equals the separate ones column for column, bit for bit.
+    Dense (bf16) layers are left as they are."""
 
     def cat(parts, with_bias: bool) -> Dict:
         p = {"w8": torch.cat([x["w8"] for x in parts], dim=1).contiguous(),
@@ -379,8 +525,9 @@ def quantize_lm(lm_params: Dict) -> Dict:
     return out
 
 
-def mm(x: torch.Tensor, p: Dict) -> torch.Tensor:
-    """Linear apply on a dense ('w') or int8 ('w8' + 'scale') entry, plus bias.
+def mm(x: torch.Tensor, p: Dict, segments=None) -> torch.Tensor:
+    """Linear apply on a dense ('w') or int8 ('w8' + 'scale') entry, plus bias;
+    ``segments`` as ``int8_matmul`` takes them (a packed int8 entry).
 
     A "lora" entry (A (IN, r), B (r, OUT), scaling), as finetune/lora.py
     attaches it over an int8 base, adds the low-rank branch at run time:
@@ -388,9 +535,9 @@ def mm(x: torch.Tensor, p: Dict) -> torch.Tensor:
     stays frozen (QLoRA)."""
     if "w8" in p:
         if x.requires_grad and torch.is_grad_enabled():
-            y = Int8MatmulDx.apply(x, p["w8"], p["scale"])
+            y = Int8MatmulDx.apply(x, p["w8"], p["scale"], segments)
         else:
-            y = int8_matmul(x, p["w8"], p["scale"])
+            y = int8_matmul(x, p["w8"], p["scale"], segments)
     else:
         y = torch.matmul(x, p["w"].to(x.dtype))
     if "lora" in p:
