@@ -8,17 +8,21 @@ toolkit (nvcc), and exits non-zero without a result otherwise.
 
 Phases, each of which fails the run:
   1. device: CUDA present; prints the card's name and power limit;
-  2. build: compiles the kernels from the ten sources in
-     vibevoice_tpu_torch/csrc/ (one nvcc per source, all at once), eleven
+  2. build: compiles the kernels from the twelve sources in
+     vibevoice_tpu_torch/csrc/ (one nvcc per source, all at once), thirteen
      entries of the kernels line (and their "@7b" twins, phase 12): A
      int8_matmul by its three routes (the one-launch streaming GEMV up to
      quant.GEMV_MAX_ROWS rows, the split-K tensor-core GEMM
      int8_matmul_splitk from there to below quant.GEMM_MIN_ROWS, the 256-row
      tensor-core GEMM int8_matmul_gemm from there up; ptxas' registers and
-     spills of the split-K GEMM's row tiles are printed), B
+     spills of the split-K core's instances are printed), B
      flash_cached_attention by its two routes (flash-decoding at
      W = 1 and for f32 q, the tensor-core flash_cached_attention_prefill for
-     bf16 chunks), C fused_head_ffn_stack, D fused_stage_step, E
+     bf16 chunks), C and D by their two routes (fused_head_ffn_stack and
+     fused_stage_step on the weight-streaming core at 1-2 rows and for dense
+     weights, fused_head_ffn_stack_tc and fused_stage_step_tc on the split-K
+     tensor-core core, csrc/splitk_core.cuh, from their TC_MIN_ROWS with int8
+     weights), E
      int8_matmul_t, F flash_ring_block, and the training attention's forward
      and backward (their tensor-core route; ptxas' registers and spills of
      its kernels are printed);
@@ -57,7 +61,10 @@ Phases, each of which fails the run:
      terms each, plus the split pass's bytes), the split pass timed apart,
      and SDPA's forward and its autograd backward as the library times;
      and at the rows of the batched serving paths (check_batched_kernels):
-     C at 8 rows (int8 and bf16 weights), D at 4 and 8 rows, B's decode
+     C at 8 rows (int8 weights on the split-K route at the 1.5B's and the
+     7B's widths, bf16 weights on the streaming core), D at 4 and 8 rows,
+     each split-K case also timed on the streaming core (the parent
+     commit's route there, "pre"), B's decode
      route at 8 rows of mixed bases with an idle row past the cache (the
      1.5B at 4,096 bf16 and 65,536 int8 slots, the 0.5B at 8,192 for each
      of its two caches), each also captured in a CUDA graph and replayed on
@@ -236,15 +243,21 @@ Phases, each of which fails the run:
      11's checkpoint with (e)'s adapters, and the QA harness on it (its
      parity step skipped with its reason where the upstream reference does
      not import). Phase 12 (g) runs the 7B packed with an int8 head;
- 15. kernel A's three routes side by side from 2 to 4,096 rows over a
+ 15. kernel A's three routes side by side from 2 to 16,384 rows over a
      layer's seven linears of the 1.5B and the 7B (route_sweep, which
-     places quant.GEMV_MAX_ROWS and GEMM_MIN_ROWS), last: its CUDA-graph
-     timings come after every profile of the script.
+     places quant.GEMV_MAX_ROWS and GEMM_MIN_ROWS), then kernels C's and
+     D's two routes from 1 to 32 rows at the 1.5B's and the 7B's head
+     widths and the vocoder stage's (fused_route_sweep, which places
+     head_fused.TC_MIN_ROWS and vocoder_fused.TC_MIN_ROWS), last: their
+     CUDA-graph timings come after every profile of the script.
+The paths with batched rows hold C's and D's calls to the routes their
+rows give them (check_fused_routes: phase 4's unforced batch of 4, phase
+5's two prompts, phases 8, 9, 12 and 13's engines).
 Phases 12, 13 and 14-15 each run in a fresh process of the script
 (run_later_phases: a new CUDA context and profiler), whose results this
 one merges.
 The next-to-last line is a JSON object of the kernels' results
-(thirty-six entries: the eleven of phases 3-11, their "@7b" twins, the
+(forty entries: the thirteen of phases 3-11, their "@7b" twins, the
 four "@tp" entries of B's two routes and the training attention, and
 kernel A's ten surface entries, "@pack", "@head", "@tok", "@pack@7b" and
 "@head@7b" for the GEMV and the split-K GEMM); the last line is the JSON
@@ -363,23 +376,33 @@ def ptxas_report(log: str, prefix: str) -> list:
     return out
 
 
+# The split-K core's instances (int8_gemm_sk_kernel<BM, x source, epilogue>)
+# by the loader or epilogue type in their mangled names.
+SK_INSTANCES = (("XTma", "A"), ("XHeadMod", "C gate|up"), ("XSwiGLU", "C down"),
+                ("EpiBiasGelu", "D fc1"), ("EpiBiasScaleResidual", "D fc2"))
+
+
 def sk_ptxas_report(log: str) -> list:
-    """One line per row tile of the split-K GEMM (int8_gemm_sk_kernel<BM>):
+    """One line per instance of the split-K core (int8_gemm_sk_kernel<BM,
+    ...>: kernel A's row tiles, C's and D's passes by activation dtype):
     registers and spill stores from ptxas -v, and ptxas' warnings about it
     (C7512: a wgmma chain serialized)."""
-    out, bm, spill = [], None, "?"
+    out, name, spill = [], None, "?"
     for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*int8_gemm_sk_kernelILi(\d+)E", ln)
+        m = re.search(r"Compiling entry function '(\S*int8_gemm_sk_kernelILi(\d+)E\S*)'", ln)
         if m:
-            bm = m.group(1)
+            what = next((v for k, v in SK_INSTANCES if k in m.group(1)), "?")
+            dt = "" if what == "A" else " f32" if re.search(r"(Mod|GLU|Gelu|Residual)IfE",
+                                                            m.group(1)) else " bf16"
+            name = f"int8_gemm_sk_kernel<{m.group(2)}> {what}{dt}"
         elif "int8_gemm_sk_kernel" in ln and ("C7512" in ln or "warning" in ln):
             out.append(ln.strip())
-        elif bm and "bytes spill stores" in ln:
+        elif name and "bytes spill stores" in ln:
             spill = re.search(r"(\d+) bytes spill stores", ln).group(1)
-        elif bm and "Used" in ln:
+        elif name and "Used" in ln:
             regs = re.search(r"Used (\d+) registers", ln).group(1)
-            out.append(f"int8_gemm_sk_kernel<{bm}>: {regs} registers, {spill} bytes spilled")
-            bm = None
+            out.append(f"{name}: {regs} registers, {spill} bytes spilled")
+            name = None
     return out
 
 
@@ -835,6 +858,65 @@ def route_sweep(checks: Checks, seed: int) -> dict:
     return sweep
 
 
+# Kernels C's and D's two routes side by side (phase 15, after kernel A's):
+# a call (4 layers f32 x for C, 8 blocks bf16 x for D, int8 weights) by the
+# streaming core and by the split-K tensor-core core at each row count. It
+# places head_fused.TC_MIN_ROWS and vocoder_fused.TC_MIN_ROWS.
+FUSED_SWEEP_ROWS = (1, 2, 3, 4, 8, 16, 32)
+FUSED_SWEEP = (("C 1.5B", 1536, 4608), ("C 7B", 3584, 10752), ("D", 2048, 8192))
+
+
+def fused_route_sweep(checks: Checks, seed: int) -> dict:
+    """Kernels C and D by both routes (the packs rotating) at every
+    FUSED_SWEEP_ROWS count, the 1.5B's and the 7B's C widths and D's, and
+    the row count from which the split-K route wins at every larger one.
+    Printed beside the thresholds of ops/head_fused.py and
+    ops/vocoder_fused.py."""
+    import torch
+
+    from vibevoice_tpu_torch.ops import head_fused as hf
+    from vibevoice_tpu_torch.ops import vocoder_fused as vf
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 16)
+    randn = lambda *s, dt=torch.bfloat16: torch.randn(s, generator=g, device="cuda").to(dt)
+    print(f"kernels C and D by route (ms of the streaming core / the split-K tensor-core core; "
+          f"head_fused.TC_MIN_ROWS = {hf.TC_MIN_ROWS}, vocoder_fused.TC_MIN_ROWS = "
+          f"{vf.TC_MIN_ROWS})")
+    sweep = {}
+    for name, dim, hid in FUSED_SWEEP:
+        if name.startswith("C"):
+            layers = head_layers(randn, dim, hid, 4)
+            packs = rotating(lambda: hf.pack_head_ffns(layers, 1e-5, True), 3 * 4 * dim * hid,
+                             budget=120 << 20)
+            del layers
+            make = lambda r: (randn(r, dim, dt=torch.float32),
+                              randn(4, r, 3 * dim, dt=torch.float32) * 0.5)
+            launch = hf._launch
+        else:
+            blocks = stage_blocks(randn, dim, 8)
+            packs = rotating(lambda: vf.pack_stage(blocks, 1e-5, True), 8 * 2 * dim * hid,
+                             budget=120 << 20)
+            del blocks
+            make = lambda r: (randn(r, 1, dim), randn(8, r, 6, dim))
+            launch = vf._launch
+        times = {}
+        for rows in FUSED_SWEEP_ROWS:
+            ins = make(rows)
+            times[rows] = {route: bench_ms(lambda pk: launch(pk, *ins, route), packs, iters=10)
+                           for route in ("stream", "tc")}
+        tc_from = min([r for r in FUSED_SWEEP_ROWS if all(
+            times[rr]["tc"] < times[rr]["stream"] for rr in FUSED_SWEEP_ROWS if rr >= r)]
+                      or [None])
+        sweep[name] = dict(times=times, tc_wins_from=tc_from)
+        print(f"  {name:<7s} " + "  ".join(f"{r}: {t['stream']:.4f}/{t['tc']:.4f}"
+                                           for r, t in times.items())
+              + f"  -> the split-K route wins from {tc_from or 'never'} rows", flush=True)
+        del packs
+    checks.extra["fused_route_sweep"] = sweep
+    return sweep
+
+
 def graph_vs_eager(checks: Checks, kernel: str, label: str, call, inputs, tweak=None,
                    eager=None) -> None:
     """A kernel's call captured once in a CUDA graph and replayed twice
@@ -888,12 +970,16 @@ BATCHED_DECODE = (((12, 2, 128), 4096, False, (0, 17, 2048, 4095, 5096, 1, 9, 33
 
 def check_batched_kernels(checks: Checks, seed: int) -> None:
     """Kernels B, C and D at the rows of the batched serving paths (phases
-    8 and 9) against their plain versions, timed with their bounds, each
-    also replayed from a CUDA graph against its eager call: C at 8 rows
-    (bs4 with CFG), D at 4 rows (the 1.5B at bs4) and 8 (eight 0.5B
-    sessions), B's decode route at 8 rows with mixed bases and an idle row
-    (BATCHED_DECODE). A's GEMV at 8 rows is check_kernels' (with its graph
-    checks)."""
+    8, 9 and 12) against their plain versions, timed with their bounds, each
+    also replayed from a CUDA graph against its eager call: C at 8 rows (bs4
+    with CFG; int8 weights on the split-K tensor-core route, at the 1.5B's
+    and the 7B's widths, the 7B's case the "@7b" entry's main one; bf16
+    weights on the streaming core), D at 4 rows (the 1.5B at bs4) and 8
+    (eight 0.5B sessions), B's decode route at 8 rows with mixed bases and
+    an idle row (BATCHED_DECODE). Each C and D case on the split-K route is
+    also timed on the streaming core, the route the parent commit took
+    there ("pre"). A's split-K GEMM at 8 rows is check_kernels' (with its
+    graph checks)."""
     import torch
 
     from vibevoice_tpu_torch.ops import flash_attention as fa
@@ -904,27 +990,34 @@ def check_batched_kernels(checks: Checks, seed: int) -> None:
     g = torch.Generator(device=dev)
     g.manual_seed(seed + 3)
     randn = lambda *s, dt=torch.bfloat16: torch.randn(s, generator=g, device=dev).to(dt)
-    print("batched rows of the serving engines (phases 8 and 9)")
+    print("batched rows of the serving engines (phases 8, 9 and 12)")
 
-    dim, hid, nl, rows = 1536, 4608, 4, 8
-    for quantize in (True, False):
+    nl, rows = 4, 8
+    for quantize, dim, hid, tag in ((True, 1536, 4608, ""), (False, 1536, 4608, ""),
+                                    (True, 3584, 10752, "@7b")):
         layers = head_layers(randn, dim, hid, nl)
         packs = rotating(lambda: hf.pack_head_ffns(layers, 1e-5, quantize),
                          3 * nl * dim * hid * (1 if quantize else 2), budget=120 << 20)
+        del layers
         x = randn(rows, dim, dt=torch.float32)
         mods = randn(nl, rows, 3 * dim, dt=torch.float32) * 0.5
-        label = f"{nl} layers {'int8' if quantize else 'bf16'} weights rows={rows}"
+        entry = fused_entry("C", rows, quantize)
+        label = f"{nl} layers {dim}-{hid} {'int8' if quantize else 'bf16'} weights rows={rows}"
         call = lambda: hf.fused_head_ffn_stack(packs[0], x, mods)
         out = call()
         ms = bench_ms(lambda pk: hf.fused_head_ffn_stack(pk, x, mods), packs)
         pms = bench_ms(lambda pk: hf.fused_head_ffn_stack_plain(pk, x, mods), packs)
-        checks.case("fused_head_ffn_stack", label, out,
-                    hf.fused_head_ffn_stack_plain(packs[0], x, mods), 1e-4, ms, pms,
+        pre = bench_ms(lambda pk: hf._launch(pk, x, mods, "stream"), packs) \
+            if entry.endswith("_tc") else None
+        checks.tag = tag
+        checks.case(entry, label, out, hf.fused_head_ffn_stack_plain(packs[0], x, mods), 1e-4,
+                    ms, pms, main=quantize, pre_ms=pre,
                     bound=bound(2 * rows * 3 * dim * hid * nl,
                                 nbytes(*packs[0].arrays.values(), x, mods, out), "f32"))
-        fused_call_checks(checks, "fused_head_ffn_stack", label, call,
+        fused_call_checks(checks, entry, label, call,
                           lambda: hf.fused_head_ffn_stack_plain(packs[0], x, mods), (x, mods), 1e-4)
-        graph_vs_eager(checks, "fused_head_ffn_stack", label, call, (x, mods))
+        graph_vs_eager(checks, entry, label, call, (x, mods))
+        checks.tag = ""
         del packs
 
     dim, nb = 2048, 8
@@ -933,18 +1026,22 @@ def check_batched_kernels(checks: Checks, seed: int) -> None:
         packs = rotating(lambda: vf.pack_stage(blocks, 1e-5, quantize),
                          nb * 8 * dim * dim * (1 if quantize else 2), budget=120 << 20)
         x, st = randn(rows, 1, dim), randn(nb, rows, 6, dim)
+        entry = fused_entry("D", rows, quantize)
         label = f"{nb} blocks {'int8' if quantize else 'bf16'} weights rows={rows}"
         call = lambda: vf.fused_stage_step(packs[0], x, st)
         (out, ns), (ref, rs) = call(), vf.fused_stage_step_plain(packs[0], x, st)
         ms = bench_ms(lambda pk: vf.fused_stage_step(pk, x, st), packs)
         pms = bench_ms(lambda pk: vf.fused_stage_step_plain(pk, x, st), packs)
-        checks.case("fused_stage_step", f"{label}: y", out, ref, 2e-2, ms, pms,
+        pre = bench_ms(lambda pk: vf._launch(pk, x, st, "stream"), packs) \
+            if entry.endswith("_tc") else None
+        checks.case(entry, f"{label}: y", out, ref, 2e-2, ms, pms,
+                    main=(quantize, rows) == (True, 4), pre_ms=pre,
                     bound=bound(2 * rows * nb * (8 * dim * dim + 7 * dim),
                                 nbytes(*packs[0].arrays.values(), x, st, out, ns)))
-        checks.case("fused_stage_step", f"{label}: new state", ns, rs, 2e-2)
-        fused_call_checks(checks, "fused_stage_step", label, call,
+        checks.case(entry, f"{label}: new state", ns, rs, 2e-2)
+        fused_call_checks(checks, entry, label, call,
                           lambda: vf.fused_stage_step_plain(packs[0], x, st), (x, st), 2e-2)
-        graph_vs_eager(checks, "fused_stage_step", label, call, (x, st))
+        graph_vs_eager(checks, entry, label, call, (x, st))
         del packs
 
     for heads, s_, int8, base in BATCHED_DECODE:
@@ -999,14 +1096,51 @@ def check_streaming_attention(checks: Checks, seed: int) -> None:
                                if graph else None)
 
 
-# Device kernels one call of kernel C (4 layers) and D (8 blocks) may run:
-# C two streaming launches a layer (gate|up, down), D a prologue and two
-# streaming launches a block (fc1, fc2); the split-K GEMV core they ran on
-# before took 5 a layer or block (20 and 40).
-FUSED_MAX_KERNELS = {"fused_head_ffn_stack": 12, "fused_stage_step": 24}
-# Their kernels by the loader or epilogue type in the (mangled) name.
+# Device kernels one call of kernel C (4 layers) and D (8 blocks) may run,
+# on either route: C two launches a layer (gate|up, down), D a prologue and
+# two launches a block (fc1, fc2); the split-K GEMV core they first ran on
+# took 5 a layer or block (20 and 40).
+FUSED_MAX_KERNELS = {"fused_head_ffn_stack": 12, "fused_stage_step": 24,
+                     "fused_head_ffn_stack_tc": 12, "fused_stage_step_tc": 24}
+# Their kernels by the loader or epilogue type in the (mangled) name; the
+# split-K core's instances (their x source XLoaded) are marked "tc".
 FUSED_PASSES = {"XHeadMod": "gate|up", "XSwiGLU": "down", "stage_prologue": "prologue",
                 "EpiBiasGelu": "fc1", "EpiBiasScaleResidual": "fc2"}
+# C's and D's entries of the kernels line by route (ops/head_fused._route,
+# ops/vocoder_fused._route: by rows alone, int8 weights)
+FUSED_ENTRY = {"C": {"stream": "fused_head_ffn_stack", "tc": "fused_head_ffn_stack_tc"},
+               "D": {"stream": "fused_stage_step", "tc": "fused_stage_step_tc"}}
+ALL_FUSED = tuple(e for by_route in FUSED_ENTRY.values() for e in by_route.values())
+
+
+def fused_entries(c_rows=(), d_rows=()) -> tuple:
+    """Kernels C's and D's entries that calls of these rows launch (int8
+    weights): the ones a path that gives them those rows must launch."""
+    from vibevoice_tpu_torch.ops import head_fused as hf
+    from vibevoice_tpu_torch.ops import vocoder_fused as vf
+
+    return tuple(dict.fromkeys([FUSED_ENTRY["C"][hf._route(r, True)] for r in c_rows]
+                               + [FUSED_ENTRY["D"][vf._route(r, True)] for r in d_rows]))
+
+
+def fused_entry(kernel: str, rows: int, quantized: bool = True) -> str:
+    """The entry of one call of kernel C or D (ops/head_fused._route,
+    ops/vocoder_fused._route)."""
+    from vibevoice_tpu_torch.ops import head_fused as hf
+    from vibevoice_tpu_torch.ops import vocoder_fused as vf
+
+    return FUSED_ENTRY[kernel][(hf if kernel == "C" else vf)._route(rows, quantized)]
+
+
+def check_fused_routes(label: str, counts: dict, want: tuple) -> None:
+    """Fail unless a path's C and D calls took the routes their rows give
+    them: each entry of `want` launched, no other C or D entry in
+    `counts`."""
+    missing = [n for n in want if not counts.get(n)]
+    other = {n: v for n, v in counts.items() if n in ALL_FUSED and n not in want and v}
+    if missing or other:
+        fail(f"{label}: kernels C and D took other routes than their rows give them: "
+             f"{missing} never launched, {other} launched")
 
 
 # The kernel of torch.cuda._sleep, which the port never runs.
@@ -1083,8 +1217,8 @@ def fused_call_checks(checks: Checks, kernel: str, label: str, call, plain, inpu
     events = device_kernels(call)
     passes = {}
     for name, us in events:
-        passes.setdefault(next((v for k, v in FUSED_PASSES.items() if k in name), name[:60]),
-                          []).append(us)
+        label_ = next((v for k, v in FUSED_PASSES.items() if k in name), name[:60])
+        passes.setdefault(label_ + (" tc" if "XLoaded" in name else ""), []).append(us)
     per_pass = {k: (len(v), sum(v) / len(v)) for k, v in passes.items()}
     tagged = kernel + checks.tag
     checks.extra.setdefault("device_kernels_per_call", {})[f"{tagged} {label}"] = dict(
@@ -1596,8 +1730,7 @@ def end_to_end(model: dict, seed: int, frames: int, lengths=(4096, None),
     # B's prefill route at the prompt
     b = proc.input_ids.shape[0]
     names = a_entries(b, 2 * b, b * proc.input_ids.shape[1]) + (
-        "flash_cached_attention", "flash_cached_attention_prefill", "fused_head_ffn_stack",
-        "fused_stage_step")
+        "flash_cached_attention", "flash_cached_attention_prefill") + fused_entries((2 * b,), (b,))
 
     def run(opts, script_tokens, step_fn):
         kw = dict(input_ids=proc.input_ids, valid_mask=proc.attention_mask,
@@ -1758,8 +1891,8 @@ def unforced_end_to_end(model: dict, seed: int, k: int = 4, windows: int = 3,
                                top_p=0.9, sde=True, frames_per_dispatch=k)
     fn = inf.make_multi_step_fn(cfg, toks, opts, k)
     # kernel A at decode (2B rows: both CFG streams); prefills not counted
-    names = a_entries(2 * batch) + ("flash_cached_attention", "fused_head_ffn_stack",
-                                    "fused_stage_step")
+    names = a_entries(2 * batch) + ("flash_cached_attention",) + fused_entries((2 * batch,),
+                                                                             (batch,))
 
     def run(s, step_fn, n_windows=windows):
         calls = itertools.count()
@@ -1842,12 +1975,20 @@ def unforced_end_to_end(model: dict, seed: int, k: int = 4, windows: int = 3,
                 window_audio_rel_err=win_err, window_h_pos_rel_err=h_err)
 
 
-# The port's kernels of the frame by a part of their (demangled) device
-# names. A's GEMV, C's and D's passes are all the streaming core
-# (stream_gemv_kernel), told apart by the loader or epilogue type in the
-# name; D's blocks also run a prologue.
+# The port's kernels of the frame by parts of their (demangled) device
+# names, the first entry whose parts all occur. A's GEMV, C's and D's
+# passes at 1-2 rows are the streaming core (stream_gemv_kernel), A's
+# middle rows and C's and D's batched rows the split-K core
+# (int8_gemm_sk_kernel, C's and D's instances over a block-formed x,
+# XLoaded), told apart by the loader or epilogue type in the name; D's
+# blocks also run a prologue (counted as the streaming route's: the
+# profiled windows are bs1's).
 PORT_DEVICE_KERNELS = (("flash_decode", "flash_cached_attention"),
                        ("flash_prefill", "flash_cached_attention_prefill"),
+                       (("XLoaded", "XHeadMod"), "fused_head_ffn_stack_tc"),
+                       (("XLoaded", "XSwiGLU"), "fused_head_ffn_stack_tc"),
+                       (("XLoaded", "EpiBiasGelu"), "fused_stage_step_tc"),
+                       (("XLoaded", "EpiBiasScaleResidual"), "fused_stage_step_tc"),
                        ("int8_gemm_sk_kernel", "int8_matmul_splitk"),
                        ("int8_gemm_kernel", "int8_matmul_gemm"),
                        ("cast_bf16_kernel", "int8_matmul_gemm"),
@@ -1863,7 +2004,9 @@ def port_kernel_counts(names) -> dict:
     """Device activities of the port's kernels by wrapper (PORT_DEVICE_KERNELS)."""
     counts: dict = {}
     for name in names:
-        wrapper = next((w for part, w in PORT_DEVICE_KERNELS if part in name), None)
+        wrapper = next((w for part, w in PORT_DEVICE_KERNELS
+                        if all(p in name for p in ((part,) if isinstance(part, str) else part))),
+                       None)
         if wrapper is not None:
             counts[wrapper] = counts.get(wrapper, 0) + 1
     return counts
@@ -2080,7 +2223,7 @@ def sp_prefill_end_to_end(model: dict, seed: int, frames: int = 8, lengths=(1638
     # B x 2,048 rows a chunk, B's prefill route on 2,048-row chunks)
     b = ids.shape[0]
     ring_names = ("flash_ring_block",) + a_entries(b * ids.shape[1], b, 2 * b) + (
-        "flash_cached_attention", "fused_head_ffn_stack", "fused_stage_step")
+        "flash_cached_attention",) + fused_entries((2 * b,), (b,))
     chunked_names = a_entries(b * SP_CHUNK) + ("flash_cached_attention_prefill",)
     nl = cfg.decoder_config.num_hidden_layers
 
@@ -2594,14 +2737,22 @@ ENGINE_SOLO_TOL = 0.4
 # kernel A in the engine: a request's prefill (its 105 prompt rows, 1 of
 # the negative stream) and the batched decode (2 x ENGINE_BATCH rows)
 ENGINE_A_ROWS = (105, 1, 2 * ENGINE_BATCH)
-ENGINE_NAMES = ("flash_cached_attention", "flash_cached_attention_prefill",
-                "fused_head_ffn_stack", "fused_stage_step")
+ENGINE_NAMES = ("flash_cached_attention", "flash_cached_attention_prefill")
+
+
+def engine_fused() -> tuple:
+    """Kernels C's and D's entries in the serving engine: C at its batched
+    rows (2 x ENGINE_BATCH with CFG), D at ENGINE_BATCH, by the routes their
+    rows give them (check_fused_routes)."""
+    return fused_entries((2 * ENGINE_BATCH,), (ENGINE_BATCH,))
 
 
 def engine_names() -> tuple:
-    """The serving engine's kernel entries: kernel A's at its rows, then
-    ENGINE_NAMES."""
-    return a_entries(*ENGINE_A_ROWS) + ENGINE_NAMES
+    """The serving engine's kernel entries: kernel A's at its rows,
+    ENGINE_NAMES, C's and D's (engine_fused), then the other routes of C and
+    D, read to show they never launch."""
+    return tuple(dict.fromkeys(a_entries(*ENGINE_A_ROWS) + ENGINE_NAMES + engine_fused()
+                               + ALL_FUSED))
 # Phase 9: the session engine on the full-width 0.5B. An inject-mode
 # session batched with three others is held to itself alone in the same
 # engine (GRAPH_TOL) and to its solo streaming.generate() at batch 1, where
@@ -2610,7 +2761,14 @@ def engine_names() -> tuple:
 SESSION_SOLO_TOL = 5e-2
 SESSION_SLOTS = 8
 SESSION_FRAMES = 36
-SESSION_NAMES = ("flash_cached_attention", "flash_cached_attention_prefill", "fused_stage_step")
+SESSION_NAMES = ("flash_cached_attention", "flash_cached_attention_prefill")
+
+
+def session_names() -> tuple:
+    """The session engine's kernel entries: B's, D's at its SESSION_SLOTS
+    rows by their route, then the other C and D entries (never launched)."""
+    return tuple(dict.fromkeys(SESSION_NAMES + fused_entries(d_rows=(SESSION_SLOTS,))
+                               + ALL_FUSED))
 
 
 def record_noise_rows(eng) -> tuple:
@@ -2742,6 +2900,7 @@ def serving_engine_end_to_end(model: dict, seed: int) -> dict:
     audio = [h.result(timeout=600) for h in handles]
     traffic_s = time.perf_counter() - t0
     traffic_counts = read_counts(names)
+    check_fused_routes("serving engine", traffic_counts, engine_fused())
     for s, (h, a) in enumerate(zip(handles, audio)):
         want = "cancelled" if s == 5 else "completed"
         if h.rec["outcome"] != want:
@@ -2942,7 +3101,7 @@ def session_engine_end_to_end(model: dict, seed: int) -> dict:
     eng = engine()
     warm_s = eng.warmup(timeout=300)
     text = processor.process_input_with_cached_prompt(STREAM_SCRIPT, preset).tts_text_ids[0]
-    reset_counts(SESSION_NAMES)
+    reset_counts(session_names())
     windows0, replays0 = eng.windows_run, eng.fns.replays
     t0 = time.perf_counter()
     hs = [eng.submit(text, max_new_frames=SESSION_FRAMES) for _ in range(12)]
@@ -2957,7 +3116,8 @@ def session_engine_end_to_end(model: dict, seed: int) -> dict:
     got += list(frames)
     audio = [h.result(timeout=300) for h in hs] + [np.concatenate(got)]
     wall = time.perf_counter() - t0
-    counts = read_counts(SESSION_NAMES)
+    counts = read_counts(session_names())
+    check_fused_routes("session engine", counts, fused_entries(d_rows=(SESSION_SLOTS,)))
     for i, a in enumerate(audio):
         if a.size != SESSION_FRAMES * hop or not np.isfinite(a).all() or not np.abs(a).max() > 0:
             fail(f"session engine: session {i} has {a.size} samples (not {SESSION_FRAMES} "
@@ -2966,7 +3126,7 @@ def session_engine_end_to_end(model: dict, seed: int) -> dict:
         fail(f"session engine: outcomes {[h.rec['outcome'] for h in hs + [live]]}")
     stats = eng.stats()
     secs = sum(a.size for a in audio) / sr
-    missing = [n_ for n_, v in counts.items() if v == 0]
+    missing = [n_ for n_, v in counts.items() if v == 0 and n_ not in ALL_FUSED]
     if missing:
         fail(f"session engine: kernels never launched: {missing}")
     print(f"  {len(audio)} sessions ({SESSION_SLOTS} slots, quantum 3, one live in three parts) "
@@ -3701,8 +3861,9 @@ def check_7b_kernels(checks: Checks, seed: int) -> None:
     decode at 4,096 bf16 slots (also replayed at three other bases) and at
     32,768 int8 slots, B's prefill route on the long-form run's last chunk
     (2,048 rows from base 14,336 of 32,768, int8 and bf16), C at 4 layers
-    3584-10752-3584 (2 rows f32; int8 and bf16 weights), D at its 1.5B
-    shapes (1 row, int8), F over a world of one's 16,384-token prompt with
+    3584-10752-3584 (2 rows f32; int8 and bf16 weights; its 8 rows are
+    check_batched_kernels'), D at its 1.5B shapes (1 row, and the engine's 4
+    rows on the split-K route; int8), F over a world of one's 16,384-token prompt with
     A's GEMM at those 16,384 rows, E at B1 T2048's 2,048 f32 rows, and the
     training attention forward and backward at B1 T2048."""
     import torch
@@ -3785,6 +3946,20 @@ def check_7b_kernels(checks: Checks, seed: int) -> None:
     fused_call_checks(checks, "fused_stage_step", label, call,
                       lambda: vf.fused_stage_step_plain(packs[0], x, st), (x, st), 2e-2)
     graph_vs_eager(checks, "fused_stage_step", label, call, (x, st))
+    # the 7B engine's D calls: 4 rows (bs4), the split-K route
+    rows = ENGINE_BATCH
+    x, st = randn(rows, 1, dim), randn(nb, rows, 6, dim)
+    entry, label = fused_entry("D", rows), f"{nb} blocks int8 weights rows={rows}"
+    call = lambda: vf.fused_stage_step(packs[0], x, st)
+    (out, ns), (ref, rs) = call(), vf.fused_stage_step_plain(packs[0], x, st)
+    ms = bench_ms(lambda pk: vf.fused_stage_step(pk, x, st), packs)
+    pms = bench_ms(lambda pk: vf.fused_stage_step_plain(pk, x, st), packs)
+    pre = bench_ms(lambda pk: vf._launch(pk, x, st, "stream"), packs)
+    checks.case(entry, f"{label}: y", out, ref, 2e-2, ms, pms, main=True, pre_ms=pre,
+                bound=bound(2 * rows * nb * (8 * dim * dim + 7 * dim),
+                            nbytes(*packs[0].arrays.values(), x, st, out, ns)))
+    checks.case(entry, f"{label}: new state", ns, rs, 2e-2)
+    graph_vs_eager(checks, entry, label, call, (x, st))
     del packs, blocks
     torch.cuda.empty_cache()
 
@@ -3856,9 +4031,10 @@ def serving_engine_7b(model: dict, seed: int) -> dict:
             fail(f"7B serving engine: request {s} ended {h.rec['outcome']} with {a.size} samples "
                  f"(not {ENGINE_FRAMES} frames of {hop}), or not finite, or silent; its tokens "
                  f"{h.tokens[:8]}")
-    missing = [name for name, v in counts.items() if v == 0]
+    missing = [name for name, v in counts.items() if v == 0 and name not in ALL_FUSED]
     if missing:
         fail(f"7B serving engine: kernels never launched: {missing}")
+    check_fused_routes("7B serving engine", counts, engine_fused())
     st = eng.stats()
     secs = sum(a.size for a in audio) / sr
     slots = {h: {slot for _, slot, _ in rows.get(h, [])} for h in handles}
@@ -4068,8 +4244,10 @@ HEADS_1P5B_TP2 = (6, 1, 128)
 TP_ENGINE_FRAMES = 40
 TP_ENGINE_BATCH = 4
 CONFIG_HOP = 3200  # the acoustic tokenizer's hop (samples a frame) of every config here
-TP_NAMES = ("flash_cached_attention", "flash_cached_attention_prefill", "fused_head_ffn_stack",
-            "fused_stage_step")
+# B's entries and every C and D entry: the engine at TP_ENGINE_BATCH takes
+# C's and D's split-K route, the forced bs1 runs their streaming one
+# (check_fused_routes)
+TP_NAMES = ("flash_cached_attention", "flash_cached_attention_prefill") + ALL_FUSED
 # Limits of the two-rank (gloo, tp 2) run against the world of one (NCCL,
 # tp 1) on the full-width 7B: max |diff| over the peak of h_pos after the
 # prefill and of the valid cache of layers 0 and 27, by KV type. The two
@@ -4363,9 +4541,11 @@ def tp1_end_to_end(seed: int, frames: int) -> dict:
         errs.append(float(np.abs(a - b).max() / np.abs(b).max()))
     if not meshed["replays"] > 0:
         fail("tp 1 engine: no graph replayed")
-    missing = [k for k, v in meshed["launches"].items() if v == 0]
+    missing = [k for k, v in meshed["launches"].items() if v == 0 and k not in ALL_FUSED]
     if missing:
         fail(f"tp 1 engine: kernels never launched: {missing}")
+    check_fused_routes("tp 1 engine", meshed["launches"],
+                       fused_entries((2 * TP_ENGINE_BATCH,), (TP_ENGINE_BATCH,)))
     print(f"  world of one (NCCL, tp 1), graphed: {TP_ENGINE_BATCH} requests of "
           f"{[len(t) for t in meshed['tokens']]} frames in {meshed['wall_s']:.2f} s "
           f"({plain['wall_s']:.2f} s without a mesh), {meshed['replays']} replays, tokens equal, "
@@ -4642,9 +4822,11 @@ def tp2_end_to_end(seed: int, frames: int, tp1: dict) -> dict:
             fail(f"tp 2 engine: request {i}'s tokens differ from tp 1's")
         engine_errs.append(_rel(a[:window], b[:window]))
         engine_whole.append(_rel(a, b))
-    missing = [k for k, v in engine["launches"].items() if v == 0]
+    missing = [k for k, v in engine["launches"].items() if v == 0 and k not in ALL_FUSED]
     if missing:
         fail(f"tp 2 engine: kernels never launched: {missing}")
+    check_fused_routes("tp 2 engine", engine["launches"],
+                       fused_entries((2 * TP_ENGINE_BATCH,), (TP_ENGINE_BATCH,)))
     readings = {}
     text = res["runs"].pop("text")
     for length, r in res["runs"].items():
@@ -4991,8 +5173,8 @@ def alternated_frames(model: dict, seed: int, frames: int, variants: dict) -> di
     forced, short = forced_scripts(toks, frames)
     opts = inf.GenerateOptions(ddpm_steps=10, cfg_scale=1.3, max_length=4096,
                                frames_per_dispatch=4)
-    names = tuple(A_ENTRY.values()) + ("flash_cached_attention", "flash_cached_attention_prefill",
-                                       "fused_head_ffn_stack", "fused_stage_step")
+    names = tuple(A_ENTRY.values()) + ("flash_cached_attention",
+                                       "flash_cached_attention_prefill") + ALL_FUSED
     for params in variants.values():
         _timed_generate(cfg, params, proc, toks, seed, opts, short)  # captures
     rec = {name: dict(per_frame_ms=[]) for name in variants}
@@ -5242,7 +5424,7 @@ def int8_head_end_to_end(model: dict, seed: int, frames: int) -> dict:
           f"{f['launches']}, int8 head {i['launches']}", flush=True)
     if not same_tokens or not err <= GRAPH_TOL:
         fail("int8 head: the graphed run differs from the eager one")
-    if i["launches"]["fused_head_ffn_stack"] or i["launches"]["fused_stage_step"]:
+    if any(i["launches"][n] for n in ALL_FUSED):
         fail(f"int8 head: C or D launched on the unfused path: {i['launches']}")
 
     # the profile of one graphed window
@@ -5515,8 +5697,9 @@ def later_phases(checks: Checks, seed: int, frames: int, phases: set) -> dict:
               "LM_PACK=1, the int8 head and tokenizers, thresholding, remat_policy dots, the "
               "merge and QA scripts, profiling", flush=True)
         runs["surface"] = the_surface(checks, seed, frames)
-    if 15 in phases:  # kernel A's three routes side by side
+    if 15 in phases:  # kernel A's three routes, C's and D's two, side by side
         route_sweep(checks, seed)
+        fused_route_sweep(checks, seed)
     return runs
 
 
@@ -5611,7 +5794,7 @@ def main() -> None:
               + "".join(f"\n    {ln}" for ln in spills))
         print("  ptxas, the training attention's tensor-core kernels:"
               + "".join(f"\n    {ln}" for ln in ptxas_report(lib.build_log, "flash_train_")))
-        print("  ptxas, kernel A's split-K GEMM by row tile:"
+        print("  ptxas, the split-K core by row tile (kernel A; C's and D's passes):"
               + "".join(f"\n    {ln}" for ln in sk_ptxas_report(lib.build_log)))
 
     # phase 3: kernels against their plain versions
@@ -5630,6 +5813,10 @@ def main() -> None:
                                  "vibevoice_tpu/ops/head_fused.py:144"),
         "fused_stage_step": ("vibevoice_tpu_torch/csrc/vocoder_stage.cu",
                              "vibevoice_tpu/ops/vocoder_fused.py:202"),
+        "fused_head_ffn_stack_tc": ("vibevoice_tpu_torch/csrc/head_ffn_tc.cu",
+                                    "vibevoice_tpu/ops/head_fused.py:144"),
+        "fused_stage_step_tc": ("vibevoice_tpu_torch/csrc/vocoder_stage_tc.cu",
+                                "vibevoice_tpu/ops/vocoder_fused.py:202"),
         "int8_matmul_t": ("vibevoice_tpu_torch/csrc/int8_matmul_t.cu",
                           "vibevoice_tpu/ops/quant.py:220"),
         # JAX's bundled Pallas TPU flash attention (forward; dK/dV and dQ

@@ -326,20 +326,71 @@ def test_fused_head_ffn_stack(dev, quantize):
                                              (2, 64, 192, 2)])
 def test_fused_head_ffn_stack_widths(dev, nb, dim, hid, rows, quantize, dtype, wdtype):
     """Kernel C at the 1.5B head's widths (2 rows at bs1 with CFG; 3 rows
-    take the other row tile) and tiny_config's, at each (activation, weight)
-    dtype pair it takes (int8, or dense f32 / bf16): one launch counted a
-    call, within 1e-4 (f32) / 2e-2 (bf16) of the peak of the plain version,
-    and three more calls give the same bits (no float atomics; the counters
-    reset)."""
+    take the split-K tensor-core route with int8 weights, the streaming
+    core's other row tile with dense ones) and tiny_config's, at each
+    (activation, weight) dtype pair it takes (int8, or dense f32 / bf16):
+    one launch counted a call on the route its rows give it, within 1e-4
+    (f32) / 2e-2 (bf16) of the peak of the plain version, and three more
+    calls give the same bits (no float atomics; the counters reset)."""
     packed, x, mods = _head_inputs(dev, 30, nb, dim, hid, rows, quantize, dtype, wdtype)
-    before = hf.fused_head_ffn_stack.launches
+    attr = FUSED_ATTR[hf._route(rows, quantize)]
+    before = getattr(hf.fused_head_ffn_stack, attr)
     out = hf.fused_head_ffn_stack(packed, x, mods)
-    assert hf.fused_head_ffn_stack.launches == before + 1
+    assert getattr(hf.fused_head_ffn_stack, attr) == before + 1
     assert out.dtype == dtype and out.shape == (rows, dim)
     assert _rel(out, hf.fused_head_ffn_stack_plain(packed, x, mods)) < (
         1e-4 if dtype == torch.float32 else 2e-2)
     for _ in range(3):
         assert torch.equal(hf.fused_head_ffn_stack(packed, x, mods), out)
+
+
+FUSED_ATTR = {"stream": "launches", "tc": "launches_tc"}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [3, 4, 8, 16])
+@pytest.mark.parametrize("kernel,dim,hid", [("C", 1536, 4608), ("C", 3584, 10752),
+                                            ("D", 2048, 8192)])
+def test_fused_tensor_core_route(dev, kernel, dim, hid, rows, dtype):
+    """Kernels C and D with int8 weights at 3 to 16 rows, the 1.5B's and the
+    7B's head widths and the vocoder stage's, take the split-K tensor-core
+    route (f32 activations as three bf16 terms, bf16 as one): one launch
+    counted on it a call and none on the streaming core, within 1e-4 (f32) /
+    2e-2 (bf16) of the peak of the plain version, the same bits on three
+    repeats, and one CUDA-graph capture replayed twice with new inputs
+    written in place gives the eager call's bits."""
+    mod = hf if kernel == "C" else vf
+    assert mod._route(rows, True) == "tc"
+    if kernel == "C":
+        packed, x, other = _head_inputs(dev, 60 + rows, 4, dim, hid, rows, True, dtype)
+        call, plain = (lambda: hf.fused_head_ffn_stack(packed, x, other),
+                       lambda: (hf.fused_head_ffn_stack_plain(packed, x, other),))
+        fn = hf.fused_head_ffn_stack
+    else:
+        packed, x, other = _stage_inputs(dev, 60 + rows, 8, dim, rows, True, dtype)
+        call, plain = (lambda: vf.fused_stage_step(packed, x, other),
+                       lambda: vf.fused_stage_step_plain(packed, x, other))
+        fn = vf.fused_stage_step
+    before = (fn.launches, fn.launches_tc)
+    out = call()
+    assert (fn.launches, fn.launches_tc) == (before[0], before[1] + 1)
+    tup = lambda o: o if isinstance(o, tuple) else (o,)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for o, r in zip(tup(out), plain()):
+        assert _rel(o, r) < tol
+    for _ in range(3):
+        assert all(torch.equal(a, b) for a, b in zip(tup(call()), tup(out)))
+    _graph_equals_eager(call, (x, other))
+
+
+def test_fused_tensor_core_route_refuses_dense_weights(dev):
+    """The split-K route's A operand is int8 only: a dense pack forced onto
+    it raises, and the public wrappers keep dense weights on the streaming
+    core at every row count."""
+    packed, x, mods = _head_inputs(dev, 70, 1, 256, 768, 8, False)
+    with pytest.raises(ValueError, match="int8 weights only"):
+        hf._launch(packed, x, mods, "tc")
+    assert hf._route(8, False) == vf._route(8, False) == "stream"
 
 
 def _stage_inputs(dev, seed, nb, dim, b, quantize, dtype):
@@ -369,14 +420,16 @@ def test_fused_stage_step(dev, quantize, dtype):
 @pytest.mark.parametrize("nb,dim,b", [(8, 2048, 1), (8, 2048, 2), (2, 16, 1)])
 def test_fused_stage_step_widths(dev, nb, dim, b, quantize, dtype):
     """Kernel D at the 1.5B vocoder stage's widths (one frame a sample, 1 or
-    2 samples) and tiny_config's, each (activation, weight) dtype pair it
-    takes: one launch counted a call, y and the new state within 1e-4 (f32)
-    / 2e-2 (bf16) of the peak of the plain version, and three more calls
-    give the same bits."""
+    2 samples: with int8 weights 2 take the split-K tensor-core route) and
+    tiny_config's, each (activation, weight) dtype pair it takes: one launch
+    counted a call on the route its rows give it, y and the new state within
+    1e-4 (f32) / 2e-2 (bf16) of the peak of the plain version, and three
+    more calls give the same bits."""
     packed, x, st = _stage_inputs(dev, 31, nb, dim, b, quantize, dtype)
-    before = vf.fused_stage_step.launches
+    attr = FUSED_ATTR[vf._route(b, quantize)]
+    before = getattr(vf.fused_stage_step, attr)
     y, ns = vf.fused_stage_step(packed, x, st)
-    assert vf.fused_stage_step.launches == before + 1
+    assert getattr(vf.fused_stage_step, attr) == before + 1
     yr, nsr = vf.fused_stage_step_plain(packed, x, st)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     assert _rel(y, yr) < tol and _rel(ns, nsr) < tol

@@ -282,45 +282,96 @@ def _block_row_sum(v):
     return ((w[..., 0] + w[..., 1]) + w[..., 2]) + w[..., 3]
 
 
-def _head_stream_emulated(packed, x, mods):
-    """Kernel C's route (csrc/head_ffn.cu) in PyTorch: per layer the gate|up
-    pass with the norm and modulation in its loader (the row's sum of
-    squares from the block's pre-pass), raw u|v out; the down pass with
+def _warp_row_sum(v):
+    """Sum over the last axis as a warp of the split-K core's loader takes
+    it (csrc/splitk_core.cuh sk_form_x): 8-element chunks, each summed in
+    order; lane l the chunks l, l + 32, ... in order; then an xor-shuffle
+    tree."""
+    chunks = torch.nn.functional.pad(v, (0, -v.shape[-1] % 8)).reshape(*v.shape[:-1], -1, 8)
+    cs = chunks[..., 0]
+    for j in range(1, 8):
+        cs = cs + chunks[..., j]
+    lanes = torch.nn.functional.pad(cs, (0, -cs.shape[-1] % 32)).reshape(*v.shape[:-1], -1, 32)
+    acc = lanes[..., 0, :]
+    for i in range(1, lanes.shape[-2]):
+        acc = acc + lanes[..., i, :]
+    for o in (16, 8, 4, 2, 1):
+        acc = acc + torch.roll(acc, o, dims=-1)  # xor-shuffle: every lane ends with the sum
+    return acc[..., 0]
+
+
+def _tc_pass(xs, w, plan, terms):
+    """One launch of the split-K tensor-core core with a block-formed x
+    (csrc/splitk_core.cuh) in PyTorch: the rows xs (f32, as the loader formed
+    them) as ``terms`` bf16 terms (quant.split_bf16_terms), each term against
+    the int8 weight (exact in bf16; every product exact in f32) in the plan's
+    K splits, one f32 partial each, each term's partials added in split
+    order, then hi + (mid + lo). Raw sums: the epilogue applies the scale."""
+    _, splits, kps = plan
+    wf = w.float()
+    sums = []
+    for t in tquant.split_bf16_terms(xs, terms):
+        t = t.float()
+        parts = [t[:, s * kps:(s + 1) * kps] @ wf[s * kps:(s + 1) * kps] for s in range(splits)]
+        acc = parts[0]
+        for p in parts[1:]:
+            acc = acc + p
+        sums.append(acc)
+    return sums[0] if terms == 1 else sums[0] + (sums[1] + sums[2])
+
+
+def _routes(route, rows, dim, hid, wbytes, terms, mod):
+    """(the two passes' plans, one pass, the loader's row sum) of a route."""
+    if route == "stream":
+        return mod._plan(rows, dim, hid, wbytes), _stream_pass, _block_row_sum
+    return (mod._tc_plan(rows, dim, hid, terms),
+            lambda xs, w, plan: _tc_pass(xs, w, plan, terms), _warp_row_sum)
+
+
+def _head_emulated(packed, x, mods, route="stream"):
+    """Kernel C in PyTorch by route: the streaming core (csrc/head_ffn.cu)
+    or the split-K tensor-core core (csrc/head_ffn_tc.cu). Per layer the
+    gate|up pass with the norm and modulation in its loader (the row's sum
+    of squares from the block's pre-pass), raw u|v out; the down pass with
     SwiGLU in its loader and the gated residual in its epilogue."""
     dt, dim, hid = x.dtype, packed.dim, packed.hidden
     rows = x.shape[0]
     (wgu, sgu), (wd, sd) = packed.weight("wgu", 0), packed.weight("wd", 0)
-    gu, dn = thf._plan(rows, dim, hid, wgu.element_size())
+    (gu, dn), run, row_sum = _routes(route, rows, dim, hid, wgu.element_size(),
+                                     3 if dt == torch.float32 else 1, thf)
     rnd = lambda v: v.to(dt).float()
     y = x.float()
     for i in range(packed.n_blocks):
         (wgu, sgu), (wd, sd) = packed.weight("wgu", i), packed.weight("wd", i)
         m = mods[i].float()
-        ss = _block_row_sum(y * y)[:, None]
+        ss = row_sum(y * y)[:, None]
         h = y * torch.rsqrt(ss / dim + packed.eps) * packed["norm_w"][i]
         hmod = rnd(h * (1.0 + m[:, dim:2 * dim]) + m[:, :dim])
-        uv = _stream_pass(hmod, wgu, gu)
+        uv = run(hmod, wgu, gu)
         u, v = uv[:, :hid], uv[:, hid:]
         if sgu is not None:
             u, v = u * sgu[:hid], v * sgu[hid:]
         g = rnd(u / (1.0 + torch.exp(-u)) * v)
-        d = _stream_pass(g, wd, dn)
+        d = run(g, wd, dn)
         if sd is not None:
             d = d * sd
         y = rnd(y + m[:, 2 * dim:] * d)
     return y.to(dt)
 
 
-def _stage_stream_emulated(packed, x, states):
-    """Kernel D's route (csrc/vocoder_stage.cu) in PyTorch: per block the
-    prologue (norm, depthwise conv, layer-scale residual xmid in f32, norm
-    hn), the fc1 pass with bias, exact GELU and rounding in its epilogue, the
-    fc2 pass with bias, layer scale and residual in its epilogue."""
+def _stage_emulated(packed, x, states, route="stream"):
+    """Kernel D in PyTorch by route: the streaming core (csrc/vocoder_stage.cu)
+    or the split-K tensor-core core for fc1 and fc2 (csrc/vocoder_stage_tc.cu).
+    Per block the prologue (norm, depthwise conv, layer-scale residual xmid
+    in f32, norm hn), the fc1 pass with bias, exact GELU and rounding in its
+    epilogue, the fc2 pass with bias, layer scale and residual in its
+    epilogue."""
     dt, eps, dim, hid = x.dtype, packed.eps, packed.dim, packed.hidden
     a = packed.arrays
     rows = x.shape[0]
     w1, _ = packed.weight("w1", 0)
-    p1, p2 = tvf._plan(rows, dim, hid, w1.element_size())
+    (p1, p2), run, _ = _routes(route, rows, dim, hid, w1.element_size(),
+                               3 if dt == torch.float32 else 1, tvf)
     rnd = lambda v: v.to(dt).float()
     rms = lambda v, w: v * torch.rsqrt(_block_row_sum(v * v)[:, None] / dim + eps) * w
     y = x[:, 0].float()
@@ -333,11 +384,39 @@ def _stage_stream_emulated(packed, x, states):
         xmid = y + (conv + a["conv_b"][i]) * a["gamma"][i]
         hn = rnd(rms(xmid, a["ffn_norm_w"][i]))
         (w1, s1), (w2, s2) = packed.weight("w1", i), packed.weight("w2", i)
-        u = _stream_pass(hn, w1, p1) * (1.0 if s1 is None else s1) + a["b1"][i]
+        u = run(hn, w1, p1) * (1.0 if s1 is None else s1) + a["b1"][i]
         g = rnd(0.5 * u * (1.0 + torch.erf(u * 0.70710678118654752)))
-        d = _stream_pass(g, w2, p2) * (1.0 if s2 is None else s2) + a["b2"][i]
+        d = run(g, w2, p2) * (1.0 if s2 is None else s2) + a["b2"][i]
         y = rnd(xmid + d * a["ffn_gamma"][i])
     return y.to(dt)[:, None], torch.stack(new_states)
+
+
+def _fused_case(kernel, dim, hid, rows, quantize, act, seed):
+    """A random kernel C or D case: (packed, inputs, the plain version)."""
+    rng = np.random.RandomState(seed)
+    dt = torch.float32 if act == "f32" else torch.bfloat16
+    if kernel == "C":
+        layers = jax.tree.map(T, _head_layers(rng, 2, dim, hid))
+        packed = thf.pack_head_ffns(layers, 1e-5, quantize)
+        x = T(rng.randn(rows, dim).astype(np.float32)).to(dt)
+        mods = T((rng.randn(2, rows, 3 * dim) * 0.5).astype(np.float32)).to(dt)
+        return packed, (x, mods), thf.fused_head_ffn_stack_plain
+    blocks = jax.tree.map(T, _stage_blocks(rng, 2, dim))
+    for blk in blocks:  # depthwise mixer: JAX TIO (7, 1, C) -> PyTorch (C, 1, 7)
+        blk["mixer"]["w"] = blk["mixer"]["w"].permute(2, 1, 0).contiguous()
+    packed = tvf.pack_stage(blocks, 1e-5, quantize)
+    x = T(rng.randn(rows, 1, dim).astype(np.float32)).to(dt)
+    states = T(rng.randn(2, rows, 6, dim).astype(np.float32)).to(dt)
+    return packed, (x, states), tvf.fused_stage_step_plain
+
+
+def _check_fused_route(kernel, dim, hid, rows, quantize, act, route):
+    tol = 1e-5 if act == "f32" else 2e-2
+    packed, inputs, plain = _fused_case(kernel, dim, hid, rows, quantize, act, dim + rows)
+    out = (_head_emulated if kernel == "C" else _stage_emulated)(packed, *inputs, route=route)
+    ref = plain(packed, *inputs)
+    for o, r in zip(out if kernel == "D" else (out,), ref if kernel == "D" else (ref,)):
+        close(o.float(), r.float(), tol, tol)
 
 
 @pytest.mark.parametrize("act", ["f32", "bf16"])
@@ -355,28 +434,57 @@ def test_head_and_stage_stream_route_matches_plain(kernel, dim, hid, rows, quant
     (2 to 6 slices): 1e-5 in f32 (summation order), 2e-2 in bf16 (a sum next
     to a rounding boundary lands one bf16 ulp away). Dense weights are f32,
     so their plans are those of 4-byte columns."""
-    rng = np.random.RandomState(dim + rows)
-    dt = torch.float32 if act == "f32" else torch.bfloat16
-    tol = 1e-5 if act == "f32" else 2e-2
-    if kernel == "C":
-        layers = jax.tree.map(T, _head_layers(rng, 2, dim, hid))
-        packed = thf.pack_head_ffns(layers, 1e-5, quantize)
-        x = T(rng.randn(rows, dim).astype(np.float32)).to(dt)
-        mods = T((rng.randn(2, rows, 3 * dim) * 0.5).astype(np.float32)).to(dt)
-        out, ref = _head_stream_emulated(packed, x, mods), thf.fused_head_ffn_stack_plain(
-            packed, x, mods)
-        close(out.float(), ref.float(), tol, tol)
-    else:
-        blocks = jax.tree.map(T, _stage_blocks(rng, 2, dim))
-        for blk in blocks:  # depthwise mixer: JAX TIO (7, 1, C) -> PyTorch (C, 1, 7)
-            blk["mixer"]["w"] = blk["mixer"]["w"].permute(2, 1, 0).contiguous()
-        packed = tvf.pack_stage(blocks, 1e-5, quantize)
-        x = T(rng.randn(rows, 1, dim).astype(np.float32)).to(dt)
-        states = T(rng.randn(2, rows, 6, dim).astype(np.float32)).to(dt)
-        (y, ns), (yr, nsr) = (_stage_stream_emulated(packed, x, states),
-                              tvf.fused_stage_step_plain(packed, x, states))
-        close(y.float(), yr.float(), tol, tol)
-        close(ns.float(), nsr.float(), tol, tol)
+    _check_fused_route(kernel, dim, hid, rows, quantize, act, "stream")
+
+
+@pytest.mark.parametrize("act", ["f32", "bf16"])
+@pytest.mark.parametrize("kernel,dim,hid,rows", [
+    ("C", 64, 192, 3), ("C", 256, 768, 8), ("C", 512, 1536, 16), ("D", 16, 64, 2),
+    ("D", 128, 512, 4), ("D", 256, 1024, 8)])
+def test_head_and_stage_tensor_core_route_matches_plain(kernel, dim, hid, rows, act):
+    """Kernels C and D on the split-K tensor-core core (int8 weights, from
+    TC_MIN_ROWS rows), emulated in PyTorch: f32 activations as three bf16
+    terms and bf16 ones as one, stacked on wgmma's N axis, each term's
+    product with the int8 weight (exact) summed per K split in f32, each
+    term's splits added in order, then hi + (mid + lo); the row sums of
+    C's loader as a warp takes them; the loaders and epilogues of the
+    streaming route. Held against the plain versions (which
+    test_head_stack_plain_matches_pallas and
+    test_stage_step_plain_matches_pallas hold against JAX) at tiny_config's
+    widths and wider ones whose K splits in 2 to 12 slices: 1e-5 in f32
+    (summation order), 2e-2 in bf16 (one bf16 ulp of a rounding point)."""
+    mod = thf if kernel == "C" else tvf
+    assert mod._route(rows, True) == "tc"
+    _check_fused_route(kernel, dim, hid, rows, True, act, "tc")
+
+
+def test_three_term_split_rebuilds_f32():
+    """quant.split_bf16_terms, which the split-K core's loader repeats: three
+    bf16 terms give an f32 value back within 2^-22 of its magnitude (in fact
+    exactly) from 2^-110, where the lo term is still a normal bf16, up to
+    3.3e38, beside bf16's largest finite value; below 2^-110 the terms lose
+    what falls under bf16's subnormal step, 2^-133 at most. Two terms miss
+    2^-22 (16 significant bits)."""
+    rng = np.random.RandomState(11)
+    mant = rng.uniform(1, 2, 8192) * rng.choice([-1, 1], 8192)
+    cases = {
+        "wide": mant * np.exp2(rng.randint(-110, 126, 8192)),
+        "near 2^-110": mant * np.exp2(rng.randint(-110, -100, 8192)),
+        "near the top": rng.uniform(1e37, 3.3e38, 8192) * rng.choice([-1, 1], 8192),
+        "subnormal-adjacent": mant * np.exp2(rng.randint(-149, -110, 8192)),
+    }
+    for name, v in cases.items():
+        x = torch.from_numpy(v.astype(np.float32))
+        terms = tquant.split_bf16_terms(x, 3)
+        assert all(t.dtype == torch.bfloat16 for t in terms) and len(terms) == 3
+        back = sum(t.double() for t in terms)
+        err = (back - x.double()).abs()
+        if name == "subnormal-adjacent":
+            assert (err <= 2.0 ** -133).all(), name
+        else:
+            assert (err <= 2.0 ** -22 * x.double().abs()).all(), name
+            two = sum(t.double() for t in tquant.split_bf16_terms(x, 2))
+            assert ((two - x.double()).abs() > 2.0 ** -22 * x.double().abs()).any(), name
 
 
 # ---------------------------------------------------------------------------

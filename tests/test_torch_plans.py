@@ -712,3 +712,159 @@ def test_project_qkv_and_mlp_pass_segments():
                          (dcfg.hidden_size, None)]
     for a, b in zip(outs["unpacked"], outs["packed"]):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# Kernels C and D on the split-K tensor-core core (csrc/splitk_core.cuh:
+# head_ffn_tc.cu, vocoder_stage_tc.cu)
+# ---------------------------------------------------------------------------
+
+# The parent commit's streaming plans at 1 and 2 rows (bs1 with and without
+# CFG), ((rows per block, splits, k per split) of the first pass, of the
+# second), by (kernel, width, FFN width, rows, weight bytes): the rows that
+# stay on the streaming core keep them.
+PARENT_STREAM_PLANS = {
+    ("C", 1536, 4608, 1, 1): ((1, 7, 224), (1, 36, 128)),
+    ("C", 1536, 4608, 1, 2): ((1, 3, 512), (1, 21, 224)),
+    ("C", 1536, 4608, 1, 4): ((1, 3, 512), (1, 11, 432)),
+    ("C", 1536, 4608, 2, 1): ((2, 7, 224), (2, 36, 128)),
+    ("C", 1536, 4608, 2, 2): ((2, 3, 512), (2, 21, 224)),
+    ("C", 1536, 4608, 2, 4): ((2, 3, 512), (2, 11, 432)),
+    ("C", 3584, 10752, 1, 1): ((1, 7, 512), (1, 21, 512)),
+    ("C", 3584, 10752, 2, 1): ((2, 7, 512), (2, 21, 512)),
+    ("C", 3584, 10752, 2, 4): ((2, 7, 512), (2, 21, 512)),
+    ("C", 64, 192, 1, 1): ((1, 1, 64), (1, 2, 128)),
+    ("C", 64, 192, 2, 4): ((2, 1, 64), (2, 2, 128)),
+    ("D", 2048, 8192, 1, 1): ((1, 8, 256), (1, 32, 256)),
+    ("D", 2048, 8192, 1, 2): ((1, 4, 512), (1, 16, 512)),
+    ("D", 2048, 8192, 1, 4): ((1, 4, 512), (1, 16, 512)),
+    ("D", 2048, 8192, 2, 1): ((2, 8, 256), (2, 32, 256)),
+    ("D", 2048, 8192, 2, 2): ((2, 4, 512), (2, 16, 512)),
+    ("D", 16, 64, 1, 1): ((1, 1, 16), (1, 1, 64)),
+    ("D", 16, 64, 2, 4): ((2, 1, 16), (2, 1, 64)),
+}
+TC_ROWS = [1, 2, 3, 4, 5, 8, 12, 16, 24, 32, 48, 64, 85]
+
+
+def _fused_passes(kernel, dim, hid):
+    """(K, N) of a layer's two passes: C gate|up and down, D fc1 and fc2."""
+    return ((dim, 2 * hid if kernel == "C" else hid), (hid, dim))
+
+
+def _tc_covers_once(rows, k, n, terms, plan):
+    """The grid of one pass on the split-K core (row tiles of the terms x
+    rows of wgmma's N axis, column tiles of 128, K splits of whole 64-k
+    steps): every (term, row), column and k owned by exactly one block, the
+    row tile one the kernels are built for, one row tile (the weight read
+    once) wherever terms x rows fit 256, and each block's x slice within its
+    shared memory. Returns the blocks and the wave they aim at."""
+    bm, splits, kps = plan
+    rn = terms * rows
+    assert bm in quant.SK_FUSED_TILES
+    assert bm in ((8, 16, 24, 32, 48, 64, 96, 128, 192, 256) if terms == 3
+                  else (8, 16, 24, 32, 48, 64, 96))  # csrc/splitk_core.cuh launch_sk_loaded_bm
+    assert (math.ceil(rn / bm) == 1) == (rn <= 256)
+    assert terms == 1 or rn <= bm  # a row's terms meet in one tile
+    seen_r = np.zeros(rn, int)
+    for t in range(math.ceil(rn / bm)):
+        seen_r[t * bm:(t + 1) * bm] += 1
+    assert (seen_r == 1).all()
+    assert kps % quant.SK_KSTEP == 0 and splits == math.ceil(k / kps)
+    seen_k = np.zeros(k, int)
+    for sp in range(splits):
+        kb, ke = sp * kps, min(k, (sp + 1) * kps)
+        assert kb < ke
+        seen_k[kb:ke] += 1
+    assert (seen_k == 1).all()
+    assert bm * kps * 2 <= quant._sk_x_room(bm)
+    per_sm = 2 if bm <= quant.SK_TWO_BLOCKS_TO else 1
+    return math.ceil(rn / bm) * math.ceil(n / quant.SK_COLS) * splits, quant.SMS * per_sm
+
+
+@pytest.mark.parametrize("terms", [1, 3])
+@pytest.mark.parametrize("kernel,dim,hid", FUSED_SHAPES)
+def test_head_and_stage_tc_plans_read_every_weight_once(kernel, dim, hid, terms):
+    """The split-K route's plans of C's and D's two passes (_tc_plan, from
+    quant._sk_fused_plan) at 1 to 85 rows, one bf16 term a value (bf16
+    activations) or three (f32): every weight byte is read once (one row
+    tile) and every output and k owned by one block, and K is split to fill
+    one wave of blocks and no more, unless a split is at its cap (one 64-k
+    step, the steps already as many splits, the cap that keeps a tile's
+    partials cheap to add) or a block's x slice would not fit its shared
+    memory with fewer splits."""
+    mod = hf if kernel == "C" else vf
+    for rows in TC_ROWS:
+        plans = mod._tc_plan(rows, dim, hid, terms)
+        for (k, n), plan in zip(_fused_passes(kernel, dim, hid), plans):
+            assert plan == quant._sk_fused_plan(rows, k, n, terms)
+            blocks, wave = _tc_covers_once(rows, k, n, terms, plan)
+            bm, splits, kps = plan
+            steps = math.ceil(k / quant.SK_KSTEP)
+            x_cap = quant._sk_x_room(bm) // (bm * quant.SK_KSTEP * 2)
+            slice_bytes = steps * quant.SK_KSTEP * (quant.SK_COLS + 2 * bm)
+            at_sum_cap = (splits + 1) ** 2 * bm * quant.SK_COLS * 4 > slice_bytes
+            assert splits == 1 or blocks <= wave or kps // quant.SK_KSTEP == x_cap or (
+                math.ceil(steps / x_cap) == splits)
+            assert blocks * (splits + 1) // splits > wave or kps == quant.SK_KSTEP or (
+                at_sum_cap or math.ceil(steps / math.ceil(steps / (splits + 1))) == splits)
+
+
+@pytest.mark.parametrize("quantized", [True, False])
+def test_head_and_stage_route_by_rows_alone(quantized):
+    """Kernels C and D route by rows alone (no width, no dtype): int8 weights
+    take the split-K tensor-core route from TC_MIN_ROWS (C 3: bs1's two CFG
+    rows stream; D 2: bs1's one row streams) to TC_MAX_ROWS (85: three bf16
+    terms of f32 rows in one 256-row tile) and the streaming core below and
+    above (f32 C above 85 rows streams); dense weights always stream. The
+    engines' rows (C at 8 with CFG at bs4, D at 4 and at eight sessions' 8)
+    take the tensor cores."""
+    for mod in (hf, vf):
+        assert list(inspect.signature(mod._route).parameters) == ["rows", "quantized"]
+        assert mod.TC_MAX_ROWS == 85 == quant.SK_FUSED_MAX_ROWS
+        assert 3 * mod.TC_MAX_ROWS <= quant.SK_ROW_TILES[-1] < 3 * (mod.TC_MAX_ROWS + 1)
+        for rows in range(0, 300):
+            want = "tc" if quantized and mod.TC_MIN_ROWS <= rows <= mod.TC_MAX_ROWS else "stream"
+            assert mod._route(rows, quantized) == want
+        with pytest.raises(ValueError, match="one 256-row tile"):
+            quant._sk_fused_plan(86, 1536, 9216, 3)
+    if quantized:
+        assert (hf.TC_MIN_ROWS, vf.TC_MIN_ROWS) == (3, 2)
+        assert hf._route(8, True) == vf._route(4, True) == vf._route(8, True) == "tc"
+        assert hf._route(2, True) == vf._route(1, True) == "stream" == vf._route(0, True)
+
+
+@pytest.mark.parametrize("key", sorted(PARENT_STREAM_PLANS))
+def test_one_and_two_row_plans_are_the_parents(key):
+    """The streaming plans at 1 and 2 rows are the parent commit's, and the
+    rows below TC_MIN_ROWS (bs1: C's two CFG rows, D's one) stay on the
+    streaming core with them: the same launches, the same sums. D's two
+    rows (a batch of two) take the split-K route, which the sweep found
+    faster there; with dense weights they keep these plans."""
+    kernel, dim, hid, rows, wbytes = key
+    mod = hf if kernel == "C" else vf
+    assert mod._route(rows, True) == ("stream" if rows < mod.TC_MIN_ROWS else "tc")
+    assert mod._route(rows, False) == "stream"
+    assert mod._plan(rows, dim, hid, wbytes) == PARENT_STREAM_PLANS[key]
+
+
+@pytest.mark.parametrize("terms", [1, 3])
+@pytest.mark.parametrize("kernel,dim,hid", FUSED_SHAPES)
+def test_head_and_stage_tc_workspace_fits(kernel, dim, hid, terms):
+    """A call on the split-K core: every split of a pass writes its (terms x
+    rows, N) f32 partial tile, within SK_MAX_PART_FLOATS wherever the wave
+    and not a block's room for its x slice set the splits (85 f32 rows at
+    the 256-row tile take 320 k a split, 5 splits of C's gate|up: 11.75 M
+    floats), and its counters (row tiles x column tiles) within what
+    _gemv_workspace keeps at least; _sk_fused_workspace sizes the widest
+    pass."""
+    mod = hf if kernel == "C" else vf
+    for rows in TC_ROWS:
+        passes = list(zip(mod._tc_plan(rows, dim, hid, terms),
+                          [n for _, n in _fused_passes(kernel, dim, hid)]))
+        floats, tiles = quant._sk_fused_workspace(rows, terms, passes)
+        assert floats == max(p[1] * terms * rows * n for p, n in passes)
+        assert tiles <= 4096
+        for ((bm, splits, kps), n), (k, _) in zip(passes, _fused_passes(kernel, dim, hid)):
+            x_cap = quant._sk_x_room(bm) // (bm * quant.SK_KSTEP * 2)
+            assert splits * terms * rows * n <= quant.SK_MAX_PART_FLOATS or (
+                splits == math.ceil(math.ceil(k / quant.SK_KSTEP) / x_cap))

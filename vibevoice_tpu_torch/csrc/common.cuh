@@ -70,6 +70,30 @@ static __device__ __forceinline__ void load4(const float* p, float o[4]) {
   o[3] = f.w;
 }
 
+// Eight consecutive elements as floats, p 16-byte aligned (two 16-byte
+// loads of f32, one of bf16).
+static __device__ __forceinline__ void load8(const float* p, float (&o)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p), b = *reinterpret_cast<const float4*>(p + 4);
+  o[0] = a.x;
+  o[1] = a.y;
+  o[2] = a.z;
+  o[3] = a.w;
+  o[4] = b.x;
+  o[5] = b.y;
+  o[6] = b.z;
+  o[7] = b.w;
+}
+
+static __device__ __forceinline__ void load8(const bf16* p, float (&o)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    o[2 * i] = __uint_as_float(w[i] << 16);
+    o[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+  }
+}
+
 // The column segments of one launch of kernel A: the unpacked projections
 // that a packed weight joins (q|k|v, gate|up; ops/quant.py
 // _segment_plans), so that each segment's columns sum K as the segment's own
@@ -147,6 +171,26 @@ static inline ColSegs one_seg(int N, int cols, int splits, int kps) {
   sg.splits[0] = sg.max_splits = splits;
   sg.kps[0] = sg.max_kps = kps;
   return sg;
+}
+
+// Launch `kernel` on `stream` as a programmatic dependent of the kernel
+// before it (mma.cuh grid_dep_wait): its blocks may start, and do what
+// needs nothing of that kernel, while that kernel finishes.
+template <typename... Params, typename... Args>
+cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid, dim3 block, size_t smem,
+                             cudaStream_t stream, Args&&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, static_cast<Args&&>(args)...);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 // Sum over a block of blockDim.x threads (a multiple of 32, at most 1024).

@@ -1,4 +1,9 @@
-// Kernel C: the diffusion head's L AdaLN-FFN layers for one denoise call.
+// Kernel C: the diffusion head's L AdaLN-FFN layers for one denoise call,
+// on the weight-streaming core: 1-2 rows (bs1 with CFG) and dense weights.
+// With int8 weights from head_fused.TC_MIN_ROWS rows (the serving engine's
+// batched 2B rows) head_ffn_tc.cu runs the same function on the split-K
+// tensor-core core, with these loaders and epilogues (head_ffn.cuh);
+// ops/head_fused.py routes by rows alone.
 //
 // Replaces the Pallas TPU kernel vibevoice_tpu/ops/head_fused.py:144
 // fused_head_ffn_stack (body `_kernel`, :89). Per layer:
@@ -23,68 +28,10 @@
 //     stages x; its epilogue adds the gated residual into y.
 // Two launches a layer, no prologue, no scratch but the persistent
 // workspace: a call is 2L launches and can be captured in a CUDA graph.
-#include "weight_stream.cuh"
+#include "head_ffn.cuh"
 
 namespace vv {
 namespace {
-
-// hmod = round_XT(rmsnorm(y) * norm_w * (1 + scale) + shift), row sums of y^2
-template <typename XT>
-struct XHeadMod {
-  static constexpr bool kRowSum = true;
-  const XT* y;
-  const XT* mods;  // (R, 3H) of this layer: shift | scale | gate
-  const float* norm_w;
-  int row_len;  // H
-  float eps;
-  __device__ __forceinline__ float row_term(int r, int i) const {
-    const float v = to_f(y[(size_t)r * row_len + i]);
-    return v * v;
-  }
-  __device__ __forceinline__ float operator()(int r, int k, float ss) const {
-    const int H = row_len;
-    const float h = to_f(y[(size_t)r * H + k]) * rsqrtf(ss / H + eps) * norm_w[k];
-    const XT* m = mods + (size_t)r * 3 * H;
-    return round_to<XT>(h * (1.f + to_f(m[H + k])) + to_f(m[k]));
-  }
-};
-
-struct EpiStore {  // raw f32 sums
-  float* out;
-  int N;
-  __device__ __forceinline__ void operator()(int r, int n, float sum) const {
-    out[(size_t)r * N + n] = sum;
-  }
-};
-
-// g = round_XT(silu(u * sg) * (v * su)) from the raw u|v (R, 2F)
-template <typename XT>
-struct XSwiGLU {
-  static constexpr bool kRowSum = false;
-  const float* uv;
-  const float* s;  // (2F) gate | up scales, or null
-  int F;
-  __device__ __forceinline__ float operator()(int r, int k) const {
-    const float* row = uv + (size_t)r * 2 * F;
-    const float u = row[k] * col_scale(s, k);
-    const float v = row[F + k] * col_scale(s, F + k);
-    return round_to<XT>(u / (1.f + expf(-u)) * v);
-  }
-};
-
-template <typename XT>
-struct EpiGatedResidual {
-  const XT* yin;  // the layer's input: x for layer 0, else y itself
-  XT* y;
-  const XT* mods;
-  const float* s;  // (H) down scales, or null
-  int N;
-  __device__ __forceinline__ void operator()(int r, int n, float sum) const {
-    const size_t i = (size_t)r * N + n;
-    const float gate = to_f(mods[(size_t)r * 3 * N + 2 * N + n]);
-    y[i] = from_f<XT>(to_f(yin[i]) + gate * (sum * col_scale(s, n)));
-  }
-};
 
 struct Plan {
   int rt, splits, kps;

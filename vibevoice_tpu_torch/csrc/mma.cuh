@@ -634,6 +634,19 @@ static __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) 
   }
 }
 
+// Programmatic dependent launch (sm_90): a kernel launched with
+// cudaLaunchAttributeProgrammaticStreamSerialization may start while the
+// kernel before it on the stream finishes; griddepcontrol.wait blocks until
+// that kernel has completed and its writes are visible (a no-op for a
+// normal launch), and launch_dependents lets the next such kernel start
+// once every block of this one has passed it.
+static __device__ __forceinline__ void grid_dep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+static __device__ __forceinline__ void grid_dep_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
 // Fetch a tensor map (a __grid_constant__ kernel parameter) into the
 // descriptor cache ahead of its first TMA load.
 static __device__ __forceinline__ void tma_prefetch_desc(const void* map) {

@@ -1,7 +1,10 @@
 // One-launch weight-streaming GEMV core: a few rows of x against a weight
 // matrix (int8, bf16 or f32) that is read from HBM exactly once. Kernel A's
-// decode route (int8_matmul.cu) and the layer passes of kernels C
-// (head_ffn.cu) and D (vocoder_stage.cu) run on it.
+// decode route (int8_matmul.cu, up to quant.GEMV_MAX_ROWS rows) and the
+// layer passes of kernels C (head_ffn.cu) and D (vocoder_stage.cu) at 1-2
+// rows and for dense weights run on it; their batched rows with int8
+// weights run on the split-K tensor-core core (splitk_core.cuh), whose
+// block-formed x takes this core's loaders.
 //
 //   out[r, n] = epi(r, n, sum_k x(r, k) * w[k, n])         r < R (a few rows)
 //

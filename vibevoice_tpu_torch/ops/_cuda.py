@@ -72,6 +72,14 @@ _SIGNATURES = {
         _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _P,
     ],
+    "vv_fused_head_ffn_stack_tc": [
+        _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _P,
+    ],
+    "vv_fused_stage_step_tc": [
+        _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _P,
+    ],
     "vv_int8_matmul_t": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "vv_flash_train_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "vv_flash_train_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],

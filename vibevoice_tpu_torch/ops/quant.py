@@ -165,6 +165,74 @@ def _sk_plan(rows: int, k: int, n: int) -> tuple[int, int, int]:
     return bm, -(-steps // per), per * SK_KSTEP
 
 
+# Kernels C and D on the split-K core (csrc/splitk_core.cuh, where the block
+# forms its K slice of x in shared memory and the weight rides alone in a
+# ring of SK_LOADED_STAGES tiles: 6 or 8 read 1-13% slower than 4 at C's
+# and D's batched rows on an H100): the row tiles they are built for, and
+# the most rows they take there, three bf16 terms of f32 activations in one
+# 256-row tile (bf16 activations take one term, up to the 96-row tile).
+SK_FUSED_TILES = (8, 16, 24, 32, 48, 64, 96, 128, 192, 256)
+SK_FUSED_MAX_ROWS = 85
+SK_LOADED_STAGES = 4
+SK_SMEM_SM, SK_SMEM_BLOCK = 233472, 232448  # shared memory of an SM, the most a block takes
+
+
+def _sk_x_room(bm: int) -> int:
+    """Bytes of a block's x slice at row tile ``bm`` where the block forms x
+    (splitk_core.cuh SkTile::LOADED_ROOM less the weight ring, its barriers
+    and alignment)."""
+    room = (SK_SMEM_SM // 2 - 1024 if bm <= SK_TWO_BLOCKS_TO else SK_SMEM_BLOCK) - 2048
+    return room - SK_LOADED_STAGES * (SK_KSTEP * SK_COLS + 16) - 1024
+
+
+def _sk_fused_plan(rows: int, k: int, n: int, terms: int) -> tuple[int, int, int]:
+    """(row tile, K splits, k per split) of one pass of kernel C or D on the
+    split-K core over a (k, n) int8 weight, from the shapes alone: the rows'
+    ``terms`` bf16 terms stacked on wgmma's N axis (terms x rows of it, one
+    tile of SK_FUSED_TILES where they fit 256, so the weight is read once),
+    and K split as _sk_plan splits it (one wave, a segment's partials within
+    SK_MAX_PART_FLOATS, a tile's partials cheap to add), into more slices
+    where a block's slice of x would not fit its shared memory."""
+    rn = terms * rows
+    if terms > 1 and rn > SK_ROW_TILES[-1]:
+        raise ValueError(f"{rows} rows of {terms} terms do not fit one {SK_ROW_TILES[-1]}-row tile")
+    share = -(-rn // -(-rn // SK_ROW_TILES[-1]))
+    bm = next(t for t in SK_FUSED_TILES if t >= share)
+    tiles = -(-n // SK_COLS) * -(-rn // bm)
+    steps = -(-k // SK_KSTEP)
+    per_sm = 2 if bm <= SK_TWO_BLOCKS_TO else 1
+    sum_cap = math.isqrt(steps * SK_KSTEP * (SK_COLS + 2 * bm) // (bm * SK_COLS * 4))
+    splits = max(1, min(SMS * per_sm // tiles, SK_MAX_PART_FLOATS // (rn * n), steps, sum_cap))
+    per = min(-(-steps // splits), _sk_x_room(bm) // (bm * SK_KSTEP * 2))
+    splits = -(-steps // per)
+    per = -(-steps // splits)
+    return bm, -(-steps // per), per * SK_KSTEP
+
+
+def split_bf16_terms(x: torch.Tensor, terms: int) -> list:
+    """x (f32) as ``terms`` bf16 tensors whose sum gives x back, as the
+    split-K core's block-formed x takes f32 values (csrc/splitk_core.cuh
+    sk_form_x): hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid);
+    every subtraction is exact. Three terms hold an f32 value whole (24
+    significant bits in 3 x 8) wherever lo stays a normal bf16 (|x| >=
+    2^-110) and hi finite (|x| below bf16's largest, 3.39e38)."""
+    out, rest = [], x.float()
+    for _ in range(terms):
+        t = rest.to(torch.bfloat16)
+        out.append(t)
+        rest = rest - t.float()
+    return out
+
+
+def _sk_fused_workspace(rows: int, terms: int, passes) -> tuple[int, int]:
+    """(f32 partials, arrival counters) of the widest of a kernel C or D
+    call's passes on the split-K core, each ((row tile, splits, kps), N):
+    every split writes its (terms x rows, N) partial tile."""
+    rn = terms * rows
+    return (max(p[1] * rn * n for p, n in passes),
+            max(-(-rn // p[0]) * -(-n // SK_COLS) for p, n in passes))
+
+
 def _route_plan(route: str, rows: int, k: int, n: int) -> Int8Plan:
     """The plan ``route`` takes for a (rows, k) @ (k, n) call."""
     if route == "gemm":

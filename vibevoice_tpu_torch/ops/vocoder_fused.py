@@ -5,11 +5,15 @@ Per block: RMSNorm -> depthwise k=7 conv over 6 carried frames (the state
 shifts) -> layer-scale residual -> RMSNorm -> fc1 + b1 -> exact GELU ->
 fc2 + b2 -> layer-scale residual. The FFN weights may be int8.
 
-On a CUDA tensor ``fused_stage_step`` launches the hand-written kernels
-(csrc/vocoder_stage.cu: per block a prologue launch, then fc1 and fc2 as two
-launches of the streaming core csrc/weight_stream.cuh with the bias, GELU,
-layer scale and residual in their epilogues); on a CPU tensor it runs
-``fused_stage_step_plain``.
+On a CUDA tensor ``fused_stage_step`` launches hand-written kernels, per
+block a prologue launch, then fc1 and fc2 with the bias, GELU, layer scale
+and residual in their epilogues, by one of two routes chosen by rows alone
+(``_route``): with int8 weights from ``TC_MIN_ROWS`` to ``TC_MAX_ROWS`` rows
+(the engines' batched rows) fc1 and fc2 on the split-K tensor-core core
+csrc/splitk_core.cuh (csrc/vocoder_stage_tc.cu; plans ``_tc_plan``);
+otherwise (bs1, dense weights) on the weight-streaming core
+csrc/weight_stream.cuh (csrc/vocoder_stage.cu; plans ``_plan``). On a CPU
+tensor it runs ``fused_stage_step_plain``.
 Both keep the TPU kernel's rounding points: the FFN input and the GELU
 output in the activation dtype, the mid-block residual in f32.
 """
@@ -119,15 +123,47 @@ def fused_stage_step_plain(
     return y[:, None, :], torch.stack(new_states)
 
 
+def _check_widths(dim: int, hid: int) -> None:
+    if dim % 16 or hid % 16:
+        raise ValueError(f"the kernel reads 16-byte vectors of 16 columns: the stage's width "
+                         f"({dim}) and FFN width ({hid}) must be multiples of 16")
+
+
 def _plan(rows: int, dim: int, hid: int, wbytes: int):
     """The launch plans of a block's two streaming passes, fc1 (dim -> hid)
     and fc2 (hid -> dim), from the shapes alone: (rows per block, splits, k
     per split) each, as quant._gemv_plan gives them. The kernel reads 16-byte
     vectors of whole columns: widths must be multiples of 16."""
-    if dim % 16 or hid % 16:
-        raise ValueError(f"the kernel reads 16-byte vectors of 16 columns: the stage's width "
-                         f"({dim}) and FFN width ({hid}) must be multiples of 16")
+    _check_widths(dim, hid)
     return quant._gemv_plan(rows, dim, hid, wbytes), quant._gemv_plan(rows, hid, dim, wbytes)
+
+
+# Kernel D's route by rows alone (int8 weights; dense ones always stream):
+# fc1 and fc2 on the split-K tensor-core core (csrc/vocoder_stage_tc.cu)
+# from TC_MIN_ROWS to TC_MAX_ROWS rows, on the weight-streaming core
+# (csrc/vocoder_stage.cu) below and above. chip_smoke.py's sweep (phase 15;
+# an H100 SXM at 700 W; 8 int8 blocks 2048-8192, bf16 x, ms streaming /
+# split-K): 0.2701 / 0.2512 at 2 rows, 0.3026 / 0.2600 at 3, 0.3215 /
+# 0.2594 at 4, 0.4532 / 0.2663 at 8, 1.1297 / 0.4263 at 32; at 1 row the
+# two lie within 2%, either way from run to run (0.2507 / 0.2491, 0.2421 /
+# 0.2478): bs1's one row streams, two rows and more take the tensor cores.
+TC_MIN_ROWS = 2
+TC_MAX_ROWS = quant.SK_FUSED_MAX_ROWS
+
+
+def _route(rows: int, quantized: bool) -> str:
+    """"tc" (the split-K tensor-core core) or "stream" for a call of
+    ``rows`` rows."""
+    return "tc" if quantized and TC_MIN_ROWS <= rows <= TC_MAX_ROWS else "stream"
+
+
+def _tc_plan(rows: int, dim: int, hid: int, terms: int):
+    """The launch plans of a block's fc1 and fc2 on the split-K core: (row
+    tile, splits, k per split) each, as quant._sk_fused_plan gives them for
+    ``terms`` bf16 terms a value (1 for bf16 activations, 3 for f32)."""
+    _check_widths(dim, hid)
+    return (quant._sk_fused_plan(rows, dim, hid, terms),
+            quant._sk_fused_plan(rows, hid, dim, terms))
 
 
 def fused_stage_step(
@@ -139,9 +175,16 @@ def fused_stage_step(
     On CUDA tensors: 3 launches a block, nothing allocated but the outputs
     (xmid, hn, g and the split-K partials live in quant's persistent
     workspace), so a call can be captured in a CUDA graph after one call
-    outside it."""
+    outside it. Counted in ``fused_stage_step.launches`` (the streaming
+    core) or ``.launches_tc`` (the split-K tensor-core core)."""
     if x.device.type == "cpu":
         return fused_stage_step_plain(packed, x, states)
+    return _launch(packed, x, states, _route(x.shape[0], packed.quantized))
+
+
+def _launch(packed: PackedStage, x: torch.Tensor, states: torch.Tensor,
+            route: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel D on CUDA tensors by ``route`` ("tc" needs int8 weights)."""
     nb, dim, hid = packed.n_blocks, packed.dim, packed.hidden
     b = x.shape[0]
     if x.shape != (b, 1, dim) or states.shape != (nb, b, CTX, dim) or states.dtype != x.dtype:
@@ -151,7 +194,11 @@ def fused_stage_step(
     w1, w2 = (a["w1_q"], a["w2_q"]) if packed.quantized else (a["w1"], a["w2"])
     scales = [a["w1_scale"], a["w2_scale"]] if packed.quantized else [None, None]
     wb = w1.element_size()
-    p1, p2 = _plan(max(b, 1), dim, hid, wb)
+    tc = route == "tc"
+    if tc and not packed.quantized:
+        raise ValueError("the split-K tensor-core route takes int8 weights only")
+    terms = 3 if x.dtype == torch.float32 else 1
+    p1, p2 = _tc_plan(b, dim, hid, terms) if tc else _plan(max(b, 1), dim, hid, wb)
     vecs = [a[k] for k in _VECTORS]
     x, states = x.contiguous(), states.contiguous()
     _cuda.require_cuda(x, states, w1, w2, *vecs, *[s for s in scales if s is not None])
@@ -162,21 +209,28 @@ def fused_stage_step(
     new_states = torch.empty_like(states)
     if b == 0:
         return y, new_states
-    n_part = max(p1[1] * b * hid, p2[1] * b * dim)
-    ws, counters = quant._gemv_workspace(
-        x.device, n_part + b * (2 * dim + hid),
-        max(quant._gemv_tiles(b, hid, p1[0], wb), quant._gemv_tiles(b, dim, p2[0], wb)))
+    if tc:
+        n_part, n_tiles = quant._sk_fused_workspace(b, terms, ((p1, hid), (p2, dim)))
+    else:
+        n_part = max(p1[1] * b * hid, p2[1] * b * dim)
+        n_tiles = max(quant._gemv_tiles(b, hid, p1[0], wb), quant._gemv_tiles(b, dim, p2[0], wb))
+    ws, counters = quant._gemv_workspace(x.device, n_part + b * (2 * dim + hid), n_tiles)
     xmid = ws.data_ptr() + 4 * n_part  # then hn (B, C) and g (B, H), all f32
     # C-side StageVectors order: the 8 vectors, then the two scales
     ptrs = (ctypes.c_void_p * 10)(*[_cuda.ptr(t) for t in vecs + scales])
-    _cuda.library().call(
-        "vv_fused_stage_step", y.data_ptr(), x.data_ptr(), _cuda.dtype_code(x), states.data_ptr(),
-        new_states.data_ptr(), ctypes.cast(ptrs, ctypes.c_void_p), w1.data_ptr(), w2.data_ptr(),
-        _cuda.dtype_code(w1), xmid, xmid + 4 * b * dim, xmid + 8 * b * dim, ws.data_ptr(),
-        counters.data_ptr(), nb, b, dim, hid, packed.eps, *p1, *p2, _cuda.stream_ptr(x.device),
-    )
-    fused_stage_step.launches += 1
+    head = (y.data_ptr(), x.data_ptr(), _cuda.dtype_code(x), states.data_ptr(),
+            new_states.data_ptr(), ctypes.cast(ptrs, ctypes.c_void_p), w1.data_ptr(),
+            w2.data_ptr())
+    tail = (xmid, xmid + 4 * b * dim, xmid + 8 * b * dim, ws.data_ptr(), counters.data_ptr(), nb,
+            b, dim, hid, packed.eps, *p1, *p2, _cuda.stream_ptr(x.device))
+    if tc:
+        _cuda.library().call("vv_fused_stage_step_tc", *head, *tail)
+        fused_stage_step.launches_tc += 1
+    else:
+        _cuda.library().call("vv_fused_stage_step", *head, _cuda.dtype_code(w1), *tail)
+        fused_stage_step.launches += 1
     return y, new_states
 
 
 _cuda.count_launches("fused_stage_step", fused_stage_step)
+_cuda.count_launches("fused_stage_step_tc", fused_stage_step, "launches_tc")
