@@ -1507,6 +1507,49 @@ def test_serving_engine_replays_on_its_carry_and_recaptures(dev, monkeypatch):
         eng.shutdown()
 
 
+def test_tracing_window_dispatch_spans_hold_their_graph_launch(dev):
+    """Under a profile of a live engine, the decode loop's vv.window.dispatch
+    spans, put on the profile's clock by profiling.trace_clock_offset_ns(),
+    contain the host start of their window's cudaGraphLaunch record: at
+    least 99% of those inside the profile (the recorder and Kineto share
+    one clock)."""
+    import bisect
+    import time
+
+    from vibevoice_tpu_torch.utils import profiling
+
+    eng = _tiny_engine(dev)
+    try:
+        eng.warmup(prompt_tokens=8, timeout=300)
+        # the profile starts and stops while the engine idles
+        prof = torch.autograd.profiler.profile(use_device="cuda", use_kineto=True)
+        prof.__enter__()
+        a = time.monotonic_ns()
+        try:
+            handles = [eng.submit(_tiny_request(80 + i, 8 + 2 * i)) for i in range(3)]
+            for h in handles:
+                h.result(timeout=300)
+        finally:
+            b = time.monotonic_ns()
+            torch.cuda.synchronize()
+            prof.__exit__(None, None, None)
+    finally:
+        eng.shutdown()
+    offset = profiling.trace_clock_offset_ns()
+    launches = sorted(e.start_ns() for e in prof.kineto_results.events()
+                      if e.name().startswith("cudaGraphLaunch"))
+    dispatch = [s for s in profiling.spans() if s.name == "vv.window.dispatch"
+                and s.thread == eng._thread.native_id and a <= s.t0 and s.t1 <= b]
+    assert len(dispatch) >= 10 and len(launches) >= len(dispatch)
+
+    def holds(s):
+        i = bisect.bisect_left(launches, s.t0 + offset)
+        return i < len(launches) and launches[i] <= s.t1 + offset
+
+    held = sum(holds(s) for s in dispatch)
+    assert held >= 0.99 * len(dispatch), (held, len(dispatch))
+
+
 def test_session_engine_card_matches_cpu(dev):
     """Three sessions over two slots of StreamingSessionEngine in inject
     mode on the card (kernels B and D, the graphed windows) and on the CPU,

@@ -444,6 +444,30 @@ def test_stats_and_deadline(greedy):
         eng.shutdown()
 
 
+def test_stats_read_the_last_requests(greedy):
+    """stats()' percentiles read the last 256 requests that reached each
+    stage, in submission order: after 300 priority requests whose first 44
+    waited 10 s, priority_ttfa_p50_ms and the stage percentiles read only
+    the last 256 (the first 44, the largest, left out)."""
+    eng = _engine(greedy)
+    try:
+        with eng._recs_lock:
+            for i in range(300):
+                slow = i < 44
+                eng._recs.append({"submit": float(i), "outcome": "completed", "priority": True,
+                                  "ttfa_ms": 10_000.0 if slow else float(i),
+                                  "queue_ms": 10_000.0 if slow else 1.0, "prefill_ms": 2.0,
+                                  "join_wait_ms": 10_000.0 if slow else 3.0})
+        st = eng.stats()
+        recent = list(range(44, 300))
+        assert st.priority_ttfa_p50_ms == recent[128] == st.ttfa_p50_ms
+        assert st.ttfa_p95_ms == recent[int(0.95 * 256)]
+        assert (st.queue_wait_p50_ms, st.prefill_p50_ms, st.join_wait_p50_ms) == (1.0, 2.0, 3.0)
+        assert (st.queue_wait_p95_ms, st.prefill_p95_ms, st.join_wait_p95_ms) == (1.0, 2.0, 3.0)
+    finally:
+        eng.shutdown()
+
+
 def _exploding(eng, when):
     real = eng.step_fn
 

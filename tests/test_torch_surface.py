@@ -33,7 +33,6 @@ from vibevoice_tpu.models import tokenizer as jtok
 from vibevoice_tpu.models import vibevoice as jvv
 from vibevoice_tpu.ops import quant as jquant
 from vibevoice_tpu.schedule import dpm_solver as jdpm
-from vibevoice_tpu.utils import profiling as jprof
 
 import torch_workers as W
 from test_torch_hf_interop import _randomize
@@ -513,29 +512,25 @@ def test_timestep_samplers(kind):
 
 def test_profiling_trace_phase_and_step_timer(tmp_path):
     """trace writes a Chrome trace and the key-averages table into its
-    directory, the phase names appear among the profiler's events, and
-    StepTimer.report equals the JAX package's for the same injected
-    timings."""
+    directory, the phase names appear among the profiler's events, and each
+    phase is also a span of the recorder, nested as it ran (the recorder's
+    spans replace the JAX package's StepTimer: a phase's time is its
+    span's)."""
     with tprof.trace(str(tmp_path / "prof")) as prof:
-        with tprof.phase("vv.prefill"):
+        with tprof.phase("vv.prefill") as outer:
             torch.ones(64, 64) @ torch.ones(64, 64)
-        with tprof.phase("vv.frame"):
-            torch.relu(torch.randn(128))
+            with tprof.phase("vv.frame") as inner:
+                torch.relu(torch.randn(128))
     names = {e.name for e in prof.events()}
     assert {"vv.prefill", "vv.frame"} <= names
     trace = (tmp_path / "prof" / "trace.json").read_text()
     assert "vv.prefill" in trace and "vv.frame" in trace
     assert "vv.prefill" in (tmp_path / "prof" / "key_averages.txt").read_text()
 
-    reports = []
-    for mod in (jprof, tprof):
-        timer = mod.StepTimer()
-        with timer.time("decode"):
-            pass
-        timer.totals.update(decode=0.75, prefill=0.125, vocode=1.5)
-        timer.counts.update(decode=2, prefill=1, vocode=3)
-        reports.append(timer.report())
-    assert reports[0] == reports[1] and reports[0].startswith("vocode: total 1.500s")
+    held = {s.sid: s for s in tprof.spans() if s.sid in (outer.sid, inner.sid)}
+    assert held[inner.sid].parent == outer.sid and held[outer.sid].name == "vv.prefill"
+    assert held[outer.sid].t0 <= held[inner.sid].t0 <= held[inner.sid].t1 <= held[outer.sid].t1
+    assert not hasattr(tprof, "StepTimer")
 
 
 def test_trainer_takes_remat_policy_dots(tmp_path):

@@ -53,6 +53,7 @@ from ..configs import VibeVoiceConfig
 
 from ..ops import _cuda
 from ..schedule import dpm_solver as dpm
+from ..utils.profiling import phase
 from . import diffusion_head as dh
 from . import qwen2
 from . import tokenizer as tok
@@ -177,18 +178,26 @@ def prefill_fn(cfg: VibeVoiceConfig, params, ids: torch.Tensor, max_len: int,
                valid_mask: torch.Tensor, speech_args, tokens: SpecialTokens,
                speech_type: str = "audio", kv_int8: bool = False,
                tp_group=None) -> DecodeCarry:
-    """Whole-prompt prefill of both streams; returns the first DecodeCarry."""
+    """Whole-prompt prefill of both streams; returns the first DecodeCarry.
+    Its phases are spans (``utils/profiling.phase``): ``vv.prefill.voice``
+    (the prompt's embeddings and voice features), ``.negative`` (the empty
+    positive cache and the negative stream's prefill), ``.lm`` (the LM over
+    the prompt) and ``.combine`` (the two streams' caches into one)."""
     b = ids.shape[0]
-    embeds = _prompt_embeds(cfg, params, ids, speech_args, speech_type)
-    pos_cache, neg_cache, h_neg, dec_state, sem_state = _init_streams(
-        cfg, params, b, max_len, tokens, kv_int8, tp_group)
-    h, pos_cache = qwen2.forward(cfg.decoder_config, params["lm"], embeds, valid_mask=valid_mask,
-                                 cache=pos_cache, tp_group=tp_group)
-    last = (valid_mask.to(torch.int64).sum(1) - 1).clamp_min(0)
-    h_pos = h[torch.arange(b, device=h.device), last]
-    return DecodeCarry(_combine_caches(pos_cache, neg_cache), dec_state, sem_state, h_pos, h_neg,
-                       torch.zeros(b, dtype=torch.bool, device=h.device),
-                       torch.zeros(b, dtype=torch.int64, device=h.device))
+    with phase("vv.prefill.voice"):
+        embeds = _prompt_embeds(cfg, params, ids, speech_args, speech_type)
+    with phase("vv.prefill.negative"):
+        pos_cache, neg_cache, h_neg, dec_state, sem_state = _init_streams(
+            cfg, params, b, max_len, tokens, kv_int8, tp_group)
+    with phase("vv.prefill.lm"):
+        h, pos_cache = qwen2.forward(cfg.decoder_config, params["lm"], embeds,
+                                     valid_mask=valid_mask, cache=pos_cache, tp_group=tp_group)
+        last = (valid_mask.to(torch.int64).sum(1) - 1).clamp_min(0)
+        h_pos = h[torch.arange(b, device=h.device), last]
+    with phase("vv.prefill.combine"):
+        return DecodeCarry(_combine_caches(pos_cache, neg_cache), dec_state, sem_state, h_pos,
+                           h_neg, torch.zeros(b, dtype=torch.bool, device=h.device),
+                           torch.zeros(b, dtype=torch.int64, device=h.device))
 
 
 def chunked_prefill(cfg: VibeVoiceConfig, params, ids: torch.Tensor, valid_mask: torch.Tensor,
@@ -196,30 +205,35 @@ def chunked_prefill(cfg: VibeVoiceConfig, params, ids: torch.Tensor, valid_mask:
                     speech_type: str = "audio", kv_int8: bool = False,
                     tp_group=None) -> DecodeCarry:
     """Long-prompt prefill in fixed-size chunks (bounds attention memory at
-    O(chunk x S)); voice features are spliced into the whole prompt once."""
+    O(chunk x S)); voice features are spliced into the whole prompt once.
+    The phases are ``prefill_fn``'s spans, ``.lm`` over every chunk."""
     b, t = ids.shape
-    embeds = _prompt_embeds(cfg, params, ids, speech_args, speech_type)
+    with phase("vv.prefill.voice"):
+        embeds = _prompt_embeds(cfg, params, ids, speech_args, speech_type)
     lengths = valid_mask.to(torch.int64).sum(1)
-    pos_cache, neg_cache, h_neg, dec_state, sem_state = _init_streams(
-        cfg, params, b, max_len, tokens, kv_int8, tp_group)
+    with phase("vv.prefill.negative"):
+        pos_cache, neg_cache, h_neg, dec_state, sem_state = _init_streams(
+            cfg, params, b, max_len, tokens, kv_int8, tp_group)
     h_pos = torch.zeros(b, cfg.decoder_config.hidden_size, dtype=embeds.dtype, device=embeds.device)
     rows = torch.arange(b, device=embeds.device)
-    for c0 in range(0, t, chunk):
-        valid = valid_mask[:, c0: c0 + chunk]
-        emb = embeds[:, c0: c0 + chunk]
-        if valid.shape[1] < chunk:  # pad the last chunk to the fixed size
-            pad = chunk - valid.shape[1]
-            valid = torch.nn.functional.pad(valid, (0, pad))
-            emb = torch.nn.functional.pad(emb, (0, 0, 0, pad))
-        h, pos_cache = qwen2.forward(cfg.decoder_config, params["lm"], emb, valid_mask=valid,
-                                     cache=pos_cache, tp_group=tp_group)
-        last = lengths - 1
-        in_chunk = (last >= c0) & (last < c0 + chunk)
-        h_last = h[rows, (last - c0).clamp(0, chunk - 1)]
-        h_pos = torch.where(in_chunk[:, None], h_last, h_pos)
-    return DecodeCarry(_combine_caches(pos_cache, neg_cache), dec_state, sem_state, h_pos, h_neg,
-                       torch.zeros(b, dtype=torch.bool, device=h_pos.device),
-                       torch.zeros(b, dtype=torch.int64, device=h_pos.device))
+    with phase("vv.prefill.lm"):
+        for c0 in range(0, t, chunk):
+            valid = valid_mask[:, c0: c0 + chunk]
+            emb = embeds[:, c0: c0 + chunk]
+            if valid.shape[1] < chunk:  # pad the last chunk to the fixed size
+                pad = chunk - valid.shape[1]
+                valid = torch.nn.functional.pad(valid, (0, pad))
+                emb = torch.nn.functional.pad(emb, (0, 0, 0, pad))
+            h, pos_cache = qwen2.forward(cfg.decoder_config, params["lm"], emb, valid_mask=valid,
+                                         cache=pos_cache, tp_group=tp_group)
+            last = lengths - 1
+            in_chunk = (last >= c0) & (last < c0 + chunk)
+            h_last = h[rows, (last - c0).clamp(0, chunk - 1)]
+            h_pos = torch.where(in_chunk[:, None], h_last, h_pos)
+    with phase("vv.prefill.combine"):
+        return DecodeCarry(_combine_caches(pos_cache, neg_cache), dec_state, sem_state, h_pos,
+                           h_neg, torch.zeros(b, dtype=torch.bool, device=h_pos.device),
+                           torch.zeros(b, dtype=torch.int64, device=h_pos.device))
 
 
 # ---------------------------------------------------------------------------
@@ -526,8 +540,9 @@ class StepFn:
     it ends; each call holds them too. On CPU tensors the same body runs
     eagerly. ``eager`` is the same call without the graph on any device,
     the reference that the graphed runs are held to. ``replays`` counts the
-    graph launches. With ``tp_group`` the LM runs on this rank's shards; a
-    graphed call needs an NCCL group (a gloo group raises: call ``eager``)."""
+    graph launches, ``captures`` the captures (each also a ``vv.step.capture``
+    span). With ``tp_group`` the LM runs on this rank's shards; a graphed
+    call needs an NCCL group (a gloo group raises: call ``eager``)."""
 
     def __init__(self, cfg: VibeVoiceConfig, tokens: SpecialTokens, opts: GenerateOptions,
                  frames: int, stacked: bool, tp_group=None):
@@ -536,6 +551,7 @@ class StepFn:
         self.tp_group = tp_group
         self.coeffs = make_solver(cfg, opts)
         self.replays = 0
+        self.captures = 0
         self._consts: Dict = {}
         self._owner = threading.RLock()
 
@@ -613,6 +629,11 @@ class StepFn:
         return cap.carry, self._unstack(cap.out)
 
     def _capture(self, params, carry, noise, ext_finish, hooks) -> _Capture:
+        self.captures += 1
+        with phase("vv.step.capture"):
+            return self._capture_window(params, carry, noise, ext_finish, hooks)
+
+    def _capture_window(self, params, carry, noise, ext_finish, hooks) -> _Capture:
         cap = _Capture(params, carry, noise, ext_finish, hooks)
         # one eager frame first, on the caller's stream, where the kernels'
         # shared workspaces are used in order: it builds the kernel library,

@@ -33,6 +33,23 @@ window's frame noise is drawn on the card from one engine generator before
 the window; its outputs are copied to pinned host memory before the next
 replay overwrites them.
 
+The engine records spans in the process-wide recorder
+(``utils/profiling``). Each request has an id (``RequestHandle.rid``) and
+a root span ``vv.request`` (submit to finish); its stages follow one
+another without a gap, so they add up to its time to first audio:
+``vv.queue`` (submit until the prefill worker takes it), ``vv.prefill``
+(until its carry is on ``ready``; children ``vv.prefill.voice``, ``.lm``,
+``.negative``, ``.combine`` from ``inference`` and ``vv.prefill.sync``,
+the host waiting for the prefill's device work), ``vv.ready`` (the wait for
+a free slot and a window boundary), ``vv.join`` (``join_slot``) and
+``vv.first_window`` (until its first audio). The decode loop records a
+window's host work: ``vv.window.admit``, ``vv.window.dispatch`` and
+``vv.window.process`` (whose parent is the dispatch of the window it
+delivers; child ``vv.window.wait``, the wait for its outputs), and
+``vv.window.idle``, a stretch of idle sleeps with no slot active.
+``stats()`` gives the same stages' percentiles from each request's record,
+and the slot occupancy as the decode loop sees it.
+
 The decode thread owns the carry and the slots; the prefill thread touches
 only its own batch-1 carries. Submissions and consumers are thread-safe.
 
@@ -72,6 +89,7 @@ from ..configs import VibeVoiceConfig
 from ..models import inference as inf
 from ..models import qwen2
 from ..models import tokenizer as tok
+from ..utils import profiling as prof
 
 
 def join_slot(carry: inf.DecodeCarry, single: inf.DecodeCarry, slot: int,
@@ -150,26 +168,46 @@ class EngineStats:
     uptime_s: float
     priority_ttfa_p50_ms: Optional[float] = None  # None until priority traffic had audio
     priority_submitted: int = 0
+    # the stages of the first audio (the module docstring's vv.queue,
+    # vv.prefill and vv.ready spans), over the last 256 requests that
+    # passed each; None before any did
+    queue_wait_p50_ms: Optional[float] = None
+    queue_wait_p95_ms: Optional[float] = None
+    prefill_p50_ms: Optional[float] = None
+    prefill_p95_ms: Optional[float] = None
+    join_wait_p50_ms: Optional[float] = None
+    join_wait_p95_ms: Optional[float] = None
+    captures: int = 0  # CUDA-graph captures of the engine's step (more than one: evictions)
+    # the active slots of each window dispatched over max_batch, averaged;
+    # None before the first window
+    window_occupancy_pct: Optional[float] = None
 
 
 class RequestHandle:
     _END = object()
+    _rids = itertools.count(1)
 
     def __init__(self, request: Request):
         self.request = request
+        self.rid = next(RequestHandle._rids)  # the request id of its spans
+        self.sid = prof.next_id()  # its vv.request span, recorded at _finish
+        # the ends of its stages (time.monotonic_ns()), each the next's start
+        self._taken_ns = self._ready_ns = self._joined_ns = None
         self.chunks: "queue.Queue" = queue.Queue()
         self._audio: List[np.ndarray] = []
         self.tokens: List[int] = []  # the token of each frame, the finishing frame's included
         self._done = threading.Event()
         self.error: Optional[BaseException] = None
         self.cancelled = threading.Event()
-        self.submit_time = time.monotonic()
+        self.submit_ns = time.monotonic_ns()
+        self.submit_time = self.submit_ns * 1e-9
         self.first_audio_time: Optional[float] = None  # set on the first frame
         self.deadline_expired = False
         # the scalar record the engine keeps after this handle is gone
         # (stats() must not hold request audio in host memory)
         self.rec = {"submit": self.submit_time, "ttfa_ms": None, "outcome": None,
-                    "priority": request.priority}
+                    "priority": request.priority, "queue_ms": None, "prefill_ms": None,
+                    "join_wait_ms": None}
 
     def _deadline_exceeded(self) -> bool:
         d = self.request.deadline_s
@@ -198,14 +236,34 @@ class RequestHandle:
         return np.concatenate(self._audio) if self._audio else np.zeros(0, np.float32)
 
     # engine side
+    def _taken(self):
+        """Taken from the queue for its prefill: its vv.queue span."""
+        self._taken_ns = t = time.monotonic_ns()
+        self.rec["queue_ms"] = (t - self.submit_ns) * 1e-6
+        prof.record("vv.queue", self.submit_ns, t, self.rid, self.sid)
+
+    def _joined(self, t0: int, t1: int):
+        """Joined into a slot from ``t0`` to ``t1``: its vv.ready (the
+        prefilled carry waiting, until ``t0``) and vv.join spans."""
+        self._joined_ns = t1
+        self.rec["join_wait_ms"] = (t0 - self._ready_ns) * 1e-6
+        prof.record("vv.ready", self._ready_ns, t0, self.rid, self.sid)
+        prof.record("vv.join", t0, t1, self.rid, self.sid)
+
     def _push(self, audio: np.ndarray):
         if self.first_audio_time is None:
-            self.first_audio_time = time.monotonic()
-            self.rec["ttfa_ms"] = (self.first_audio_time - self.submit_time) * 1e3
+            t = time.monotonic_ns()
+            self.first_audio_time = t * 1e-9
+            self.rec["ttfa_ms"] = (t - self.submit_ns) * 1e-6
+            if self._joined_ns is not None:
+                prof.record("vv.first_window", self._joined_ns, t, self.rid, self.sid)
         self._audio.append(audio)
         self.chunks.put(audio)
 
     def _finish(self, err: Optional[BaseException] = None):
+        if not self._done.is_set():
+            prof.record("vv.request", self.submit_ns, time.monotonic_ns(), self.rid,
+                        sid=self.sid)
         self.error = err
         if self.deadline_expired:
             self.rec["outcome"] = "deadline_expired"
@@ -324,6 +382,8 @@ class ServingEngine:
         self._recs: "collections.deque" = collections.deque(maxlen=4096)
         self._recs_lock = threading.Lock()
         self._frames_emitted = 0
+        # windows dispatched and their active slots, summed (decode thread)
+        self._windows = self._window_slots = 0
         self._start_time = time.monotonic()
         self._hop = cfg.acoustic_tokenizer_config.hop_length
         self._stop = threading.Event()
@@ -455,19 +515,29 @@ class ServingEngine:
         # delivering) are active; the list is only changed on the decode thread
         active = sum(h is not None for h in self.slots) + len(list(self._retiring))
         queued = submitted - completed - failed - cancelled - expired - active
-        ttfa = sorted([r["ttfa_ms"] for r in recs if r["ttfa_ms"] is not None][-256:])
-        pct = lambda q: ttfa[min(len(ttfa) - 1, int(q * len(ttfa)))] if ttfa else None
-        pri = sorted(r["ttfa_ms"] for r in recs
-                     if r.get("priority") and r["ttfa_ms"] is not None)[-256:]
+
+        def last(key, priority=False):  # the last 256 readings, sorted
+            return sorted([r[key] for r in recs if r.get(key) is not None
+                           and (r.get("priority") or not priority)][-256:])
+
+        pct = lambda xs, q: xs[min(len(xs) - 1, int(q * len(xs)))] if xs else None
+        ttfa, pri = last("ttfa_ms"), last("ttfa_ms", priority=True)
+        queue_ms, prefill_ms, join_ms = last("queue_ms"), last("prefill_ms"), last("join_wait_ms")
         return EngineStats(
             submitted=submitted, completed=completed, failed=failed, cancelled=cancelled,
             deadline_expired=expired, active=active, queued=max(queued, 0),
             frames_emitted=self._frames_emitted,
             audio_seconds_emitted=self._frames_emitted * self._hop / 24_000.0,
-            ttfa_p50_ms=pct(0.50), ttfa_p95_ms=pct(0.95),
+            ttfa_p50_ms=pct(ttfa, 0.50), ttfa_p95_ms=pct(ttfa, 0.95),
             uptime_s=time.monotonic() - self._start_time,
             priority_ttfa_p50_ms=pri[len(pri) // 2] if pri else None,
             priority_submitted=sum(bool(r.get("priority")) for r in recs),
+            queue_wait_p50_ms=pct(queue_ms, 0.50), queue_wait_p95_ms=pct(queue_ms, 0.95),
+            prefill_p50_ms=pct(prefill_ms, 0.50), prefill_p95_ms=pct(prefill_ms, 0.95),
+            join_wait_p50_ms=pct(join_ms, 0.50), join_wait_p95_ms=pct(join_ms, 0.95),
+            captures=getattr(self.step_fn, "captures", 0),
+            window_occupancy_pct=(100.0 * self._window_slots / (self._windows * self.max_batch)
+                                  if self._windows else None),
         )
 
     def _idle(self) -> bool:
@@ -524,6 +594,7 @@ class ServingEngine:
                 handle = self.pending.get(timeout=0.02)[2]
             except queue.Empty:
                 continue
+            handle._taken()
             # task_done only once the request is settled (finished, or put on
             # `ready`, which counted it first): a graceful drain never sees
             # a gap while it is in this worker's hands
@@ -538,41 +609,46 @@ class ServingEngine:
 
     def _prefill_one(self, handle: RequestHandle):
         """One request's prefill."""
-        if handle.cancelled.is_set():
-            handle._finish()
-            return
-        if handle._deadline_exceeded():
-            handle.deadline_expired = True
-            handle._finish()
-            return
-        try:
-            single, max_steps = self._prefill(handle.request)
-        except BaseException as e:  # a bad request fails its own handle
-            handle._finish(e)
-            return
-        if handle.cancelled.is_set():
-            handle._finish()
-            return
-        placed = False
-        while not self._stop.is_set():
+        with prof.span("vv.prefill", handle.rid, handle.sid, start_ns=handle._taken_ns) as sp:
+            if handle.cancelled.is_set():
+                handle._finish()
+                return
+            if handle._deadline_exceeded():
+                handle.deadline_expired = True
+                handle._finish()
+                return
             try:
-                self.ready.put((handle, single, max_steps), timeout=0.1)
-                placed = True
-                self._notify_state()
-                break
-            except queue.Full:
-                continue
-        if not placed:
-            handle._finish(RuntimeError("engine is stopped"))
-        elif self._stop.is_set():
-            # placed, but the decode thread may have run its final drain:
-            # sweep what is still queued
-            while True:
+                single, max_steps = self._prefill(handle.request)
+            except BaseException as e:  # a bad request fails its own handle
+                handle._finish(e)
+                return
+            if handle.cancelled.is_set():
+                handle._finish()
+                return
+            placed = False
+            while not self._stop.is_set():
                 try:
-                    self.ready.get_nowait()[0]._finish(RuntimeError("engine is stopped"))
-                    self.ready.task_done()
-                except queue.Empty:
+                    # stamped before the put: the decode thread reads it once
+                    # the entry is on `ready`
+                    handle._ready_ns = t = time.monotonic_ns()
+                    self.ready.put((handle, single, max_steps), timeout=0.1)
+                    handle.rec["prefill_ms"] = (sp.end(t) - sp.t0) * 1e-6
+                    placed = True
+                    self._notify_state()
                     break
+                except queue.Full:
+                    continue
+            if not placed:
+                handle._finish(RuntimeError("engine is stopped"))
+            elif self._stop.is_set():
+                # placed, but the decode thread may have run its final drain:
+                # sweep what is still queued
+                while True:
+                    try:
+                        self.ready.get_nowait()[0]._finish(RuntimeError("engine is stopped"))
+                        self.ready.task_done()
+                    except queue.Empty:
+                        break
 
     def _prefill(self, r: Request):
         """(batch-1 carry, frame cap) of one request, on the prefill thread
@@ -588,7 +664,8 @@ class ServingEngine:
         if stream is not None:
             # the carry is complete before it is handed over: a join reads it
             # on the decode stream without waiting for this one
-            stream.synchronize()
+            with prof.span("vv.prefill.sync"):
+                stream.synchronize()
         return single, self._frame_cap(r)
 
     def _frame_cap(self, r: Request) -> int:
@@ -658,10 +735,12 @@ class ServingEngine:
                 keep.append((handle, single, max_steps))
                 continue
             free.remove(slot)
+            t0 = time.monotonic_ns()
             join_slot(self.carry, single, slot, self.max_batch)
             if self._prefill_stream is not None:  # allocated on the prefill stream
                 stream = torch.cuda.current_stream(self.device)
                 inf._tree_map(lambda t: t.record_stream(stream), single)
+            handle._joined(t0, time.monotonic_ns())
             self.slot_steps[slot] = 0
             self.slot_max_steps[slot] = max_steps
             self.slots[slot] = handle
@@ -735,7 +814,8 @@ class ServingEngine:
         """Deliver one window by its dispatch-time snapshot of the slots: the
         window's row i belongs to snap[i] even if that slot was freed and
         joined again since. Frames after a finish are masked on the card."""
-        toks, amask, audio, fin = fetched()
+        with prof.span("vv.window.wait"):
+            toks, amask, audio, fin = fetched()
         if self.mesh is not None:
             self.token_log.append(toks)
         for f in range(amask.shape[0]):
@@ -765,11 +845,18 @@ class ServingEngine:
         # boundary's decision goes to every rank before the joins' prefills
         # and the window (_follow runs it there); an idle rank 0 still sends
         # one every HEARTBEAT_S.
-        inflight = None
+        # Spans (module docstring): an iteration with work records its host
+        # work before the dispatch (or the last window's delivery) as
+        # vv.window.admit; iterations with none fold into one vv.window.idle.
+        inflight = None  # (fetched, slots snapshot, its dispatch span's id)
+        idle_since = None
         k = self.frames_per_dispatch
         last = time.monotonic()
         while True:
+            t_iter = time.monotonic_ns()
             stop = self._stop.is_set()
+            if idle_since is not None and stop:
+                prof.record("vv.window.idle", idle_since, t_iter)
             joins = []
             if self.mesh is None:
                 if stop:
@@ -797,14 +884,24 @@ class ServingEngine:
                     self.slots[slot]._finish(e)
                     self.slots[slot] = None
                 self._notify_state()
-            if ext is None:
-                if inflight is not None:
-                    self._process(*inflight)
-                    inflight = None
-                    continue
+            if ext is None and inflight is None:
+                if idle_since is None:
+                    idle_since = t_iter
                 time.sleep(self.idle_sleep)
                 continue
+            t = time.monotonic_ns()
+            if idle_since is not None:
+                prof.record("vv.window.idle", idle_since, t_iter)
+                idle_since = None
+            prof.record("vv.window.admit", t_iter, t)
+            if ext is None:
+                self._deliver(inflight)
+                inflight = None
+                continue
             fetched = self._dispatch(ext)
+            sid = prof.record("vv.window.dispatch", t, time.monotonic_ns())
+            self._windows += 1
+            self._window_slots += len(active)
             snap = list(self.slots)
             for i in active:
                 self.slot_steps[i] += k
@@ -819,14 +916,21 @@ class ServingEngine:
                     self._retiring.append(h)
                     self.slots[i] = None
             if self.pipeline:
-                prev, inflight = inflight, (fetched, snap)
+                prev, inflight = inflight, (fetched, snap, sid)
                 if prev is not None:
-                    self._process(*prev)
+                    self._deliver(prev)
             else:
-                self._process(fetched, snap)
+                self._deliver((fetched, snap, sid))
         if inflight is not None:  # deliver the last window before draining
-            self._process(*inflight)
+            self._deliver(inflight)
         self._drain()
+
+    def _deliver(self, inflight):
+        """``_process`` one window (fetched, snapshot, its dispatch span's
+        id) under its vv.window.process span."""
+        fetched, snap, sid = inflight
+        with prof.span("vv.window.process", parent=sid):
+            self._process(fetched, snap)
 
     # ------------------------------------------------------------------
     # tensor parallelism: rank 0 decides, every rank runs (module docstring)
@@ -845,12 +949,21 @@ class ServingEngine:
         returns (slot, error) for those whose prefill raised."""
         failed = []
         for slot, request in joins:
-            try:
-                single, _ = self._prefill(request)
-            except Exception as e:  # the same request fails alike on every rank
-                failed.append((slot, e))
-                continue
+            h = self.slots[slot] if self.leader else None  # rank 0 records the spans
+            with (prof.span("vv.prefill", h.rid, h.sid, start_ns=h._taken_ns) if h is not None
+                  else contextlib.nullcontext()) as sp:
+                try:
+                    single, _ = self._prefill(request)
+                except Exception as e:  # the same request fails alike on every rank
+                    failed.append((slot, e))
+                    continue
+                t0 = time.monotonic_ns()
+                if h is not None:
+                    h._ready_ns = sp.end(t0)
+                    h.rec["prefill_ms"] = (t0 - sp.t0) * 1e-6
             join_slot(self.carry, single, slot, self.max_batch)
+            if h is not None:
+                h._joined(t0, time.monotonic_ns())
         return failed
 
     def _take_joins(self) -> List[tuple]:
@@ -881,6 +994,7 @@ class ServingEngine:
                 self.slot_steps[slot] = 0
                 self.slot_max_steps[slot] = self._frame_cap(h.request)
                 self.slots[slot] = h
+                h._taken()
                 joins.append((slot, h.request))
             self.pending.task_done()
         for item in keep:
