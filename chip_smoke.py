@@ -8,9 +8,10 @@ toolkit (nvcc), and exits non-zero without a result otherwise.
 
 Phases, each of which fails the run:
   1. device: CUDA present; prints the card's name and power limit;
-  2. build: compiles the kernels from the twelve sources in
-     vibevoice_tpu_torch/csrc/ (one nvcc per source, all at once), thirteen
-     entries of the kernels line (and their "@7b" twins, phase 12): A
+  2. build: compiles the kernels from the fourteen sources in
+     vibevoice_tpu_torch/csrc/ (one nvcc per source, all at once), fifteen
+     entries of the kernels line (and, but for G's and H's, their "@7b"
+     twins, phase 12): A
      int8_matmul by its three routes (the one-launch streaming GEMV up to
      quant.GEMV_MAX_ROWS rows, the split-K tensor-core GEMM
      int8_matmul_splitk from there to below quant.GEMM_MIN_ROWS, the 256-row
@@ -23,7 +24,9 @@ Phases, each of which fails the run:
      weights, fused_head_ffn_stack_tc and fused_stage_step_tc on the split-K
      tensor-core core, csrc/splitk_core.cuh, from their TC_MIN_ROWS with int8
      weights), E
-     int8_matmul_t, F flash_ring_block, and the training attention's forward
+     int8_matmul_t, F flash_ring_block, G depthwise_causal_conv1d and H
+     dense_causal_conv1d (the tokenizers' full-sequence convs), and the
+     training attention's forward
      and backward (their tensor-core route; ptxas' registers and spills of
      its kernels are printed);
   3. kernels: each kernel against its plain PyTorch version on the card,
@@ -55,7 +58,15 @@ Phases, each of which fails the run:
      torch.profiler (at most 12 and 24 kernels), a repeat that must give the
      same bits and one CUDA-graph capture replayed with new inputs; kernel E
      at 4,096 f32 rows at the four LM shapes and at 8,192 at gate/up and
-     down, with its cast pass and its GEMM also timed apart; the training
+     down, with its cast pass and its GEMM also timed apart; kernels G and
+     H at a 10 s voice pair's stem, mixers, down-sampling convs, head and
+     FFN linears (check_conv_kernels; library: the causal pad and
+     F.conv1d, cuDNN for the dense convs; torch.matmul for the linears),
+     and a voice pair's encode timed at new widths and
+     at one width repeated, with its device kernels profiled
+     (encode_widths, a diagnostic: G's and H's launches are counted on the
+     serving paths, phases 4, 8 and 12, a voice encode's 27 and 59 checked
+     in phase 8's and the 7B engine's prefills); the training
      attention (f32, B 2 T 2048 and B 1 T 8192, right-padded) with its f32
      bound beside the bound of the products its design computes (three bf16
      terms each, plus the split pass's bytes), the split pass timed apart,
@@ -257,7 +268,8 @@ Phases 12, 13 and 14-15 each run in a fresh process of the script
 (run_later_phases: a new CUDA context and profiler), whose results this
 one merges.
 The next-to-last line is a JSON object of the kernels' results
-(forty entries: the thirteen of phases 3-11, their "@7b" twins, the
+(forty-two entries: the fifteen of phases 3-11, the "@7b" twins of all
+but G and H, the
 four "@tp" entries of B's two routes and the training attention, and
 kernel A's ten surface entries, "@pack", "@head", "@tok", "@pack@7b" and
 "@head@7b" for the GEMV and the split-K GEMM); the last line is the JSON
@@ -794,6 +806,205 @@ def check_kernels(checks: Checks, seed: int) -> None:
         checks.case("fused_stage_step", f"{nb} blocks {w} weights: new state", ns, rs, 2e-2)
         fused_call_checks(checks, "fused_stage_step", f"{nb} blocks {w} weights", call,
                           lambda: vf.fused_stage_step_plain(packs[0], x, st), (x, st), 2e-2)
+
+
+# Kernels G and H at a 10 s voice pair's acoustic encode (the 1.5B's and the
+# 7B's tokenizer: 2 x 240,000 samples, bf16): G at the depthwise mixers of
+# stages 0, 1, 2 and 6, an odd length (no multiple of the 16-row tile), C 6
+# (the one-channel route) and the 1-channel stem (32 outputs a channel); H at
+# the dense down-sampling convs (odd lengths too, with a right pad) and the
+# head, with K split (K above 2,048: down4-6, the head) and not. Each one's library
+# time is the route the port took before: the causal pad, then F.conv1d on
+# the transposed view (cuDNN for the dense convs, PyTorch's own depthwise
+# kernel for the mixers); H's plain version is a window-view matmul
+# (cuBLAS).
+VOICE_PAIR = 240_000
+DW_CASES = ((VOICE_PAIR, 1, 32), (VOICE_PAIR, 32, 32), (VOICE_PAIR // 2, 64, 64),
+            (VOICE_PAIR // 4, 128, 128), (VOICE_PAIR // 3200, 2048, 2048), (239_997, 32, 32),
+            (1_001, 6, 6))
+DENSE_CONVS = (("down1", VOICE_PAIR, 32, 64, 4, 2), ("down2", VOICE_PAIR // 2, 64, 128, 4, 2),
+               ("down3", VOICE_PAIR // 4, 128, 256, 8, 4),
+               ("down4", VOICE_PAIR // 16, 256, 512, 10, 5),
+               ("down5", VOICE_PAIR // 80, 512, 1024, 10, 5),
+               ("down6", VOICE_PAIR // 400, 1024, 2048, 16, 8),
+               ("head", VOICE_PAIR // 3200, 2048, 64, 7, 1), ("down1 odd", 239_997, 32, 64, 4, 2),
+               ("down6 odd", 597, 1024, 2048, 16, 8))
+# Kernel H as the FFN linears of stages 0, 3 and 6 (fc1 and fc2 of the last)
+FFN_LINEARS = (("stage0 fc1", VOICE_PAIR, 32, 128), ("stage3 fc2", VOICE_PAIR // 16, 1024, 256),
+               ("stage6 fc1", VOICE_PAIR // 3200, 2048, 8192),
+               ("stage6 fc2", VOICE_PAIR // 3200, 8192, 2048))
+
+
+def check_conv_kernels(checks: Checks, seed: int) -> None:
+    import torch
+
+    from vibevoice_tpu_torch.ops import conv, quant
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    randn = lambda *s: torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
+
+    def library(x, w, b, k, s, groups):
+        left = conv.conv_context_size(k, s)
+        xp = conv._pad_time(x, left, conv.extra_padding_for_conv1d(x.shape[1], k, s, left),
+                            "constant")
+        return conv._conv(xp, w, b, stride=s, dilation=1, groups=groups)
+
+    print("kernel G depthwise_causal_conv1d (bf16 x, w, bias; k 7: tol 1e-2 of the peak, the same "
+          "bits expected; library: the causal pad and F.conv1d)")
+    for t, cin, cout in DW_CASES:
+        w, b = randn(cout, 1, 7) * 0.3, randn(cout)
+        xs = rotating(lambda: randn(2, t, cin), 2 * t * cin * 2)
+        call = lambda x: conv.depthwise_causal_conv1d(x, w, b, left=6, t_out=t)
+        plain = lambda x: conv.depthwise_causal_conv1d_plain(x, w, b, left=6, t_out=t)
+        out, ref = call(xs[0]), plain(xs[0])
+        label = f"{'stem' if cin == 1 else 'mixer'} 2x{t}x{cin}" + (
+            f"->{cout}" if cin != cout else "")
+        checks.extra.setdefault("depthwise_conv_same_bits", []).append(
+            [label, bool(torch.equal(out, ref))])
+        ms, pms = bench_ms(call, xs), bench_ms(plain, xs)
+        lms = bench_ms(lambda x: library(x, w, b, 7, 1, cin), xs)
+        checks.case("depthwise_causal_conv1d", label, out, ref, 1e-2, ms, pms,
+                    main=(t, cin) == (VOICE_PAIR, 32),
+                    bound=bound(2 * 7 * 2 * t * cout, nbytes(xs[0], w, b, out)), library_ms=lms)
+    print("kernel H dense_causal_conv1d (bf16; tol 1e-2 of the peak of its plain version, a "
+          "window-view matmul; library: the causal pad and F.conv1d, cuDNN)")
+    for name, t, cin, cout, k, s in DENSE_CONVS:
+        w, b = randn(cout, cin, k) * (cin * k) ** -0.5, randn(cout)
+        xs = rotating(lambda: randn(2, t, cin), 2 * t * cin * 2)
+        left = conv.conv_context_size(k, s)
+        t_out = -(-t // s)
+        call = lambda x: conv.dense_causal_conv1d(x, w, b, stride=s, left=left, t_out=t_out)
+        plain = lambda x: conv.dense_causal_conv1d_plain(x, w, b, stride=s, left=left, t_out=t_out)
+        out, ref = call(xs[0]), plain(xs[0])
+        splits = conv._dense_plan(cin * k)
+        ms, pms = bench_ms(call, xs), bench_ms(plain, xs)
+        lms = bench_ms(lambda x: library(x, w, b, k, s, 1), xs)
+        checks.case("dense_causal_conv1d", f"{name} 2x{t}x{cin}->{cout} k{k} s{s} splits {splits}",
+                    out, ref, 1e-2, ms, pms, main=name == "down3",
+                    bound=bound(2 * 2 * t_out * cout * cin * k, nbytes(xs[0], w, b, out)),
+                    library_ms=lms)
+    print("kernel H as the Block1D FFN linears, pointwise_conv1d (bf16; tol 1e-2 of the peak of "
+          "quant.mm, the port's dense linear, which is both the plain version and the library: "
+          "torch.matmul, then the bias)")
+    for name, t, cin, cout in FFN_LINEARS:
+        p = {"w": randn(cin, cout) * cin ** -0.5, "b": randn(cout)}
+        xs = rotating(lambda: randn(2, t, cin), 2 * t * cin * 2)
+        call = lambda x: quant.mm(x, p, sequence=True)
+        plain = lambda x: quant.mm(x, p)
+        out, ref = call(xs[0]), plain(xs[0])
+        ms, pms = bench_ms(call, xs), bench_ms(plain, xs)
+        checks.case("dense_causal_conv1d", f"{name} 2x{t}x{cin}->{cout} splits "
+                    f"{conv._dense_plan(cin)}", out, ref, 1e-2, ms, pms,
+                    bound=bound(2 * 2 * t * cin * cout, nbytes(xs[0], p["w"], p["b"], out)),
+                    library_ms=pms)
+    checks.extra["encode_widths"] = encode_widths(seed)
+
+
+# Kernels G and H, which run in every prefill's voice encode (and in no frame
+# step): their launches on the kernels line come from the serving paths
+# (phases 4, 8 and 12), each checked against encode_conv_launches.
+CONV_NAMES = ("depthwise_causal_conv1d", "dense_causal_conv1d")
+
+
+def encode_conv_launches(acfg) -> dict:
+    """Kernel G's and H's launches in one full-sequence acoustic encode:
+    G the 1-channel stem and a depthwise mixer a block; H the down-sampling
+    convs, the head and a block's two FFN linears."""
+    from vibevoice_tpu_torch.models import tokenizer as tok
+
+    spec = tok.encoder_spec(acfg)
+    blocks = sum(spec["depths"])
+    return {"depthwise_causal_conv1d": 1 + blocks,
+            "dense_causal_conv1d": len(spec["ratios"]) + 1 + 2 * blocks}
+
+
+def check_encode_launches(label: str, counts: dict, acfg, encodes: int) -> None:
+    """Fail unless ``counts`` holds kernel G's and H's launches of
+    ``encodes`` acoustic encodes."""
+    want = {n: encodes * v for n, v in encode_conv_launches(acfg).items()}
+    got = {n: counts.get(n) for n in want}
+    if got != want:
+        fail(f"{label}: kernels G and H launched {got}, not {want} ({encodes} voice encodes)")
+
+
+def encode_widths(seed: int, fresh: int = 8, repeats: int = 8) -> dict:
+    """The acoustic encode of a voice pair as the serving prefill runs it
+    (the 1.5B's tokenizer, random bf16 weights, two voices padded to one
+    width): the host wall, with a synchronise, of `fresh` calls at new
+    widths (3-10 s at 24 kHz), then of `repeats` calls at one width; then
+    one call at another new width under torch.profiler: its device kernels,
+    the convolution kernels of cuDNN and ATen (by name) among them, and the
+    launches of kernels G and H it counted (none where the package has
+    neither); and the caching allocator's cudaMalloc calls during each
+    timed call. A diagnostic: the kernels line counts G's and H's launches
+    on the serving paths (CONV_NAMES)."""
+    import numpy as np
+    import torch
+
+    from vibevoice_tpu_torch.configs import VibeVoiceConfig
+    from vibevoice_tpu_torch.models import tokenizer as tok
+    from vibevoice_tpu_torch.ops import _cuda, conv  # noqa: F401 (registers G's and H's counters)
+    from vibevoice_tpu_torch.utils import params as up
+
+    acfg = VibeVoiceConfig.from_json_file(str(CONFIG_1P5B)).acoustic_tokenizer_config
+    enc = {"encoder": up._coder(up._Draws(seed, torch.bfloat16, torch.device("cuda")), acfg,
+                                False)}
+    rng = np.random.RandomState(seed)
+    widths = rng.choice(np.arange(3 * 24_000, 10 * 24_000 + 1), fresh + 3, replace=False)
+
+    mallocs = []
+
+    def call(width: int) -> float:
+        x = torch.randn(2, int(width), 1, device="cuda").to(torch.bfloat16)
+        torch.cuda.synchronize()
+        n0 = torch.cuda.memory_stats().get("num_device_alloc", 0)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            tok.encode(acfg, enc, x)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        mallocs.append(torch.cuda.memory_stats().get("num_device_alloc", 0) - n0)
+        return ms
+
+    # the process's first encodes, at the longest voice then the first
+    # width: library loads, and the caching allocator's growth to the
+    # traffic's largest tensors, are left out of the timed calls
+    call(10 * 24_000)
+    call(widths[0])
+    fresh_ms = [call(w) for w in widths[1: fresh + 1]]
+    repeat_ms = [call(widths[fresh + 1]) for _ in range(repeats)]
+    counters = {n: _cuda.LAUNCH_COUNTERS[n] for n in ("depthwise_causal_conv1d",
+                                                       "dense_causal_conv1d")
+                if n in _cuda.LAUNCH_COUNTERS}
+    before = {n: getattr(*c) for n, c in counters.items()}
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        profiler_first_activity()
+        call(widths[fresh + 2])
+    launches = {n: getattr(*c) - before[n] for n, c in counters.items()}
+    from torch.autograd import DeviceType
+
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+             and PROFILE_START_KERNEL not in e.name]
+    is_cudnn = lambda n: "vv::" not in n and any(
+        p in n.lower() for p in ("cudnn", "fprop", "conv", "nchwtonhwc", "nhwctonchw"))
+    by_name: dict = {}
+    for n in names:
+        by_name[n] = by_name.get(n, 0) + 1
+    res = dict(widths=[int(w) for w in widths], fresh_ms=fresh_ms, repeat_ms=repeat_ms,
+               fresh_median_ms=float(np.median(fresh_ms)),
+               repeat_median_ms=float(np.median(repeat_ms)),
+               profiled_kernels=len(names), cudnn_conv_kernels=sum(map(is_cudnn, names)),
+               kernels_by_name=by_name, launches=launches,
+               device_mallocs=mallocs[2: 2 + fresh + repeats])
+    print(f"  encode of a voice pair: {fresh} new widths {res['fresh_median_ms']:.2f} ms median "
+          f"({min(fresh_ms):.2f}-{max(fresh_ms):.2f}), one width x {repeats} "
+          f"{res['repeat_median_ms']:.2f} ms ({min(repeat_ms):.2f}-{max(repeat_ms):.2f}); a new "
+          f"width profiled: {len(names)} device kernels, {res['cudnn_conv_kernels']} convolution "
+          f"kernels of cuDNN or ATen, launches {launches}; cudaMalloc calls a timed call "
+          f"{res['device_mallocs']}", flush=True)
+    return res
 
 
 # Kernel A's route sweep (phase 15): each route timed at each row count over
@@ -1730,7 +1941,8 @@ def end_to_end(model: dict, seed: int, frames: int, lengths=(4096, None),
     # B's prefill route at the prompt
     b = proc.input_ids.shape[0]
     names = a_entries(b, 2 * b, b * proc.input_ids.shape[1]) + (
-        "flash_cached_attention", "flash_cached_attention_prefill") + fused_entries((2 * b,), (b,))
+        "flash_cached_attention", "flash_cached_attention_prefill") + CONV_NAMES + fused_entries(
+        (2 * b,), (b,))
 
     def run(opts, script_tokens, step_fn):
         kw = dict(input_ids=proc.input_ids, valid_mask=proc.attention_mask,
@@ -1764,6 +1976,7 @@ def end_to_end(model: dict, seed: int, frames: int, lengths=(4096, None),
                 reset_counts(names)
                 out, wall = run(opts, forced, step_fn)
                 counts = read_counts(names)
+                check_encode_launches(label, counts, cfg.acoustic_tokenizer_config, 1)
                 replays = fn.replays - replays
                 # the caching allocator's retries (cudaFree of its cache, then cudaMalloc)
                 retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries
@@ -2749,10 +2962,11 @@ def engine_fused() -> tuple:
 
 def engine_names() -> tuple:
     """The serving engine's kernel entries: kernel A's at its rows,
-    ENGINE_NAMES, C's and D's (engine_fused), then the other routes of C and
-    D, read to show they never launch."""
-    return tuple(dict.fromkeys(a_entries(*ENGINE_A_ROWS) + ENGINE_NAMES + engine_fused()
-                               + ALL_FUSED))
+    ENGINE_NAMES, G and H (each prefill's voice encode), C's and D's
+    (engine_fused), then the other routes of C and D, read to show they
+    never launch."""
+    return tuple(dict.fromkeys(a_entries(*ENGINE_A_ROWS) + ENGINE_NAMES + CONV_NAMES
+                               + engine_fused() + ALL_FUSED))
 # Phase 9: the session engine on the full-width 0.5B. An inject-mode
 # session batched with three others is held to itself alone in the same
 # engine (GRAPH_TOL) and to its solo streaming.generate() at batch 1, where
@@ -2901,6 +3115,8 @@ def serving_engine_end_to_end(model: dict, seed: int) -> dict:
     traffic_s = time.perf_counter() - t0
     traffic_counts = read_counts(names)
     check_fused_routes("serving engine", traffic_counts, engine_fused())
+    check_encode_launches("serving engine", traffic_counts, cfg.acoustic_tokenizer_config,
+                          len(prefill_s))
     for s, (h, a) in enumerate(zip(handles, audio)):
         want = "cancelled" if s == 5 else "completed"
         if h.rec["outcome"] != want:
@@ -3030,6 +3246,8 @@ def serving_engine_end_to_end(model: dict, seed: int) -> dict:
                     launches=read_counts(names))
 
     bs4 = burst(eng, "bs4")
+    check_encode_launches("serving engine, 8 at once", bs4["launches"],
+                          cfg.acoustic_tokenizer_config, 8)
     for name, v in traffic_counts.items():
         bs4["launches"][name] += v
     eng1, warm1, _ = engine(max_batch=1, max_len=4096)
@@ -4025,6 +4243,8 @@ def serving_engine_7b(model: dict, seed: int) -> dict:
     audio = [h.result(timeout=900) for h in handles]
     wall = time.perf_counter() - t0
     counts = read_counts(names)
+    check_encode_launches("7B serving engine", counts, cfg.acoustic_tokenizer_config,
+                          len(handles))
     for s, (h, a) in enumerate(zip(handles, audio)):
         if h.rec["outcome"] != "completed" or a.size != ENGINE_FRAMES * hop \
                 or not np.isfinite(a).all() or not np.abs(a).max() > 0:
@@ -4153,9 +4373,9 @@ def the_7b(checks: Checks, seed: int, frames: int) -> dict:
     t0 = time.perf_counter()
     walls, runs = {}, {}
 
-    def add(launches):
+    def add(launches):  # G and H have no "@7b" entry: the 7B's tokenizer is the 1.5B's
         for name, v in launches.items():
-            checks.kernels[name + "@7b"]["launches"] += v
+            checks.kernels[name + ("" if name in CONV_NAMES else "@7b")]["launches"] += v
 
     checks.tag = "@7b"
     try:
@@ -5827,14 +6047,22 @@ def main() -> None:
                                       "vibevoice_tpu/models/qwen2.py:284"),
         "flash_ring_block": ("vibevoice_tpu_torch/csrc/flash_ring.cu",
                              "vibevoice_tpu/ops/flash_attention.py:311"),
+        # no TPU kernel: XLA's convolution in the JAX package, called here
+        "depthwise_causal_conv1d": ("vibevoice_tpu_torch/csrc/depthwise_conv.cu",
+                                    "vibevoice_tpu/ops/conv.py:72"),
+        "dense_causal_conv1d": ("vibevoice_tpu_torch/csrc/dense_conv.cu",
+                                "vibevoice_tpu/ops/conv.py:72"),
     }
     tp_entries = ("flash_cached_attention", "flash_cached_attention_prefill",
                   "flash_train_attention_fwd", "flash_train_attention_bwd")
     # the 1.5B's and 0.5B's shapes (phases 3-11), the 7B's (phase 12), the
     # local heads of tensor-parallel ranks (phase 13)
     # kernel A at the surface's shapes (phase 14 and, "@7b", phase 12)
+    # kernels G and H have no "@7b" entry: the 7B's acoustic tokenizer is the 1.5B's
+    conv_entries = ("depthwise_causal_conv1d", "dense_causal_conv1d")
     entries = [n + tag for tag in ("", "@7b", "@tp") for n in sources
-               if tag != "@tp" or n in tp_entries] + list(SURFACE_ENTRIES)
+               if (tag != "@tp" or n in tp_entries)
+               and (tag != "@7b" or n not in conv_entries)] + list(SURFACE_ENTRIES)
     for entry in entries:
         src, rep = sources[entry.split("@")[0]]
         checks.kernels[entry] = dict(name=entry, route="cuda", source=src, replaces=rep,
@@ -5847,6 +6075,7 @@ def main() -> None:
                                                     extra=checks.extra, runs=runs), default=str))
         return
     check_kernels(checks, args.seed)
+    check_conv_kernels(checks, args.seed)
     check_streaming_attention(checks, args.seed)
     check_batched_kernels(checks, args.seed)
     check_ring_kernel(checks, args.seed)

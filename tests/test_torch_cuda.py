@@ -1973,3 +1973,185 @@ def test_profiling_trace_records_the_card(dev, tmp_path):
     assert sum(e.self_device_time_total for e in prof.key_averages()) > 0
     assert any(e.name == "vv.decode" for e in prof.events())
     assert '"vv.decode"' in (tmp_path / "trace.json").read_text()
+
+
+# Kernel G's cases (B, T_in, C_in, C_out, left, T_out, dtype): the stage-0
+# mixer of a 10 s voice pair, an odd length, stage 6's widths, C 6 (the
+# one-channel route), f32, the 1-channel stem (32 outputs a channel), an
+# input padded in memory (left 0) and a right pad formed by index.
+DW_CASES = [(2, 240_000, 32, 32, 6, 240_000, torch.bfloat16),
+            (2, 239_997, 32, 32, 6, 239_997, torch.bfloat16),
+            (2, 75, 2048, 2048, 6, 75, torch.bfloat16), (1, 1_001, 6, 6, 6, 1_001, torch.bfloat16),
+            (2, 333, 64, 64, 6, 333, torch.float32), (2, 4_097, 1, 32, 6, 4_097, torch.bfloat16),
+            (2, 100, 32, 32, 0, 94, torch.bfloat16), (2, 100, 32, 32, 6, 103, torch.float32)]
+
+
+@pytest.mark.parametrize("b,t,cin,cout,left,t_out,dtype", DW_CASES)
+def test_depthwise_causal_conv1d(dev, b, t, cin, cout, left, t_out, dtype):
+    """Kernel G against its plain version: the same bits in bf16 (each
+    product is exact in f32, the taps are summed in one order, then one
+    rounding and the bias), 1e-6 of the peak in f32 (a fused multiply-add
+    rounds once where the plain version rounds twice); one launch a call."""
+    from vibevoice_tpu_torch.ops import conv
+
+    g = torch.Generator(device=dev).manual_seed(22)
+    x = torch.randn(b, t, cin, generator=g, device=dev).to(dtype)
+    w = (torch.randn(cout, 1, 7, generator=g, device=dev) * 0.3).to(dtype)
+    bias = torch.randn(cout, generator=g, device=dev).to(dtype)
+    before = conv.depthwise_causal_conv1d.launches
+    out = conv.depthwise_causal_conv1d(x, w, bias, left=left, t_out=t_out)
+    assert conv.depthwise_causal_conv1d.launches - before == 1
+    ref = conv.depthwise_causal_conv1d_plain(x, w, bias, left=left, t_out=t_out)
+    assert out.shape == ref.shape == (b, t_out, cout)
+    if dtype == torch.bfloat16:
+        assert torch.equal(out, ref)
+    else:
+        assert _rel(out, ref) <= 1e-6
+
+
+# Kernel H's cases (B, T_in, C_in, C_out, k, stride, dtype): the stage-0
+# and last down-sampling convs of a 10 s voice pair, the head (K split),
+# odd lengths (a right pad by index), f32, and more row tiles than a grid's
+# y dimension holds (a fine-tune's 3-minute sample at stage 0).
+DENSE_CASES = [(2, 240_000, 32, 64, 4, 2, torch.bfloat16), (2, 600, 1024, 2048, 16, 8, torch.bfloat16),
+               (2, 75, 2048, 64, 7, 1, torch.bfloat16), (2, 239_997, 32, 64, 4, 2, torch.bfloat16),
+               (1, 3_001, 256, 512, 10, 5, torch.bfloat16), (2, 333, 48, 40, 8, 4, torch.float32),
+               (2, 41, 64, 32, 7, 1, torch.float32), (1, 4_300_000, 8, 16, 1, 1, torch.float32)]
+
+
+@pytest.mark.parametrize("b,t,cin,cout,k,stride,dtype", DENSE_CASES)
+def test_dense_causal_conv1d(dev, b, t, cin, cout, k, stride, dtype):
+    """Kernel H against its plain version (a window-view matmul): 1e-2 of
+    the peak in bf16 (one rounding of a sum taken in another order), 1e-5
+    in f32; one launch a call; the left pad by index (k - stride rows) and
+    by memory (left 0 on an input padded beforehand) agree, and so does a
+    call over half the rows, bit for bit (its K splits do not depend on
+    the rows)."""
+    from vibevoice_tpu_torch.ops import conv
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    x = torch.randn(b, t, cin, generator=g, device=dev).to(dtype)
+    w = (torch.randn(cout, cin, k, generator=g, device=dev) * (cin * k) ** -0.5).to(dtype)
+    bias = torch.randn(cout, generator=g, device=dev).to(dtype)
+    left, t_out = k - stride, -(-t // stride)
+    before = conv.dense_causal_conv1d.launches
+    out = conv.dense_causal_conv1d(x, w, bias, stride=stride, left=left, t_out=t_out)
+    assert conv.dense_causal_conv1d.launches - before == 1
+    ref = conv.dense_causal_conv1d_plain(x, w, bias, stride=stride, left=left, t_out=t_out)
+    assert out.shape == ref.shape == (b, t_out, cout)
+    assert _rel(out, ref) <= (1e-2 if dtype == torch.bfloat16 else 1e-5)
+    padded = torch.nn.functional.pad(x, (0, 0, left, 0))
+    same = conv.dense_causal_conv1d(padded, w, bias, stride=stride, left=0, t_out=t_out)
+    assert torch.equal(same, out)
+    # a shorter call (fewer rows, so other tiles) gives the same bits for
+    # the outputs whose windows lie inside it
+    t2 = t // 2
+    t2_out = -(-t2 // stride)
+    short = conv.dense_causal_conv1d(x[:, :t2].contiguous(), w, bias, stride=stride, left=left,
+                                     t_out=t2_out)
+    keep = max(t2_out - k, 0)
+    assert torch.equal(short[:, :keep], out[:, :keep])
+
+
+@pytest.mark.parametrize("t,cin,cout", [(240_000, 32, 128), (240_000, 128, 32), (75, 2048, 8192),
+                                        (75, 8192, 2048), (1_001, 40, 24), (333, 20, 36)])
+def test_pointwise_conv1d(dev, t, cin, cout):
+    """Kernel H as a full sequence's linear (k 1, the weight in the linear's
+    (C_in, C_out) layout, read in 16-byte pieces where C_out is a multiple
+    of 8 and element by element otherwise; split K at 75 rows) against
+    quant.mm, the port's dense linear: 1e-2 of the peak in bf16."""
+    from vibevoice_tpu_torch.ops import conv
+
+    g = torch.Generator(device=dev).manual_seed(24)
+    x = torch.randn(2, t, cin, generator=g, device=dev).to(torch.bfloat16)
+    p = {"w": (torch.randn(cin, cout, generator=g, device=dev) * cin ** -0.5).to(torch.bfloat16),
+         "b": torch.randn(cout, generator=g, device=dev).to(torch.bfloat16)}
+    before = conv.dense_causal_conv1d.launches
+    out = quant.mm(x, p, sequence=True)
+    assert conv.dense_causal_conv1d.launches - before == 1
+    assert torch.equal(out, conv.pointwise_conv1d(x, p["w"], p["b"]))
+    assert _rel(out, quant.mm(x, p)) <= 1e-2
+
+
+def test_voice_encode_runs_no_cudnn_convolution(dev):
+    """A voice pair's acoustic encode (the 1.5B's tokenizer, bf16) at two
+    widths new to the process: no convolution kernel of cuDNN or ATen in a
+    profile of the second, nor any cuBLAS GEMM; 27 launches of kernel G a
+    call (the 1-channel stem and the 26 depthwise mixers) and 59 of kernel
+    H (the 6 down-sampling convs, the head and the mixers' 52 FFN linears),
+    and the mean latents within bf16's rounding of the CPU's (the plain
+    versions)."""
+    from pathlib import Path
+
+    from torch.autograd import DeviceType
+
+    from vibevoice_tpu_torch.configs import VibeVoiceConfig
+    from vibevoice_tpu_torch.models import tokenizer as tok
+    from vibevoice_tpu_torch.ops import conv
+    from vibevoice_tpu_torch.utils import params as up
+
+    root = Path(__file__).resolve().parent.parent
+    acfg = VibeVoiceConfig.from_json_file(
+        str(root / "vibevoice_tpu_torch/configs/qwen2.5_1.5b_64k.json")).acoustic_tokenizer_config
+    enc = {"encoder": up._coder(up._Draws(3, torch.bfloat16, dev), acfg, False)}
+    launches = []
+    kernels = (conv.depthwise_causal_conv1d, conv.dense_causal_conv1d)
+    with torch.no_grad():
+        for i, width in enumerate((72_013, 97_531)):
+            x = torch.randn(2, width, 1, device=dev).to(torch.bfloat16)
+            before = [f.launches for f in kernels]
+            if i == 0:
+                tok.encode(acfg, enc, x)
+            else:
+                with torch.profiler.profile(
+                        activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    mean, _ = tok.encode(acfg, enc, x)
+                    torch.cuda.synchronize()
+            launches.append([f.launches - n for f, n in zip(kernels, before)])
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        assert names, "the profile recorded no device activity"
+        cudnn = [n for n in names if "vv::" not in n and any(
+            p in n.lower() for p in ("cudnn", "fprop", "conv", "nchwtonhwc", "nhwctonchw"))]
+        assert not cudnn, cudnn
+        gemms = [n for n in names if "vv::" not in n and any(
+            p in n.lower() for p in ("gemm", "nvjet", "cublas", "cutlass"))]
+        assert not gemms, gemms
+        assert launches == [[27, 59], [27, 59]]
+        enc_cpu = {"encoder": up._coder(up._Draws(3, torch.bfloat16, dev), acfg, False)}
+        enc_cpu = _to_cpu(enc_cpu)
+        ref, _ = tok.encode(acfg, enc_cpu, x.cpu())
+    assert _rel(mean.cpu(), ref) <= 2e-2
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cpu(v) for v in tree]
+    return tree.cpu() if isinstance(tree, torch.Tensor) else tree
+
+
+def test_conv_kernels_raise(dev):
+    """Kernels G and H have no backward: a call that needs a gradient
+    raises; as do, for G, a width that is no multiple of the input's and a
+    kernel of other than 7 taps, for H a weight of another input width."""
+    from vibevoice_tpu_torch.ops import conv
+
+    x = torch.randn(1, 50, 8, device=dev)
+    w = torch.randn(8, 1, 7, device=dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        conv.depthwise_causal_conv1d(x.clone().requires_grad_(), w, None, left=6, t_out=50)
+    with pytest.raises(RuntimeError, match="no backward"):
+        conv.causal_conv1d(x, w.clone().requires_grad_(), None, groups=8)
+    with torch.no_grad():
+        conv.depthwise_causal_conv1d(x.clone().requires_grad_(), w, None, left=6, t_out=50)
+    with pytest.raises(ValueError):
+        conv.depthwise_causal_conv1d(x, torch.randn(12, 1, 7, device=dev), None, left=6, t_out=50)
+    with pytest.raises(ValueError):
+        conv.depthwise_causal_conv1d(x, torch.randn(8, 1, 9, device=dev), None, left=8, t_out=50)
+    wd = torch.randn(16, 8, 4, device=dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        conv.causal_conv1d(x.clone().requires_grad_(), wd, None, stride=2)
+    with pytest.raises(ValueError):
+        conv.dense_causal_conv1d(x, torch.randn(16, 6, 4, device=dev), None, stride=2, left=2,
+                                 t_out=25)

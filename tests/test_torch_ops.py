@@ -61,11 +61,24 @@ def test_norms_match_jax(kind):
     close(out, ref, 1e-5, 1e-5)
 
 
-@pytest.mark.parametrize("t,k,stride,groups", [(17, 7, 1, 1), (23, 8, 4, 1), (11, 7, 1, 6)])
-def test_causal_conv1d_batch_and_streaming(t, k, stride, groups):
+@pytest.mark.parametrize("t,k,stride,groups,cin,cout", [
+    pytest.param(17, 7, 1, 1, 6, 5, id="17-7-1-1"),
+    pytest.param(23, 8, 4, 1, 6, 5, id="23-8-4-1"),
+    pytest.param(11, 7, 1, 6, 6, 6, id="11-7-1-6"),
+    # the acoustic encoder's kinds: the 1-channel stem, a depthwise mixer
+    # (kernel G's plain version), the kernel-2s down-sampling convs at
+    # lengths that need a right extra pad, and the head (window matmuls)
+    pytest.param(29, 7, 1, 1, 1, 32, id="stem"),
+    pytest.param(30, 7, 1, 32, 32, 32, id="mixer"),
+    pytest.param(23, 4, 2, 1, 8, 16, id="down-s2"),
+    pytest.param(37, 8, 4, 1, 8, 16, id="down-s4"),
+    pytest.param(41, 10, 5, 1, 8, 16, id="down-s5"),
+    pytest.param(61, 16, 8, 1, 8, 16, id="down-s8"),
+    pytest.param(13, 7, 1, 1, 16, 8, id="head"),
+])
+def test_causal_conv1d_batch_and_streaming(t, k, stride, groups, cin, cout):
     """Batch conv and chunked streaming (state carried) both match JAX."""
     rng = np.random.RandomState(1)
-    cin, cout = 6, 6 if groups > 1 else 5
     x = rng.randn(2, t, cin).astype(np.float32)
     w = rng.randn(k, cin // groups, cout).astype(np.float32)  # JAX TIO
     b = rng.randn(cout).astype(np.float32)

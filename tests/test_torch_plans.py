@@ -868,3 +868,27 @@ def test_head_and_stage_tc_workspace_fits(kernel, dim, hid, terms):
             x_cap = quant._sk_x_room(bm) // (bm * quant.SK_KSTEP * 2)
             assert splits * terms * rows * n <= quant.SK_MAX_PART_FLOATS or (
                 splits == math.ceil(math.ceil(k / quant.SK_KSTEP) / x_cap))
+
+
+# Kernel H's K at a voice encode: the down-sampling convs (K = C_in k),
+# the heads, the FFN linears, and K just past a split
+DENSE_KS = [32, 128, 256, 1024, 2048, 2049, 2560, 4096, 5120, 8192, 14336, 16384]
+
+
+@pytest.mark.parametrize("tk", [16, 32])
+@pytest.mark.parametrize("kdim", DENSE_KS)
+def test_dense_plan_splits_cover_k_once(kdim, tk):
+    """Kernel H's K splits (ops/conv._dense_plan) as csrc/dense_conv.cu
+    cuts K for its K step tk (32 bf16, 16 f32): splits of whole K steps,
+    each at most DENSE_SPLIT_K plus a step, cover K once, in order, none
+    empty (the kernel refuses a plan whose last split starts past K); the
+    plan reads K alone, so an output's sums run in one order at any
+    length."""
+    from vibevoice_tpu_torch.ops import conv
+
+    splits = conv._dense_plan(kdim)
+    kps = math.ceil(math.ceil(kdim / splits) / tk) * tk
+    starts = [z * kps for z in range(splits)]
+    assert starts[-1] < kdim and kps <= conv.DENSE_SPLIT_K + tk
+    covered = [k for z in starts for k in range(z, min(kdim, z + kps))]
+    assert covered == list(range(kdim))

@@ -143,7 +143,9 @@ def _block_apply(p: Params, x: torch.Tensor, cfg, state: Optional[torch.Tensor])
     x = res + h
     res = x
     h = _norm_apply(p["ffn_norm"], x, cfg)
-    h = mm(F.gelu(mm(h, p["ffn"]["fc1"]), approximate="none"), p["ffn"]["fc2"])
+    seq = state is None  # a full sequence: kernel H, not cuBLAS, on the card
+    h = mm(F.gelu(mm(h, p["ffn"]["fc1"], sequence=seq), approximate="none"), p["ffn"]["fc2"],
+           sequence=seq)
     if "ffn_gamma" in p:
         h = h * p["ffn_gamma"].to(h.dtype)
     return res + h, new_state

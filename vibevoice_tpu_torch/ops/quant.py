@@ -45,7 +45,7 @@ from typing import Dict, NamedTuple
 
 import torch
 
-from . import _cuda
+from . import _cuda, conv
 
 
 def quantize_weight(w: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -593,9 +593,13 @@ def quantize_lm(lm_params: Dict) -> Dict:
     return out
 
 
-def mm(x: torch.Tensor, p: Dict, segments=None) -> torch.Tensor:
+def mm(x: torch.Tensor, p: Dict, segments=None, sequence: bool = False) -> torch.Tensor:
     """Linear apply on a dense ('w') or int8 ('w8' + 'scale') entry, plus bias;
     ``segments`` as ``int8_matmul`` takes them (a packed int8 entry).
+    ``sequence``: x (B, T, IN) is a full sequence at a length new with almost
+    every call (a tokenizer's whole-utterance pass), which a dense entry
+    without LoRA runs as ``conv.pointwise_conv1d`` (kernel H on the card),
+    not through cuBLAS.
 
     A "lora" entry (A (IN, r), B (r, OUT), scaling), as finetune/lora.py
     attaches it over an int8 base, adds the low-rank branch at run time:
@@ -606,6 +610,8 @@ def mm(x: torch.Tensor, p: Dict, segments=None) -> torch.Tensor:
             y = Int8MatmulDx.apply(x, p["w8"], p["scale"], segments)
         else:
             y = int8_matmul(x, p["w8"], p["scale"], segments)
+    elif sequence and "lora" not in p and x.dim() == 3:
+        return conv.pointwise_conv1d(x, p["w"], p.get("b"))
     else:
         y = torch.matmul(x, p["w"].to(x.dtype))
     if "lora" in p:
